@@ -1,0 +1,237 @@
+"""InternLM2 decoder (port of ``v2pe_tpu/models/internlm2.py``).
+
+Fused ``wqkv`` in the interleaved GQA layout, V2PE rotary from float32
+position ids applied in fp32, pre-RMSNorm layers with a SwiGLU MLP and fp32
+logits. One ``nn.Module`` per layer; the dense KV cache is preallocated as
+(L, B, max_len, Hkv, hd) tensors that the forward writes in place.
+
+Without a cache, q's rotary is fused into the flash kernel (from the float32
+ids) and k is rotated here. With a cache, a prompt (> 16 tokens) is written
+into the cache first and attends over the whole buffer through the kernel;
+a decode step (<= 16 tokens) attends over the cache and itself with one
+softmax (``_two_part_decode_attention``) and is written after.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from v2pe_tpu.core.config import LLMConfig
+from v2pe_tpu_torch.ops.attention import flash_attention
+from v2pe_tpu_torch.ops.norms import rms_norm
+from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
+                                     scale_positions)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Dense per-layer KV cache: k/v (L, B, max_len, Hkv, hd), filled in
+    place; ``length`` slots are written so far."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+    @staticmethod
+    def zeros(cfg: LLMConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (cfg.num_hidden_layers, batch, max_len,
+                 cfg.num_key_value_heads, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+class LLMLayer(nn.Module):
+    def __init__(self, cfg: LLMConfig):
+        super().__init__()
+        D, I = cfg.hidden_size, cfg.intermediate_size
+        qkv_out = (cfg.num_attention_heads + 2 * cfg.num_key_value_heads) \
+            * cfg.head_dim
+        self.attention_norm = nn.Parameter(torch.ones(D))
+        self.ffn_norm = nn.Parameter(torch.ones(D))
+        self.wqkv = nn.Linear(D, qkv_out, bias=cfg.bias or cfg.qkv_bias)
+        self.wo = nn.Linear(cfg.num_attention_heads * cfg.head_dim, D,
+                            bias=cfg.bias)
+        self.w1 = nn.Linear(D, I, bias=False)
+        self.w3 = nn.Linear(D, I, bias=False)
+        self.w2 = nn.Linear(I, D, bias=False)
+
+
+class InternLM2Model(nn.Module):
+    def __init__(self, cfg: LLMConfig):
+        super().__init__()
+        self.tok_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.layers = nn.ModuleList(
+            LLMLayer(cfg) for _ in range(cfg.num_hidden_layers))
+        self.norm = nn.Parameter(torch.ones(cfg.hidden_size))
+        self.output = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+
+
+def split_wqkv(qkv: torch.Tensor, cfg: LLMConfig):
+    """(B, S, Hkv*(2+G)*hd) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd): per kv head,
+    G query slots, then k, then v."""
+    B, S, _ = qkv.shape
+    G = cfg.num_key_value_groups
+    qkv = qkv.reshape(B, S, cfg.num_key_value_heads, 2 + G, cfg.head_dim)
+    q = qkv[:, :, :, :G].reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+    return q, qkv[:, :, :, -2], qkv[:, :, :, -1]
+
+
+def head_logits(x: torch.Tensor, output_weight: torch.Tensor) -> torch.Tensor:
+    """fp32 vocab logits: the products of the (bf16) operands accumulated
+    in fp32, with no rounding of the result to the input dtype."""
+    return F.linear(x.float(), output_weight.float())
+
+
+def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor, *,
+                      segment_ids: Optional[torch.Tensor],
+                      positions: Optional[torch.Tensor],
+                      kv_cache_layer: Optional[tuple] = None,
+                      cache_length: int = 0,
+                      kv_valid: Optional[torch.Tensor] = None,
+                      rope_pack: Optional[tuple] = None) -> torch.Tensor:
+    """One attention block. kv_cache_layer = (k_buf, v_buf), each
+    (B, max_len, Hkv, hd) views into the cache, written in place at
+    [cache_length, cache_length + S); kv_valid (B, max_len) masks slots of
+    right-padded prompts."""
+    B, S, _ = x.shape
+    fused_rope = rope_pack is not None and kv_cache_layer is None
+    q, k, v = split_wqkv(p.wqkv(x), cfg)
+    if not fused_rope:
+        q = apply_rotary(q, cos, sin)
+    k = apply_rotary(k, cos, sin)
+
+    if kv_cache_layer is not None:
+        k_buf, v_buf = kv_cache_layer
+        end = cache_length + S
+        if S <= 16:
+            out = _two_part_decode_attention(q, k, v, k_buf, v_buf,
+                                             cache_length, kv_valid)
+            k_buf[:, cache_length:end] = k
+            v_buf[:, cache_length:end] = v
+        else:
+            k_buf[:, cache_length:end] = k
+            v_buf[:, cache_length:end] = v
+            max_len = k_buf.shape[1]
+            kv_pos = torch.arange(max_len, dtype=torch.int32,
+                                  device=x.device).expand(B, max_len)
+            kv_seg = kv_valid.to(torch.int32) if kv_valid is not None else \
+                (kv_pos < end).to(torch.int32)
+            q_pos = cache_length + torch.arange(
+                S, dtype=torch.int32, device=x.device).expand(B, S)
+            out = flash_attention(
+                q, k_buf, v_buf,
+                q_segment_ids=torch.ones((B, S), dtype=torch.int32,
+                                         device=x.device),
+                kv_segment_ids=kv_seg, q_positions=q_pos,
+                kv_positions=kv_pos, causal=True)
+    else:
+        out = flash_attention(
+            q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            q_positions=positions, kv_positions=positions, causal=True,
+            rope_positions=(rope_pack[0], None, rope_pack[1])
+            if fused_rope else None)
+    return p.wo(out.reshape(B, S, cfg.num_attention_heads * cfg.head_dim))
+
+
+def _two_part_decode_attention(q, k_new, v_new, k_buf, v_buf,
+                               cache_length: int,
+                               kv_valid: Optional[torch.Tensor]):
+    """Decode attention over [cache slots < cache_length | fresh tokens]
+    with one fp32 softmax, GQA by grouped einsums. q/k_new/v_new
+    (B, S<=16, H*, hd); k_buf/v_buf (B, max_len, Hkv, hd) are only read."""
+    B, S, Hq, hd = q.shape
+    Hkv = k_buf.shape[2]
+    G = Hq // Hkv
+    # scaled q is rounded to its dtype first, as in the JAX reference
+    qg = (q.float() * hd ** -0.5).to(q.dtype).float().reshape(B, S, Hkv, G,
+                                                             hd)
+    # slots past cache_length are masked anyway: read only the filled ones
+    k_old = k_buf[:, :cache_length].float()
+    v_old = v_buf[:, :cache_length]
+    s_old = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_old)
+    if kv_valid is not None:
+        valid = kv_valid[:, :cache_length]
+        s_old = torch.where(valid[:, None, None, None, :], s_old, -1e30)
+    s_new = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_new.float())
+    tri = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s_new = torch.where(tri, s_new, -1e30)
+    w = torch.softmax(torch.cat([s_old, s_new], dim=-1), dim=-1)
+    w_old, w_new = w[..., :cache_length], w[..., cache_length:]
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w_old.to(v_old.dtype).float(),
+                       v_old.float())
+    out = out + torch.einsum("bhgqk,bkhd->bqhgd",
+                             w_new.to(v_new.dtype).float(), v_new.float())
+    return out.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def mlp_forward(p: LLMLayer, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x)."""
+    return p.w2(F.silu(p.w1(x)) * p.w3(x))
+
+
+def layer_forward(p: LLMLayer, cfg: LLMConfig, x, cos, sin, *, segment_ids,
+                  positions, kv_cache_layer=None, cache_length: int = 0,
+                  kv_valid=None, rope_pack=None) -> torch.Tensor:
+    h = rms_norm(x, p.attention_norm, cfg.rms_norm_eps)
+    x = x + attention_forward(
+        p, cfg, h, cos, sin, segment_ids=segment_ids, positions=positions,
+        kv_cache_layer=kv_cache_layer, cache_length=cache_length,
+        kv_valid=kv_valid, rope_pack=rope_pack)
+    h = rms_norm(x, p.ffn_norm, cfg.rms_norm_eps)
+    return x + mlp_forward(p, h)
+
+
+def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
+                input_ids: Optional[torch.Tensor] = None,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                rope_pos_ids: Optional[torch.Tensor] = None,
+                segment_ids: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                kv_cache: Optional[KVCache] = None,
+                kv_valid: Optional[torch.Tensor] = None,
+                return_hidden: bool = False):
+    """Returns (fp32 logits (B, S, V) or the final hidden states, the cache
+    advanced by S when one was passed).
+
+    rope_pos_ids (B, S) float32 are the V2PE ids (default: arange after the
+    cache); positions (B, S) int32 order tokens for causality and
+    segment_ids (B, S) separate packed sequences (no-cache path)."""
+    if inputs_embeds is None:
+        inputs_embeds = model.tok_embeddings(input_ids)
+    x = inputs_embeds
+    B, S, _ = x.shape
+    base = 0 if kv_cache is None else kv_cache.length
+    if rope_pos_ids is None:
+        rope_pos_ids = (base + torch.arange(
+            S, dtype=torch.float32, device=x.device)).expand(B, S)
+    scaled_pos, theta = scale_positions(
+        rope_pos_ids.float(), cfg.head_dim, cfg.rope_theta,
+        mode=cfg.rope_mode, scaling_factor=cfg.rope_scaling_factor,
+        max_position_embeddings=cfg.max_position_embeddings,
+        seq_len=base + S)
+    cos, sin = compute_rope_cos_sin(scaled_pos, cfg.head_dim, theta)
+    # the kernel's fused rotary takes a fixed theta (dynamic NTK gives a
+    # tensor, which keeps the rotary outside)
+    rope_pack = (scaled_pos, float(theta)) \
+        if isinstance(theta, (int, float)) else None
+
+    for li, layer in enumerate(model.layers):
+        kv_layer = None if kv_cache is None else (kv_cache.k[li],
+                                                 kv_cache.v[li])
+        x = layer_forward(layer, cfg, x, cos, sin, segment_ids=segment_ids,
+                          positions=positions, kv_cache_layer=kv_layer,
+                          cache_length=base, kv_valid=kv_valid,
+                          rope_pack=rope_pack)
+    new_cache = None if kv_cache is None else \
+        dataclasses.replace(kv_cache, length=base + S)
+    x = rms_norm(x, model.norm, cfg.rms_norm_eps)
+    if return_hidden:
+        return x, new_cache
+    return head_logits(x, model.output.weight), new_cache

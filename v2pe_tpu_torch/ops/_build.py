@@ -1,0 +1,97 @@
+"""Build the CUDA kernels of ``v2pe_tpu_torch/csrc`` at first use.
+
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds). The library goes to ``build/v2pe_tpu_torch/<hash>/`` at the
+root of the checkout (listed in ``.gitignore``); the hash covers the sources
+and the compiler flags, so an edited source is rebuilt and an unchanged one
+is loaded as it is.
+
+Not built with ``--use_fast_math``: the fused rotary computes ``sincosf`` of
+angles up to the context length in radians, where the fast intrinsics lose
+accuracy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                          "v2pe_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: float = 0.0  # wall time of the last compile (0 if cached)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of "
+                           "v2pe_tpu_torch are built on a machine with the "
+                           "CUDA toolkit")
+    return path
+
+
+def library_path() -> str:
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")) +
+                     glob.glob(os.path.join(CSRC, "*.cuh")))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], "libv2pe_kernels.so")
+
+
+def build() -> str:
+    """Compile the kernels unless a library for these sources exists."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call and cached for the process."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.v2pe_flash_fwd.argtypes = [
+            p, p, p,            # q, k, v
+            p, p, p, p,         # seg_q, seg_k, pos_q, pos_k
+            p, p, p,            # rope_q, rope_k, inv_freq (may be NULL)
+            p, p,               # out, lse
+            i, i, i, i, i, i,   # B, Sq, Sk, Hq, Hkv, D
+            i, i,               # is_bf16, causal
+            ctypes.c_float,     # scale
+            p,                  # cudaStream_t
+        ]
+        lib.v2pe_flash_fwd.restype = ctypes.c_int
+        _lib = lib
+    return _lib
