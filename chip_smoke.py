@@ -1,21 +1,39 @@
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving paths once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --profile  # only a torch.profiler breakdown of
+                                     # the 8-tile request's generate
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
      build of the CUDA kernels from this checkout's sources;
-  2. kernels: the flash-attention kernel against its plain PyTorch twin at
-     every form the serving path gives it, with errors and times;
+  2. kernels: every kernel against its plain PyTorch twin at every form
+     the serving paths give it, with errors and times: the flash forward;
+     the paged store, decode and prefill kernels in bf16 and int8 (the
+     served rows, one row over 32k tokens at ChatModel's page 128, the
+     session's store and decode over a 34k context at page 512, a
+     2048-token chunk over a 32k history);
   3. serve: InternVL2-2B at full width (bf16, random weights from a seed)
      answers three chat requests through ChatModel.batch_chat, and the
-     kernel's launch count shows the path went through it;
+     flash kernel's launch count shows the path went through it;
   4. stream: stream_generate's tokens equal generate's greedy tokens;
-  5. packed: one packed 8192-token forward with 8 image tiles.
-A small fp32 forward on the card against the same forward on the CPU (the
-kernel against its twin, inside the whole model) runs after phase 2.
-The kernel table prints as one JSON line, then the card line, then the last
-line {"ok": true, "device": {...}}.
+  5. packed: one packed 8192-token forward with 8 image tiles;
+  6. paged serve: the same requests through a paged ChatModel (TTFT and
+     decode rate, bf16 and int8 pools), paged stream equal to paged
+     generate, paged logits held against dense;
+  7. session: a three-turn ChatSession (an 8-tile image, two text turns
+     over the pool, turn 2 held against a full re-prefill) and a timed
+     2k-token turn over a 32k-token history;
+  8. worker: the HTTP ModelWorker on 127.0.0.1 answers the status route,
+     /worker_generate_stream and /v1/chat/completions (SSE) with the text
+     ChatModel.chat gives.
+A small fp32 model on the card against the same model on the CPU (the
+kernels against their twins: a packed forward, then the paged path with
+identical tokens) runs after phase 2. Phases 3 and 6-8 each zero the
+kernels' launch counts before they start and read them after, and fail if
+a kernel of their path was not launched. The kernel table prints as one
+JSON line, then the card line, then the last line
+{"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
 the pixels come from numpy and the text from a code-point tokenizer.
@@ -23,6 +41,7 @@ the pixels come from numpy and the text from a code-point tokenizer.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,7 +54,18 @@ TOL = {  # max abs error of kernel against twin (twin in fp32)
     torch.bfloat16: {"out": 2e-2, "lse": 1e-3},
     torch.float32: {"out": 1e-4, "lse": 1e-4},
 }
-KERNEL_SOURCE = "v2pe_tpu_torch/csrc/flash_fwd.cu"
+KERNEL_SOURCES = {
+    "flash_fwd": "v2pe_tpu_torch/csrc/flash_fwd.cu",
+    "paged_store": "v2pe_tpu_torch/csrc/paged_attention.cu",
+    "paged_decode": "v2pe_tpu_torch/csrc/paged_attention.cu",
+    "paged_prefill": "v2pe_tpu_torch/csrc/paged_attention.cu",
+}
+KERNEL_REPLACES = {  # the Pallas kernel bodies
+    "flash_fwd": "v2pe_tpu/ops/flash_pallas.py:68",
+    "paged_store": "v2pe_tpu/ops/paged_attention.py:58",
+    "paged_decode": "v2pe_tpu/ops/paged_attention.py:187",
+    "paged_prefill": "v2pe_tpu/ops/paged_attention.py:433",
+}
 MAX_NEW = 32
 PACKED_LEN = 8192
 REQUESTS = [  # (image tiles, question) of the served requests
@@ -43,7 +73,6 @@ REQUESTS = [  # (image tiles, question) of the served requests
     (1, "<image>\nWhat is shown here?"),
     (0, "请用一句话介绍你自己。"),
 ]
-KERNEL_REPLACES = "v2pe_tpu/ops/flash_pallas.py:68"
 
 
 def log(msg: str) -> None:
@@ -68,6 +97,31 @@ def time_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count (just before a path is driven)."""
+    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    flash_fwd.LAUNCHES = 0
+    for name in pa.LAUNCHES:
+        pa.LAUNCHES[name] = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count (just after a path was driven)."""
+    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    torch.cuda.synchronize()
+    return {"flash_fwd": flash_fwd.LAUNCHES, **pa.LAUNCHES}
+
+
+def require(counts: dict, names, where: str) -> None:
+    missing = [n for n in names if counts[n] == 0]
+    if missing:
+        raise AssertionError(f"{where}: no launch of {missing} ({counts})")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -172,6 +226,182 @@ def phase_kernels(prompt_lens, packed: dict) -> list:
     return records
 
 
+# ------------------------------------------------------ phase 2b: paged
+
+
+PAGED_TOL = {  # kernel against twin (twin in fp32)
+    # max |out - twin| / max |twin|: rounding a bf16 output moves each value
+    # by at most 2^-8 of the largest; one bf16 step (2^-7) is the limit
+    "out_rel": 2.0 ** -7,
+    "lse": 1e-3,  # max abs; fp32 in both
+    # store: max abs over the written pool (values and int8 scales) against
+    # the twin run on CPU copies of the same inputs, which is jnp's exact
+    # quantization: every element the same
+    "store": 0.0,
+}
+LLM_L, LLM_HKV, LLM_HQ, LLM_HD = 24, 8, 16, 128  # InternVL2-2B's decoder
+SESSION_CONTEXT = 34165  # tokens in the pool where the session decodes
+
+
+def _pool(L, NP, ps, int8: bool, g, device):
+    shape = (L, LLM_HKV, NP, ps, LLM_HD)
+    if not int8:
+        k, v = (torch.randn(shape, generator=g, device=device,
+                            dtype=torch.bfloat16) for _ in range(2))
+        return dict(k_pages=k, v_pages=v)
+    k, v = (torch.randint(-127, 128, shape, generator=g, device=device,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand(shape[:3] + (1, ps), generator=g, device=device)
+              * 0.025 + 0.005 for _ in range(2))
+    return dict(k_pages=k, v_pages=v, k_scales=ks, v_scales=vs)
+
+
+def _rows(lengths, ps, extra, device):
+    """Page tables of rows holding ``lengths`` (+ extra) tokens, pages
+    dealt out row after row from page 1 as allocate_rows does."""
+    MP = max(-(-(n + extra) // ps) for n in lengths)
+    table = torch.full((len(lengths), MP), -1, dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        need = -(-(n + extra) // ps)
+        table[b, :need] = torch.arange(nxt, nxt + need)
+        nxt += need
+    return table.to(device), nxt
+
+
+def paged_forms(device, prompt_lens):
+    """(kernel, name, fn, kwargs) of every form the paged path launches, at
+    its shapes: the store and the fresh_in_pages decode over the served
+    rows (mid-decode, page 128), decode of one row over 32k tokens (page
+    128, ChatModel's), the separate-fresh decode at T=4, the session's
+    store and decode of one row over a 34k context at page 512 (on one
+    pool: the decode reads the stored token), and a 2048-token chunk over
+    a 32k history at page 512; each in bf16 and int8."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=device).manual_seed(11)
+    forms = []
+    served = [n + MAX_NEW // 2 for n in prompt_lens]
+    for int8 in (False, True):
+        tag = "int8" if int8 else "bf16"
+
+        def q(B, T, H=LLM_HQ):
+            return torch.randn((B, T, H, LLM_HD), generator=g, device=device,
+                               dtype=torch.bfloat16)
+
+        table, NP = _rows(served, 128, MAX_NEW, device)
+        lens = torch.tensor(served, dtype=torch.int32, device=device)
+        pool = _pool(LLM_L, NP, 128, int8, g, device)
+        forms.append(("paged_store", f"store_B3_ps128_{tag}",
+                      pa.store_fresh_token,
+                      dict(k_new=q(3, 1, LLM_HKV), v_new=q(3, 1, LLM_HKV),
+                           page_table=table, lengths=lens, layer=LLM_L - 1,
+                           **pool)))
+        forms.append(("paged_decode",
+                      f"decode_fresh_in_pages_{'_'.join(map(str, served))}"
+                      f"_ps128_{tag}", pa.paged_decode_attention,
+                      dict(q=q(3, 1), k_new=None, v_new=None,
+                           page_table=table, lengths=lens, layer=LLM_L - 1,
+                           fresh_in_pages=True, return_lse=True, **pool)))
+        forms.append(("paged_decode", f"decode_separate_T4_B3_ps128_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(3, 4), k_new=q(3, 4, LLM_HKV),
+                           v_new=q(3, 4, LLM_HKV), page_table=table,
+                           lengths=lens, layer=LLM_L - 1, return_lse=True,
+                           **pool)))
+        n32 = 32767
+        table, NP = _rows([n32], 128, 1, device)
+        pool = _pool(LLM_L, NP, 128, int8, g, device)
+        forms.append(("paged_decode", f"decode_32k_B1_ps128_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(1, 1), k_new=None, v_new=None,
+                           page_table=table,
+                           lengths=torch.tensor([n32], dtype=torch.int32,
+                                                device=device),
+                           layer=LLM_L - 1, fresh_in_pages=True,
+                           return_lse=True, **pool)))
+        n = SESSION_CONTEXT
+        table, NP = _rows([n], 512, 1, device)
+        pool = _pool(LLM_L, NP, 512, int8, g, device)
+        lens = torch.tensor([n], dtype=torch.int32, device=device)
+        forms.append(("paged_store", f"store_B1_{n}_ps512_{tag}",
+                      pa.store_fresh_token,
+                      dict(k_new=q(1, 1, LLM_HKV), v_new=q(1, 1, LLM_HKV),
+                           page_table=table, lengths=lens, layer=LLM_L - 1,
+                           **pool)))
+        forms.append(("paged_decode", f"decode_{n}_B1_ps512_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(1, 1), k_new=None, v_new=None,
+                           page_table=table, lengths=lens, layer=LLM_L - 1,
+                           fresh_in_pages=True, return_lse=True, **pool)))
+        table, NP = _rows([32768], 512, 2048, device)
+        pool = _pool(LLM_L, NP, 512, int8, g, device)
+        forms.append(("paged_prefill", f"prefill_2048_over_32k_ps512_{tag}",
+                      pa.paged_prefill_attention,
+                      dict(q=q(1, 2048), page_table=table,
+                           lengths=torch.tensor([32768], dtype=torch.int32,
+                                                device=device),
+                           layer=LLM_L - 1, **pool)))
+    return forms
+
+
+def _twin(kernel: str):
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    return {"paged_store": pa.store_fresh_token_torch,
+            "paged_decode": pa.paged_decode_attention_torch,
+            "paged_prefill": pa.paged_prefill_attention_torch}[kernel]
+
+
+def _store_error(fn, twin, kw: dict) -> float:
+    """Max abs difference over the whole pool (values, and scales of an
+    int8 pool) between the kernel's store and the twin's store on CPU
+    copies of the same inputs."""
+    ref = {n: t.cpu() if torch.is_tensor(t) else t for n, t in kw.items()}
+    fn(**kw)
+    twin(**ref)
+    return max((kw[n].cpu().float() - ref[n].float()).abs().max().item()
+               for n in kw if n.endswith(("pages", "scales")))
+
+
+def phase_paged_kernels(prompt_lens) -> dict:
+    """Each paged kernel against its twin at every form; returns per-kernel
+    lists of form records."""
+    device = torch.device("cuda")
+    records = {"paged_store": [], "paged_decode": [], "paged_prefill": []}
+    for kernel, name, fn, kw in paged_forms(device, prompt_lens):
+        twin = _twin(kernel)
+        if kernel == "paged_store":
+            err = _store_error(fn, twin, kw)
+            ok = err <= PAGED_TOL["store"]
+            msg = f"max|pool-twin| {err:.3e} (tol {PAGED_TOL['store']})"
+        else:
+            out, lse = fn(**kw)
+            torch.cuda.synchronize()
+            up = {n: (t.float() if n in ("q", "k_new", "v_new")
+                      and t is not None else t) for n, t in kw.items()}
+            want, want_lse = twin(**up)
+            err = (out.float() - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            err_lse = (lse - want_lse).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and \
+                rel <= PAGED_TOL["out_rel"] and err_lse <= PAGED_TOL["lse"]
+            msg = (f"max|out-twin| {err:.3e} = {rel:.3e} of max|twin| (tol "
+                   f"{PAGED_TOL['out_rel']:.3e}) max|lse-twin| {err_lse:.3e}"
+                   f" (tol {PAGED_TOL['lse']})")
+            err = max(err, err_lse)
+        ms = time_ms(lambda: fn(**kw), iters=3)
+        plain_ms = time_ms(lambda: twin(**kw), iters=3)
+        log(f"kernel {name}: {msg} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+        if not ok:
+            raise AssertionError(f"{kernel} disagrees with twin at {name}")
+        records[kernel].append(dict(form=name, max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms))
+        del kw
+    torch.cuda.empty_cache()
+    return records
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -229,20 +459,44 @@ def prompt_lengths(chat) -> list:
             for n, q in REQUESTS]
 
 
+def time_request(chat, cfg, ids, pos, pixels, gc, **kw):
+    """TTFT and decode rate of one request through generate, after a warm
+    call: (TTFT s, total s, decode tok/s, generated tokens)."""
+    from v2pe_tpu_torch.infer.generate import generate
+
+    args = (torch.as_tensor(ids[None]), torch.tensor([len(ids)]),
+            torch.as_tensor(pos[None]), torch.as_tensor(pixels),
+            torch.ones(len(pixels), dtype=torch.int32),
+            chat.img_context_token_id)
+    first = dataclasses.replace(gc, max_new_tokens=1)
+    generate(chat.model, cfg, first, *args, **kw)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(chat.model, cfg, first, *args, **kw)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tokens, _, lens = generate(chat.model, cfg, gc, *args, **kw)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    n = int(lens[0])
+    rate = (n - 1) / (total - ttft) if n > 1 else float("nan")
+    return ttft, total, rate, tokens[0, :n].cpu().numpy()
+
+
 def phase_serve(chat, cfg) -> dict:
-    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
-    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
 
     gc = GenerationConfig(max_new_tokens=MAX_NEW)
     pixels = _request_pixels()
     n_layers = cfg.vision.num_hidden_layers + cfg.llm.num_hidden_layers
-    flash_fwd.LAUNCHES = 0
     torch.cuda.synchronize()
+    reset_launches()
     t0 = time.perf_counter()
     answers = chat.batch_chat(pixels, [q for _, q in REQUESTS], gc)
-    torch.cuda.synchronize()
+    counts = read_launches()
     wall = time.perf_counter() - t0
-    launches = flash_fwd.LAUNCHES
+    launches = counts["flash_fwd"]
     log(f"serve: 3 requests in {wall:.3f}s, flash kernel launches "
         f"{launches}; answers {[len(a) for a in answers]} chars")
     assert len(answers) == 3 and all(isinstance(a, str) for a in answers)
@@ -255,35 +509,23 @@ def phase_serve(chat, cfg) -> dict:
     # TTFT and decode rate of the first (8-tile) request, timed apart
     tiles, question = REQUESTS[0]
     ids, pos, _ = chat.encode_chat(question, [tiles])
-    args = (torch.as_tensor(ids[None]), torch.tensor([len(ids)]),
-            torch.as_tensor(pos[None]), torch.as_tensor(pixels[0]),
-            torch.ones(tiles, dtype=torch.int32), chat.img_context_token_id)
-    stop = tuple(chat.conv_template.stop_token_ids)
-    first = GenerationConfig(max_new_tokens=1, eos_token_ids=stop)
-    full = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_ids=stop)
-    generate(chat.model, cfg, first, *args)  # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    generate(chat.model, cfg, first, *args)
-    torch.cuda.synchronize()
-    ttft = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tokens, _, lens = generate(chat.model, cfg, full, *args)
-    torch.cuda.synchronize()
-    total = time.perf_counter() - t0
-    n = int(lens[0])
-    rate = (n - 1) / (total - ttft) if n > 1 else float("nan")
+    full = GenerationConfig(max_new_tokens=MAX_NEW, eos_token_ids=tuple(
+        chat.conv_template.stop_token_ids))
+    ttft, total, rate, tokens = time_request(chat, cfg, ids, pos, pixels[0],
+                                             full)
     log(f"serve: prompt {len(ids)} tokens ({tiles} tiles): TTFT "
-        f"{ttft * 1e3:.1f} ms, {n} tokens in {total * 1e3:.1f} ms, decode "
-        f"{rate:.1f} tok/s")
-    return dict(launches=launches, ids=ids, pos=pos, pixels=pixels[0],
-                gc=full, tokens=tokens[0, :n].cpu().numpy())
+        f"{ttft * 1e3:.1f} ms, {len(tokens)} tokens in {total * 1e3:.1f} ms,"
+        f" decode {rate:.1f} tok/s")
+    return dict(counts=counts, ids=ids, pos=pos, pixels=pixels[0],
+                gc=full, tokens=tokens)
 
 
 # ---------------------------------------------------------------- phase 4
 
 
-def phase_stream(chat, cfg, served: dict) -> None:
+def phase_stream(chat, cfg, served: dict, cache_mode: str = "dense") -> None:
+    """stream_generate's tokens against generate's (``served["tokens"]``)
+    for the same request and cache mode."""
     from v2pe_tpu_torch.infer.streaming import stream_generate
 
     stop = set(served["gc"].eos_token_ids)
@@ -291,15 +533,15 @@ def phase_stream(chat, cfg, served: dict) -> None:
         chat.model, cfg, served["gc"], served["ids"][None],
         served["pos"][None], served["pixels"],
         np.ones(len(served["pixels"]), np.int32),
-        chat.img_context_token_id, chunk=8))
+        chat.img_context_token_id, chunk=8, cache_mode=cache_mode))
     streamed = [int(t) for c in chunks for t in c]
     generated = [int(t) for t in served["tokens"]]
     while generated and generated[-1] in stop:
         generated.pop()
     while streamed and streamed[-1] in stop:
         streamed.pop()
-    log(f"stream: {len(chunks)} chunks, {len(streamed)} tokens, equal to "
-        f"generate: {streamed == generated}")
+    log(f"stream ({cache_mode}): {len(chunks)} chunks, {len(streamed)} "
+        f"tokens, equal to generate: {streamed == generated}")
     if streamed != generated:
         raise AssertionError(f"stream {streamed} != generate {generated}")
 
@@ -351,9 +593,53 @@ def phase_packed(chat, cfg, batch: dict) -> None:
         raise AssertionError("packed forward logits malformed")
 
 
+def _small_paged(model, cfg, dev: str):
+    """The small model's paged path on one device: greedy tokens of a
+    ragged paged generate, and the fp32 logits of two chunked prefills (the
+    second over the first's pages), a 6-token step (separate-fresh fold)
+    and four decode steps (store, then attend)."""
+    from v2pe_tpu_torch.infer import paged_kv as pk
+    from v2pe_tpu_torch.infer.chunked_prefill import chunked_prefill
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.models import internlm2
+
+    m = model.to(dev)
+    rng = np.random.default_rng(8)
+    ids = rng.integers(3, 990, (2, 40))
+    ids[1, 29:] = 0
+    pos = np.broadcast_to(np.arange(40, dtype=np.float32), (2, 40)).copy()
+    tokens, _, lens = generate(
+        m, cfg, GenerationConfig(max_new_tokens=8), torch.as_tensor(ids),
+        torch.tensor([40, 29]), torch.as_tensor(pos),
+        torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32), 999,
+        cache_mode="paged", page_size=16)
+    seq = torch.as_tensor(rng.integers(3, 990, (1, 74)), device=dev)
+    lc = cfg.llm
+    cache = pk.PagedKVCache.zeros(lc, 1, 12, 16, 10, dtype=torch.float32,
+                                  device=dev)
+    logits = []
+    with torch.inference_mode():
+        for a, b in ((0, 40), (40, 64)):
+            out, cache = chunked_prefill(m.llm, lc, cache,
+                                         input_ids=seq[:, a:b])
+            logits.append(out)
+        for a, b in [(64, 70)] + [(t, t + 1) for t in range(70, 74)]:
+            n = torch.tensor([b - a], dtype=torch.int32, device=dev)
+            cache = pk.allocate_rows(cache, n)
+            out, cache = internlm2.llm_forward(m.llm, lc,
+                                               input_ids=seq[:, a:b],
+                                               paged_cache=cache)
+            cache = pk.advance_lengths(cache, n)
+            logits.append(out)
+    return tokens[:, :int(lens.max())].cpu(), torch.cat(
+        [x[0].cpu() for x in logits])
+
+
 def phase_small_reference() -> None:
     """The whole packed forward at a small width in fp32: on the card
-    (through the kernel) against the CPU (through the twin)."""
+    (through the flash kernel) against the CPU (through the twin); then
+    the same model's paged path, whose tokens must be identical and whose
+    logits must agree to 1e-4 (the paged kernels against their twins)."""
     from v2pe_tpu_torch import config
     from v2pe_tpu_torch.models.internvl_chat import forward
     from v2pe_tpu_torch.models.params import init_vlm_params
@@ -393,12 +679,341 @@ def phase_small_reference() -> None:
         f"{err:.3e} (tol 1e-4, |logit| <= {outs[0].abs().max().item():.3f})")
     if err > 1e-4:
         raise AssertionError("card and CPU forwards disagree")
+    (tok_cpu, lg_cpu), (tok_gpu, lg_gpu) = (_small_paged(model, cfg, dev)
+                                            for dev in ("cpu", "cuda"))
+    err = (lg_cpu - lg_gpu).abs().max().item()
+    same = torch.equal(tok_cpu, tok_gpu)
+    log(f"reference: small paged path fp32 (page 16, hd 64), card vs CPU "
+        f"tokens {tok_gpu.shape[1]} x 2 identical {same}, max|dlogit| "
+        f"{err:.3e} over {lg_cpu.shape[0]} positions (tol 1e-4)")
+    if not same or err > 1e-4:
+        raise AssertionError("card and CPU paged paths disagree")
+
+
+# ----------------------------------------------------- phase 6: paged serve
+
+LOGIT_TOL = 0.1  # bf16 paths apart: max |dlogit| / max |logit|
+LOGIT_TOL_FP32 = 1e-4  # fp32: summation order through 24 layers
+LONG_HISTORY, LONG_TURN = 32000, 2000  # characters = code-point tokens
+DECODE_STEPS = 4  # teacher-forced decode steps held paged against dense
+
+
+def first_logits(chat, cfg, ids, pos, pixels, tokens, cache_mode: str,
+                 kv_dtype=None, steps: int = DECODE_STEPS):
+    """fp32 logits of the prompt's last position and of ``steps`` decode
+    steps fed ``tokens`` (teacher forcing), through the dense cache or the
+    paged one (page 128): (1 + steps, V)."""
+    from v2pe_tpu_torch.infer import paged_kv as pk
+    from v2pe_tpu_torch.infer.generate import (paged_prefill_cache,
+                                               prompt_embeds)
+    from v2pe_tpu_torch.models import internlm2
+    from v2pe_tpu_torch.models.internlm2 import KVCache
+
+    llm = chat.model.llm
+    dev = llm.tok_embeddings.weight.device
+    S = len(ids)
+    paged = cache_mode == "paged"
+    with torch.inference_mode():
+        x = prompt_embeds(chat.model, cfg,
+                          torch.as_tensor(ids[None], device=dev),
+                          torch.as_tensor(pixels),
+                          torch.ones(len(pixels), dtype=torch.int32),
+                          chat.img_context_token_id)
+        if paged:
+            cache = paged_prefill_cache(cfg.llm, 1, S + steps, 128, kv_dtype,
+                                        x.dtype, dev)
+            cache = pk.allocate_rows(cache, torch.tensor([S], device=dev))
+        else:
+            cache = KVCache.zeros(cfg.llm, 1, S + steps, dtype=x.dtype,
+                                  device=dev)
+
+        def run(**kw):
+            key = "paged_cache" if paged else "kv_cache"
+            return internlm2.llm_forward(llm, cfg.llm, **kw,
+                                         **{key: cache})
+
+        hidden, cache = run(inputs_embeds=x, return_hidden=True,
+                            rope_pos_ids=torch.as_tensor(pos[None],
+                                                         device=dev))
+        out = [internlm2.head_logits(hidden[:, -1], llm.output.weight)]
+        if paged:
+            cache = dataclasses.replace(cache, lengths=torch.tensor(
+                [S], dtype=torch.int32, device=dev))
+        for t in range(steps):
+            if paged:
+                cache = pk.allocate_rows(cache,
+                                         torch.ones_like(cache.lengths))
+            lg, cache = run(
+                input_ids=torch.tensor([[int(tokens[t])]], device=dev),
+                rope_pos_ids=torch.tensor([[float(pos[-1]) + 1 + t]],
+                                          device=dev))
+            if paged:
+                cache = pk.advance_lengths(cache, 1)
+            out.append(lg[:, 0])
+    return torch.cat(out).float()
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def phase_paged_serve(model, cfg, tok, served: dict) -> dict:
+    """The three requests through a paged ChatModel (page 128): launches,
+    TTFT and decode rate of the 8-tile request, stream against generate,
+    paged logits against dense, and the 8-tile request again on an int8
+    pool."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+
+    chat = ChatModel(model, cfg, tok, cache_mode="paged")
+    gc = GenerationConfig(max_new_tokens=MAX_NEW)
+    pixels = _request_pixels()
+    reset_launches()
+    t0 = time.perf_counter()
+    answers = chat.batch_chat(pixels, [q for _, q in REQUESTS], gc)
+    counts = read_launches()
+    log(f"paged serve: 3 requests in {time.perf_counter() - t0:.3f}s, "
+        f"launches {counts}; answers {[len(a) for a in answers]} chars")
+    require(counts, ("flash_fwd", "paged_store", "paged_decode"),
+            "paged serve")
+
+    tiles, _ = REQUESTS[0]
+    ids, pos, pix = served["ids"], served["pos"], served["pixels"]
+    for kv in ("int8", None):  # bf16 last: its tokens meet the stream's
+        ttft, total, rate, tokens = time_request(
+            chat, cfg, ids, pos, pix, served["gc"], cache_mode="paged",
+            kv_dtype=kv)
+        log(f"paged serve ({kv or 'bf16'} pool): prompt {len(ids)} tokens "
+            f"({tiles} tiles): TTFT {ttft * 1e3:.1f} ms, {len(tokens)} "
+            f"tokens in {total * 1e3:.1f} ms, decode {rate:.1f} tok/s")
+    phase_stream(chat, cfg, dict(served, tokens=tokens), cache_mode="paged")
+
+    dense = first_logits(chat, cfg, ids, pos, pix, served["tokens"], "dense")
+    paged = first_logits(chat, cfg, ids, pos, pix, served["tokens"], "paged")
+    int8 = first_logits(chat, cfg, ids, pos, pix, served["tokens"], "paged",
+                        kv_dtype="int8")
+    d_paged, d_int8 = _rel(paged, dense), _rel(int8, dense)
+    log(f"paged vs dense logits (prefill + {DECODE_STEPS} decode steps, "
+        f"bf16): max|dlogit|/max|logit| {d_paged:.3e} (tol {LOGIT_TOL}); "
+        f"int8 pool vs dense {d_int8:.3e}; argmax equal "
+        f"{torch.equal(paged.argmax(-1), dense.argmax(-1))}")
+    # the same in fp32 (bf16 -> fp32 -> bf16 is exact): what is left is
+    # summation order, so the bf16 distance above is rounding
+    model.float()
+    dense, paged = (first_logits(chat, cfg, ids, pos, pix, served["tokens"],
+                                 mode) for mode in ("dense", "paged"))
+    model.to(torch.bfloat16)
+    d32 = _rel(paged, dense)
+    log(f"paged vs dense logits, the same in fp32: max|dlogit|/max|logit| "
+        f"{d32:.3e} (tol {LOGIT_TOL_FP32}); argmax equal "
+        f"{torch.equal(paged.argmax(-1), dense.argmax(-1))}")
+    if not (d_paged <= LOGIT_TOL and d32 <= LOGIT_TOL_FP32):
+        raise AssertionError("paged logits disagree with dense")
+    return counts
+
+
+# -------------------------------------------------------- phase 7: session
+
+
+def phase_session(model, cfg, tok) -> dict:
+    """ChatSession at full width, page 512: an 8-tile image turn, then two
+    text turns that prefill only their suffix over the pool (the paged
+    prefill kernel); turn 2's first-token logits against a full re-prefill
+    of its prompt (what chat(history=...) runs). Then one 2k-token turn
+    over a 32k-token history, timed."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.infer.session import ChatSession
+
+    chat = ChatModel(model, cfg, tok, cache_mode="paged")
+    sess = ChatSession(chat, max_len=8192, page_size=512)
+    gc = GenerationConfig(max_new_tokens=MAX_NEW)
+    pix = _tiles(8, 9)
+    turns = [(pix, "Describe the image in detail."),
+             (None, "What colours stand out?"),
+             (None, "Summarise that in one sentence.")]
+    total = {}
+    for i, (pv, q) in enumerate(turns):
+        history = list(sess.history)
+        reset_launches()
+        t0 = time.perf_counter()
+        reply = sess.send(pv, q, gc)
+        counts = read_launches()
+        log(f"session turn {i + 1}: {sess.consumed} tokens in the pool, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {len(reply)} chars; "
+            f"launches {counts}")
+        if i:
+            require(counts, ("paged_prefill", "paged_decode", "paged_store"),
+                    f"session turn {i + 1}")
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        if i == 1:
+            ids, pos, _ = chat.encode_chat(q, [8], history)
+            ref = first_logits(chat, cfg, ids, pos, pix, [], "dense",
+                               steps=0)
+            d = _rel(sess.last_logits.float(), ref[:1])
+            log(f"session turn 2 first-token logits vs full re-prefill of "
+                f"{len(ids)} tokens: max|dlogit|/max|logit| {d:.3e} "
+                f"(tol {LOGIT_TOL})")
+            if not d <= LOGIT_TOL:
+                raise AssertionError("session disagrees with re-prefill")
+
+    rng = np.random.default_rng(12)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    long_sess = ChatSession(chat, max_len=LONG_HISTORY + 2 * LONG_TURN,
+                            page_size=512)
+    one = GenerationConfig(max_new_tokens=1)
+    t0 = time.perf_counter()
+    long_sess.send(None, "".join(rng.choice(letters, LONG_HISTORY)), one)
+    torch.cuda.synchronize()
+    fill = time.perf_counter() - t0
+    history = long_sess.consumed
+    reset_launches()
+    t0 = time.perf_counter()
+    long_sess.send(None, "".join(rng.choice(letters, LONG_TURN)), one)
+    counts = read_launches()
+    turn = time.perf_counter() - t0
+    log(f"session: {long_sess.consumed - history}-token turn over a "
+        f"{history}-token history: {turn * 1e3:.1f} ms to the first token "
+        f"(history prefill {fill * 1e3:.1f} ms); launches {counts}")
+    require(counts, ("paged_prefill",), "2k-over-32k turn")
+    # decode rate at that context: a turn of 33 new tokens less a turn of
+    # one, steps counted from the decode kernel's launches
+    t0 = time.perf_counter()
+    long_sess.send(None, "Go on.", one)
+    t_one = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    long_sess.send(None, "Go on again.", GenerationConfig(max_new_tokens=33))
+    counts = read_launches()
+    t_many = time.perf_counter() - t0
+    steps = counts["paged_decode"] // cfg.llm.num_hidden_layers
+    log(f"session: decode over a {long_sess.consumed}-token context: "
+        f"{steps} steps in {(t_many - t_one) * 1e3:.1f} ms = "
+        f"{steps / (t_many - t_one):.1f} tok/s (a {t_many * 1e3:.1f} ms turn "
+        f"less a 1-token turn of {t_one * 1e3:.1f} ms)")
+    return total
+
+
+# --------------------------------------------------------- phase 8: worker
+
+
+def phase_worker(model, cfg, tok) -> dict:
+    """The port's ModelWorker over the paged ChatModel on 127.0.0.1: its
+    status route, a text request through /worker_generate_stream and the
+    same through /v1/chat/completions with SSE; both texts must equal
+    ChatModel.chat's greedy text for the prompt."""
+    import threading
+    import urllib.request
+
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.serve.worker import ModelWorker
+
+    chat = ChatModel(model, cfg, tok, cache_mode="paged")
+    question, n_new = "Write a haiku about the sea.", 24
+    want = chat.chat(None, question, GenerationConfig(max_new_tokens=n_new))
+    server = ModelWorker(chat, model_name="internvl2-2b").make_server(
+        host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, body):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        status = json.loads(post("/worker_get_status", {}))
+        reset_launches()
+        raw = post("/worker_generate_stream", {
+            "prompt": chat.build_query(question, []),
+            "max_new_tokens": n_new, "temperature": 0.0})
+        counts = read_launches()
+        chunks = [json.loads(c) for c in raw.split(b"\0") if c]
+        native = chunks[-1]["text"] if chunks else ""
+        raw = post("/v1/chat/completions", {
+            "messages": [{"role": "user", "content": question}],
+            "max_tokens": n_new, "stream": True}).decode()
+        events = [ln[len("data: "):] for ln in raw.split("\n\n")
+                  if ln.startswith("data: ")]
+        sse = "".join(json.loads(e)["choices"][0]["delta"].get("content", "")
+                      for e in events[:-1])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    ok = (status["model_names"] == ["internvl2-2b"]
+          and all(c["error_code"] == 0 for c in chunks)
+          and events[-1] == "[DONE]" and native.strip() == want
+          and sse.strip() == want)
+    log(f"worker: status {status}; generate stream {len(chunks)} chunks, "
+        f"SSE {len(events) - 1} events; texts equal to chat(): "
+        f"{native.strip() == want}/{sse.strip() == want} ({len(want)} chars)"
+        f"; launches {counts}")
+    if not ok:
+        raise AssertionError(f"worker texts {native!r} / {sse!r} != chat "
+                             f"{want!r}")
+    require(counts, ("paged_store", "paged_decode"), "worker")
+    return counts
+
+
+# ---------------------------------------------------------------- profile
+
+
+def profile_generate(chat, cfg) -> None:
+    """``--profile``: the 8-tile request through generate (dense, paged
+    bf16, paged int8 pool; the first token alone, then 32 tokens) under
+    torch.profiler: wall, device time (the kernel events' sum), busy share,
+    kernels launched, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+
+    tiles, question = REQUESTS[0]
+    ids, pos, _ = chat.encode_chat(question, [tiles])
+    args = (torch.as_tensor(ids[None]), torch.tensor([len(ids)]),
+            torch.as_tensor(pos[None]), torch.as_tensor(_tiles(tiles, 0)),
+            torch.ones(tiles, dtype=torch.int32), chat.img_context_token_id)
+    stop = tuple(chat.conv_template.stop_token_ids)
+    for mode, kv in (("dense", None), ("paged", None), ("paged", "int8")):
+        for n in (1, MAX_NEW):
+            gc = GenerationConfig(max_new_tokens=n, eos_token_ids=stop)
+            run = lambda: generate(chat.model, cfg, gc, *args,
+                                   cache_mode=mode, kv_dtype=kv)
+            run()  # warm
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                _, _, lens = run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            # kernel events only: the aten ops carry their kernels' time too
+            ev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+            dev = sum(e.self_device_time_total for e in ev) / 1e3
+            log(f"profile {mode} {kv or 'bf16'}, {int(lens[0])} tokens: wall "
+                f"{wall:.1f} ms, device {dev:.1f} ms ({dev / wall:.0%} busy),"
+                f" {sum(e.count for e in ev)} kernels")
+            for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
+                log(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<6}"
+                    f" {e.key[:80]}")
 
 
 # ------------------------------------------------------------------- main
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="only profile the 8-tile request's generate (dense, "
+                    "paged, int8 pool) with torch.profiler; no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -418,20 +1033,32 @@ def main() -> int:
     n_params = sum(p.numel() for p in model.parameters())
     log(f"model: InternVL2-2B, {n_params / 1e9:.3f}B params bf16, random "
         f"init in {time.perf_counter() - t0:.2f}s")
-    chat = ChatModel(model, cfg, CodePointTokenizer())
+    tok = CodePointTokenizer()
+    chat = ChatModel(model, cfg, tok)
+    if args.profile:
+        profile_generate(chat, cfg)
+        log(card_line())
+        return 0
     batch = packed_batch(chat, PACKED_LEN, "cuda")
-    forms = phase_kernels(prompt_lengths(chat), batch)
+    prompt_lens = prompt_lengths(chat)
+    forms = {"flash_fwd": phase_kernels(prompt_lens, batch),
+             **phase_paged_kernels(prompt_lens)}
     phase_small_reference()
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
     phase_packed(chat, cfg, batch)
+    # the paged paths, each driven with the launch counts zeroed before it
+    paths = [served["counts"], phase_paged_serve(model, cfg, tok, served),
+             phase_session(model, cfg, tok), phase_worker(model, cfg, tok)]
+    launches = {k: sum(c[k] for c in paths) for k in forms}
 
     kernels = [dict(
-        name="flash_fwd", route="cuda", source=KERNEL_SOURCE,
-        replaces=KERNEL_REPLACES, launches=served["launches"],
-        max_abs_err=max(f["max_abs_err"] for f in forms),
-        ms=sum(f["ms"] for f in forms),
-        plain_ms=sum(f["plain_ms"] for f in forms), forms=forms)]
+        name=name, route="cuda", source=KERNEL_SOURCES[name],
+        replaces=KERNEL_REPLACES[name], launches=launches[name],
+        max_abs_err=max(f["max_abs_err"] for f in recs),
+        ms=sum(f["ms"] for f in recs),
+        plain_ms=sum(f["plain_ms"] for f in recs), forms=recs)
+        for name, recs in forms.items()]
     log(json.dumps({"kernels": kernels}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -151,7 +151,8 @@ def test_unported_options_raise():
     tok = _toy_tokenizer()
     cfg = _cfg(vocab=len(tok))
     _, model = _models(cfg, seed=0)
-    for kw in (dict(cache_mode="paged"), dict(weights_dtype="int8"),
+    for kw in (dict(cache_mode="paged", kv_dtype="int4"),
+               dict(cache_mode="ring"), dict(weights_dtype="int8"),
                dict(lora={})):
         with pytest.raises(NotImplementedError):
             ChatModel(model, cfg, tok, **kw)
@@ -159,8 +160,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         chat.chat(None, "hi", GenerationConfig(num_beams=2))
     ids, plen, pos, pixels, flags = _batch(cfg)
-    with pytest.raises(NotImplementedError):
-        generate(model, cfg, GenerationConfig(), torch.from_numpy(ids),
-                 torch.from_numpy(plen), torch.from_numpy(pos),
-                 torch.from_numpy(pixels), torch.from_numpy(flags), IMG,
-                 cache_mode="paged")
+    for gc, kw in ((GenerationConfig(), dict(cache_mode="paged",
+                                             kv_dtype="int4")),
+                   (GenerationConfig(speculative_k=2),
+                    dict(cache_mode="paged"))):
+        with pytest.raises(NotImplementedError):
+            generate(model, cfg, gc, torch.from_numpy(ids),
+                     torch.from_numpy(plen), torch.from_numpy(pos),
+                     torch.from_numpy(pixels), torch.from_numpy(flags), IMG,
+                     **kw)

@@ -43,8 +43,12 @@ def test_port_imports_without_jax():
     # tokenizers: neither the port nor chip_smoke.py may need them
     code = ("import sys, chip_smoke, v2pe_tpu_torch, "
             "v2pe_tpu_torch.ops.attention, v2pe_tpu_torch.ops._build, "
+            "v2pe_tpu_torch.ops.paged_attention, "
             "v2pe_tpu_torch.models.params, v2pe_tpu_torch.infer.chat, "
-            "v2pe_tpu_torch.infer.streaming\n"
+            "v2pe_tpu_torch.infer.streaming, v2pe_tpu_torch.infer.paged_kv, "
+            "v2pe_tpu_torch.infer.chunked_prefill, "
+            "v2pe_tpu_torch.infer.session, v2pe_tpu_torch.serve.mm_utils, "
+            "v2pe_tpu_torch.serve.worker\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'PIL', 'transformers', 'tokenizers')]\n"
             "assert not bad, bad")

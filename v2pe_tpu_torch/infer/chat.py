@@ -24,13 +24,19 @@ from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
 
 class ChatModel:
     """Holds the model, its config and a tokenizer; chat()/batch_chat() with
-    the reference's semantics. Dense KV cache and unquantized weights only
-    for now."""
+    the reference's semantics. ``cache_mode="paged"`` decodes through the
+    paged-KV kernels (``ops/paged_attention.py``) from a pool of
+    ``page_size``-token pages, in the model's dtype or, with
+    ``kv_dtype="int8"``, quantized. Unquantized weights only for now."""
 
     def __init__(self, model, cfg: VLMConfig, tokenizer,
-                 cache_mode: str = "dense", weights_dtype=None, lora=None):
-        if cache_mode != "dense":
+                 cache_mode: str = "dense", page_size: int = 128,
+                 kv_dtype=None, weights_dtype=None, lora=None):
+        if cache_mode not in ("dense", "paged"):
             raise NotImplementedError(f"cache_mode={cache_mode!r}")
+        if kv_dtype not in (None, "int8"):
+            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: int4 pools "
+                                      f"are not ported")
         if weights_dtype is not None:
             raise NotImplementedError(f"weights_dtype={weights_dtype!r}")
         if lora is not None:
@@ -39,6 +45,8 @@ class ChatModel:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.cache_mode = cache_mode
+        self.page_size = page_size
+        self.kv_dtype = kv_dtype
         self.img_context_token_id = tokenizer.convert_tokens_to_ids(
             IMG_CONTEXT_TOKEN)
         self.img_start_id = tokenizer.convert_tokens_to_ids(IMG_START_TOKEN)
@@ -136,7 +144,8 @@ class ChatModel:
             self.model, self.cfg, gc, torch.as_tensor(ids[None]),
             torch.tensor([len(ids)]), torch.as_tensor(pos[None]),
             pixel_values, flags, self.img_context_token_id,
-            cache_mode=self.cache_mode)
+            cache_mode=self.cache_mode, page_size=self.page_size,
+            kv_dtype=self.kv_dtype)
         response = self._decode(tokens[0].cpu().numpy(), int(gen_lens[0]))
         history = list(history or []) + [(question, response)]
         if verbose:

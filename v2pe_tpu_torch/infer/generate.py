@@ -1,10 +1,12 @@
-"""Autoregressive generation over the dense KV cache (port of
-``v2pe_tpu/infer/generate.py``, ``cache_mode="dense"``).
+"""Autoregressive generation (port of ``v2pe_tpu/infer/generate.py``) over
+the dense KV cache or the paged one (``cache_mode="paged"``, with a bf16 or
+int8 pool).
 
 Prefill scatters the ViT features into the prompt, runs the decoder once
-and fills a preallocated cache; the decode loop then runs one token per
-step on the host. Generated tokens take V2PE positions at integer stride
-from the (possibly fractional) position of the last prompt token.
+and fills a preallocated cache (or the pages it allocates); the decode loop
+then runs one token per step on the host. Generated tokens take V2PE
+positions at integer stride from the (possibly fractional) position of the
+last prompt token.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.models import internlm2, internvl_chat
 from v2pe_tpu_torch.models.internlm2 import KVCache
 
@@ -54,10 +57,13 @@ def _sample(logits: torch.Tensor, gc: GenerationConfig,
     return torch.multinomial(probs, 1, generator=generator)[..., 0]
 
 
-def _check_supported(gc: GenerationConfig, cache_mode: str) -> None:
-    if cache_mode != "dense":
-        raise NotImplementedError(f"cache_mode={cache_mode!r}: the port has "
-                                  f"the dense KV cache only")
+def _check_supported(gc: GenerationConfig, cache_mode: str,
+                     kv_dtype=None) -> None:
+    if cache_mode not in ("dense", "paged"):
+        raise NotImplementedError(f"cache_mode={cache_mode!r}")
+    if kv_dtype not in (None, "int8"):
+        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the port has "
+                                  f"bf16/fp32 and int8 pools")
     if gc.num_beams > 1:
         raise NotImplementedError("beam search is not ported yet")
     if gc.speculative_k > 0:
@@ -86,13 +92,31 @@ def prompt_embeds(model, cfg: VLMConfig, input_ids: torch.Tensor,
         img_context_token_id)
 
 
-def _decode_step(llm, lcfg, gc, cache: KVCache, tok, pos, generator,
-                 kv_valid=None):
-    """One token per row at V2PE position ``pos``: (next tokens, cache)."""
+def paged_prefill_cache(lcfg, batch: int, max_len: int, page_size: int,
+                        kv_dtype, dtype, device) -> pk.PagedKVCache:
+    """An empty pool for ``batch`` rows of up to ``max_len`` tokens: each
+    row's worst case plus the reserved null page."""
+    MP = -(-max_len // page_size)
+    return pk.PagedKVCache.zeros(lcfg, batch, batch * MP + 1, page_size, MP,
+                                 dtype=dtype, kv_dtype=kv_dtype,
+                                 device=device)
+
+
+def _decode_step(llm, lcfg, gc, cache, tok, pos, generator, kv_valid=None):
+    """One token per row at V2PE position ``pos``: (next tokens, cache). A
+    paged cache gets its page for the token first (on the device) and its
+    lengths advanced after."""
     emb = llm.tok_embeddings(tok)[:, None, :]
-    logits, cache = internlm2.llm_forward(
-        llm, lcfg, inputs_embeds=emb, rope_pos_ids=pos[:, None],
-        kv_cache=cache, kv_valid=kv_valid)
+    if isinstance(cache, pk.PagedKVCache):
+        cache = pk.allocate_rows(cache, torch.ones_like(cache.lengths))
+        logits, cache = internlm2.llm_forward(
+            llm, lcfg, inputs_embeds=emb, rope_pos_ids=pos[:, None],
+            paged_cache=cache)
+        cache = pk.advance_lengths(cache, 1)
+    else:
+        logits, cache = internlm2.llm_forward(
+            llm, lcfg, inputs_embeds=emb, rope_pos_ids=pos[:, None],
+            kv_cache=cache, kv_valid=kv_valid)
     return _sample(logits[:, -1], gc, generator).to(torch.int32), cache
 
 
@@ -105,11 +129,12 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
              image_flags: torch.Tensor,     # (T,)
              img_context_token_id: int,
              generator: Optional[torch.Generator] = None,
-             cache_mode: str = "dense"):
+             cache_mode: str = "dense", page_size: int = 128,
+             kv_dtype: Optional[str] = None):
     """Greedy or sampled decode. Returns (tokens (B, max_new) int32, steps,
     gen_lens (B,)): gen_lens[i] counts row i's generated tokens including
     its stop token; later slots of a finished row are 0."""
-    _check_supported(gc, cache_mode)
+    _check_supported(gc, cache_mode, kv_dtype)
     llm = model.llm
     device = llm.tok_embeddings.weight.device
     input_ids = input_ids.to(device)
@@ -130,29 +155,43 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
         prompt, then the decode slots from S on."""
         return (slot < prompt_lengths[:, None]) | ((slot >= S) & (slot < S + t))
 
-    cache = KVCache.zeros(cfg.llm, B, max_len, dtype=embeds.dtype,
-                          device=device)
-    hidden, cache = internlm2.llm_forward(
-        llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
-        segment_ids=seg, kv_cache=cache, kv_valid=kv_valid_at(0),
-        return_hidden=True)
+    if cache_mode == "paged":
+        cache = paged_prefill_cache(cfg.llm, B, max_len, page_size, kv_dtype,
+                                    embeds.dtype, device)
+        lengths = prompt_lengths.to(torch.int32)
+        cache = pk.allocate_rows(cache, lengths)
+        hidden, cache = internlm2.llm_forward(
+            llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
+            segment_ids=seg, paged_cache=cache, return_hidden=True)
+        cache = dataclasses.replace(cache, lengths=lengths)
+        kv_valid_fn = None
+    else:
+        cache = KVCache.zeros(cfg.llm, B, max_len, dtype=embeds.dtype,
+                              device=device)
+        hidden, cache = internlm2.llm_forward(
+            llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
+            segment_ids=seg, kv_cache=cache, kv_valid=kv_valid_at(0),
+            return_hidden=True)
+        kv_valid_fn = kv_valid_at
     last = (prompt_lengths - 1).long()
     last_hidden = hidden[torch.arange(B, device=device), last][:, None]
     last_logits = internlm2.head_logits(last_hidden, llm.output.weight)[:, 0]
     last_pos = rope_pos_ids[torch.arange(B, device=device), last]
     out, steps, lens, _ = decode_from_logits(
         llm, cfg.llm, gc, cache, last_logits, last_pos, generator,
-        kv_valid_at=kv_valid_at)
+        kv_valid_at=kv_valid_fn)
     return out, steps, lens
 
 
-def decode_from_logits(llm, lcfg, gc: GenerationConfig, cache: KVCache,
+def decode_from_logits(llm, lcfg, gc: GenerationConfig, cache,
                        last_logits: torch.Tensor, last_pos: torch.Tensor,
                        generator: Optional[torch.Generator], *,
                        kv_valid_at: Optional[Callable] = None):
     """Sample token 0 from the prefill's last logits, then decode one token
-    per step over ``cache`` until every row has stopped or max_new_tokens.
-    Returns (out (B, max_new) int32, steps, lens (B,), cache)."""
+    per step over ``cache`` (a dense KVCache, with its ``kv_valid_at(t)``
+    mask function, or a PagedKVCache) until every row has stopped or
+    max_new_tokens. Returns (out (B, max_new) int32, steps, lens (B,),
+    cache)."""
     B = last_logits.shape[0]
     device = last_logits.device
     eos = torch.tensor(gc.eos_token_ids, dtype=torch.int32, device=device)

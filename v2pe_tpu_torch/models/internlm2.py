@@ -10,19 +10,32 @@ ids) and k is rotated here. With a cache, a prompt (> 16 tokens) is written
 into the cache first and attends over the whole buffer through the kernel;
 a decode step (<= 16 tokens) attends over the cache and itself with one
 softmax (``_two_part_decode_attention``) and is written after.
+
+With a paged cache (``infer/paged_kv.py``) the pool is never copied: the
+kernels of ``ops/paged_attention.py`` take the whole pool and the layer
+index. One token per row: the store kernel writes the fresh k/v into the
+row's page, then the decode kernel attends over the pages, fresh slot
+included. Up to 16 tokens: the decode kernel folds the fresh k/v in
+separately, then they are scattered into the pages. A longer prompt attends
+to itself through the flash kernel (and, in chunked prefill, also to the
+cached pages through the paged prefill kernel, merged by logsumexp), then
+is scattered into the pages layer by layer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from v2pe_tpu.core.config import LLMConfig
-from v2pe_tpu_torch.ops.attention import flash_attention
+from v2pe_tpu_torch.infer import paged_kv
+from v2pe_tpu_torch.ops import paged_attention as pa
+from v2pe_tpu_torch.ops.attention import (flash_attention,
+                                          flash_attention_with_lse)
 from v2pe_tpu_torch.ops.norms import rms_norm
 from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      scale_positions)
@@ -44,6 +57,22 @@ class KVCache:
                  cfg.num_key_value_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device), 0)
+
+
+class PagedStep(NamedTuple):
+    """What one layer's attention needs of a paged cache: the cache (its
+    lengths exclude this step's tokens), the layer index, each page-table
+    entry's first slot (``default_slot_base``, made once per forward),
+    where this step's tokens go (``paged_kv.token_slots``; None for one
+    token per row, which the store kernel places), and whether a
+    multi-token chunk also attends over the cached pages (chunked
+    prefill)."""
+
+    cache: paged_kv.PagedKVCache
+    layer: int
+    slot_base: torch.Tensor
+    slots: Optional[tuple]
+    attend_cache: bool
 
 
 class LLMLayer(nn.Module):
@@ -95,19 +124,24 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
                       kv_cache_layer: Optional[tuple] = None,
                       cache_length: int = 0,
                       kv_valid: Optional[torch.Tensor] = None,
-                      rope_pack: Optional[tuple] = None) -> torch.Tensor:
+                      rope_pack: Optional[tuple] = None,
+                      paged: Optional[PagedStep] = None) -> torch.Tensor:
     """One attention block. kv_cache_layer = (k_buf, v_buf), each
     (B, max_len, Hkv, hd) views into the cache, written in place at
     [cache_length, cache_length + S); kv_valid (B, max_len) masks slots of
-    right-padded prompts."""
+    right-padded prompts. ``paged``: attend through the paged cache and
+    write this step's k/v into its pool."""
     B, S, _ = x.shape
-    fused_rope = rope_pack is not None and kv_cache_layer is None
+    fused_rope = rope_pack is not None and kv_cache_layer is None \
+        and paged is None
     q, k, v = split_wqkv(p.wqkv(x), cfg)
     if not fused_rope:
         q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
 
-    if kv_cache_layer is not None:
+    if paged is not None:
+        out = _paged_attention(paged, q, k, v, segment_ids, positions)
+    elif kv_cache_layer is not None:
         k_buf, v_buf = kv_cache_layer
         end = cache_length + S
         if S <= 16:
@@ -138,6 +172,35 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
             rope_positions=(rope_pack[0], None, rope_pack[1])
             if fused_rope else None)
     return p.wo(out.reshape(B, S, cfg.num_attention_heads * cfg.head_dim))
+
+
+def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
+    cache, li = paged.cache, paged.layer
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    pool = (cache.k_pages, cache.v_pages)
+    tables = (cache.page_table, cache.lengths, li)
+    scales = dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
+    read = dict(scales, slot_base=paged.slot_base)
+    S = q.shape[1]
+    if S == 1:  # store, then attend with the fresh slot in the pages
+        pa.store_fresh_token(k, v, *pool, *tables, **scales)
+        return pa.paged_decode_attention(q, None, None, *pool, *tables,
+                                         fresh_in_pages=True, **read)
+    if S <= 16:
+        out = pa.paged_decode_attention(q, k, v, *pool, *tables, **read)
+    elif paged.attend_cache:
+        out1, lse1 = flash_attention_with_lse(
+            q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            causal=True)
+        out2, lse2 = pa.paged_prefill_attention(q, *pool, *tables, **read)
+        out = pa.merge_lse(out1, lse1, out2, lse2)
+    else:  # prefill into empty pages: the prompt attends only to itself
+        out = flash_attention(
+            q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            q_positions=positions, kv_positions=positions, causal=True)
+    paged_kv.scatter_layers(cache, slice(li, li + 1), k[None], v[None],
+                            paged.slots)
+    return out
 
 
 def _two_part_decode_attention(q, k_new, v_new, k_buf, v_buf,
@@ -178,12 +241,12 @@ def mlp_forward(p: LLMLayer, x: torch.Tensor) -> torch.Tensor:
 
 def layer_forward(p: LLMLayer, cfg: LLMConfig, x, cos, sin, *, segment_ids,
                   positions, kv_cache_layer=None, cache_length: int = 0,
-                  kv_valid=None, rope_pack=None) -> torch.Tensor:
+                  kv_valid=None, rope_pack=None, paged=None) -> torch.Tensor:
     h = rms_norm(x, p.attention_norm, cfg.rms_norm_eps)
     x = x + attention_forward(
         p, cfg, h, cos, sin, segment_ids=segment_ids, positions=positions,
         kv_cache_layer=kv_cache_layer, cache_length=cache_length,
-        kv_valid=kv_valid, rope_pack=rope_pack)
+        kv_valid=kv_valid, rope_pack=rope_pack, paged=paged)
     h = rms_norm(x, p.ffn_norm, cfg.rms_norm_eps)
     return x + mlp_forward(p, h)
 
@@ -196,40 +259,62 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
                 positions: Optional[torch.Tensor] = None,
                 kv_cache: Optional[KVCache] = None,
                 kv_valid: Optional[torch.Tensor] = None,
+                paged_cache: Optional[paged_kv.PagedKVCache] = None,
+                paged_attend_cache: bool = False,
                 return_hidden: bool = False):
     """Returns (fp32 logits (B, S, V) or the final hidden states, the cache
-    advanced by S when one was passed).
+    advanced by S when a dense one was passed, or the paged cache with its
+    pool written and its lengths NOT advanced).
 
     rope_pos_ids (B, S) float32 are the V2PE ids (default: arange after the
     cache); positions (B, S) int32 order tokens for causality and
-    segment_ids (B, S) separate packed sequences (no-cache path)."""
+    segment_ids (B, S) separate packed sequences (no-cache path) or mark
+    right-padding (0) of a paged prompt. paged_attend_cache: a chunk of
+    more than 16 tokens also attends over the cached pages (chunked
+    prefill)."""
     if inputs_embeds is None:
         inputs_embeds = model.tok_embeddings(input_ids)
     x = inputs_embeds
     B, S, _ = x.shape
     base = 0 if kv_cache is None else kv_cache.length
+    ar = torch.arange(S, dtype=torch.float32, device=x.device)
     if rope_pos_ids is None:
-        rope_pos_ids = (base + torch.arange(
-            S, dtype=torch.float32, device=x.device)).expand(B, S)
+        rope_pos_ids = (paged_cache.lengths[:, None].float() + ar[None]) \
+            if paged_cache is not None else (base + ar).expand(B, S)
+    seq_len = base + S
+    if paged_cache is not None:
+        # the total context matters to dynamic NTK only: read it back then
+        seq_len = int(paged_cache.lengths.max()) + S \
+            if cfg.rope_mode == "dynamic" else None
     scaled_pos, theta = scale_positions(
         rope_pos_ids.float(), cfg.head_dim, cfg.rope_theta,
         mode=cfg.rope_mode, scaling_factor=cfg.rope_scaling_factor,
         max_position_embeddings=cfg.max_position_embeddings,
-        seq_len=base + S)
+        seq_len=seq_len)
     cos, sin = compute_rope_cos_sin(scaled_pos, cfg.head_dim, theta)
     # the kernel's fused rotary takes a fixed theta (dynamic NTK gives a
     # tensor, which keeps the rotary outside)
     rope_pack = (scaled_pos, float(theta)) \
         if isinstance(theta, (int, float)) else None
 
+    slots = slot_base = None
+    if paged_cache is not None:
+        slot_base = pa.default_slot_base(paged_cache.page_table,
+                                         paged_cache.page_size)
+        if S > 1:
+            slots = paged_kv.token_slots(
+                paged_cache, S,
+                None if segment_ids is None else segment_ids != 0)
     for li, layer in enumerate(model.layers):
         kv_layer = None if kv_cache is None else (kv_cache.k[li],
                                                  kv_cache.v[li])
+        paged = None if paged_cache is None else \
+            PagedStep(paged_cache, li, slot_base, slots, paged_attend_cache)
         x = layer_forward(layer, cfg, x, cos, sin, segment_ids=segment_ids,
                           positions=positions, kv_cache_layer=kv_layer,
                           cache_length=base, kv_valid=kv_valid,
-                          rope_pack=rope_pack)
-    new_cache = None if kv_cache is None else \
+                          rope_pack=rope_pack, paged=paged)
+    new_cache = paged_cache if kv_cache is None else \
         dataclasses.replace(kv_cache, length=base + S)
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)
     if return_hidden:

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of ``v2pe_tpu_torch/csrc`` at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, which is loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds). The library goes to ``build/v2pe_tpu_torch/<hash>/`` at the
+``nvcc`` compiles every ``csrc/*.cu`` to an object, one process per source,
+all started together, then links the objects into one shared library with
+a plain C interface, which is loaded with ``ctypes`` (no PyTorch headers, so
+a build takes seconds). The library goes to ``build/v2pe_tpu_torch/<hash>/`` at the
 root of the checkout (listed in ``.gitignore``); the hash covers the sources
 and the compiler flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is.
@@ -27,7 +28,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "v2pe_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0  # wall time of the last compile (0 if cached)
@@ -63,14 +64,33 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *sorted(glob.glob(os.path.join(CSRC, "*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    objs, procs = [], []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(os.path.dirname(out),
+                           f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{log}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = f"{out}.{tag}"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     build_seconds = time.perf_counter() - t0
     return out
@@ -93,5 +113,37 @@ def load() -> ctypes.CDLL:
             p,                  # cudaStream_t
         ]
         lib.v2pe_flash_fwd.restype = ctypes.c_int
+        lib.v2pe_paged_store.argtypes = [
+            p, p,               # k_new, v_new
+            p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
+            p, p,               # page_table, lengths
+            i, i, i, i, i, i,   # B, Hkv, NP, ps, D, MP
+            i, i, i,            # layer, is_bf16, quantized
+            p,                  # cudaStream_t
+        ]
+        lib.v2pe_paged_decode.argtypes = [
+            p, p, p,            # q, k_new, v_new (fresh k/v may be NULL)
+            p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
+            p, p, p,            # page_table, slot_base, lengths
+            p, p,               # out, lse (may be NULL)
+            i, i, i, i, i, i,   # B, T, Hq, Hkv, NP, ps
+            i, i, i,            # D, MP, layer
+            i, i, i, i,         # is_bf16, quantized, fresh_in_pages, fold
+            ctypes.c_float,     # scale
+            p,                  # cudaStream_t
+        ]
+        lib.v2pe_paged_prefill.argtypes = [
+            p, p, p, p, p,      # q, k_pages, v_pages, k_scales, v_scales
+            p, p, p,            # page_table, slot_base, lengths
+            p, p,               # out, lse
+            i, i, i, i, i, i,   # B, S, Hq, Hkv, NP, ps
+            i, i, i,            # D, MP, layer
+            i, i,               # is_bf16, quantized
+            ctypes.c_float,     # scale
+            p,                  # cudaStream_t
+        ]
+        for fn in (lib.v2pe_paged_store, lib.v2pe_paged_decode,
+                   lib.v2pe_paged_prefill):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
