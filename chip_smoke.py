@@ -1,8 +1,10 @@
-"""Drive the PyTorch port's serving paths once on one CUDA card.
+"""Drive the PyTorch port's serving and training paths once on one CUDA card.
 
-    python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --profile  # only a torch.profiler breakdown of
-                                     # the 8-tile request's generate
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --profile        # only a torch.profiler breakdown
+                                           # of the 8-tile request's generate
+    python3 chip_smoke.py --profile-train  # only a torch.profiler breakdown
+                                           # of one full-width train step
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -26,14 +28,23 @@ Phases, each of which fails the run (nonzero exit, no result line):
      2k-token turn over a 32k-token history;
   8. worker: the HTTP ModelWorker on 127.0.0.1 answers the status route,
      /worker_generate_stream and /v1/chat/completions (SSE) with the text
-     ChatModel.chat gives.
-A small fp32 model on the card against the same model on the CPU (the
-kernels against their twins: a packed forward, then the paged path with
-identical tokens) runs after phase 2. Phases 3 and 6-8 each zero the
-kernels' launch counts before they start and read them after, and fail if
-a kernel of their path was not launched. The kernel table prints as one
-JSON line, then the card line, then the last line
-{"ok": true, "device": {...}}.
+     ChatModel.chat gives;
+  9. train: InternVL2-2B at full width trains 4 steps through
+     trainer.train on 8192 packed tokens with 8 tiles (remat 'full', int8
+     Adam), then saves a checkpoint asynchronously; every step launches
+     the forward kernel 96 times and each backward kernel 48 times;
+ 10. bench recipe: make_train_step called directly, as bench.py's
+     training bench does, on the port's make_synthetic_batch (8192
+     tokens, 8 tiles, stride 64): three steps, the same launch counts.
+Phase 2 also holds the two flash-backward kernels against their twin at
+the training path's forms (the 8192-token packed LLM, 8 ViT tiles, a
+ragged fp32 form). A small fp32 model on the card against the same model
+on the CPU (the kernels against their twins: a packed forward, then the
+paged path with identical tokens, then one train step and a checkpoint
+resume) runs after phase 2. Phases 3 and 6-10 each zero the kernels' launch
+counts before they start and read them after, and fail if a kernel of
+their path was not launched. The kernel table prints as one JSON line,
+then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
 the pixels come from numpy and the text from a code-point tokenizer.
@@ -56,12 +67,16 @@ TOL = {  # max abs error of kernel against twin (twin in fp32)
 }
 KERNEL_SOURCES = {
     "flash_fwd": "v2pe_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dkv": "v2pe_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dq": "v2pe_tpu_torch/csrc/flash_bwd.cu",
     "paged_store": "v2pe_tpu_torch/csrc/paged_attention.cu",
     "paged_decode": "v2pe_tpu_torch/csrc/paged_attention.cu",
     "paged_prefill": "v2pe_tpu_torch/csrc/paged_attention.cu",
 }
 KERNEL_REPLACES = {  # the Pallas kernel bodies
     "flash_fwd": "v2pe_tpu/ops/flash_pallas.py:68",
+    "flash_bwd_dkv": "v2pe_tpu/ops/flash_pallas_bwd.py:72",
+    "flash_bwd_dq": "v2pe_tpu/ops/flash_pallas_bwd.py:137",
     "paged_store": "v2pe_tpu/ops/paged_attention.py:58",
     "paged_decode": "v2pe_tpu/ops/paged_attention.py:187",
     "paged_prefill": "v2pe_tpu/ops/paged_attention.py:433",
@@ -101,21 +116,23 @@ def time_ms(fn, iters: int = 5) -> float:
 
 def reset_launches() -> None:
     """Zero every kernel's launch count (just before a path is driven)."""
-    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     flash_fwd.LAUNCHES = 0
-    for name in pa.LAUNCHES:
-        pa.LAUNCHES[name] = 0
+    for counts in (pa.LAUNCHES, flash_bwd.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def read_launches() -> dict:
     """Every kernel's launch count (just after a path was driven)."""
-    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     torch.cuda.synchronize()
-    return {"flash_fwd": flash_fwd.LAUNCHES, **pa.LAUNCHES}
+    return {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES,
+            **pa.LAUNCHES}
 
 
 def require(counts: dict, names, where: str) -> None:
@@ -960,6 +977,429 @@ def phase_worker(model, cfg, tok) -> dict:
     return counts
 
 
+# ------------------------------------------------ phase 2c: flash backward
+
+
+BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}  # max|kernel -
+# twin| / max|twin| of each of dq, dk, dv; the twin computes in fp32
+BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
+
+
+def bwd_forms(device, packed: dict):
+    """(name, args, kwargs) of the backward at the training path's forms:
+    the LLM's packed 8192 tokens (three segments and a padded tail, GQA
+    16/8 x 128, causal, explicit positions, q rotated from the V2PE ids),
+    the ViT's 8 tiles (16 x 64, bidirectional), and a ragged fp32 form with
+    q and k rotated, a padded tail and a row that attends nothing."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g).to(device=device, dtype=dtype)
+
+    def arange(B, S):
+        return torch.arange(S, dtype=torch.int32,
+                            device=device).expand(B, S).contiguous()
+
+    seg = packed["segment_ids"].to(device).clone()
+    S = seg.shape[1]
+    seg[:, S - 200:] = 0
+    forms = [(f"llm_packed_{S}_3seg_pad_qrope_bf16", (
+        randn(1, S, 16, 128), randn(1, S, 8, 128), randn(1, S, 8, 128),
+        seg, seg, arange(1, S), arange(1, S)),
+        dict(causal=True, scale=128 ** -0.5,
+             rope_q=packed["rope_pos_ids"].to(device), rope_theta=1e6))]
+    ones = torch.ones(8, 1025, dtype=torch.int32, device=device)
+    forms.append(("vit_tiles_8x1025_bf16", (
+        randn(8, 1025, 16, 64), randn(8, 1025, 16, 64),
+        randn(8, 1025, 16, 64), ones, ones, arange(8, 1025),
+        arange(8, 1025)), dict(causal=False, scale=64 ** -0.5)))
+    S = 150
+    seg = torch.zeros(2, S, dtype=torch.int32, device=device)
+    seg[0, :60], seg[0, 60:110] = 1, 2  # row 1: all padding
+    ids = torch.cat([torch.arange(20.0), 19 + 0.25 * torch.arange(1, 41),
+                     29 + torch.arange(1, 91.0)]).to(device).expand(2, S)
+    f32 = torch.float32
+    forms.append((f"ragged_{S}_empty_row_qkrope_fp32", (
+        randn(2, S, 16, 128, dtype=f32), randn(2, S, 8, 128, dtype=f32),
+        randn(2, S, 8, 128, dtype=f32), seg, seg, arange(2, S),
+        arange(2, S)), dict(causal=True, scale=128 ** -0.5,
+                            rope_q=ids.contiguous(), rope_k=ids.contiguous(),
+                            rope_theta=1e6)))
+    return forms
+
+
+def device_ms_by_kernel(fn, names) -> dict:
+    """Device time of one call of ``fn`` per kernel whose name contains
+    each of ``names`` (torch.profiler's kernel events), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    return {n: sum(e.self_device_time_total for e in ev if n in e.key) / 1e3
+            for n in names}
+
+
+def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
+    """dkv and dq against the twin at every backward form; out and lse come
+    from the forward kernel. Returns per-kernel lists of form records: each
+    kernel's device time, and the twin's time for the whole backward."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+
+    records = {n: [] for n in BWD_KERNELS}
+    for name, args, kw in bwd_forms(torch.device(device), packed):
+        out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+        do = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)
+                         ).to(out)
+        full = (*args, out, lse, do)
+        got = flash_bwd.flash_attention_bwd(*full, **kw)
+        torch.cuda.synchronize()
+        up = [a.float() if a.is_floating_point() else a for a in full]
+        want = flash_bwd.flash_attention_bwd_torch(*up, **kw)
+        rels = [((a.float() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, want)]
+        errs = [(a.float() - b).abs().max().item() for a, b in zip(got, want)]
+        tol = BWD_TOL[args[0].dtype]
+        ms = time_ms(lambda: flash_bwd.flash_attention_bwd(*full, **kw),
+                     iters=3)
+        split = device_ms_by_kernel(
+            lambda: flash_bwd.flash_attention_bwd(*full, **kw),
+            [n + "_kernel" for n in BWD_KERNELS])
+        plain_ms = time_ms(
+            lambda: flash_bwd.flash_attention_bwd_torch(*full, **kw), iters=3)
+        log(f"kernel bwd {name}: max|d-twin|/max|twin| dq {rels[0]:.3e} "
+            f"dk {rels[1]:.3e} dv {rels[2]:.3e} (tol {tol:.3e}); dkv "
+            f"{split['flash_bwd_dkv_kernel']:.3f} ms + dq "
+            f"{split['flash_bwd_dq_kernel']:.3f} ms on the device, wrapper "
+            f"{ms:.3f} ms, twin {plain_ms:.3f} ms")
+        ok = all(torch.isfinite(t).all() for t in got) and max(rels) <= tol
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with twin at "
+                                 f"{name}")
+        for n in BWD_KERNELS:
+            records[n].append(dict(form=name, max_abs_err=max(errs),
+                                   max_rel_err=max(rels),
+                                   ms=split[n + "_kernel"],
+                                   plain_ms=plain_ms))
+        del got, want, full, up
+    torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------------------ phase 9: train
+
+
+TRAIN_TOKENS, TRAIN_TILES, TRAIN_STEPS = 8192, 8, 4
+
+
+def synthetic_sample(rng, n_tokens: int, tiles: int, nit: int, size: int,
+                     ids=(92544, 92545, 92546), vocab_hi: int = 20000,
+                     stride: int = 64) -> dict:
+    """One training sample as a dataset yields it: 16 text tokens, an
+    image span of ``tiles`` tiles, more text; V2PE ids at ``stride``;
+    labels on the text only; random normalized pixels."""
+    from v2pe_tpu_torch import positional
+
+    start, end, ctx = ids
+    img = [start] + [ctx] * (tiles * nit) + [end]
+    body = np.concatenate([rng.integers(3, vocab_hi, 16), img,
+                           rng.integers(3, vocab_hi,
+                                        n_tokens - 16 - len(img))])
+    pos = positional.build_v2pe_pos_ids(body, np.ones_like(body), [tiles],
+                                        img_start_id=start, img_end_id=end,
+                                        num_image_token=nit,
+                                        version="v2pe_fix", stride=stride)
+    labels = np.where(np.isin(body, img), -100, body)
+    return dict(input_ids=body, pos_ids=np.asarray(pos, np.float32),
+                labels=labels,
+                pixel_values=rng.standard_normal(
+                    (tiles, 3, size, size), dtype=np.float32),
+                image_flags=np.ones(tiles, np.int64))
+
+
+def small_train_batch(cfg, device) -> dict:
+    """Two samples (150 and 130 tokens, one 112-pixel tile each) packed
+    into a 300-token row with a padded tail, as the trainer collates."""
+    from v2pe_tpu_torch import packing
+
+    rng = np.random.default_rng(13)
+    nit = cfg.num_image_token
+    rows = [[synthetic_sample(rng, n, 1, nit, 112, ids=(997, 998, 999),
+                              vocab_hi=990, stride=2) for n in (150, 130)]]
+    batch = packing.collate_rows(rows, max_tokens=300, max_tiles=2,
+                                 img_context_token_id=999,
+                                 num_image_token=nit)
+    batch.pop("statistics")
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def _max_rel(a: dict, b: dict) -> float:
+    """Largest max|a - b| / max|b| over the tensors of two state dicts."""
+    return max(((a[n].float() - b[n].float()).abs().max()
+                / b[n].float().abs().max().clamp_min(1e-30)).item()
+               for n in b)
+
+
+def phase_small_train_reference(devices=("cpu", "cuda")) -> None:
+    """One make_train_step step (int8 Adam, lr 1e-5, no warmup) of a
+    2-layer fp32 model on the card (the kernels) against the CPU (the
+    twins): loss, grad_norm and every gradient leaf within 1e-4 of its
+    range, every updated parameter within 1e-4 of its range plus 1% of one
+    step (Adam's first step g / (|g| + eps) has slope 1/eps where g ~ eps,
+    which turns summation-order noise into up to ~1e-3 of a step on
+    zero-initialized biases, whose range is one step). Then on the card:
+    save a checkpoint after step 1, restore it into a fresh model and take
+    step 2; it must equal step 2 of the uninterrupted run."""
+    import copy
+    import tempfile
+
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.core import checkpoint as ckpt
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
+    from v2pe_tpu_torch.train.train_step import loss_fn, make_train_step
+
+    cfg = config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+        rope_pos_id_stride=2)
+    tc = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10,
+                     use_8bit_optimizer=True)
+    base = init_vlm_params(cfg, torch.Generator().manual_seed(21))
+
+    def start(dev):
+        model = copy.deepcopy(base).to(dev).train()
+        opt = build_optimizer(tc, model, cfg)
+        return model, opt, opt.init(), make_train_step(
+            cfg, opt, img_context_token_id=999, remat="full")
+
+    res = {}
+    for dev in devices:
+        batch = small_train_batch(cfg, dev)
+        model = copy.deepcopy(base).to(dev)
+        loss_fn(model, cfg, batch, 999, remat="full").backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        model, _, state, step = start(dev)
+        loss, gnorm = step(model, state, batch)
+        res[dev] = (loss.item(), gnorm.item(), grads, {
+            n: p.detach().cpu() for n, p in model.named_parameters()})
+    (l_c, g_c, d_c, p_c), (l_g, g_g, d_g, p_g) = (res[d] for d in devices)
+    d_loss, d_gn = abs(l_g - l_c) / abs(l_c), abs(g_g - g_c) / abs(g_c)
+    d_grad = _max_rel(d_g, d_c)
+    d_par = max(((p_g[n] - p_c[n]).abs().max() / (
+        1e-4 * p_c[n].abs().max() + 1e-2 * tc.learning_rate)).item()
+        for n in p_c)  # <= 1 passes
+    log(f"reference: small train step fp32 (int8 Adam), card vs CPU: loss "
+        f"{l_g:.6f} vs {l_c:.6f} (rel {d_loss:.2e}), grad_norm {g_g:.6f} vs "
+        f"{g_c:.6f} (rel {d_gn:.2e}), gradients max|d|/range {d_grad:.2e} "
+        f"(tol 1e-4); params max|d| at {d_par:.2f} of the tolerance")
+    if max(d_loss, d_gn, d_grad) > 1e-4 or d_par > 1.0:
+        raise AssertionError("card and CPU train steps disagree")
+
+    batch = small_train_batch(cfg, devices[1])
+    model, _, state, step = start(devices[1])
+    step(model, state, batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt.save_checkpoint(tmp, 1, model, state, data_state={"step": 1},
+                             cfg=cfg)
+        step(model, state, batch)
+        fresh, _, template, step2 = start(devices[1])
+        fresh, restored, at, ds = ckpt.restore_checkpoint(
+            ckpt.latest_checkpoint(tmp), fresh, template)
+        step2(fresh, restored, batch)
+    d = _max_rel(dict(fresh.named_parameters()),
+                 dict(model.named_parameters()))
+    log(f"reference: checkpoint at step {at} (data state {ds}), resumed "
+        f"step 2 vs uninterrupted: params max|d|/range {d:.2e} (tol 1e-6)")
+    if at != 1 or d > 1e-6:
+        raise AssertionError("resumed run disagrees with uninterrupted run")
+
+
+def train_packer(cfg, seed: int = 0):
+    """A PackedSampleIterator over 16 in-memory samples of 1024 tokens with
+    one 448-pixel tile each: every packed row is 8 samples, 8192 tokens
+    and 8 tiles."""
+    from v2pe_tpu_torch import packing
+
+    rng = np.random.default_rng(seed)
+    per = TRAIN_TOKENS // TRAIN_TILES
+    samples = [synthetic_sample(rng, per, 1, cfg.num_image_token, 448)
+               for _ in range(2 * TRAIN_TILES)]
+    return packing.PackedSampleIterator({"synthetic": samples},
+                                        max_tokens=TRAIN_TOKENS,
+                                        max_tiles_per_row=TRAIN_TILES,
+                                        seed=seed,
+                                        img_context_token_id=92546)
+
+
+def train_config():
+    from v2pe_tpu_torch.train.optimizer import TrainConfig
+
+    # the bench recipe: lr 1e-5, warmup 1, int8 Adam
+    return TrainConfig(learning_rate=1e-5, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, use_8bit_optimizer=True)
+
+
+def phase_train(model, cfg) -> dict:
+    """Four steps of InternVL2-2B through trainer.train on 8192 packed
+    tokens and 8 tiles (remat 'full', int8 Adam, lr 1e-5, warmup 1), then
+    one asynchronous checkpoint: per-step loss, grad_norm, time and rate,
+    the median over steps 2-4, peak memory, the save's time and size, and
+    the launches of each step."""
+    import os
+    import tempfile
+
+    from v2pe_tpu_torch.core import checkpoint as ckpt
+    from v2pe_tpu_torch.train.trainer import RunConfig, train
+
+    steps, marks = [], {}
+
+    def hook(step, metrics):
+        counts = read_launches()
+        prev = marks.get("counts", {k: 0 for k in counts})
+        steps.append(dict(metrics, launches={
+            k: counts[k] - prev[k] for k in counts}))
+        marks["counts"] = counts
+        marks["t"] = time.perf_counter()
+
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(output_dir=tmp, max_steps=TRAIN_STEPS,
+                        save_steps=TRAIN_STEPS, log_steps=1,
+                        max_packed_tokens=TRAIN_TOKENS,
+                        max_tiles=TRAIN_TILES)
+        reset_launches()
+        train(cfg, model, train_packer(cfg), run, train_config(),
+              img_context_token_id=92546, remat="full", resume=False,
+              metrics_hook=hook)
+        counts = read_launches()
+        save_s = time.perf_counter() - marks["t"]
+        path = ckpt.latest_checkpoint(tmp)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.eval()
+    for i, m in enumerate(steps):
+        ms = TRAIN_TOKENS / m["tokens_per_sec"] * 1e3
+        log(f"train step {i + 1}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} {ms:.1f} ms {m['tokens_per_sec']:.0f} "
+            f"tok/s; launches {m['launches']}")
+    rates = sorted(m["tokens_per_sec"] for m in steps[1:])
+    med = rates[len(rates) // 2]
+    log(f"train: {TRAIN_STEPS} steps of {TRAIN_TOKENS} tokens x "
+        f"{TRAIN_TILES} tiles (remat full, int8 Adam): median of steps 2-"
+        f"{TRAIN_STEPS} {med:.0f} tok/s = {TRAIN_TOKENS / med * 1e3:.1f} ms "
+        f"a step; peak {peak:.2f} GiB allocated; async save + commit "
+        f"{save_s:.2f}s, {size / 2 ** 30:.2f} GiB at step {path[-8:]}")
+    check_train_steps(cfg, steps, TRAIN_STEPS, "train")
+    return counts
+
+
+def check_train_steps(cfg, steps: list, n: int, where: str) -> None:
+    """n steps, each with a finite loss and grad norm, launching the flash
+    forward twice a layer (remat 'full') and each backward kernel once."""
+    n_layers = cfg.vision.num_hidden_layers + cfg.llm.num_hidden_layers
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dkv": n_layers,
+            "flash_bwd_dq": n_layers}
+    ok = len(steps) == n and all(
+        np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+        and all(m["launches"][k] == v for k, v in want.items())
+        for m in steps)
+    if not ok:
+        raise AssertionError(f"{where} phase: expected finite losses and "
+                             f"{want} launches a step")
+
+
+BENCH_STEPS = 3
+
+
+def bench_recipe(model, cfg):
+    """What bench.py's training bench builds (``bench.py:299-334``), from
+    the port: make_train_step (remat 'full', int8 Adam, lr 1e-5, warmup 1)
+    and make_synthetic_batch's one row of 8192 tokens with 8 tiles at
+    V2PE stride 64. Returns (step, opt_state, batch)."""
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    opt = build_optimizer(train_config(), model, cfg)
+    step = make_train_step(cfg, opt, img_context_token_id=IMG_CONTEXT_ID,
+                           remat="full")
+    batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
+                                 tiles_per_row=TRAIN_TILES, stride=64)
+    dev = next(model.parameters()).device
+    return step, opt.init(), {k: torch.as_tensor(v).to(dev)
+                              for k, v in batch.items()}
+
+
+def phase_bench_recipe(model, cfg) -> dict:
+    """Three steps of the bench recipe (make_train_step called directly,
+    the first step bench.py's compile step): per-step loss, grad_norm,
+    time and launches, and the median rate of steps 2-3."""
+    step, state, batch = bench_recipe(model, cfg)
+    steps = []
+    model.train()
+    reset_launches()
+    for i in range(BENCH_STEPS):
+        before = read_launches()
+        t0 = time.perf_counter()
+        loss, gnorm = step(model, state, batch)
+        loss, gnorm = loss.item(), gnorm.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = read_launches()
+        steps.append(dict(loss=loss, grad_norm=gnorm, ms=ms, launches={
+            k: after[k] - before[k] for k in after}))
+        log(f"bench recipe step {i + 1}: loss {loss:.4f} grad_norm "
+            f"{gnorm:.4f} {ms:.1f} ms {TRAIN_TOKENS / ms * 1e3:.0f} tok/s; "
+            f"launches {steps[-1]['launches']}")
+    counts = read_launches()
+    model.eval()
+    ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
+    log(f"bench recipe: make_train_step on make_synthetic_batch, "
+        f"{TRAIN_TOKENS} tokens x {TRAIN_TILES} tiles in one segment "
+        f"(remat full, int8 Adam): median of steps 2-{BENCH_STEPS} "
+        f"{ms:.1f} ms = {TRAIN_TOKENS / ms * 1e3:.0f} tok/s")
+    check_train_steps(cfg, steps, BENCH_STEPS, "bench recipe")
+    return counts
+
+
+def profile_train(model, cfg) -> None:
+    """``--profile-train``: one full-width step of the bench recipe (a
+    warm step first) under torch.profiler: wall, device time, busy share,
+    kernels launched and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, state, batch = bench_recipe(model, cfg)
+    model.train()
+    step(model, state, batch)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, _ = step(model, state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev = sum(e.self_device_time_total for e in ev) / 1e3
+    log(f"profile train step, {TRAIN_TOKENS} tokens x {TRAIN_TILES} tiles, "
+        f"loss {loss.item():.4f}: wall {wall:.1f} ms, device {dev:.1f} ms "
+        f"({dev / wall:.0%} busy), {sum(e.count for e in ev)} kernels")
+    for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<6}"
+            f" {e.key[:80]}")
+
+
 # ---------------------------------------------------------------- profile
 
 
@@ -1013,6 +1453,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="only profile the 8-tile request's generate (dense, "
                     "paged, int8 pool) with torch.profiler; no result line")
+    ap.add_argument("--profile-train", action="store_true",
+                    help="only profile one full-width train step with "
+                    "torch.profiler; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1035,21 +1478,28 @@ def main(argv=None) -> int:
         f"init in {time.perf_counter() - t0:.2f}s")
     tok = CodePointTokenizer()
     chat = ChatModel(model, cfg, tok)
-    if args.profile:
-        profile_generate(chat, cfg)
+    if args.profile or args.profile_train:
+        if args.profile:
+            profile_generate(chat, cfg)
+        else:
+            profile_train(model, cfg)
         log(card_line())
         return 0
     batch = packed_batch(chat, PACKED_LEN, "cuda")
     prompt_lens = prompt_lengths(chat)
     forms = {"flash_fwd": phase_kernels(prompt_lens, batch),
-             **phase_paged_kernels(prompt_lens)}
+             **phase_bwd_kernels(batch), **phase_paged_kernels(prompt_lens)}
     phase_small_reference()
+    phase_small_train_reference()
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
     phase_packed(chat, cfg, batch)
     # the paged paths, each driven with the launch counts zeroed before it
     paths = [served["counts"], phase_paged_serve(model, cfg, tok, served),
              phase_session(model, cfg, tok), phase_worker(model, cfg, tok)]
+    del chat
+    # last: the training paths update the weights
+    paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg)]
     launches = {k: sum(c[k] for c in paths) for k in forms}
 
     kernels = [dict(

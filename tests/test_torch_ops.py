@@ -48,7 +48,11 @@ def test_port_imports_without_jax():
             "v2pe_tpu_torch.infer.streaming, v2pe_tpu_torch.infer.paged_kv, "
             "v2pe_tpu_torch.infer.chunked_prefill, "
             "v2pe_tpu_torch.infer.session, v2pe_tpu_torch.serve.mm_utils, "
-            "v2pe_tpu_torch.serve.worker\n"
+            "v2pe_tpu_torch.serve.worker, v2pe_tpu_torch.ops.flash_bwd, "
+            "v2pe_tpu_torch.core.checkpoint, v2pe_tpu_torch.train.adam8bit, "
+            "v2pe_tpu_torch.train.optimizer, v2pe_tpu_torch.train.synth, "
+            "v2pe_tpu_torch.train.metrics, v2pe_tpu_torch.train.train_step, "
+            "v2pe_tpu_torch.train.trainer, v2pe_tpu_torch.train.cli\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'PIL', 'transformers', 'tokenizers')]\n"
             "assert not bad, bad")
@@ -56,6 +60,24 @@ def test_port_imports_without_jax():
                           text=True, cwd=str(__import__("pathlib").Path(
                               __file__).resolve().parents[1]))
     assert proc.returncode == 0, proc.stderr
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the JAX package's host code only through the
+    port's re-exports, never by importing ``v2pe_tpu`` itself."""
+    import ast
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "v2pe_tpu_torch" in roots
+    assert not roots & {"v2pe_tpu", "jax"}, sorted(roots)
 
 
 @pytest.mark.parametrize("mode", ["v2pe", "linear", "dynamic_short",

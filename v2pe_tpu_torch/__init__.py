@@ -6,18 +6,19 @@ so each counterpart is found at the same path, and runs on ``torch`` alone:
 it never imports ``jax``.
 
 Host-side code that has no JAX in it (configs, V2PE position ids, chat
-templates, tiling, image transforms) is imported from ``v2pe_tpu`` rather
-than copied; it is re-exported here.
+templates, tiling, image transforms, sample packing) is imported from
+``v2pe_tpu`` rather than copied; it is re-exported here.
 
-The one TPU kernel on the serving path, the Pallas flash-attention forward
-(``v2pe_tpu/ops/flash_pallas.py``), is a hand-written CUDA kernel for
-``sm_90a`` in ``csrc/flash_fwd.cu``, built with ``nvcc`` at first use
-(``ops/_build.py``) and wrapped by ``ops/flash_fwd.py``.
+The TPU kernels on the serving and training paths (the Pallas flash
+forward and backward, the paged-attention kernels) are hand-written CUDA
+kernels for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at first use
+(``ops/_build.py``) and wrapped by ``ops/flash_fwd.py``,
+``ops/flash_bwd.py`` and ``ops/paged_attention.py``.
 """
 
 from v2pe_tpu import positional
 from v2pe_tpu.core import config
-from v2pe_tpu.data import constants, conversation, tiling, transforms
+from v2pe_tpu.data import constants, conversation, packing, tiling, transforms
 
-__all__ = ["config", "constants", "conversation", "positional", "tiling",
-           "transforms"]
+__all__ = ["config", "constants", "conversation", "packing", "positional",
+           "tiling", "transforms"]

@@ -5,12 +5,22 @@ convolution on the card), a prepended CLS token and a learned absolute
 position embedding, bicubic-resized (A = -0.75) to other grids. Pre-norm
 layers with LayerScale, optional QK-RMSNorm over the flattened head dim,
 exact-erf GELU and bidirectional flash attention.
+
+Training: DropPath (stochastic depth) on each residual branch with the
+``linspace(0, drop_path_rate, L)`` schedule, and per-layer remat through
+``torch.utils.checkpoint``. The keep masks are drawn from an explicit
+``torch.Generator`` before the layers run, so a rematerialized layer sees
+the same mask in its recomputation (``checkpoint`` restores the global RNG
+streams, not an explicit generator's).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from v2pe_tpu.core.config import VisionConfig
@@ -130,13 +140,44 @@ def _mlp(p: VisionLayer, x: torch.Tensor) -> torch.Tensor:
     return p.fc2(F.gelu(p.fc1(x), approximate="none"))
 
 
-def layer_forward(p: VisionLayer, cfg: VisionConfig,
-                  x: torch.Tensor) -> torch.Tensor:
-    """Pre-norm + LayerScale residual block (inference: no DropPath)."""
+def drop_path(x: torch.Tensor, keep: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Stochastic depth on a residual branch (timm DropPath semantics):
+    sample b of x is kept, scaled by 1/keep, where ``mask[b]`` is True and
+    zeroed elsewhere. ``keep`` = 1 - rate, a float32 scalar tensor."""
+    m = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    return torch.where(m, x.float() / keep, 0.0).to(x.dtype)
+
+
+def drop_path_masks(cfg: VisionConfig, num_layers: int, batch: int,
+                    generator: torch.Generator, device=None):
+    """(keep (L,) float32, masks (L, 2, batch) bool): the per-layer keep
+    probabilities of the schedule linspace(0, rate, num_hidden_layers) and
+    the Bernoulli(keep) masks of each layer's two branches, drawn from
+    ``generator`` (which must live on ``device``)."""
+    rate = torch.linspace(0.0, cfg.drop_path_rate, cfg.num_hidden_layers,
+                          dtype=torch.float32, device=device)[:num_layers]
+    keep = 1.0 - rate
+    u = torch.rand((num_layers, 2, batch), generator=generator,
+                   device=device)
+    return keep, u < keep[:, None, None]
+
+
+def layer_forward(p: VisionLayer, cfg: VisionConfig, x: torch.Tensor,
+                  keep: Optional[torch.Tensor] = None,
+                  masks: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pre-norm + LayerScale residual block; with ``keep`` and ``masks``
+    (2, B), each residual branch goes through DropPath."""
     h = _norm(cfg, x, p.norm1, getattr(p, "norm1_bias", None))
-    x = x + _attention(p, cfg, h) * p.ls1
+    branch = _attention(p, cfg, h) * p.ls1
+    if masks is not None:
+        branch = drop_path(branch, keep, masks[0])
+    x = x + branch
     h = _norm(cfg, x, p.norm2, getattr(p, "norm2_bias", None))
-    return x + _mlp(p, h) * p.ls2
+    branch = _mlp(p, h) * p.ls2
+    if masks is not None:
+        branch = drop_path(branch, keep, masks[1])
+    return x + branch
 
 
 class InternVisionModel(nn.Module):
@@ -149,15 +190,31 @@ class InternVisionModel(nn.Module):
 
 def vision_forward(model: InternVisionModel, cfg: VisionConfig,
                    pixel_values: torch.Tensor, *,
-                   select_layer: int = -1) -> torch.Tensor:
+                   select_layer: int = -1, remat: bool = False,
+                   drop_path_generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
     """(B, 1 + N, D) hidden states after the selected layer (-1 = last,
-    -4 = three layers early)."""
+    -4 = three layers early).
+
+    remat: checkpoint each layer (its input is the only residual).
+    drop_path_generator: during training, enables DropPath when
+    ``cfg.drop_path_rate > 0``; None keeps the layers deterministic."""
     x = embeddings_forward(model.embeddings, cfg, pixel_values)
     num_layers = cfg.num_hidden_layers
     if select_layer != -1:
         num_layers = num_layers + 1 + select_layer
         if not 0 < num_layers <= cfg.num_hidden_layers:
             raise ValueError(f"select_layer {select_layer} out of range")
-    for layer in model.layers[:num_layers]:
-        x = layer_forward(layer, cfg, x)
+    keep = masks = None
+    if drop_path_generator is not None and cfg.drop_path_rate > 0.0:
+        keep, masks = drop_path_masks(cfg, num_layers, x.shape[0],
+                                      drop_path_generator, x.device)
+    remat = remat and torch.is_grad_enabled()
+    for i, layer in enumerate(model.layers[:num_layers]):
+        dp = () if masks is None else (keep[i], masks[i])
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                layer_forward, layer, cfg, x, *dp, use_reentrant=False)
+        else:
+            x = layer_forward(layer, cfg, x, *dp)
     return x

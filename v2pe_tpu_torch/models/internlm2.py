@@ -20,6 +20,13 @@ separately, then they are scattered into the pages. A longer prompt attends
 to itself through the flash kernel (and, in chunked prefill, also to the
 cached pages through the paged prefill kernel, merged by logsumexp), then
 is scattered into the pages layer by layer.
+
+Training (no cache, ``remat`` set) checkpoints with ``torch.utils.checkpoint``
+as the JAX scan does with ``jax.checkpoint``: ``full`` per layer, ``block2``
+/ ``block4`` per block of 2 / 4 layers (per layer when the depth is not a
+multiple, as the JAX code falls back), ``attn_saved`` only the SwiGLU block
+(the attention's residuals stay and its backward recomputes nothing),
+``none`` nothing.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from v2pe_tpu.core.config import LLMConfig
@@ -239,16 +247,61 @@ def mlp_forward(p: LLMLayer, x: torch.Tensor) -> torch.Tensor:
     return p.w2(F.silu(p.w1(x)) * p.w3(x))
 
 
+def _mlp_block(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
+    return x + mlp_forward(p, rms_norm(x, p.ffn_norm, cfg.rms_norm_eps))
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+
 def layer_forward(p: LLMLayer, cfg: LLMConfig, x, cos, sin, *, segment_ids,
                   positions, kv_cache_layer=None, cache_length: int = 0,
-                  kv_valid=None, rope_pack=None, paged=None) -> torch.Tensor:
+                  kv_valid=None, rope_pack=None, paged=None,
+                  mlp_remat: bool = False) -> torch.Tensor:
+    """One decoder layer. ``mlp_remat`` (remat='attn_saved'): only the
+    SwiGLU block is checkpointed."""
     h = rms_norm(x, p.attention_norm, cfg.rms_norm_eps)
     x = x + attention_forward(
         p, cfg, h, cos, sin, segment_ids=segment_ids, positions=positions,
         kv_cache_layer=kv_cache_layer, cache_length=cache_length,
         kv_valid=kv_valid, rope_pack=rope_pack, paged=paged)
-    h = rms_norm(x, p.ffn_norm, cfg.rms_norm_eps)
-    return x + mlp_forward(p, h)
+    if mlp_remat:
+        return _checkpoint(_mlp_block, p, cfg, x)
+    return _mlp_block(p, cfg, x)
+
+
+def _train_layers(layers, cfg: LLMConfig, x, cos, sin, remat, **kw):
+    """The no-cache layer stack under a remat mode (True = 'full', False or
+    None = 'none', 'block2', 'block4', 'attn_saved')."""
+    mode = {True: "full", False: "none", None: "none"}.get(remat, remat)
+    if mode not in ("full", "none", "attn_saved", "block2", "block4"):
+        raise ValueError(f"unknown remat mode {remat!r}")
+    if not torch.is_grad_enabled():
+        mode = "none"  # nothing to rematerialize without a backward
+
+    def run_layer(layer, x):
+        return layer_forward(layer, cfg, x, cos, sin,
+                             mlp_remat=mode == "attn_saved", **kw)
+
+    def run_block(x, *block):
+        for layer in block:
+            x = run_layer(layer, x)
+        return x
+
+    L = len(layers)
+    blk = int(mode[5:]) if mode.startswith("block") else 1
+    if blk > 1 and L % blk == 0:
+        for i in range(0, L, blk):
+            x = _checkpoint(run_block, x, *layers[i:i + blk])
+        return x
+    # 'full', and a block mode whose block does not divide the depth (the
+    # JAX code's fallback to per-layer remat, kept as it is)
+    per_layer = mode == "full" or blk > 1
+    for layer in layers:
+        x = _checkpoint(run_layer, layer, x) if per_layer \
+            else run_layer(layer, x)
+    return x
 
 
 def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
@@ -261,6 +314,7 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
                 kv_valid: Optional[torch.Tensor] = None,
                 paged_cache: Optional[paged_kv.PagedKVCache] = None,
                 paged_attend_cache: bool = False,
+                remat=False,
                 return_hidden: bool = False):
     """Returns (fp32 logits (B, S, V) or the final hidden states, the cache
     advanced by S when a dense one was passed, or the paged cache with its
@@ -271,7 +325,8 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
     segment_ids (B, S) separate packed sequences (no-cache path) or mark
     right-padding (0) of a paged prompt. paged_attend_cache: a chunk of
     more than 16 tokens also attends over the cached pages (chunked
-    prefill)."""
+    prefill). remat: the training remat mode of the no-cache path (see the
+    module docstring)."""
     if inputs_embeds is None:
         inputs_embeds = model.tok_embeddings(input_ids)
     x = inputs_embeds
@@ -305,15 +360,21 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
             slots = paged_kv.token_slots(
                 paged_cache, S,
                 None if segment_ids is None else segment_ids != 0)
-    for li, layer in enumerate(model.layers):
-        kv_layer = None if kv_cache is None else (kv_cache.k[li],
-                                                 kv_cache.v[li])
-        paged = None if paged_cache is None else \
-            PagedStep(paged_cache, li, slot_base, slots, paged_attend_cache)
-        x = layer_forward(layer, cfg, x, cos, sin, segment_ids=segment_ids,
-                          positions=positions, kv_cache_layer=kv_layer,
-                          cache_length=base, kv_valid=kv_valid,
-                          rope_pack=rope_pack, paged=paged)
+    if kv_cache is None and paged_cache is None:
+        x = _train_layers(model.layers, cfg, x, cos, sin, remat,
+                          segment_ids=segment_ids, positions=positions,
+                          rope_pack=rope_pack)
+    else:
+        for li, layer in enumerate(model.layers):
+            kv_layer = None if kv_cache is None else (kv_cache.k[li],
+                                                     kv_cache.v[li])
+            paged = None if paged_cache is None else PagedStep(
+                paged_cache, li, slot_base, slots, paged_attend_cache)
+            x = layer_forward(layer, cfg, x, cos, sin,
+                              segment_ids=segment_ids, positions=positions,
+                              kv_cache_layer=kv_layer, cache_length=base,
+                              kv_valid=kv_valid, rope_pack=rope_pack,
+                              paged=paged)
     new_cache = paged_cache if kv_cache is None else \
         dataclasses.replace(kv_cache, length=base + S)
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)

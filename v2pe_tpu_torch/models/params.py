@@ -8,10 +8,11 @@ and ``nn.Linear`` weights as (out, in).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from v2pe_tpu.core.config import VLMConfig
 from v2pe_tpu_torch.models.internvl_chat import InternVLChatModel
@@ -48,45 +49,56 @@ def init_vlm_params(cfg: VLMConfig, generator: torch.Generator,
     return model
 
 
-def _jax_state_dict(tree: dict, cfg: VLMConfig) -> dict:
-    """The JAX tree's arrays under the port's parameter names."""
-    T = np.transpose
+class JaxLeaf(NamedTuple):
+    """Where a port parameter lives in the JAX tree: the leaf's path, the
+    index on its stacked (L, ...) axis (None for a leaf that is not
+    stacked), and whether the port holds it transposed (an ``nn.Linear``
+    weight (out, in) against a JAX kernel (in, out))."""
+
+    path: Tuple[str, ...]
+    layer: Optional[int]
+    transposed: bool
+
+
+def jax_leaf_map(cfg: VLMConfig) -> Dict[str, JaxLeaf]:
+    """Port parameter name -> its JAX leaf, for every parameter of the
+    port's model. Linear weights map to ``<name>_kernel``, their biases to
+    ``<name>_bias``, an embedding table to the module's name; ``layers.<i>``
+    becomes index i of the stacked leaf."""
+    with torch.device("meta"):
+        model = InternVLChatModel(cfg)
+    modules = dict(model.named_modules())
     out = {}
-    ve, vl = tree["vision"]["embeddings"], tree["vision"]["layers"]
-    out["vision.embeddings.class_embedding"] = ve["class_embedding"]
-    out["vision.embeddings.patch.weight"] = T(ve["patch_kernel"])
-    out["vision.embeddings.patch.bias"] = ve["patch_bias"]
-    out["vision.embeddings.position_embedding"] = ve["position_embedding"]
-    for i in range(cfg.vision.num_hidden_layers):
-        pre = f"vision.layers.{i}."
-        for n in ("norm1", "norm2", "norm1_bias", "norm2_bias", "ls1", "ls2",
-                  "q_norm", "k_norm"):
-            if n in vl:
-                out[pre + n] = vl[n][i]
-        for n in ("qkv", "proj", "fc1", "fc2"):
-            out[pre + n + ".weight"] = T(vl[n + "_kernel"][i])
-            if n + "_bias" in vl:
-                out[pre + n + ".bias"] = vl[n + "_bias"][i]
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        layer = None
+        if "layers" in parts:
+            at = parts.index("layers")
+            layer = int(parts.pop(at + 1))
+        owner = modules[name.rsplit(".", 1)[0]]
+        transposed = False
+        if isinstance(owner, nn.Linear):
+            leaf = parts.pop(-1)
+            transposed = leaf == "weight"
+            parts[-1] += "_kernel" if transposed else "_bias"
+        elif isinstance(owner, nn.Embedding):
+            parts.pop(-1)
+        out[name] = JaxLeaf(tuple(parts), layer, transposed)
+    return out
 
-    llm, ll = tree["llm"], tree["llm"]["layers"]
-    out["llm.tok_embeddings.weight"] = llm["tok_embeddings"]
-    out["llm.norm"] = llm["norm"]
-    out["llm.output.weight"] = T(llm["output_kernel"])
-    for i in range(cfg.llm.num_hidden_layers):
-        pre = f"llm.layers.{i}."
-        out[pre + "attention_norm"] = ll["attention_norm"][i]
-        out[pre + "ffn_norm"] = ll["ffn_norm"][i]
-        for n in ("wqkv", "wo", "w1", "w3", "w2"):
-            out[pre + n + ".weight"] = T(ll[n + "_kernel"][i])
-            if n + "_bias" in ll:
-                out[pre + n + ".bias"] = ll[n + "_bias"][i]
 
-    m = tree["mlp1"]
-    out["mlp1.ln_weight"] = m["ln_weight"]
-    out["mlp1.ln_bias"] = m["ln_bias"]
-    for n in ("fc1", "fc2"):
-        out[f"mlp1.{n}.weight"] = T(m[n + "_kernel"])
-        out[f"mlp1.{n}.bias"] = m[n + "_bias"]
+def _jax_state_dict(tree: dict, cfg: VLMConfig) -> dict:
+    """The arrays of a tree shaped like the JAX parameters (the parameters,
+    their gradients, optimizer moments) under the port's names and in its
+    layouts."""
+    out = {}
+    for name, (path, layer, transposed) in jax_leaf_map(cfg).items():
+        a = tree
+        for key in path:
+            a = a[key]
+        if layer is not None:
+            a = a[layer]
+        out[name] = np.transpose(a) if transposed else a
     return out
 
 

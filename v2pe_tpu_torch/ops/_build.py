@@ -113,6 +113,19 @@ def load() -> ctypes.CDLL:
             p,                  # cudaStream_t
         ]
         lib.v2pe_flash_fwd.restype = ctypes.c_int
+        bwd_in = [
+            p, p, p, p,         # q, k, v, do
+            p, p,               # lse, di
+            p, p, p, p,         # seg_q, seg_k, pos_q, pos_k
+        ]
+        bwd_dims = [
+            i, i, i, i, i, i,   # B, Sq, Sk, Hq, Hkv, D
+            i, i,               # is_bf16, causal
+            ctypes.c_float,     # scale
+            p,                  # cudaStream_t
+        ]
+        lib.v2pe_flash_bwd_dkv.argtypes = bwd_in + [p, p] + bwd_dims  # dk, dv
+        lib.v2pe_flash_bwd_dq.argtypes = bwd_in + [p] + bwd_dims      # dq
         lib.v2pe_paged_store.argtypes = [
             p, p,               # k_new, v_new
             p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
@@ -142,7 +155,8 @@ def load() -> ctypes.CDLL:
             ctypes.c_float,     # scale
             p,                  # cudaStream_t
         ]
-        for fn in (lib.v2pe_paged_store, lib.v2pe_paged_decode,
+        for fn in (lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq,
+                   lib.v2pe_paged_store, lib.v2pe_paged_decode,
                    lib.v2pe_paged_prefill):
             fn.restype = ctypes.c_int
         _lib = lib

@@ -1,12 +1,14 @@
-"""Segment-aware flash attention (forward), port of
-``v2pe_tpu/ops/attention.py``'s ``flash_attention`` and
+"""Segment-aware flash attention, port of ``v2pe_tpu/ops/attention.py``'s
+``flash_attention`` (with its ``custom_vjp``) and
 ``flash_attention_with_lse``.
 
 Routing as in the JAX package: a query block of at most 16 tokens over a
 longer key sequence (decode) goes to the grouped einsum of
-``attention_reference``; everything else goes to the flash kernel
-(``ops/flash_fwd.py``: the CUDA kernel on the card, its twin on the CPU).
-No autograd yet: the backward kernels come with training.
+``attention_reference`` (plain autograd); everything else goes to the flash
+kernel (``ops/flash_fwd.py``: the CUDA kernel on the card, its twin on the
+CPU) inside :class:`_Flash`, whose backward is the flash backward
+(``ops/flash_bwd.py``): when a gradient is needed it saves the
+pre-rotation q and k, the ids, out and lse, as ``_flash_fwd`` does.
 
 Layout: q (B, Sq, Hq, D); k/v (B, Sk, Hkv, D); segment ids (B, S) int32 with
 0 = padding; positions (B, S) int32.
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from v2pe_tpu_torch.ops.attention_ref import attention_reference
+from v2pe_tpu_torch.ops.flash_bwd import flash_attention_bwd
 from v2pe_tpu_torch.ops.flash_fwd import _apply_rope, flash_attention_fwd
 
 
@@ -32,6 +35,33 @@ def _ones(B: int, S: int, device) -> torch.Tensor:
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
+
+
+class _Flash(torch.autograd.Function):
+    """Counterpart of ``_flash`` / ``_flash_fwd`` / ``_flash_bwd``: the
+    forward kernel, then the backward kernels on its residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_k, pos_q, pos_k, rope_q, rope_k,
+                causal: bool, scale: float, theta: float):
+        out, lse = flash_attention_fwd(
+            q, k, v, seg_q, seg_k, pos_q, pos_k, causal=causal, scale=scale,
+            rope_q=rope_q, rope_k=rope_k, rope_theta=theta)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, pos_q, pos_k, rope_q,
+                              rope_k, out, lse)
+        ctx.statics = (causal, scale, theta)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_k, pos_q, pos_k, rope_q, rope_k, out, lse = \
+            ctx.saved_tensors
+        causal, scale, theta = ctx.statics
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse,
+            do.to(q.dtype).contiguous(), causal=causal, scale=scale,
+            rope_q=rope_q, rope_k=rope_k, rope_theta=theta)
+        return (dq, dk, dv) + (None,) * 9
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,12 +109,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kv_segment_ids=kv_segment_ids, causal=causal, scale=scale,
             q_positions=q_positions, kv_positions=kv_positions)
 
-    out, _ = flash_attention_fwd(
+    return _Flash.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_segment_ids),
-        _i32(kv_segment_ids), _i32(q_positions), _i32(kv_positions),
-        causal=causal, scale=float(scale), rope_q=rope_q, rope_k=rope_k,
-        rope_theta=float(theta))
-    return out
+        _i32(kv_segment_ids), _i32(q_positions), _i32(kv_positions), rope_q,
+        rope_k, causal, float(scale), float(theta))
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -95,7 +123,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              scale: Optional[float] = None):
     """Forward flash attention returning (out, lse (B, Hq, Sq) fp32), with
     arange positions — what a logsumexp merge of two partial attentions
-    needs."""
+    needs. Forward only, as in JAX."""
     B, Sq, Hq, D = q.shape
     Sk = k.shape[1]
     if scale is None:

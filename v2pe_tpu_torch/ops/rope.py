@@ -45,6 +45,17 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor,
     return (xf * cos + _rotate_half(xf) * sin).to(x.dtype)
 
 
+def rope_transpose(g: torch.Tensor, rope: torch.Tensor,
+                   theta: Base) -> torch.Tensor:
+    """Rᵀ for the rotation R = cos·I + sin·rot_half (rot_halfᵀ = -rot_half):
+    maps a gradient with respect to rotated (B, S, H, D) states back to the
+    states before rotation, in fp32, returned in g's dtype."""
+    cos, sin = compute_rope_cos_sin(rope, g.shape[-1], theta)
+    cos, sin = cos[..., None, :], sin[..., None, :]
+    gf = g.float()
+    return (gf * cos - _rotate_half(gf) * sin).to(g.dtype)
+
+
 def scale_positions(pos_ids: torch.Tensor, head_dim: int, base: float, *,
                     mode: str = "v2pe", scaling_factor: float = 1.0,
                     max_position_embeddings: int = 32768,
