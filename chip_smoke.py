@@ -36,15 +36,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
  10. bench recipe: make_train_step called directly, as bench.py's
      training bench does, on the port's make_synthetic_batch (8192
      tokens, 8 tiles, stride 64): three steps, the same launch counts.
-Phase 2 also holds the two flash-backward kernels against their twin at
+     Phase 11, quantized serve: the three requests through
+     ChatModel(weights_dtype="int8") and "int4" on the dense cache and
+     int8 weights over the paged cache with an int8 pool: every LLM product
+     and the vocab head through the quantized kernels (5 x 24 stacked
+     launches and 1 head launch a forward, none of the other width), TTFT
+     and decode rate, stream equal to generate, first-token logits against
+     the bf16 model's. It runs before the training phases.
+Phase 2 also holds the four quantized-product kernels against their plain
+versions (the head at M = 1 and 3, each layer product at M = 3, wqkv and
+w2 at the 2167-row prefill; bf16 and fp32 x) and the two flash-backward kernels against their twin at
 the training path's forms (the 8192-token packed LLM, 8 ViT tiles, a
 ragged fp32 form). A small fp32 model on the card against the same model
 on the CPU (the kernels against their twins: a packed forward, then the
 paged path with identical tokens, then one train step and a checkpoint
-resume) runs after phase 2. Phases 3 and 6-10 each zero the kernels' launch
+resume; then 2-layer int8 and int4 models) runs after phase 2. Phases 3 and
+6-11 each zero the kernels' launch
 counts before they start and read them after, and fail if a kernel of
-their path was not launched. The kernel table prints as one JSON line,
-then the card line, then the last line {"ok": true, "device": {...}}.
+their path was not launched. The kernel table prints as one JSON line:
+per kernel the launches of the driven paths and, at its main form, the
+error, the kernel's and the plain version's time, the bound (the larger of
+bytes moved once at 3.35 TB/s and operations at the peak of their type)
+and the time of one PyTorch library call where one computes the same
+function (timed here, used nowhere in the port); the other forms' numbers
+are on their ``kernel ...`` lines.
+Then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
 the pixels come from numpy and the text from a code-point tokenizer.
@@ -53,6 +69,7 @@ the pixels come from numpy and the text from a code-point tokenizer.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -72,6 +89,10 @@ KERNEL_SOURCES = {
     "paged_store": "v2pe_tpu_torch/csrc/paged_attention.cu",
     "paged_decode": "v2pe_tpu_torch/csrc/paged_attention.cu",
     "paged_prefill": "v2pe_tpu_torch/csrc/paged_attention.cu",
+    "qdot": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
+    "qdot_stacked": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
+    "q4dot": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
+    "q4dot_stacked": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
 }
 KERNEL_REPLACES = {  # the Pallas kernel bodies
     "flash_fwd": "v2pe_tpu/ops/flash_pallas.py:68",
@@ -80,7 +101,15 @@ KERNEL_REPLACES = {  # the Pallas kernel bodies
     "paged_store": "v2pe_tpu/ops/paged_attention.py:58",
     "paged_decode": "v2pe_tpu/ops/paged_attention.py:187",
     "paged_prefill": "v2pe_tpu/ops/paged_attention.py:433",
+    "qdot": "v2pe_tpu/ops/quantized_matmul.py:245",
+    "qdot_stacked": "v2pe_tpu/ops/quantized_matmul.py:297",
+    "q4dot": "v2pe_tpu/ops/quantized_matmul.py:405",
+    "q4dot_stacked": "v2pe_tpu/ops/quantized_matmul.py:437",
 }
+# the card's published peaks (H100 SXM, dense): device memory, and the
+# rate of the operands' type (fp32 runs outside the tensor cores)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 MAX_NEW = 32
 PACKED_LEN = 8192
 REQUESTS = [  # (image tiles, question) of the served requests
@@ -101,11 +130,19 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def time_ms(fn, iters: int = 5) -> float:
+def time_ms(fn, iters: int = 5, behind_spin: bool = True) -> float:
+    """Time of one call of ``fn`` between two CUDA events around ``iters``
+    calls, after a warm call. ``behind_spin``: the card first spins for
+    about 20 ms while the host enqueues the calls, which then run back to
+    back: the device's time, with the host out of the way (a short kernel's
+    wrapper costs the host more than the kernel costs the card). Without
+    it, calls run as the host issues them."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if behind_spin:
+        torch.cuda._sleep(40_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -114,13 +151,28 @@ def time_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roof(nbytes: float, flops: float, dtype=torch.bfloat16) -> dict:
+    """The least time the card could take: every input byte read and every
+    output byte written once at the memory's peak rate, or the operations at
+    the peak rate of their type, whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_flops),
+                bound_by="bytes" if t_bytes >= t_flops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def reset_launches() -> None:
     """Zero every kernel's launch count (just before a path is driven)."""
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
 
     flash_fwd.LAUNCHES = 0
-    for counts in (pa.LAUNCHES, flash_bwd.LAUNCHES):
+    for counts in (pa.LAUNCHES, flash_bwd.LAUNCHES, qm.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -129,10 +181,11 @@ def read_launches() -> dict:
     """Every kernel's launch count (just after a path was driven)."""
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
 
     torch.cuda.synchronize()
     return {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES,
-            **pa.LAUNCHES}
+            **pa.LAUNCHES, **qm.LAUNCHES}
 
 
 def require(counts: dict, names, where: str) -> None:
@@ -214,8 +267,55 @@ def kernel_forms(device, prompt_lens, packed: dict):
     return forms
 
 
+def attended_pairs(seg_q, seg_k, pos_q, pos_k, causal: bool) -> int:
+    """The (query, key) pairs of one head that the masks let through (equal
+    nonzero segments, and under ``causal`` key position <= query
+    position), summed over the rows: what this input's attention has to
+    compute."""
+    total = 0
+    for b in range(seg_q.shape[0]):
+        for q0 in range(0, seg_q.shape[1], 2048):
+            sq = seg_q[b, q0:q0 + 2048, None]
+            ok = (sq == seg_k[b][None]) & (sq != 0)
+            if causal:
+                ok &= pos_k[b][None] <= pos_q[b, q0:q0 + 2048, None]
+            total += int(ok.sum())
+    return total
+
+
+def attention_roof(q, k, v, pairs: int, products: int, *moved) -> dict:
+    """Bound of an attention kernel that runs ``products`` matrix products
+    (2 * D operations each) per attended pair and query head, and reads or
+    writes q, k, v and ``moved`` once."""
+    Hq, D = q.shape[2], q.shape[3]
+    return roof(nbytes(q, k, v, *moved), 2.0 * D * products * pairs * Hq,
+                q.dtype)
+
+
+def sdpa(q, k, v, causal: bool, scale: float):
+    """One library call for the forms it can express: no padding, one
+    segment, keys in order (with ``causal``, query i sees keys <= i)."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=causal, scale=scale,
+        enable_gqa=q.shape[2] != k.shape[2]).transpose(1, 2)
+
+
+def library_ms(fn, iters: int = 5):
+    """Time of a library call kept for the record; None (and a line that
+    says why) when this installation refuses the call."""
+    try:
+        return time_ms(fn, iters=iters)
+    except RuntimeError as e:  # the record only: nothing on the path calls it
+        log(f"    library call refused: {e}")
+        return None
+
+
 def phase_kernels(prompt_lens, packed: dict) -> list:
-    """Kernel against twin at every form; returns per-form records."""
+    """Kernel against twin at every form; returns per-form records. The
+    main form is the 8-tile request's dense prefill."""
     from v2pe_tpu_torch.ops import flash_fwd
 
     device = torch.device("cuda")
@@ -232,14 +332,26 @@ def phase_kernels(prompt_lens, packed: dict) -> list:
         ms = time_ms(lambda: flash_fwd.flash_attention_fwd(*args, **kw))
         plain_ms = time_ms(
             lambda: flash_fwd.flash_attention_fwd_torch(*args, **kw))
+        q, k, v, seg_q, seg_k, pos_q, pos_k = args
+        bound = attention_roof(
+            q, k, v, attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"]),
+            2, out, lse)
+        lib = None
+        if name.startswith(("vit_tiles", "dense_prefill")):
+            lib = library_ms(lambda: sdpa(q, k, v, kw["causal"], kw["scale"]))
         log(f"kernel {name}: max|out-twin| {err_out:.3e} (tol {tol['out']})"
             f" max|lse-twin| {err_lse:.3e} (tol {tol['lse']}) "
-            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound "
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']}, library "
+            f"(scaled_dot_product_attention) "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}")
         if not (torch.isfinite(out).all() and err_out <= tol["out"]
                 and err_lse <= tol["lse"]):
             raise AssertionError(f"kernel disagrees with twin at {name}")
         records.append(dict(form=name, max_abs_err=max(err_out, err_lse),
-                            ms=ms, plain_ms=plain_ms))
+                            ms=ms, plain_ms=plain_ms, **bound, library_ms=lib,
+                            main=name == f"dense_prefill_{prompt_lens[0]}x"
+                            f"{prompt_lens[0] + MAX_NEW}_bf16"))
     return records
 
 
@@ -381,9 +493,37 @@ def _store_error(fn, twin, kw: dict) -> float:
                for n in kw if n.endswith(("pages", "scales")))
 
 
+def paged_roof(kernel: str, kw: dict) -> dict:
+    """Bound of a paged kernel at one form. The store reads the fresh k/v
+    and writes one slot per row and kv head (and its scale); decode and
+    prefill read every cached slot they attend to once (values, and scales
+    of an int8 pool), the queries and the fresh k/v, write out and lse, and
+    run two products per (query, slot) pair and query head."""
+    pool = kw["k_pages"]
+    Hkv, D = pool.shape[1], pool.shape[4]
+    int8 = kw.get("k_scales") is not None
+    slot = 2 * Hkv * (D * pool.element_size() + (4 if int8 else 0))  # k + v
+    fresh = nbytes(kw.get("k_new"), kw.get("v_new"))
+    lengths = kw["lengths"]
+    if kernel == "paged_store":
+        return roof(fresh + lengths.numel() * slot + nbytes(lengths), 0)
+    q = kw["q"]
+    B, T, Hq, _ = q.shape
+    slots = int(lengths.sum()) + (B * T if kw.get("fresh_in_pages") else 0)
+    out = q.numel() * q.element_size() + B * Hq * T * 4  # out and lse
+    # causal among the fresh tokens: T (T + 1) / 2 more pairs where they are
+    # folded in separately
+    pairs = T * int(lengths.sum()) + (
+        B * T * (T + 1) // 2 if kernel == "paged_decode" else 0)
+    return roof(slots * slot + fresh + nbytes(q, lengths) + out,
+                4.0 * D * Hq * pairs, q.dtype)
+
+
 def phase_paged_kernels(prompt_lens) -> dict:
     """Each paged kernel against its twin at every form; returns per-kernel
-    lists of form records."""
+    lists of form records. No library call computes these functions over a
+    page table. Main forms: the served rows' store and decode and the
+    2048-token chunk, bf16 pools."""
     device = torch.device("cuda")
     records = {"paged_store": [], "paged_decode": [], "paged_prefill": []}
     for kernel, name, fn, kw in paged_forms(device, prompt_lens):
@@ -409,11 +549,18 @@ def phase_paged_kernels(prompt_lens) -> dict:
             err = max(err, err_lse)
         ms = time_ms(lambda: fn(**kw), iters=3)
         plain_ms = time_ms(lambda: twin(**kw), iters=3)
-        log(f"kernel {name}: {msg} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+        bound = paged_roof(kernel, kw)
+        log(f"kernel {name}: {msg} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms"
+            f", bound {bound['bound_ms']:.5f} ms by {bound['bound_by']}, "
+            f"library none")
         if not ok:
             raise AssertionError(f"{kernel} disagrees with twin at {name}")
-        records[kernel].append(dict(form=name, max_abs_err=err, ms=ms,
-                                    plain_ms=plain_ms))
+        records[kernel].append(dict(
+            form=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+            library_ms=None, main=name in (
+                "store_B3_ps128_bf16", "prefill_2048_over_32k_ps512_bf16")
+            or name.startswith("decode_fresh_in_pages")
+            and name.endswith("bf16")))
         del kw
     torch.cuda.empty_cache()
     return records
@@ -540,9 +687,10 @@ def phase_serve(chat, cfg) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def phase_stream(chat, cfg, served: dict, cache_mode: str = "dense") -> None:
+def phase_stream(chat, cfg, served: dict, cache_mode: str = "dense",
+                 kv_dtype=None) -> None:
     """stream_generate's tokens against generate's (``served["tokens"]``)
-    for the same request and cache mode."""
+    for the same request, cache mode and pool dtype."""
     from v2pe_tpu_torch.infer.streaming import stream_generate
 
     stop = set(served["gc"].eos_token_ids)
@@ -550,14 +698,17 @@ def phase_stream(chat, cfg, served: dict, cache_mode: str = "dense") -> None:
         chat.model, cfg, served["gc"], served["ids"][None],
         served["pos"][None], served["pixels"],
         np.ones(len(served["pixels"]), np.int32),
-        chat.img_context_token_id, chunk=8, cache_mode=cache_mode))
+        chat.img_context_token_id, chunk=8, cache_mode=cache_mode,
+        kv_dtype=kv_dtype))
     streamed = [int(t) for c in chunks for t in c]
     generated = [int(t) for t in served["tokens"]]
     while generated and generated[-1] in stop:
         generated.pop()
     while streamed and streamed[-1] in stop:
         streamed.pop()
-    log(f"stream ({cache_mode}): {len(chunks)} chunks, {len(streamed)} "
+    log(f"stream ({cache_mode}{', ' + kv_dtype + ' pool' if kv_dtype else ''}"
+        f"{', ' + chat.weights_dtype + ' weights' if chat.weights_dtype else ''}"
+        f"): {len(chunks)} chunks, {len(streamed)} "
         f"tokens, equal to generate: {streamed == generated}")
     if streamed != generated:
         raise AssertionError(f"stream {streamed} != generate {generated}")
@@ -752,7 +903,7 @@ def first_logits(chat, cfg, ids, pos, pixels, tokens, cache_mode: str,
         hidden, cache = run(inputs_embeds=x, return_hidden=True,
                             rope_pos_ids=torch.as_tensor(pos[None],
                                                          device=dev))
-        out = [internlm2.head_logits(hidden[:, -1], llm.output.weight)]
+        out = [internlm2.head_logits(hidden[:, -1], llm.output)]
         if paged:
             cache = dataclasses.replace(cache, lengths=torch.tensor(
                 [S], dtype=torch.int32, device=dev))
@@ -1043,10 +1194,27 @@ def device_ms_by_kernel(fn, names) -> dict:
             for n in names}
 
 
+def sdpa_backward_ms(q, k, v, do, causal: bool, scale: float):
+    """The library's backward of the same attention (dq, dk and dv in one
+    call, so it stands beside both kernels): the forward runs once, outside
+    the timing."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    try:
+        out = sdpa(*leaves, causal, scale)
+    except RuntimeError as e:  # the record only: nothing on the path calls it
+        log(f"    library call refused: {e}")
+        return None
+    return library_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), iters=3)
+
+
 def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
     """dkv and dq against the twin at every backward form; out and lse come
     from the forward kernel. Returns per-kernel lists of form records: each
-    kernel's device time, and the twin's time for the whole backward."""
+    kernel's device time, and the twin's time for the whole backward. dkv
+    runs four products per attended pair (scores, dP, dV, dK), dq three;
+    each reads q, k, v, do, lse and di and writes its gradients. The main
+    form is the ViT's, the one a library call expresses."""
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
 
     records = {n: [] for n in BWD_KERNELS}
@@ -1070,11 +1238,26 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
             [n + "_kernel" for n in BWD_KERNELS])
         plain_ms = time_ms(
             lambda: flash_bwd.flash_attention_bwd_torch(*full, **kw), iters=3)
+        q, k, v, seg_q, seg_k, pos_q, pos_k = args
+        pairs = attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"])
+        di = lse  # (B, Hq, Sq) fp32, like lse
+        bounds = {
+            "flash_bwd_dkv": attention_roof(q, k, v, pairs, 4, do, lse, di,
+                                            got[1], got[2]),
+            "flash_bwd_dq": attention_roof(q, k, v, pairs, 3, do, lse, di,
+                                           got[0])}
+        lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"]) \
+            if name.startswith("vit_tiles") and device == "cuda" else None
         log(f"kernel bwd {name}: max|d-twin|/max|twin| dq {rels[0]:.3e} "
             f"dk {rels[1]:.3e} dv {rels[2]:.3e} (tol {tol:.3e}); dkv "
             f"{split['flash_bwd_dkv_kernel']:.3f} ms + dq "
             f"{split['flash_bwd_dq_kernel']:.3f} ms on the device, wrapper "
-            f"{ms:.3f} ms, twin {plain_ms:.3f} ms")
+            f"{ms:.3f} ms, twin {plain_ms:.3f} ms; bound dkv "
+            f"{bounds['flash_bwd_dkv']['bound_ms']:.4f} ms + dq "
+            f"{bounds['flash_bwd_dq']['bound_ms']:.4f} ms by "
+            f"{bounds['flash_bwd_dq']['bound_by']}; library (the backward "
+            f"of scaled_dot_product_attention, dq, dk and dv together) "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}")
         ok = all(torch.isfinite(t).all() for t in got) and max(rels) <= tol
         if not ok:
             raise AssertionError(f"flash backward disagrees with twin at "
@@ -1083,10 +1266,296 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
             records[n].append(dict(form=name, max_abs_err=max(errs),
                                    max_rel_err=max(rels),
                                    ms=split[n + "_kernel"],
-                                   plain_ms=plain_ms))
+                                   plain_ms=plain_ms, **bounds[n],
+                                   library_ms=lib,
+                                   main=name.startswith("vit_tiles")))
         del got, want, full, up
     torch.cuda.empty_cache()
     return records
+
+
+# ---------------------------------------------- phase 2d: quantized products
+
+
+QDOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # max |kernel -
+# plain| / max |plain| by the output's dtype: both multiply the same
+# bf16-exact operands and sum in fp32 in another order (1e-5); a bf16
+# output may then round to the neighbouring value (one step, 2^-8 of it)
+QDOT_KERNELS = ("qdot", "qdot_stacked", "q4dot", "q4dot_stacked")
+PREFILL_ROWS = 2167  # the 8-tile request's prompt
+
+
+def _random_weight(bits: int, shape, g, device):
+    """A quantized weight of random codes and scales (stacked when shape has
+    a leading L), in the layouts ``quantize_weight*`` produce."""
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
+
+    w = qm.empty_weight(bits, shape, device=device)
+    if bits == 8:
+        w.q.copy_(torch.randint(-127, 128, w.q.shape, generator=g,
+                                device=device, dtype=torch.int8))
+    else:  # two codes in [-7, 7] a byte
+        lo, hi = (torch.randint(-7, 8, w.p.shape, generator=g, device=device,
+                                dtype=torch.int32) for _ in range(2))
+        w.p.copy_(((lo & 0xF) | (hi << 4)).to(torch.int8))
+    w.scale.copy_(torch.rand(w.scale.shape, generator=g, device=device)
+                  * 4e-4 + 1e-4)
+    return w
+
+
+def quant_forms(cfg):
+    """(kernel, name, weight shape, M, x dtype, out dtype) of every form the
+    quantized serving path launches: the vocab head at M = 3 and 1 (fp32
+    logits), each of the five layer products at M = 3 (decode), w1 at
+    M = 1, and wqkv and w2 at the 8-tile request's prefill rows; x in bf16
+    (the served model) and fp32; int8 then int4."""
+    lc = cfg.llm
+    D, I, L, V = lc.hidden_size, lc.intermediate_size, \
+        lc.num_hidden_layers, lc.vocab_size
+    Hd = lc.num_attention_heads * lc.head_dim
+    layer = {"wqkv": (D, Hd + 2 * lc.num_key_value_heads * lc.head_dim),
+             "wo": (Hd, D), "w1": (D, I), "w3": (D, I), "w2": (I, D)}
+    forms = []
+    for bits, k2d, kst in ((8, "qdot", "qdot_stacked"),
+                           (4, "q4dot", "q4dot_stacked")):
+        for xdt in (torch.bfloat16, torch.float32):
+            tag = "bf16" if xdt == torch.bfloat16 else "fp32"
+            for M in (3, 1):
+                forms.append((k2d, f"head_M{M}_{tag}", bits, (D, V), M, xdt,
+                              torch.float32))
+            for name, shape in layer.items():
+                forms.append((kst, f"{name}_M3_{tag}", bits, (L, *shape), 3,
+                              xdt, xdt))
+            for name in ("wqkv", "w2"):
+                forms.append((kst, f"{name}_M{PREFILL_ROWS}_{tag}", bits,
+                              (L, *layer[name]), PREFILL_ROWS, xdt, xdt))
+        forms.append((kst, "w1_M1_bf16", bits, (L, *layer["w1"]), 1,
+                      torch.bfloat16, torch.bfloat16))
+    return forms
+
+
+def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
+    """Each quantized-product kernel against its plain version at every
+    form, on random codes and scales. A stacked form reads another layer at
+    every timed launch, so no launch finds its weights in the L2 cache (as
+    in a decode step, which streams every layer once); the head exceeds the
+    cache by itself. Beside each: the bound, and the time of ``F.linear`` on
+    an unquantized bf16 weight of the same shape, which is the product the
+    quantized one replaces, not the same function. Main forms: the head and
+    w1 at M = 1, bf16."""
+    import torch.nn.functional as F
+
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
+
+    dev = torch.device(device)
+    g = torch.Generator(device=dev).manual_seed(17)
+    records = {n: [] for n in QDOT_KERNELS}
+    held = w = dense = None  # the weight in memory, and its bf16 counterpart
+    for kernel, name, bits, shape, M, xdt, odt in quant_forms(cfg):
+        *lead, D, N = shape
+        if (bits, shape) != held:
+            w = dense = None
+            torch.cuda.empty_cache()
+            w = _random_weight(bits, shape, g, dev)
+            dense = torch.empty((*lead, N, D), dtype=torch.bfloat16,
+                                device=dev).normal_(0, 0.02, generator=g)
+            held = (bits, shape)
+        x = torch.randn((M, D), generator=g, device=dev).to(xdt)
+        layers = itertools.cycle(range(lead[0])) if lead \
+            else itertools.repeat(None)
+
+        def each_layer(call):
+            """``call(li)`` on the next layer of the stack at every call."""
+            return lambda: call(next(layers))
+
+        if lead:
+            run = lambda li: qm.quantized_dot_stacked(x, w, li, odt)
+            plain = lambda li: qm.quantized_dot_stacked_torch(x, w, li, odt)
+            linear = lambda li: F.linear(x.to(torch.bfloat16), dense[li])
+        else:
+            run = lambda li: qm.quantized_dot(x, w, odt)
+            plain = lambda li: qm.quantized_dot_torch(x, w, odt)
+            linear = lambda li: F.linear(x.to(torch.bfloat16), dense)
+        li = lead[0] // 2 if lead else None
+        before = qm.LAUNCHES[kernel]
+        got = run(li)
+        torch.cuda.synchronize()
+        if dev.type == "cuda" and qm.LAUNCHES[kernel] != before + 1:
+            raise AssertionError(f"{name}: the wrapper did not launch "
+                                 f"{kernel}")
+        want = plain(li).float()
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        tol = QDOT_TOL[odt]
+        n = 3 if M > 16 else 24
+        ms, plain_ms, lib = (time_ms(each_layer(f), iters=n)
+                             for f in (run, plain, linear))
+        # and as the host issues them: what a decode step pays a call
+        wrapper_ms = time_ms(each_layer(run), iters=n, behind_spin=False)
+        per_layer = lambda t: t.numel() * t.element_size() // (
+            lead[0] if lead else 1)
+        bound = roof(per_layer(w.payload) + per_layer(w.scale) + nbytes(x)
+                     + got.numel() * got.element_size(), 2.0 * M * D * N)
+        log(f"kernel {kernel} int{bits} {name}: max|kernel-plain| {err:.3e} "
+            f"= {rel:.3e} of max|plain| (tol {tol:.3e}); on the device: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}, F.linear on "
+            f"a bf16 weight of this shape (the product it replaces) "
+            f"{lib:.4f} ms; wrapper calls back to back {wrapper_ms:.4f} ms")
+        if not (got.shape == (M, N) and got.dtype == odt
+                and bool(torch.isfinite(got).all()) and rel <= tol):
+            raise AssertionError(f"{kernel} disagrees with its plain "
+                                 f"version at {name}")
+        records[kernel].append(dict(
+            form=f"int{bits}_{name}", max_abs_err=err, max_rel_err=rel,
+            ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms, **bound,
+            library_ms=lib, main=name in ("head_M1_bf16", "w1_M1_bf16")))
+        del got, want, x
+    del w, dense
+    torch.cuda.empty_cache()
+    return records
+
+
+def _small_quant_logits(llm, lc, dev: str):
+    """fp32 logits of a quantized 2-layer decoder on one device: a 40-token
+    forward without a cache (the tiled kernel body), then over a dense cache
+    a 24-token prefill, four 1-token steps, a 3-token and a 9-token step
+    (the strip body at 4 and at 16 rows)."""
+    from v2pe_tpu_torch.models import internlm2
+
+    m = llm.to(dev)
+    ids = torch.as_tensor(np.random.default_rng(19).integers(3, 990, (1, 40)),
+                          device=dev)
+    with torch.inference_mode():
+        out = [internlm2.llm_forward(m, lc, input_ids=ids)[0][0]]
+        cache = internlm2.KVCache.zeros(lc, 1, 40, dtype=torch.float32,
+                                        device=dev)
+        for a, b in [(0, 24)] + [(t, t + 1) for t in range(24, 28)] \
+                + [(28, 31), (31, 40)]:
+            lg, cache = internlm2.llm_forward(m, lc, input_ids=ids[:, a:b],
+                                              kv_cache=cache)
+            out.append(lg[0])
+    return torch.cat(out).cpu()
+
+
+QUANT_LOGIT_TOL = 2e-3  # fp32 quantized model, card vs CPU, of the logits'
+# range: x is rounded to bf16 before every product, so a sum whose last bit
+# differs can land on the other side of a bf16 step one layer later
+
+
+def phase_small_quant_reference(devices=("cpu", "cuda")) -> None:
+    """A 2-layer fp32 decoder quantized to int8 and to int4 (w2's depth 352
+    shrinks its int4 groups to 16): logits on the card (the kernels)
+    against the CPU (the plain versions)."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
+
+    cfg = config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=1, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=352, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2))
+    model = init_vlm_params(cfg, torch.Generator().manual_seed(23))
+    for bits in (8, 4):
+        qllm = qm.quantize_llm_params(model.llm, bits=bits)
+        reset_launches()
+        cpu, gpu = (_small_quant_logits(qllm, cfg.llm, d) for d in devices)
+        counts = read_launches()
+        qllm.to("cpu")
+        d = _rel(gpu, cpu)
+        names = ("qdot", "qdot_stacked") if bits == 8 else \
+            ("q4dot", "q4dot_stacked")
+        log(f"reference: small int{bits} decoder fp32, card vs CPU "
+            f"max|dlogit|/max|logit| {d:.3e} over {cpu.shape[0]} positions "
+            f"(tol {QUANT_LOGIT_TOL}); launches "
+            f"{ {n: counts[n] for n in QDOT_KERNELS} }")
+        require(counts, names, f"small int{bits} reference")
+        if not d <= QUANT_LOGIT_TOL:
+            raise AssertionError(f"card and CPU int{bits} decoders disagree")
+
+
+# ------------------------------------------------- phase 11: quantized serve
+
+
+def phase_quant_serve(model, cfg, tok, served: dict) -> list:
+    """The three requests through ChatModel(weights_dtype=...): int8 and
+    int4 weights over the dense cache, then int8 weights over the paged
+    cache with an int8 pool (w8kv8). Each: launch counts (every forward 5
+    stacked launches a layer and one head launch, none of the other width),
+    TTFT and decode rate of the 8-tile request, stream equal to generate,
+    and the first-token logits against the bf16 model's (reported; the
+    quantization error through 24 random layers is real). Returns the
+    launch counts of each path."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+
+    gc = GenerationConfig(max_new_tokens=MAX_NEW)
+    pixels = _request_pixels()
+    tiles, _ = REQUESTS[0]
+    ids, pos, pix = served["ids"], served["pos"], served["pixels"]
+    L = cfg.llm.num_hidden_layers
+    bf16 = first_logits(ChatModel(model, cfg, tok), cfg, ids, pos, pix, [],
+                        "dense", steps=0)
+    paths, quantized = [], {}
+    for wd, mode, kv in (("int8", "dense", None), ("int4", "dense", None),
+                         ("int8", "paged", "int8")):
+        t0 = time.perf_counter()
+        chat = ChatModel(quantized.get(wd, model), cfg, tok,
+                         weights_dtype=wd, cache_mode=mode, kv_dtype=kv)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        quantized[wd] = chat.model
+        llm = chat.model.llm
+        held = sum(t.numel() * t.element_size() for w in
+                   [*llm.stacks.values(), llm.output] for t in w.buffers())
+        tag = f"w{wd[3:]}" + (f"kv{kv[3:]} paged" if kv else " dense")
+        reset_launches()
+        t0 = time.perf_counter()
+        answers = chat.batch_chat(pixels, [q for _, q in REQUESTS], gc)
+        counts = read_launches()
+        wall = time.perf_counter() - t0
+        mine = ("qdot", "qdot_stacked") if wd == "int8" else \
+            ("q4dot", "q4dot_stacked")
+        head, stacked = counts[mine[0]], counts[mine[1]]
+        other = sum(counts[n] for n in QDOT_KERNELS if n not in mine)
+        log(f"quantized serve ({tag}): quantized in {t_quant:.2f}s to "
+            f"{held / 2 ** 30:.3f} GiB of codes and scales; 3 requests in "
+            f"{wall:.3f}s, {head} forwards: head launches {head}, stacked "
+            f"{stacked} = {stacked // max(head, 1)} a forward, other width "
+            f"{other}; answers {[len(a) for a in answers]} chars; launches "
+            f"{counts}")
+        if not (len(answers) == 3 and head >= 3 and stacked == 5 * L * head
+                and other == 0):
+            raise AssertionError(f"quantized serve ({tag}): expected "
+                                 f"{5 * L} stacked launches and 1 head "
+                                 f"launch a forward")
+        require(counts, ("flash_fwd",) + (
+            ("paged_store", "paged_decode") if mode == "paged" else ()),
+            f"quantized serve ({tag})")
+        ttft, total, rate, tokens = time_request(
+            chat, cfg, ids, pos, pix, served["gc"], cache_mode=mode,
+            kv_dtype=kv)
+        log(f"quantized serve ({tag}): prompt {len(ids)} tokens ({tiles} "
+            f"tiles): TTFT {ttft * 1e3:.1f} ms, {len(tokens)} tokens in "
+            f"{total * 1e3:.1f} ms, decode {rate:.1f} tok/s")
+        phase_stream(chat, cfg, dict(served, tokens=tokens), cache_mode=mode,
+                     kv_dtype=kv)
+        mine_logits = first_logits(chat, cfg, ids, pos, pix, [], mode,
+                                   kv_dtype=kv, steps=0)
+        ok = bool(torch.isfinite(mine_logits).all())
+        log(f"quantized serve ({tag}): first-token logits vs the bf16 "
+            f"model's: max|dlogit|/max|logit| {_rel(mine_logits, bf16):.3e}"
+            f" (reported, no limit), argmax equal "
+            f"{torch.equal(mine_logits.argmax(-1), bf16.argmax(-1))}, "
+            f"finite {ok}")
+        if not ok:
+            raise AssertionError(f"quantized serve ({tag}): logits not "
+                                 f"finite")
+        paths.append(counts)
+    return paths
 
 
 # ------------------------------------------------------------ phase 9: train
@@ -1404,12 +1873,14 @@ def profile_train(model, cfg) -> None:
 
 
 def profile_generate(chat, cfg) -> None:
-    """``--profile``: the 8-tile request through generate (dense, paged
-    bf16, paged int8 pool; the first token alone, then 32 tokens) under
+    """``--profile``: the 8-tile request through generate (bf16 weights:
+    dense, paged bf16, paged int8 pool; int8 weights: dense and paged int8
+    pool; int4 weights: dense; the first token alone, then 32 tokens) under
     torch.profiler: wall, device time (the kernel events' sum), busy share,
     kernels launched, and the top kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    from v2pe_tpu_torch.infer.chat import ChatModel
     from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
 
     tiles, question = REQUESTS[0]
@@ -1418,11 +1889,18 @@ def profile_generate(chat, cfg) -> None:
             torch.as_tensor(pos[None]), torch.as_tensor(_tiles(tiles, 0)),
             torch.ones(tiles, dtype=torch.int32), chat.img_context_token_id)
     stop = tuple(chat.conv_template.stop_token_ids)
-    for mode, kv in (("dense", None), ("paged", None), ("paged", "int8")):
+    models = {None: chat.model}
+    for wd, mode, kv in ((None, "dense", None), (None, "paged", None),
+                         (None, "paged", "int8"), ("int8", "dense", None),
+                         ("int8", "paged", "int8"), ("int4", "dense", None)):
+        if wd not in models:
+            models[wd] = ChatModel(chat.model, cfg, chat.tokenizer,
+                                   weights_dtype=wd).model
+        model = models[wd]
         for n in (1, MAX_NEW):
             gc = GenerationConfig(max_new_tokens=n, eos_token_ids=stop)
-            run = lambda: generate(chat.model, cfg, gc, *args,
-                                   cache_mode=mode, kv_dtype=kv)
+            run = lambda: generate(model, cfg, gc, *args, cache_mode=mode,
+                                   kv_dtype=kv)
             run()  # warm
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1435,15 +1913,32 @@ def profile_generate(chat, cfg) -> None:
             ev = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
             dev = sum(e.self_device_time_total for e in ev) / 1e3
-            log(f"profile {mode} {kv or 'bf16'}, {int(lens[0])} tokens: wall "
-                f"{wall:.1f} ms, device {dev:.1f} ms ({dev / wall:.0%} busy),"
-                f" {sum(e.count for e in ev)} kernels")
+            log(f"profile {wd or 'bf16'} weights, {mode} {kv or 'bf16'}, "
+                f"{int(lens[0])} tokens: wall {wall:.1f} ms, device "
+                f"{dev:.1f} ms ({dev / wall:.0%} busy), "
+                f"{sum(e.count for e in ev)} kernels")
             for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:6]:
                 log(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<6}"
                     f" {e.key[:80]}")
 
 
 # ------------------------------------------------------------------- main
+
+
+def kernel_record(name: str, recs: list, launches: int) -> dict:
+    """One kernel's entry of the JSON line: the launches of the driven
+    paths; the largest error over all forms; time, plain time, bound and
+    library time at its main form (named under "form"). Every other form
+    has its own ``kernel ...`` line above."""
+    main = [f for f in recs if f["main"]]
+    if len(main) != 1:
+        raise AssertionError(f"{name}: {len(main)} main forms")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return dict(name=name, route="cuda", source=KERNEL_SOURCES[name],
+                replaces=KERNEL_REPLACES[name], launches=launches,
+                max_abs_err=max(f["max_abs_err"] for f in recs),
+                form=main[0]["form"], **{k: main[0][k] for k in keys})
+
 
 
 def main(argv=None) -> int:
@@ -1488,28 +1983,25 @@ def main(argv=None) -> int:
     batch = packed_batch(chat, PACKED_LEN, "cuda")
     prompt_lens = prompt_lengths(chat)
     forms = {"flash_fwd": phase_kernels(prompt_lens, batch),
-             **phase_bwd_kernels(batch), **phase_paged_kernels(prompt_lens)}
+             **phase_bwd_kernels(batch), **phase_paged_kernels(prompt_lens),
+             **phase_quant_kernels(cfg)}
     phase_small_reference()
     phase_small_train_reference()
+    phase_small_quant_reference()
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
     phase_packed(chat, cfg, batch)
     # the paged paths, each driven with the launch counts zeroed before it
     paths = [served["counts"], phase_paged_serve(model, cfg, tok, served),
-             phase_session(model, cfg, tok), phase_worker(model, cfg, tok)]
+             phase_session(model, cfg, tok), phase_worker(model, cfg, tok),
+             *phase_quant_serve(model, cfg, tok, served)]
     del chat
     # last: the training paths update the weights
     paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg)]
     launches = {k: sum(c[k] for c in paths) for k in forms}
 
-    kernels = [dict(
-        name=name, route="cuda", source=KERNEL_SOURCES[name],
-        replaces=KERNEL_REPLACES[name], launches=launches[name],
-        max_abs_err=max(f["max_abs_err"] for f in recs),
-        ms=sum(f["ms"] for f in recs),
-        plain_ms=sum(f["plain_ms"] for f in recs), forms=recs)
-        for name, recs in forms.items()]
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": [kernel_record(name, recs, launches[name])
+                                for name, recs in forms.items()]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ from v2pe_tpu_torch.infer.streaming import stream_generate
 from v2pe_tpu_torch.models.params import from_jax_params
 
 from .test_data_pipeline import _toy_tokenizer
+from .torch_parity import port_config
 
 IMG = 291
 
@@ -46,7 +47,8 @@ def _models(cfg, seed, qkv_scale=1.0):
     layers = dict(params["llm"]["layers"])
     layers["wqkv_kernel"] = layers["wqkv_kernel"] * qkv_scale
     params = {**params, "llm": {**params["llm"], "layers": layers}}
-    return params, from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    return params, from_jax_params(jax.tree.map(np.asarray, params),
+                                   port_config(cfg))
 
 
 def _batch(cfg):
@@ -94,7 +96,7 @@ def test_chat_matches_jax():
     cfg = _cfg(vocab=len(tok))
     params, model = _models(cfg, seed=2, qkv_scale=30.0)
     jchat = JaxChatModel(params, cfg, tok, attn_impl="jnp")
-    tchat = ChatModel(model, cfg, tok)
+    tchat = ChatModel(model, port_config(cfg), tok)
     img = Image.fromarray(np.random.default_rng(0).integers(
         0, 255, (100, 160, 3), dtype=np.uint8))
     pixels, n_tiles = tchat.load_pixels(img, max_num=4)
@@ -122,10 +124,10 @@ def test_stream_generate_equals_generate():
     ids, plen, pos, pixels, flags = _batch(cfg)
     gc = GenerationConfig(max_new_tokens=9)
     tokens, _, lens = generate(
-        model, cfg, gc, torch.from_numpy(ids[:1]), torch.from_numpy(plen[:1]),
+        model, port_config(cfg), gc, torch.from_numpy(ids[:1]), torch.from_numpy(plen[:1]),
         torch.from_numpy(pos[:1]), torch.from_numpy(pixels[:1]),
         torch.from_numpy(flags[:1]), IMG)
-    chunks = list(stream_generate(model, cfg, gc, ids[:1], pos[:1],
+    chunks = list(stream_generate(model, port_config(cfg), gc, ids[:1], pos[:1],
                                   pixels[:1], flags[:1], IMG, chunk=4))
     assert [len(c) for c in chunks] == [1, 4, 4]
     np.testing.assert_array_equal(np.concatenate(chunks),
@@ -152,11 +154,15 @@ def test_unported_options_raise():
     cfg = _cfg(vocab=len(tok))
     _, model = _models(cfg, seed=0)
     for kw in (dict(cache_mode="paged", kv_dtype="int4"),
-               dict(cache_mode="ring"), dict(weights_dtype="int8"),
+               dict(cache_mode="ring"), dict(cache_mode="chunked"),
+               dict(weights_dtype="fp8"), dict(weights_dtype="bfloat16"),
                dict(lora={})):
         with pytest.raises(NotImplementedError):
-            ChatModel(model, cfg, tok, **kw)
-    chat = ChatModel(model, cfg, tok)
+            ChatModel(model, port_config(cfg), tok, **kw)
+    for wd in ("int8", "int4"):  # ported: they quantize at construction
+        assert ChatModel(model, port_config(cfg), tok, weights_dtype=wd).chat(
+            None, "hi", GenerationConfig(max_new_tokens=2)) is not None
+    chat = ChatModel(model, port_config(cfg), tok)
     with pytest.raises(NotImplementedError):
         chat.chat(None, "hi", GenerationConfig(num_beams=2))
     ids, plen, pos, pixels, flags = _batch(cfg)
@@ -165,7 +171,7 @@ def test_unported_options_raise():
                    (GenerationConfig(speculative_k=2),
                     dict(cache_mode="paged"))):
         with pytest.raises(NotImplementedError):
-            generate(model, cfg, gc, torch.from_numpy(ids),
+            generate(model, port_config(cfg), gc, torch.from_numpy(ids),
                      torch.from_numpy(plen), torch.from_numpy(pos),
                      torch.from_numpy(pixels), torch.from_numpy(flags), IMG,
                      **kw)

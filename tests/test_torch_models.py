@@ -22,7 +22,7 @@ from v2pe_tpu_torch.models import internvl_chat as tchat
 from v2pe_tpu_torch.models.params import (_jax_state_dict, from_jax_params,
                                           init_vlm_params)
 
-from .torch_parity import run_parity
+from .torch_parity import port_config, run_parity
 
 # fp32 end to end; the two frameworks sum in other orders
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -42,7 +42,8 @@ def _cfg(**vision):
 
 def _models(cfg, seed=0):
     params = jax_init(jax.random.PRNGKey(seed), cfg)
-    return params, from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    return params, from_jax_params(jax.tree.map(np.asarray, params),
+                                   port_config(cfg))
 
 
 def _pixels(n, size=56, seed=0):
@@ -66,7 +67,7 @@ def test_vit_matches_jax(variant):
             lambda x: jvit.vision_forward(params["vision"], cfg.vision, x,
                                           select_layer=select,
                                           attn_impl="jnp"),
-            lambda x: tvit.vision_forward(model.vision, cfg.vision, x,
+            lambda x: tvit.vision_forward(model.vision, port_config(cfg).vision, x,
                                           select_layer=select),
             _pixels(3, size))
     p.assert_close(**TOL)
@@ -93,7 +94,7 @@ def test_pixel_shuffle_and_pooled_features_match_jax(ps_version):
                            jchat.extract_feature(params, cfg, px,
                                                  attn_impl="jnp")),
             lambda x, px: (tchat.pixel_shuffle(x, 0.5, ps_version),
-                           tchat.extract_feature(model, cfg, px)),
+                           tchat.extract_feature(model, port_config(cfg), px)),
             x, _pixels(2))
     p.assert_close(**TOL)
 
@@ -145,7 +146,7 @@ def test_llm_forward_no_cache_matches_jax():
                 params["llm"], cfg.llm, input_ids=i, rope_pos_ids=r,
                 segment_ids=s, positions=t, attn_impl="jnp")[0],
             lambda i, s, r, t: tlm.llm_forward(
-                model.llm, cfg.llm, input_ids=i.long(), rope_pos_ids=r,
+                model.llm, port_config(cfg).llm, input_ids=i.long(), rope_pos_ids=r,
                 segment_ids=s, positions=t)[0],
             ids, seg, rope, pos)
     valid = seg != 0
@@ -193,16 +194,16 @@ def test_llm_forward_kv_cache_matches_jax(rope_mode):
         return outs
 
     def torch_run(ids, rope, steps):
-        cache = tlm.KVCache.zeros(cfg.llm, B, max_len, dtype=torch.float32)
+        cache = tlm.KVCache.zeros(port_config(cfg).llm, B, max_len, dtype=torch.float32)
         outs = []
         with torch.no_grad():
             logits, cache = tlm.llm_forward(
-                model.llm, cfg.llm, input_ids=ids.long(), rope_pos_ids=rope,
+                model.llm, port_config(cfg).llm, input_ids=ids.long(), rope_pos_ids=rope,
                 kv_cache=cache, kv_valid=torch.from_numpy(valid_at(0)))
             outs += [logits, cache.k.clone(), cache.v.clone()]
             for t in range(T):
                 logits, cache = tlm.llm_forward(
-                    model.llm, cfg.llm, input_ids=steps[:, t:t + 1].long(),
+                    model.llm, port_config(cfg).llm, input_ids=steps[:, t:t + 1].long(),
                     rope_pos_ids=rope[:, -1:] + 1.0 + t, kv_cache=cache,
                     kv_valid=torch.from_numpy(valid_at(t + 1)))
                 outs += [logits, cache.k.clone(), cache.v.clone()]
@@ -242,7 +243,7 @@ def test_full_model_logits_match_jax():
                 rope_pos_ids=r, img_context_token_id=IMG, segment_ids=s,
                 token_positions=t, attn_impl="jnp").logits,
             lambda i, px, f, r, s, t: tchat.forward(
-                model, cfg, input_ids=i.long(), pixel_values=px,
+                model, port_config(cfg), input_ids=i.long(), pixel_values=px,
                 image_flags=f, rope_pos_ids=r, img_context_token_id=IMG,
                 segment_ids=s, token_positions=t).logits,
             ids, _pixels(2), flags, rope, seg, pos)
@@ -252,8 +253,8 @@ def test_full_model_logits_match_jax():
 def test_init_matches_jax_shapes_and_scales():
     cfg = _cfg()
     jparams = jax.tree.map(np.asarray, jax_init(jax.random.PRNGKey(0), cfg))
-    model = init_vlm_params(cfg, torch.Generator().manual_seed(0))
-    want = {k: v.shape for k, v in _jax_state_dict(jparams, cfg).items()}
+    model = init_vlm_params(port_config(cfg), torch.Generator().manual_seed(0))
+    want = {k: v.shape for k, v in _jax_state_dict(jparams, port_config(cfg)).items()}
     got = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert got == want
     sd = model.state_dict()
@@ -263,6 +264,6 @@ def test_init_matches_jax_shapes_and_scales():
     std = sd["llm.tok_embeddings.weight"].std().item()
     assert 0.018 < std < 0.022
     assert 0.8 < sd["vision.embeddings.position_embedding"].std().item() < 1.2
-    again = init_vlm_params(cfg, torch.Generator().manual_seed(0))
+    again = init_vlm_params(port_config(cfg), torch.Generator().manual_seed(0))
     assert all(torch.equal(a, b) for a, b in
                zip(model.state_dict().values(), again.state_dict().values()))

@@ -37,7 +37,7 @@ from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.params import from_jax_params
 from v2pe_tpu_torch.ops import paged_attention as tpa
 
-from .torch_parity import run_parity, to_numpy
+from .torch_parity import port_config, run_parity, to_numpy
 
 TOL = {"float32": 2e-5, "int8": 2e-5, "bfloat16": 1e-2}
 L, HQ, HKV, HD, NP, PS = 2, 4, 2, 16, 14, 8
@@ -247,7 +247,7 @@ def test_allocate_and_write_match_jax(kv):
     B = 2
     jc = jpk.PagedKVCache.zeros(cfg, B, 16, 4, 8, dtype=jnp.float32,
                                 kv_dtype=kv)
-    tc = tpk.PagedKVCache.zeros(cfg, B, 16, 4, 8, dtype=torch.float32,
+    tc = tpk.PagedKVCache.zeros(port_config(cfg), B, 16, 4, 8, dtype=torch.float32,
                                 kv_dtype=kv)
     steps = [(np.array([9, 5]), 9), (np.array([1, 1]), 1),
              (np.array([3, 6]), 6)]
@@ -290,7 +290,7 @@ def test_pool_refuses_what_is_not_ported():
     cfg = _cfg_llm()
     for kw in (dict(kv_dtype="int4"), dict(n_shards=2)):
         with pytest.raises(NotImplementedError):
-            tpk.PagedKVCache.zeros(cfg, 1, 8, 4, 4, **kw)
+            tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4, **kw)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -336,7 +336,7 @@ def models():
     layers["wqkv_kernel"] = layers["wqkv_kernel"] * 30.0
     params = {**params, "llm": {**params["llm"], "layers": layers}}
     return cfg, params, from_jax_params(jax.tree.map(np.asarray, params),
-                                        cfg)
+                                        port_config(cfg))
 
 
 @pytest.mark.parametrize("kv", [None, "int8"])
@@ -354,7 +354,7 @@ def test_llm_forward_paged_matches_jax(models, prompt, kv):
         jpk.PagedKVCache.zeros(lc, 1, 12, 4, 10, dtype=jnp.float32,
                                kv_dtype=kv), jnp.asarray([prompt]))
     tc = tpk.allocate_rows(
-        tpk.PagedKVCache.zeros(lc, 1, 12, 4, 10, dtype=torch.float32,
+        tpk.PagedKVCache.zeros(port_config(cfg).llm, 1, 12, 4, 10, dtype=torch.float32,
                                kv_dtype=kv), torch.tensor([prompt]))
     with torch.inference_mode():
         for t0, t1 in [(0, prompt)] + [(t, t + 1)
@@ -391,7 +391,7 @@ def test_chunked_prefill_matches_jax(models, splits, kv):
     pos = np.arange(S, dtype=np.float32)[None]
     jc = jpk.PagedKVCache.zeros(lc, 1, 32, 8, 12, dtype=jnp.float32,
                                 kv_dtype=kv)
-    tc = tpk.PagedKVCache.zeros(lc, 1, 32, 8, 12, dtype=torch.float32,
+    tc = tpk.PagedKVCache.zeros(port_config(cfg).llm, 1, 32, 8, 12, dtype=torch.float32,
                                 kv_dtype=kv)
     off = 0
     for n in splits:
@@ -399,7 +399,7 @@ def test_chunked_prefill_matches_jax(models, splits, kv):
                              input_ids=jnp.asarray(ids[:, off:off + n]),
                              rope_pos_ids=jnp.asarray(pos[:, off:off + n]),
                              attn_impl="jnp")
-        tl, tc = chunked_prefill(model.llm, lc, tc,
+        tl, tc = chunked_prefill(model.llm, port_config(cfg).llm, tc,
                                  input_ids=torch.from_numpy(
                                      ids[:, off:off + n]),
                                  rope_pos_ids=torch.from_numpy(
@@ -430,14 +430,14 @@ def test_chunked_prefill_ragged_rows_match_jax(models):
     ids = np.random.default_rng(3).integers(0, 300, (2, 48))
     lens = np.array([48, 41])
     jc = jpk.PagedKVCache.zeros(lc, 2, 64, 8, 12, dtype=jnp.float32)
-    tc = tpk.PagedKVCache.zeros(lc, 2, 64, 8, 12, dtype=torch.float32)
+    tc = tpk.PagedKVCache.zeros(port_config(cfg).llm, 2, 64, 8, 12, dtype=torch.float32)
     seg = (np.arange(20)[None] < (lens - 28)[:, None]).astype(np.int32)
     chunks = [(ids[:, :28], None), (ids[:, 28:], seg)]
     for x, sg in chunks:
         jl, jc = jax_chunked(params["llm"], lc, jc, input_ids=jnp.asarray(x),
                              segment_ids=None if sg is None
                              else jnp.asarray(sg), attn_impl="jnp")
-        tl, tc = chunked_prefill(model.llm, lc, tc,
+        tl, tc = chunked_prefill(model.llm, port_config(cfg).llm, tc,
                                  input_ids=torch.from_numpy(x),
                                  segment_ids=None if sg is None
                                  else torch.from_numpy(sg))
@@ -482,7 +482,7 @@ def test_paged_generate_matches_jax(models, kv):
         jnp.asarray(plen), jnp.asarray(pos), jnp.asarray(pixels),
         jnp.asarray(flags), IMG, attn_impl="jnp", **paged)
     tt, tn, tl = generate(
-        model, cfg, GenerationConfig(**gc), torch.from_numpy(ids),
+        model, port_config(cfg), GenerationConfig(**gc), torch.from_numpy(ids),
         torch.from_numpy(plen), torch.from_numpy(pos),
         torch.from_numpy(pixels), torch.from_numpy(flags), IMG, **paged)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
@@ -503,11 +503,11 @@ def test_paged_stream_generate_matches_jax(models):
     want = [np.asarray(c) for c in jax_stream(
         params, cfg, JaxGenerationConfig(max_new_tokens=9), ids, pos, pixels,
         flags, IMG, chunk=4, attn_impl="jnp", **kw)]
-    got = list(stream_generate(model, cfg, GenerationConfig(max_new_tokens=9),
+    got = list(stream_generate(model, port_config(cfg), GenerationConfig(max_new_tokens=9),
                                ids, pos, pixels, flags, IMG, chunk=4, **kw))
     assert [c.tolist() for c in got] == [c.tolist() for c in want]
     tokens, _, lens = generate(
-        model, cfg, GenerationConfig(max_new_tokens=9), torch.from_numpy(ids),
+        model, port_config(cfg), GenerationConfig(max_new_tokens=9), torch.from_numpy(ids),
         torch.tensor([10]), torch.from_numpy(pos), torch.from_numpy(pixels),
         torch.from_numpy(flags), IMG, **kw)
     assert np.concatenate(got).tolist() == \

@@ -28,6 +28,7 @@ from v2pe_tpu_torch.serve.mm_utils import image_to_base64
 from v2pe_tpu_torch.serve.worker import ModelWorker
 
 from .test_data_pipeline import _toy_tokenizer
+from .torch_parity import port_config
 
 
 @pytest.fixture(scope="module")
@@ -48,10 +49,11 @@ def chats():
     layers = dict(params["llm"]["layers"])
     layers["wqkv_kernel"] = layers["wqkv_kernel"] * 30.0
     params = {**params, "llm": {**params["llm"], "layers": layers}}
-    model = from_jax_params(jax.tree.map(np.asarray, params), cfg)
+    pcfg = port_config(cfg)  # the port's own config class, same fields
+    model = from_jax_params(jax.tree.map(np.asarray, params), pcfg)
     return (JaxChatModel(params, cfg, tok, attn_impl="jnp",
                          cache_mode="paged", page_size=8),
-            ChatModel(model, cfg, tok, cache_mode="paged", page_size=8))
+            ChatModel(model, pcfg, tok, cache_mode="paged", page_size=8))
 
 
 def _image(seed, h, w):

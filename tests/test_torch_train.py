@@ -19,14 +19,14 @@ import pytest
 import torch
 
 from v2pe_tpu.core.config import LLMConfig, VLMConfig, VisionConfig
-from v2pe_tpu.data.datasets import build_datasets
-from v2pe_tpu.data.packing import PackedSampleIterator
 from v2pe_tpu.models import intern_vit as jvit
 from v2pe_tpu.models import internvl_chat as jchat
 from v2pe_tpu.models.params import init_vlm_params as jax_init
 from v2pe_tpu.train import optimizer as jopt
 from v2pe_tpu.train import train_step as jstep
 from v2pe_tpu_torch.core import checkpoint as ckpt
+from v2pe_tpu_torch.data.datasets import build_datasets
+from v2pe_tpu_torch.data.packing import PackedSampleIterator
 from v2pe_tpu_torch.models import intern_vit as tvit
 from v2pe_tpu_torch.models import internlm2 as tlm
 from v2pe_tpu_torch.models import internvl_chat as tchat
@@ -37,7 +37,7 @@ from v2pe_tpu_torch.train.trainer import RunConfig, train
 
 from .test_data_pipeline import _toy_tokenizer
 from .test_datasets_packing import tokenizer, toy_dataset  # noqa: F401
-from .torch_parity import run_parity
+from .torch_parity import port_config, run_parity
 
 IMG = 291  # <IMG_CONTEXT> in the tiny vocab
 LOSS_RTOL = 1e-5
@@ -193,9 +193,9 @@ def test_remat_checkpoints_blocks_or_falls_back(monkeypatch, mode, layers,
     monkeypatch.setattr(tlm, "_checkpoint",
                         lambda fn, *a: calls.append(fn) or real(fn, *a))
     cfg = _cfg(layers).llm
-    model = tlm.InternLM2Model(cfg)
+    model = tlm.InternLM2Model(port_config(cfg))
     ids = torch.randint(0, 300, (1, 24))
-    out, _ = tlm.llm_forward(model, cfg, input_ids=ids,
+    out, _ = tlm.llm_forward(model, port_config(cfg), input_ids=ids,
                              segment_ids=torch.ones(1, 24, dtype=torch.int32),
                              remat=mode)
     out.sum().backward()
@@ -227,8 +227,9 @@ def test_drop_path_schedule_and_layer_match_jax():
     cfg = dataclasses.replace(CFG.vision, drop_path_rate=0.3)
     params = jax_init(jax.random.PRNGKey(1), dataclasses.replace(
         CFG, vision=cfg))
-    model = from_jax_params(_np(params), dataclasses.replace(CFG, vision=cfg))
-    keep, masks = tvit.drop_path_masks(cfg, 2, 3, torch.Generator())
+    model = from_jax_params(_np(params), port_config(
+        dataclasses.replace(CFG, vision=cfg)))
+    keep, masks = tvit.drop_path_masks(port_config(cfg), 2, 3, torch.Generator())
     np.testing.assert_allclose(
         keep.numpy(), 1.0 - np.asarray(jnp.linspace(0.0, 0.3, 2)), rtol=1e-7)
     assert masks.shape == (2, 2, 3) and masks.dtype == torch.bool
@@ -242,7 +243,7 @@ def test_drop_path_schedule_and_layer_match_jax():
     m = torch.from_numpy(np.stack([np.asarray(jax.random.bernoulli(
         k, 1.0 - rate, (3, 1, 1))).reshape(3) for k in keys]))
     with torch.no_grad():
-        got = tvit.layer_forward(model.vision.layers[1], cfg,
+        got = tvit.layer_forward(model.vision.layers[1], port_config(cfg),
                                  torch.from_numpy(x),
                                  torch.tensor(1.0 - np.asarray(rate)), m)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
@@ -260,7 +261,7 @@ def test_drop_path_masks_survive_remat():
     for remat in (False, True):
         model.zero_grad()
         out = tvit.vision_forward(
-            model.vision, cfg, pix, remat=remat,
+            model.vision, port_config(cfg), pix, remat=remat,
             drop_path_generator=torch.Generator().manual_seed(3))
         out.square().sum().backward()
         grads.append(model.vision.layers[0].fc1.weight.grad.clone())
@@ -304,9 +305,10 @@ def test_optimizer_steps_match_optax(case):
     tc_kw = dict(learning_rate=1e-3, warmup_steps=1, total_steps=10, **over)
     cfg = _cfg(llm_layers=2)
     params = jax_init(jax.random.PRNGKey(3), cfg)
-    model = from_jax_params(_np(params), cfg)
+    model = from_jax_params(_np(params), port_config(cfg))
     tx = jopt.build_optimizer(jopt.TrainConfig(**tc_kw), params)
-    opt = topt.build_optimizer(topt.TrainConfig(**tc_kw), model, cfg)
+    opt = topt.build_optimizer(topt.TrainConfig(**tc_kw), model,
+                               port_config(cfg))
     jstate, tstate = tx.init(params), opt.init()
     rng = np.random.default_rng(4)
     scale = 1e-5 if int8 else 1e-2
@@ -317,15 +319,15 @@ def test_optimizer_steps_match_optax(case):
         upd, jstate = update(grads, jstate, params)
         params = optax.apply_updates(params, upd)
         opt.step({n: torch.from_numpy(np.array(g)) for n, g in
-                  _jax_state_dict(grads, cfg).items()}, tstate)
-    want = _jax_state_dict(_np(params), cfg)
+                  _jax_state_dict(grads, port_config(cfg)).items()}, tstate)
+    want = _jax_state_dict(_np(params), port_config(cfg))
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[n], atol=1e-6,
                                    rtol=0, err_msg=n)
     mu, nu = _opt_state_moments(jstate)
     if not int8:
         for tree, got in ((mu, tstate["mu"]), (nu, tstate["nu"])):
-            want = _jax_state_dict(_np(tree), cfg)
+            want = _jax_state_dict(_np(tree), port_config(cfg))
             for n in want:
                 np.testing.assert_allclose(got[n].numpy(), want[n],
                                            atol=1e-6, rtol=0, err_msg=n)
@@ -393,7 +395,7 @@ def test_bench_recipe_steps_match_jax():
 
     cfg = _cfg(llm_layers=2, vocab=92553)
     kw = dict(tiles_per_row=2, stride=64)
-    batch = tsynth.make_synthetic_batch(cfg, 1, 128, **kw)
+    batch = tsynth.make_synthetic_batch(port_config(cfg), 1, 128, **kw)
     want = jsynth.make_synthetic_batch(cfg, 1, 128, **kw)
     assert batch.keys() == want.keys()
     for k in want:
@@ -401,12 +403,13 @@ def test_bench_recipe_steps_match_jax():
     tc_kw = dict(learning_rate=1e-5, warmup_steps=1, total_steps=100,
                  use_8bit_optimizer=True)
     params = jax_init(jax.random.PRNGKey(5), cfg)
-    model = from_jax_params(_np(params), cfg)
+    model = from_jax_params(_np(params), port_config(cfg))
     tx = jopt.build_optimizer(jopt.TrainConfig(**tc_kw), params)
     jfn = jstep.make_train_step(cfg, tx, None, jsynth.IMG_CONTEXT_ID,
                                 attn_impl="jnp", remat="full", donate=False)
-    opt = topt.build_optimizer(topt.TrainConfig(**tc_kw), model, cfg)
-    tfn = tstep.make_train_step(cfg, opt,
+    opt = topt.build_optimizer(topt.TrainConfig(**tc_kw), model,
+                               port_config(cfg))
+    tfn = tstep.make_train_step(port_config(cfg), opt,
                                 img_context_token_id=tsynth.IMG_CONTEXT_ID,
                                 remat="full")
     jb, tb = {k: jnp.asarray(v) for k, v in want.items()}, \
@@ -419,7 +422,7 @@ def test_bench_recipe_steps_match_jax():
                                    rtol=LOSS_RTOL, err_msg=f"step {i}")
         np.testing.assert_allclose(float(gnorm), float(m["grad_norm"]),
                                    rtol=1e-4, err_msg=f"step {i}")
-    want = _jax_state_dict(_np(params), cfg)
+    want = _jax_state_dict(_np(params), port_config(cfg))
     for n, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[n], atol=1e-5,
                                    rtol=0, err_msg=n)
@@ -427,17 +430,19 @@ def test_bench_recipe_steps_match_jax():
 
 def test_unported_options_raise():
     cfg = _cfg(1)
-    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(0), cfg)), cfg)
-    opt = topt.build_optimizer(topt.TrainConfig(), model, cfg)
+    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(0), cfg)),
+                            port_config(cfg))
+    opt = topt.build_optimizer(topt.TrainConfig(), model,
+                               port_config(cfg))
     for kw in (dict(mesh=object()), dict(lora=True),
                dict(pipe_microbatches=2), dict(ring_mode="fused"),
                dict(offload_optimizer=True)):
         with pytest.raises(NotImplementedError):
-            tstep.make_train_step(cfg, opt, **kw)
+            tstep.make_train_step(port_config(cfg), opt, **kw)
     with pytest.raises(NotImplementedError):
         topt.build_optimizer(topt.TrainConfig(use_8bit_optimizer=True,
                                               offload_optimizer=True),
-                             model, cfg)
+                             model, port_config(cfg))
 
 
 # ------------------------------------------------- trainer, checkpoints
@@ -456,10 +461,11 @@ def _toy_run(toy_dataset, tokenizer, out_dir, resume, max_steps=4):
                     max_packed_tokens=192, max_tiles=8)
     tc = topt.TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=4,
                           use_8bit_optimizer=True)
-    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(0), cfg)), cfg)
+    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(0), cfg)),
+                            port_config(cfg))
     logged = []
     model, state, step = train(
-        cfg, model, packer, run, tc, img_context_token_id=ctx,
+        port_config(cfg), model, packer, run, tc, img_context_token_id=ctx,
         resume=resume, metrics_hook=lambda s, m: logged.append((s, m)))
     return model, state, logged
 
@@ -509,14 +515,16 @@ def test_prefetcher_keeps_batches_a_slow_consumer_has_not_taken(
 
 def test_async_saver_commit_semantics(tmp_path):
     cfg = _cfg(llm_layers=1)
-    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(2), cfg)), cfg)
-    opt = topt.build_optimizer(topt.TrainConfig(), model, cfg)
+    model = from_jax_params(_np(jax_init(jax.random.PRNGKey(2), cfg)),
+                            port_config(cfg))
+    opt = topt.build_optimizer(topt.TrainConfig(), model,
+                               port_config(cfg))
     state = opt.init()
     saver = ckpt.AsyncSaver()
     try:
         path1 = saver.save(str(tmp_path), 1, model, state,
                            data_state={"cursors": {"a": 1}},
-                           save_total_limit=2, cfg=cfg)
+                           save_total_limit=2, cfg=port_config(cfg))
         assert not os.path.exists(os.path.join(path1, "meta.json"))
         assert ckpt.latest_checkpoint(str(tmp_path)) is None
         with torch.no_grad():  # the snapshot was taken at save()
@@ -524,13 +532,13 @@ def test_async_saver_commit_semantics(tmp_path):
         assert saver.finalize() == path1
         assert ckpt.latest_checkpoint(str(tmp_path)) == path1
         fresh = from_jax_params(_np(jax_init(jax.random.PRNGKey(2), cfg)),
-                                cfg)
+                                port_config(cfg))
         back, st, step, ds = ckpt.restore_checkpoint(path1, fresh,
                                                      opt.init())
         assert step == 1 and ds["cursors"] == {"a": 1}
         assert st["count"] == 0
         want = from_jax_params(_np(jax_init(jax.random.PRNGKey(2), cfg)),
-                               cfg)
+                               port_config(cfg))
         for a, b in zip(back.parameters(), want.parameters()):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
         with open(os.path.join(path1, "config.json")) as f:

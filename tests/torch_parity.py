@@ -15,6 +15,20 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from v2pe_tpu_torch.core import config as port_config_lib
+
+
+def port_config(cfg):
+    """The port's own config object with the fields of the JAX package's
+    ``cfg`` (a VLMConfig, LLMConfig or VisionConfig; the port's classes are
+    copies of the JAX package's), checked field for field."""
+    fields = dataclasses.asdict(cfg)
+    cls = getattr(port_config_lib, type(cfg).__name__)
+    out = cls.from_dict(fields) if hasattr(cls, "from_dict") else cls(**fields)
+    assert type(out) is not type(cfg)
+    assert dataclasses.asdict(out) == fields
+    return out
+
 
 def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):

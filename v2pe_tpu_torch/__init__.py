@@ -5,20 +5,23 @@ module names and public function names (``ops/``, ``models/``, ``infer/``),
 so each counterpart is found at the same path, and runs on ``torch`` alone:
 it never imports ``jax``.
 
-Host-side code that has no JAX in it (configs, V2PE position ids, chat
-templates, tiling, image transforms, sample packing) is imported from
-``v2pe_tpu`` rather than copied; it is re-exported here.
+Host-side code (configs, V2PE position ids, chat templates, tiling, image
+transforms, sample packing, datasets, the native image ops) is the port's
+own copy, under the same relative names (``core/config.py``,
+``positional/``, ``data/``, ``native/``, ``train/synth.py``): nothing here
+imports ``v2pe_tpu``. The most used modules are re-exported below.
 
 The TPU kernels on the serving and training paths (the Pallas flash
-forward and backward, the paged-attention kernels) are hand-written CUDA
-kernels for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at first use
-(``ops/_build.py``) and wrapped by ``ops/flash_fwd.py``,
-``ops/flash_bwd.py`` and ``ops/paged_attention.py``.
+forward and backward, the paged-attention kernels, the weight-only int8 /
+int4 matrix products) are hand-written CUDA kernels for ``sm_90a`` in
+``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``) and wrapped
+by ``ops/flash_fwd.py``, ``ops/flash_bwd.py``, ``ops/paged_attention.py``
+and ``ops/quantized_matmul.py``.
 """
 
-from v2pe_tpu import positional
-from v2pe_tpu.core import config
-from v2pe_tpu.data import constants, conversation, packing, tiling, transforms
+from v2pe_tpu_torch import positional
+from v2pe_tpu_torch.core import config
+from v2pe_tpu_torch.data import constants, conversation, packing, tiling, transforms
 
 __all__ = ["config", "constants", "conversation", "packing", "positional",
            "tiling", "transforms"]

@@ -1,7 +1,7 @@
 """HF-compatible chat surface (port of ``v2pe_tpu/infer/chat.py``):
 conversation templating with history, '<image>' expanded to
 '<img>' + <IMG_CONTEXT> * num_image_token * tiles + '</img>', V2PE position
-ids from ``v2pe_tpu.positional``, and decode through
+ids from ``positional``, and decode through
 ``infer/generate.py``."""
 
 from __future__ import annotations
@@ -12,14 +12,16 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from v2pe_tpu.core.config import VLMConfig
-from v2pe_tpu.data.constants import (IMG_CONTEXT_TOKEN, IMG_END_TOKEN,
+from v2pe_tpu_torch.core.config import VLMConfig
+from v2pe_tpu_torch.data.constants import (IMG_CONTEXT_TOKEN, IMG_END_TOKEN,
                                      IMG_START_TOKEN)
-from v2pe_tpu.data.conversation import get_conv_template
-from v2pe_tpu.data.tiling import dynamic_preprocess
-from v2pe_tpu.data.transforms import build_transform
-from v2pe_tpu.positional import build_v2pe_pos_ids
+from v2pe_tpu_torch.data.conversation import get_conv_template
+from v2pe_tpu_torch.data.tiling import dynamic_preprocess
+from v2pe_tpu_torch.data.transforms import build_transform
+from v2pe_tpu_torch.positional import build_v2pe_pos_ids
 from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+from v2pe_tpu_torch.models.internvl_chat import with_llm
+from v2pe_tpu_torch.ops.quantized_matmul import quantize_llm_params
 
 
 class ChatModel:
@@ -27,7 +29,11 @@ class ChatModel:
     the reference's semantics. ``cache_mode="paged"`` decodes through the
     paged-KV kernels (``ops/paged_attention.py``) from a pool of
     ``page_size``-token pages, in the model's dtype or, with
-    ``kv_dtype="int8"``, quantized. Unquantized weights only for now."""
+    ``kv_dtype="int8"``, quantized. ``weights_dtype="int8"`` or ``"int4"``
+    quantizes the LLM's matmul weights and the vocab head once, here
+    (``ops/quantized_matmul.py``): everything that takes this ChatModel
+    (chat, generate, ``ChatSession``, ``ModelWorker``) then decodes against
+    the quantized weights; the ViT and the projector stay as they are."""
 
     def __init__(self, model, cfg: VLMConfig, tokenizer,
                  cache_mode: str = "dense", page_size: int = 128,
@@ -37,16 +43,20 @@ class ChatModel:
         if kv_dtype not in (None, "int8"):
             raise NotImplementedError(f"kv_dtype={kv_dtype!r}: int4 pools "
                                       f"are not ported")
-        if weights_dtype is not None:
+        if weights_dtype not in (None, "int8", "int4"):
             raise NotImplementedError(f"weights_dtype={weights_dtype!r}")
         if lora is not None:
             raise NotImplementedError("LoRA merge is not ported yet")
+        if weights_dtype is not None:
+            model = with_llm(model, quantize_llm_params(
+                model.llm, bits=8 if weights_dtype == "int8" else 4))
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.cache_mode = cache_mode
         self.page_size = page_size
         self.kv_dtype = kv_dtype
+        self.weights_dtype = weights_dtype
         self.img_context_token_id = tokenizer.convert_tokens_to_ids(
             IMG_CONTEXT_TOKEN)
         self.img_start_id = tokenizer.convert_tokens_to_ids(IMG_START_TOKEN)

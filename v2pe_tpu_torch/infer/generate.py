@@ -16,7 +16,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.models import internlm2, internvl_chat
 from v2pe_tpu_torch.models.internlm2 import KVCache
@@ -175,7 +175,7 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
         kv_valid_fn = kv_valid_at
     last = (prompt_lengths - 1).long()
     last_hidden = hidden[torch.arange(B, device=device), last][:, None]
-    last_logits = internlm2.head_logits(last_hidden, llm.output.weight)[:, 0]
+    last_logits = internlm2.head_logits(last_hidden, llm.output)[:, 0]
     last_pos = rope_pos_ids[torch.arange(B, device=device), last]
     out, steps, lens, _ = decode_from_logits(
         llm, cfg.llm, gc, cache, last_logits, last_pos, generator,

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from v2pe_tpu.core.config import LLMConfig
+from v2pe_tpu_torch.core.config import LLMConfig
 from v2pe_tpu_torch.ops.paged_attention import quantize_kv
 
 @dataclasses.dataclass

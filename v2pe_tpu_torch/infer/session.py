@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from v2pe_tpu.positional import build_v2pe_pos_ids
+from v2pe_tpu_torch.positional import build_v2pe_pos_ids
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.infer.chunked_prefill import chunked_prefill
 from v2pe_tpu_torch.infer.generate import (GenerationConfig,
@@ -119,7 +119,7 @@ class ChatSession:
             llm, self.cfg.llm, self.cache, inputs_embeds=embeds,
             rope_pos_ids=spos, segment_ids=seg, return_hidden=True)
         last_logits = internlm2.head_logits(hidden[:, S - 1],
-                                            llm.output.weight)
+                                            llm.output)
         self.last_logits = last_logits
 
         stop_ids = tuple(m.conv_template.stop_token_ids) or \

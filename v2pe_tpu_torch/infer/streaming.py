@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.infer.generate import (GenerationConfig,
                                            _check_supported,
@@ -48,7 +48,7 @@ def _prefill(model, cfg: VLMConfig, gc: GenerationConfig, input_ids,
             llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
             kv_cache=cache, return_hidden=True)
     last_logits = internlm2.head_logits(hidden[:, -1:],
-                                        llm.output.weight)[:, 0]
+                                        llm.output)[:, 0]
     return _sample(last_logits, gc, generator).to(torch.int32), cache
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from v2pe_tpu.core.config import VisionConfig
+from v2pe_tpu_torch.core.config import VisionConfig
 from v2pe_tpu_torch.ops.attention import flash_attention
 from v2pe_tpu_torch.ops.norms import layer_norm, rms_norm
 

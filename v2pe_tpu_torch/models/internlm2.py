@@ -27,6 +27,12 @@ as the JAX scan does with ``jax.checkpoint``: ``full`` per layer, ``block2``
 multiple, as the JAX code falls back), ``attn_saved`` only the SwiGLU block
 (the attention's residuals stay and its backward recomputes nothing),
 ``none`` nothing.
+
+Weight-only int8 / int4 serving: ``QuantizedInternLM2``
+(``ops/quantized_matmul.quantize_llm_params``) holds each of the five
+per-layer weights as one layer-stacked quantized weight and the quantized
+vocab head; every layer sees its slice as a ``StackedQuantizedRef`` and
+``_dot`` sends the product to the quantized kernels. No gradient there.
 """
 
 from __future__ import annotations
@@ -39,12 +45,17 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from v2pe_tpu.core.config import LLMConfig
+from v2pe_tpu_torch.core.config import LLMConfig
 from v2pe_tpu_torch.infer import paged_kv
 from v2pe_tpu_torch.ops import paged_attention as pa
 from v2pe_tpu_torch.ops.attention import (flash_attention,
                                           flash_attention_with_lse)
 from v2pe_tpu_torch.ops.norms import rms_norm
+from v2pe_tpu_torch.ops.quantized_matmul import (QUANT_WEIGHT_NAMES,
+                                                 Int4Weight, QuantizedWeight,
+                                                 StackedQuantizedRef,
+                                                 empty_weight, quantized_dot,
+                                                 quantized_dot_stacked)
 from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      scale_positions)
 
@@ -109,6 +120,84 @@ class InternLM2Model(nn.Module):
         self.output = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
 
+class QuantizedLLMLayer(nn.Module):
+    """One layer of a ``QuantizedInternLM2``: the norms and biases, and
+    ``wqkv`` / ``wo`` / ``w1`` / ``w3`` / ``w2`` as ``StackedQuantizedRef``
+    views of the model's stacks (set by the model)."""
+
+    def __init__(self, attention_norm: nn.Parameter, ffn_norm: nn.Parameter,
+                 wqkv_bias: Optional[nn.Parameter] = None,
+                 wo_bias: Optional[nn.Parameter] = None):
+        super().__init__()
+        self.attention_norm = attention_norm
+        self.ffn_norm = ffn_norm
+        self.wqkv_bias = wqkv_bias
+        self.wo_bias = wo_bias
+
+
+class QuantizedInternLM2(nn.Module):
+    """InternLM2 with int8 or int4 matmul weights: ``stacks[name]`` is the
+    (L, D, Npad) quantized weight of ``name`` in ``QUANT_WEIGHT_NAMES`` over
+    all layers (the JAX layout), ``output`` the quantized (D, Vpad) head;
+    the embedding, norms and biases stay in the model's dtype."""
+
+    def __init__(self, tok_embeddings: nn.Embedding, layers, norm,
+                 stacks: dict, output):
+        super().__init__()
+        self.tok_embeddings = tok_embeddings
+        self.layers = nn.ModuleList(layers)
+        self.norm = norm
+        self.stacks = nn.ModuleDict(stacks)
+        self.output = output
+        for li, layer in enumerate(self.layers):
+            for name in QUANT_WEIGHT_NAMES:
+                setattr(layer, name, StackedQuantizedRef(self.stacks[name],
+                                                         li))
+
+    @classmethod
+    def empty(cls, cfg: LLMConfig, bits: int, group_size: int = 128):
+        """Uninitialized, with the shapes of ``cfg`` (to load a state dict
+        into)."""
+        D, I, L = cfg.hidden_size, cfg.intermediate_size, \
+            cfg.num_hidden_layers
+        Hd = cfg.num_attention_heads * cfg.head_dim
+        qkv_out = Hd + 2 * cfg.num_key_value_heads * cfg.head_dim
+        shapes = {"wqkv": (D, qkv_out), "wo": (Hd, D), "w1": (D, I),
+                  "w3": (D, I), "w2": (I, D)}
+        vec = lambda n: nn.Parameter(torch.empty(n))
+        layers = [QuantizedLLMLayer(
+            vec(D), vec(D),
+            vec(qkv_out) if cfg.bias or cfg.qkv_bias else None,
+            vec(D) if cfg.bias else None) for _ in range(L)]
+        stacks = {name: empty_weight(bits, (L, *shapes[name]), group_size)
+                  for name in QUANT_WEIGHT_NAMES}
+        return cls(nn.Embedding(cfg.vocab_size, D), layers, vec(D), stacks,
+                   empty_weight(bits, (D, cfg.vocab_size), group_size))
+
+    @classmethod
+    def from_parts(cls, llm: "InternLM2Model", stacks: dict, output):
+        """The quantized counterpart of ``llm`` from its quantized stacks
+        and head; the embedding, norms and biases are ``llm``'s own
+        parameters, not copies."""
+        layers = [QuantizedLLMLayer(src.attention_norm, src.ffn_norm,
+                                    src.wqkv.bias, src.wo.bias)
+                  for src in llm.layers]
+        return cls(llm.tok_embeddings, layers, llm.norm, stacks, output)
+
+
+def _dot(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None):
+    """x . W (+ bias). ``w`` is an ``nn.Linear`` (which holds its own bias),
+    one layer of a quantized stack, or a 2-D quantized weight; the quantized
+    kernels take no bias, so it is added after them."""
+    if isinstance(w, nn.Linear):
+        return w(x)
+    if isinstance(w, StackedQuantizedRef):
+        y = quantized_dot_stacked(x, w.qw, w.li)
+    else:
+        y = quantized_dot(x, w)
+    return y if bias is None else y + bias
+
+
 def split_wqkv(qkv: torch.Tensor, cfg: LLMConfig):
     """(B, S, Hkv*(2+G)*hd) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd): per kv head,
     G query slots, then k, then v."""
@@ -119,10 +208,16 @@ def split_wqkv(qkv: torch.Tensor, cfg: LLMConfig):
     return q, qkv[:, :, :, -2], qkv[:, :, :, -1]
 
 
-def head_logits(x: torch.Tensor, output_weight: torch.Tensor) -> torch.Tensor:
+def head_logits(x: torch.Tensor, output) -> torch.Tensor:
     """fp32 vocab logits: the products of the (bf16) operands accumulated
-    in fp32, with no rounding of the result to the input dtype."""
-    return F.linear(x.float(), output_weight.float())
+    in fp32, with no rounding of the result to the input dtype. ``output``
+    is the head: its ``nn.Linear``, that linear's (V, D) weight, or the
+    quantized head."""
+    if isinstance(output, (QuantizedWeight, Int4Weight)):
+        return quantized_dot(x, output, torch.float32)
+    if isinstance(output, nn.Linear):
+        output = output.weight
+    return F.linear(x.float(), output.float())
 
 
 def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
@@ -142,7 +237,7 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
     B, S, _ = x.shape
     fused_rope = rope_pack is not None and kv_cache_layer is None \
         and paged is None
-    q, k, v = split_wqkv(p.wqkv(x), cfg)
+    q, k, v = split_wqkv(_dot(x, p.wqkv, getattr(p, "wqkv_bias", None)), cfg)
     if not fused_rope:
         q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
@@ -179,7 +274,8 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
             q_positions=positions, kv_positions=positions, causal=True,
             rope_positions=(rope_pack[0], None, rope_pack[1])
             if fused_rope else None)
-    return p.wo(out.reshape(B, S, cfg.num_attention_heads * cfg.head_dim))
+    return _dot(out.reshape(B, S, cfg.num_attention_heads * cfg.head_dim),
+                p.wo, getattr(p, "wo_bias", None))
 
 
 def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
@@ -244,7 +340,7 @@ def _two_part_decode_attention(q, k_new, v_new, k_buf, v_buf,
 
 def mlp_forward(p: LLMLayer, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: w2(silu(w1 x) * w3 x)."""
-    return p.w2(F.silu(p.w1(x)) * p.w3(x))
+    return _dot(F.silu(_dot(x, p.w1)) * _dot(x, p.w3), p.w2)
 
 
 def _mlp_block(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
@@ -380,4 +476,4 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)
     if return_hidden:
         return x, new_cache
-    return head_logits(x, model.output.weight), new_cache
+    return head_logits(x, model.output), new_cache

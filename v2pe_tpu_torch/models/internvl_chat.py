@@ -14,7 +14,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.intern_vit import InternVisionModel, vision_forward
 from v2pe_tpu_torch.ops.norms import layer_norm
@@ -38,6 +38,17 @@ class InternVLChatModel(nn.Module):
         self.llm = internlm2.InternLM2Model(cfg.llm)
         vit_hidden = cfg.vision.hidden_size * int(1 / cfg.downsample_ratio) ** 2
         self.mlp1 = Projector(vit_hidden, cfg.llm.hidden_size)
+
+
+def with_llm(model: InternVLChatModel, llm: nn.Module) -> InternVLChatModel:
+    """A model that shares ``model``'s vision tower and projector and holds
+    ``llm`` as its decoder (a quantized one, say); ``model`` keeps its
+    own."""
+    out = InternVLChatModel.__new__(InternVLChatModel)
+    nn.Module.__init__(out)
+    out.vision, out.llm, out.mlp1 = model.vision, llm, model.mlp1
+    out.train(model.training)
+    return out
 
 
 def pixel_shuffle(x: torch.Tensor, scale_factor: float,

@@ -23,7 +23,7 @@ from urllib import request as urlrequest
 
 import numpy as np
 
-from v2pe_tpu.positional import build_v2pe_pos_ids
+from v2pe_tpu_torch.positional import build_v2pe_pos_ids
 from v2pe_tpu_torch.infer.chat import ChatModel
 from v2pe_tpu_torch.infer.generate import GenerationConfig
 from v2pe_tpu_torch.infer.streaming import stream_generate

@@ -196,10 +196,10 @@ def main(argv=None):
     import torch
     from transformers import AutoTokenizer
 
-    from v2pe_tpu.core import config as cfg_lib
-    from v2pe_tpu.data.constants import IMG_CONTEXT_TOKEN, SPECIAL_TOKENS
-    from v2pe_tpu.data.datasets import build_datasets
-    from v2pe_tpu.data.packing import PackedSampleIterator
+    from v2pe_tpu_torch.core import config as cfg_lib
+    from v2pe_tpu_torch.data.constants import IMG_CONTEXT_TOKEN, SPECIAL_TOKENS
+    from v2pe_tpu_torch.data.datasets import build_datasets
+    from v2pe_tpu_torch.data.packing import PackedSampleIterator
     from v2pe_tpu_torch.models.params import init_vlm_params
     from v2pe_tpu_torch.train.metrics import build_metrics_hook
     from v2pe_tpu_torch.train.optimizer import TrainConfig

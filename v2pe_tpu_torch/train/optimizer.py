@@ -33,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models.params import JaxLeaf, jax_leaf_map
 from v2pe_tpu_torch.train import adam8bit
 

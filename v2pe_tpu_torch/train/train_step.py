@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from v2pe_tpu.core.config import VLMConfig
+from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models import internvl_chat
 from v2pe_tpu_torch.train.optimizer import Optimizer
 

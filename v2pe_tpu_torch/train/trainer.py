@@ -16,8 +16,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from v2pe_tpu.core.config import MeshConfig, VLMConfig
-from v2pe_tpu.data.packing import PackedSampleIterator, collate_rows
+from v2pe_tpu_torch.core.config import MeshConfig, VLMConfig
+from v2pe_tpu_torch.data.packing import PackedSampleIterator, collate_rows
 from v2pe_tpu_torch.core import checkpoint as ckpt_lib
 from v2pe_tpu_torch.train.optimizer import (TrainConfig, build_optimizer,
                                             lr_schedule)
