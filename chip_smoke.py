@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile        # only a torch.profiler breakdown
                                            # of the 8-tile request's generate
+                                           # and of one engine decode block
     python3 chip_smoke.py --profile-train  # only a torch.profiler breakdown
                                            # of one full-width train step
 
@@ -11,10 +12,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
      build of the CUDA kernels from this checkout's sources;
   2. kernels: every kernel against its plain PyTorch twin at every form
      the serving paths give it, with errors and times: the flash forward;
-     the paged store, decode and prefill kernels in bf16 and int8 (the
-     served rows, one row over 32k tokens at ChatModel's page 128, the
+     the paged store, decode and prefill kernels in bf16, int8 and int4
+     (the served rows, one row over 32k tokens at ChatModel's page 128, the
      session's store and decode over a 34k context at page 512, a
-     2048-token chunk over a 32k history);
+     2048-token chunk over a 32k history; in bf16 and int4 also the
+     engine's decode of 8 rows of 8.2k tokens with 1 and with 5 fresh
+     tokens);
   3. serve: InternVL2-2B at full width (bf16, random weights from a seed)
      answers three chat requests through ChatModel.batch_chat, and the
      flash kernel's launch count shows the path went through it;
@@ -43,6 +46,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
      launches and 1 head launch a forward, none of the other width), TTFT
      and decode rate, stream equal to generate, first-token logits against
      the bf16 model's. It runs before the training phases.
+     Phase 12, the engine (serve/engine.py), also before the training
+     phases: the 32k-history session once more with int4 weights over an
+     int4 pool (w4kv4); the serving-throughput recipe of the JAX package's
+     bench through InferenceEngine (8 requests of 8192 random tokens, 256
+     new each, 8 rows, page 512, chunks of 2048, blocks of 64 steps): total
+     and generated tok/s, an admission's time, ms a decode step at 8 rows,
+     launches and synchronising reads a block (one: the harvest), the
+     pool's bytes; 4 chat requests (8 tiles, 1 tile, text, the 8-tile one
+     again) through EngineChat with the prefix cache on, over a bf16, an
+     int8 and an int4 pool and with speculative_k = 4; one request over HTTP
+     through ModelWorker(engine=...); one text request with 3 beams.
 Phase 2 also holds the four quantized-product kernels against their plain
 versions (the head at M = 1 and 3, each layer product at M = 3, wqkv and
 w2 at the 2167-row prefill; bf16 and fp32 x) and the two flash-backward kernels against their twin at
@@ -50,7 +64,9 @@ the training path's forms (the 8192-token packed LLM, 8 ViT tiles, a
 ragged fp32 form). A small fp32 model on the card against the same model
 on the CPU (the kernels against their twins: a packed forward, then the
 paged path with identical tokens, then one train step and a checkpoint
-resume; then 2-layer int8 and int4 models) runs after phase 2. Phases 3 and
+resume; then 2-layer int8 and int4 models; then a 2-row engine that must
+queue, reuse rows and hit a shared prefix, plain and speculative and over
+an int4 pool; then beam search) runs after phase 2. Phases 3 and
 6-11 each zero the kernels' launch
 counts before they start and read them after, and fail if a kernel of
 their path was not launched. The kernel table prints as one JSON line:
@@ -370,18 +386,26 @@ PAGED_TOL = {  # kernel against twin (twin in fp32)
 }
 LLM_L, LLM_HKV, LLM_HQ, LLM_HD = 24, 8, 16, 128  # InternVL2-2B's decoder
 SESSION_CONTEXT = 34165  # tokens in the pool where the session decodes
+ENGINE_CONTEXT = 8192     # tokens of an engine row's prompt
 
 
-def _pool(L, NP, ps, int8: bool, g, device):
+def _pool(L, NP, ps, kind: str, g, device):
+    """A random pool of one kind: bf16 values; int8 codes with scales; or
+    int4 codes as packed bytes (two nibbles each, half the int8 pool's
+    bytes) with scales 18 times larger (amax / 7 against amax / 127)."""
     shape = (L, LLM_HKV, NP, ps, LLM_HD)
-    if not int8:
+    if kind == "bf16":
         k, v = (torch.randn(shape, generator=g, device=device,
                             dtype=torch.bfloat16) for _ in range(2))
         return dict(k_pages=k, v_pages=v)
+    if kind == "int4":
+        shape = shape[:4] + (LLM_HD // 2,)
     k, v = (torch.randint(-127, 128, shape, generator=g, device=device,
                           dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(shape[:3] + (1, ps), generator=g, device=device)
               * 0.025 + 0.005 for _ in range(2))
+    if kind == "int4":
+        ks, vs = ks * 18.0, vs * 18.0
     return dict(k_pages=k, v_pages=v, k_scales=ks, v_scales=vs)
 
 
@@ -405,14 +429,17 @@ def paged_forms(device, prompt_lens):
     128, ChatModel's), the separate-fresh decode at T=4, the session's
     store and decode of one row over a 34k context at page 512 (on one
     pool: the decode reads the stored token), and a 2048-token chunk over
-    a 32k history at page 512; each in bf16 and int8."""
+    a 32k history at page 512; each in bf16, int8 and int4. For bf16 and
+    int4 also the serving engine's forms: decode of 8 rows of about 8.2k
+    tokens at page 512 with T = 1 (a decode block's step) and with T = 5
+    fresh tokens folded in separately (a speculative verify forward); and
+    for int4 a 256-token chunk over the served rows at page 128."""
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=device).manual_seed(11)
     forms = []
     served = [n + MAX_NEW // 2 for n in prompt_lens]
-    for int8 in (False, True):
-        tag = "int8" if int8 else "bf16"
+    for tag in ("bf16", "int8", "int4"):
 
         def q(B, T, H=LLM_HQ):
             return torch.randn((B, T, H, LLM_HD), generator=g, device=device,
@@ -420,7 +447,7 @@ def paged_forms(device, prompt_lens):
 
         table, NP = _rows(served, 128, MAX_NEW, device)
         lens = torch.tensor(served, dtype=torch.int32, device=device)
-        pool = _pool(LLM_L, NP, 128, int8, g, device)
+        pool = _pool(LLM_L, NP, 128, tag, g, device)
         forms.append(("paged_store", f"store_B3_ps128_{tag}",
                       pa.store_fresh_token,
                       dict(k_new=q(3, 1, LLM_HKV), v_new=q(3, 1, LLM_HKV),
@@ -440,7 +467,7 @@ def paged_forms(device, prompt_lens):
                            **pool)))
         n32 = 32767
         table, NP = _rows([n32], 128, 1, device)
-        pool = _pool(LLM_L, NP, 128, int8, g, device)
+        pool = _pool(LLM_L, NP, 128, tag, g, device)
         forms.append(("paged_decode", f"decode_32k_B1_ps128_{tag}",
                       pa.paged_decode_attention,
                       dict(q=q(1, 1), k_new=None, v_new=None,
@@ -451,7 +478,7 @@ def paged_forms(device, prompt_lens):
                            return_lse=True, **pool)))
         n = SESSION_CONTEXT
         table, NP = _rows([n], 512, 1, device)
-        pool = _pool(LLM_L, NP, 512, int8, g, device)
+        pool = _pool(LLM_L, NP, 512, tag, g, device)
         lens = torch.tensor([n], dtype=torch.int32, device=device)
         forms.append(("paged_store", f"store_B1_{n}_ps512_{tag}",
                       pa.store_fresh_token,
@@ -464,14 +491,48 @@ def paged_forms(device, prompt_lens):
                            page_table=table, lengths=lens, layer=LLM_L - 1,
                            fresh_in_pages=True, return_lse=True, **pool)))
         table, NP = _rows([32768], 512, 2048, device)
-        pool = _pool(LLM_L, NP, 512, int8, g, device)
+        pool = _pool(LLM_L, NP, 512, tag, g, device)
         forms.append(("paged_prefill", f"prefill_2048_over_32k_ps512_{tag}",
                       pa.paged_prefill_attention,
                       dict(q=q(1, 2048), page_table=table,
                            lengths=torch.tensor([32768], dtype=torch.int32,
                                                 device=device),
                            layer=LLM_L - 1, **pool)))
+        if tag == "int8":
+            continue
+        if tag == "int4":
+            table, NP = _rows(served, 128, 256, device)
+            forms.append(("paged_prefill",
+                          f"prefill_256_over_served_rows_ps128_{tag}",
+                          pa.paged_prefill_attention,
+                          dict(q=q(3, 256), page_table=table,
+                               lengths=torch.tensor(
+                                   served, dtype=torch.int32, device=device),
+                               layer=LLM_L - 1,
+                               **_pool(LLM_L, NP, 128, tag, g, device))))
+        rows = [ENGINE_CONTEXT + 37 * b for b in range(8)]  # ragged
+        table, NP = _rows(rows, 512, 8, device)
+        pool = _pool(LLM_L, NP, 512, tag, g, device)
+        lens = torch.tensor(rows, dtype=torch.int32, device=device)
+        forms.append(("paged_decode", f"decode_engine_B8_8k_T1_ps512_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(8, 1), k_new=None, v_new=None,
+                           page_table=table, lengths=lens, layer=LLM_L - 1,
+                           fresh_in_pages=True, return_lse=True, **pool)))
+        forms.append(("paged_decode", f"decode_engine_B8_8k_T5_ps512_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(8, 5), k_new=q(8, 5, LLM_HKV),
+                           v_new=q(8, 5, LLM_HKV), page_table=table,
+                           lengths=lens, layer=LLM_L - 1, return_lse=True,
+                           **pool)))
     return forms
+
+
+def _is_main_paged(name: str, tag: str) -> bool:
+    """The paged kernels' main forms, in the pool type ``tag``."""
+    return name in (f"store_B3_ps128_{tag}",
+                    f"prefill_2048_over_32k_ps512_{tag}") or (
+        name.startswith("decode_fresh_in_pages") and name.endswith(tag))
 
 
 def _twin(kernel: str):
@@ -500,9 +561,11 @@ def paged_roof(kernel: str, kw: dict) -> dict:
     of an int8 pool), the queries and the fresh k/v, write out and lse, and
     run two products per (query, slot) pair and query head."""
     pool = kw["k_pages"]
-    Hkv, D = pool.shape[1], pool.shape[4]
-    int8 = kw.get("k_scales") is not None
-    slot = 2 * Hkv * (D * pool.element_size() + (4 if int8 else 0))  # k + v
+    Hkv, D = pool.shape[1], LLM_HD
+    quant = kw.get("k_scales") is not None
+    # a slot's k and v: its stored bytes (D/2 for int4) and its scales
+    slot = 2 * Hkv * (pool.shape[4] * pool.element_size()
+                      + (4 if quant else 0))
     fresh = nbytes(kw.get("k_new"), kw.get("v_new"))
     lengths = kw["lengths"]
     if kernel == "paged_store":
@@ -523,7 +586,8 @@ def phase_paged_kernels(prompt_lens) -> dict:
     """Each paged kernel against its twin at every form; returns per-kernel
     lists of form records. No library call computes these functions over a
     page table. Main forms: the served rows' store and decode and the
-    2048-token chunk, bf16 pools."""
+    2048-token chunk, bf16 pools; their int8 and int4 counterparts are the
+    records' ``pool`` forms."""
     device = torch.device("cuda")
     records = {"paged_store": [], "paged_decode": [], "paged_prefill": []}
     for kernel, name, fn, kw in paged_forms(device, prompt_lens):
@@ -551,16 +615,15 @@ def phase_paged_kernels(prompt_lens) -> dict:
         plain_ms = time_ms(lambda: twin(**kw), iters=3)
         bound = paged_roof(kernel, kw)
         log(f"kernel {name}: {msg} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms"
-            f", bound {bound['bound_ms']:.5f} ms by {bound['bound_by']}, "
+            f", bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}, "
             f"library none")
         if not ok:
             raise AssertionError(f"{kernel} disagrees with twin at {name}")
         records[kernel].append(dict(
             form=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
-            library_ms=None, main=name in (
-                "store_B3_ps128_bf16", "prefill_2048_over_32k_ps512_bf16")
-            or name.startswith("decode_fresh_in_pages")
-            and name.endswith("bf16")))
+            library_ms=None, main=_is_main_paged(name, "bf16"),
+            pool=next((t for t in ("int8", "int4")
+                       if _is_main_paged(name, t)), None)))
         del kw
     torch.cuda.empty_cache()
     return records
@@ -862,6 +925,9 @@ def phase_small_reference() -> None:
 
 LOGIT_TOL = 0.1  # bf16 paths apart: max |dlogit| / max |logit|
 LOGIT_TOL_FP32 = 1e-4  # fp32: summation order through 24 layers
+# an int4 pool against an int8 pool (bf16 model, random weights): half a step
+# of amax / 7 on every cached k and v, through 24 layers; 5.1e-2 was found
+KV4_LOGIT_TOL = 0.2
 LONG_HISTORY, LONG_TURN = 32000, 2000  # characters = code-point tokens
 DECODE_STEPS = 4  # teacher-forced decode steps held paged against dense
 
@@ -988,7 +1054,7 @@ def phase_session(model, cfg, tok) -> dict:
     text turns that prefill only their suffix over the pool (the paged
     prefill kernel); turn 2's first-token logits against a full re-prefill
     of its prompt (what chat(history=...) runs). Then one 2k-token turn
-    over a 32k-token history, timed."""
+    over a 32k-token history, timed, over a bf16 and an int8 pool."""
     from v2pe_tpu_torch.infer.chat import ChatModel
     from v2pe_tpu_torch.infer.generate import GenerationConfig
     from v2pe_tpu_torch.infer.session import ChatSession
@@ -1025,10 +1091,28 @@ def phase_session(model, cfg, tok) -> dict:
             if not d <= LOGIT_TOL:
                 raise AssertionError("session disagrees with re-prefill")
 
+    for kv in (None, "int8"):
+        long = long_session(chat, cfg, kv,
+                            f"bf16 weights, {kv or 'bf16'} pool")
+        total = {k: total[k] + long[k] for k in total}
+    return total
+
+
+def long_session(chat, cfg, kv_dtype, tag: str) -> dict:
+    """A 2k-token turn over a 32k-token history through ChatSession at page
+    512, timed to its first token, then the decode rate at that context (34k
+    tokens). Returns the launch counts of the turn and the decode."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.infer.session import ChatSession
+
     rng = np.random.default_rng(12)
     letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
     long_sess = ChatSession(chat, max_len=LONG_HISTORY + 2 * LONG_TURN,
-                            page_size=512)
+                            page_size=512, kv_dtype=kv_dtype)
+    pool = long_sess.cache
+    log(f"session ({tag}): pool of {pool.k_pages.shape[2]} pages of 512: "
+        f"{2 * nbytes(pool.k_pages) / 2 ** 30:.3f} GiB of k and v, "
+        f"{2 * nbytes(pool.k_scales) / 2 ** 30:.3f} GiB of scales")
     one = GenerationConfig(max_new_tokens=1)
     t0 = time.perf_counter()
     long_sess.send(None, "".join(rng.choice(letters, LONG_HISTORY)), one)
@@ -1040,10 +1124,10 @@ def phase_session(model, cfg, tok) -> dict:
     long_sess.send(None, "".join(rng.choice(letters, LONG_TURN)), one)
     counts = read_launches()
     turn = time.perf_counter() - t0
-    log(f"session: {long_sess.consumed - history}-token turn over a "
+    log(f"session ({tag}): {long_sess.consumed - history}-token turn over a "
         f"{history}-token history: {turn * 1e3:.1f} ms to the first token "
         f"(history prefill {fill * 1e3:.1f} ms); launches {counts}")
-    require(counts, ("paged_prefill",), "2k-over-32k turn")
+    require(counts, ("paged_prefill",), f"2k-over-32k turn ({tag})")
     # decode rate at that context: a turn of 33 new tokens less a turn of
     # one, steps counted from the decode kernel's launches
     t0 = time.perf_counter()
@@ -1052,14 +1136,15 @@ def phase_session(model, cfg, tok) -> dict:
     reset_launches()
     t0 = time.perf_counter()
     long_sess.send(None, "Go on again.", GenerationConfig(max_new_tokens=33))
-    counts = read_launches()
+    decode = read_launches()
     t_many = time.perf_counter() - t0
-    steps = counts["paged_decode"] // cfg.llm.num_hidden_layers
-    log(f"session: decode over a {long_sess.consumed}-token context: "
+    steps = decode["paged_decode"] // cfg.llm.num_hidden_layers
+    log(f"session ({tag}): decode over a {long_sess.consumed}-token context: "
         f"{steps} steps in {(t_many - t_one) * 1e3:.1f} ms = "
         f"{steps / (t_many - t_one):.1f} tok/s (a {t_many * 1e3:.1f} ms turn "
         f"less a 1-token turn of {t_one * 1e3:.1f} ms)")
-    return total
+    require(decode, ("paged_store", "paged_decode"), f"34k decode ({tag})")
+    return {k: counts[k] + decode[k] for k in counts}
 
 
 # --------------------------------------------------------- phase 8: worker
@@ -1126,6 +1211,429 @@ def phase_worker(model, cfg, tok) -> dict:
                              f"{want!r}")
     require(counts, ("paged_store", "paged_decode"), "worker")
     return counts
+
+
+# ------------------------------------------------- phase 12: the engine
+
+
+def count_syncs(fn):
+    """Run ``fn`` with PyTorch's synchronisation debug mode on: (its
+    result, how many synchronising CUDA calls the host made: reads of a
+    device value, blocking copies)."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def _small_engine(model, cfg, tok, dev: str, kv_dtype=None,
+                  speculative_k: int = 0):
+    """A 2-row engine on ``dev`` whose pool cannot hold all of its 5
+    requests at once: requests queue, rows are reused, pages are reclaimed,
+    and the fourth request repeats the first's prefix. Returns (tokens per
+    request, stats, first-token logits of request 0, the isolated paged
+    generate's tokens per request)."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    chat = ChatModel(model.to(dev), cfg, tok, cache_mode="paged",
+                     page_size=16, kv_dtype=kv_dtype)
+    gc = GenerationConfig(eos_token_ids=(cfg.llm.vocab_size - 1,),
+                          speculative_k=speculative_k, speculative_ngram=2)
+    # spec_min_accept 0: every block of a speculative engine verifies
+    eng = InferenceEngine(chat, max_rows=2, max_len=160, page_size=16,
+                          pool_tokens=240, chunk_size=32, decode_block=4,
+                          generation_config=gc, kv_dtype=kv_dtype,
+                          spec_min_accept=0.0)
+    rng = np.random.default_rng(21)
+    base = rng.integers(3, 990, 70)
+    prompts = [base, rng.integers(3, 990, 41), rng.integers(3, 990, 23),
+               np.concatenate([base[:50], rng.integers(3, 990, 9)]),
+               np.tile(rng.integers(3, 990, 6), 6)]
+    new = [11, 9, 14, 8, 12]
+    reqs = [eng.submit(p, np.arange(len(p)) * 0.5, max_new_tokens=n)
+            for p, n in zip(prompts, new)]
+    eng.run_until_idle()
+    alone = []
+    for p, n in zip(prompts, new):
+        out, _, lens = generate(
+            chat.model, cfg, dataclasses.replace(
+                gc, max_new_tokens=n, speculative_k=0),
+            torch.as_tensor(p[None]), torch.tensor([len(p)]),
+            torch.as_tensor((np.arange(len(p)) * 0.5)[None]),
+            torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32),
+            999, cache_mode="paged", page_size=16, kv_dtype=kv_dtype)
+        alone.append(out[0, :int(lens[0])].tolist())
+    return ([r.tokens for r in reqs], dict(eng.stats),
+            reqs[0].first_logits.float().cpu(), alone)
+
+
+def phase_small_engine_reference() -> None:
+    """The continuous-batching engine on a small fp32 model, on the card
+    (through the paged kernels) against the CPU (through their plain
+    versions): the same tokens, equal to each request's isolated paged
+    generate; the same with speculative_k = 4; an int4 pool's first-token
+    logits card against CPU. Then beam search, card against CPU."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.infer.beam import beam_generate
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.models.params import init_vlm_params
+
+    cfg = config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+        rope_pos_id_stride=2)
+    model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
+    tok = CodePointTokenizer()
+    for k in (0, 4):
+        (t_cpu, s_cpu, l_cpu, alone), (t_gpu, s_gpu, l_gpu, _) = (
+            _small_engine(model, cfg, tok, dev, speculative_k=k)
+            for dev in ("cpu", "cuda"))
+        err = (l_cpu - l_gpu).abs().max().item()
+        ok = t_gpu == t_cpu == alone and s_gpu == s_cpu \
+            and s_gpu["prefix_hit_pages"] > 0 and err <= 1e-4
+        log(f"reference: small engine fp32 (2 rows, 5 requests, pool of 15 "
+            f"pages of 16, speculative_k {k}): card tokens equal to the "
+            f"CPU's {t_gpu == t_cpu}, to isolated paged generate "
+            f"{t_gpu == alone}; stats {s_gpu} equal {s_gpu == s_cpu}; "
+            f"first-token max|dlogit| {err:.3e} (tol 1e-4)")
+        if not ok:
+            raise AssertionError(f"small engine: card {t_gpu} {s_gpu}, CPU "
+                                 f"{t_cpu} {s_cpu}, alone {alone}")
+    (t_cpu, _, l_cpu, _), (t_gpu, _, l_gpu, _) = (
+        _small_engine(model, cfg, tok, dev, kv_dtype="int4")
+        for dev in ("cpu", "cuda"))
+    rel = _rel(l_gpu, l_cpu)
+    same = sum(a == b for a, b in zip(sum(t_gpu, []), sum(t_cpu, [])))
+    log(f"reference: small engine fp32, int4 pool: first-token logits card "
+        f"vs CPU max|dlogit|/max|logit| {rel:.3e} (tol 2e-3), equal tokens "
+        f"{same}/{len(sum(t_cpu, []))}")
+    if not rel <= 2e-3:
+        raise AssertionError("small int4 engine: card and CPU disagree")
+
+    rng = np.random.default_rng(31)
+    ids = rng.integers(3, 990, (2, 30))
+    ids[1, 19:] = 0
+    gc = GenerationConfig(max_new_tokens=10, num_beams=3, eos_token_ids=(7,))
+    outs = []
+    for dev in ("cpu", "cuda"):
+        tokens, lens = beam_generate(
+            model.to(dev), cfg, gc, torch.as_tensor(ids),
+            torch.tensor([30, 19]),
+            torch.as_tensor(np.broadcast_to(np.arange(30, dtype=np.float32),
+                                            (2, 30)).copy()),
+            torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32),
+            999)
+        outs.append((tokens.cpu(), lens.cpu()))
+    same = torch.equal(outs[0][0], outs[1][0]) and \
+        torch.equal(outs[0][1], outs[1][1])
+    log(f"reference: small beam search fp32 (3 beams, 2 rows): card tokens "
+        f"and lengths {outs[1][1].tolist()} equal to the CPU's {same}")
+    if not same:
+        raise AssertionError(f"beam search: card {outs[1]} CPU {outs[0]}")
+
+
+ENGINE_ROWS, ENGINE_NEW, ENGINE_BLOCK = 8, 256, 64
+
+
+def engine_recipe(chat, cfg, **kw):
+    """The serving-throughput recipe of the JAX package's bench
+    (``bench.py:_engine_bench``): 8 rows, prompts of 8192 random tokens,
+    256 new each, page 512, chunks of 2048, blocks of 64 steps, no prefix
+    cache, the last vocabulary id as the stop token."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    gc = GenerationConfig(max_new_tokens=ENGINE_NEW,
+                          eos_token_ids=(cfg.llm.vocab_size - 1,))
+    max_len = ENGINE_CONTEXT + ENGINE_NEW + 16
+    # a pool of whole pages for every row: the recipe's default (max_rows *
+    # max_len tokens) is 133 pages where 8 rows reserve 8 x 17, so its
+    # eighth request would wait for a row to finish
+    return InferenceEngine(
+        chat, max_rows=ENGINE_ROWS, max_len=max_len, page_size=512,
+        pool_tokens=ENGINE_ROWS * -(-max_len // 512) * 512,
+        chunk_size=2048, decode_block=ENGINE_BLOCK, generation_config=gc,
+        prefix_caching=False, **kw)
+
+
+def _engine_submit(eng, cfg, rng, n: int, max_new: int) -> list:
+    return [eng.submit(rng.integers(10, cfg.llm.vocab_size - 2,
+                                    ENGINE_CONTEXT),
+                       np.arange(ENGINE_CONTEXT, dtype=np.float64),
+                       max_new_tokens=max_new) for _ in range(n)]
+
+
+def phase_engine(chat, cfg) -> dict:
+    """The engine at full width through the bench recipe: a short warm run
+    (one request, which also times an admission), then 8 requests of 8192
+    tokens and 256 new each, run once. Every block after the admissions is
+    run with the synchronisation counter on: one harvest a block."""
+    L = cfg.llm.num_hidden_layers
+    eng = engine_recipe(chat, cfg)
+    pool = eng.cache
+    log(f"engine: pool of {pool.k_pages.shape[2]} pages of "
+        f"{pool.page_size} ({eng.max_pages_per_row} a row): "
+        f"{2 * nbytes(pool.k_pages) / 2 ** 30:.3f} GiB")
+    rng = np.random.default_rng(0)
+    eng.decode_block = 1
+    for label in ("warm", "timed"):
+        _engine_submit(eng, cfg, rng, 1, 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        admit = time.perf_counter() - t0
+        eng.run_until_idle()
+    log(f"engine: admission of one {ENGINE_CONTEXT}-token request "
+        f"({ENGINE_CONTEXT // eng.chunk_size} chunks of {eng.chunk_size}) "
+        f"and one decode step: {admit * 1e3:.1f} ms")
+    eng.decode_block = ENGINE_BLOCK
+    eng.stats["prefill_chunks"] = 0
+
+    reqs = _engine_submit(eng, cfg, rng, ENGINE_ROWS, ENGINE_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    eng.step()                      # admits all 8, then the first block
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    first = read_launches()
+    blocks = []
+    while any(r is not None for r in eng._row_req):
+        reset_launches()
+        t1 = time.perf_counter()
+        _, syncs = count_syncs(eng.step)
+        torch.cuda.synchronize()
+        blocks.append((time.perf_counter() - t1, syncs, read_launches()))
+    dt = time.perf_counter() - t0
+    generated = sum(len(r.tokens) for r in reqs)
+    total = ENGINE_ROWS * ENGINE_CONTEXT + generated
+    # every block runs its 64 steps over all rows, active or not
+    step_ms = 1e3 * sum(b[0] for b in blocks) / (len(blocks) * ENGINE_BLOCK)
+    log(f"engine: {ENGINE_ROWS} requests x {ENGINE_CONTEXT} tokens, "
+        f"{generated} generated in {dt:.3f}s = {total / dt:.1f} total tok/s,"
+        f" {generated / dt:.1f} generated tok/s; admissions and the first "
+        f"block {t_first:.3f}s ({eng.stats['prefill_chunks']} chunks); then "
+        f"{len(blocks)} blocks of {ENGINE_BLOCK} steps: {step_ms:.2f} ms a "
+        f"step at {ENGINE_ROWS} rows = "
+        f"{ENGINE_ROWS / step_ms * 1e3:.1f} tok/s in decode; a block "
+        f"launches {blocks[0][2]['paged_store']} stores and "
+        f"{blocks[0][2]['paged_decode']} decodes and reads the card "
+        f"{sorted({b[1] for b in blocks})} time(s)")
+    require(first, ("flash_fwd", "paged_prefill", "paged_store",
+                    "paged_decode"), "engine admissions")
+    if generated != ENGINE_ROWS * ENGINE_NEW or \
+            not all(r.finished.is_set() for r in reqs):
+        raise AssertionError(f"engine generated {generated} tokens")
+    if any(b[1] != 1 for b in blocks):
+        raise AssertionError(f"a decode block synchronised "
+                             f"{[b[1] for b in blocks]} times, not once")
+    for b in blocks:
+        if not b[2]["paged_store"] == b[2]["paged_decode"] == \
+                L * ENGINE_BLOCK:
+            raise AssertionError(f"block launches {b[2]}")
+    counts = dict(first)
+    for b in blocks:
+        counts = {k: counts[k] + b[2][k] for k in counts}
+    return counts
+
+
+CHAT_REQUESTS = REQUESTS + REQUESTS[:1]  # the 8-tile request comes again
+
+
+def _engine_chats(chat, cfg, tag: str, **engine_kw):
+    """The three served requests and the 8-tile one again through an
+    EngineChat with the prefix cache on (page 128, chunks of 512): (requests,
+    launch counts, stats)."""
+    from v2pe_tpu_torch.serve.engine import EngineChat
+
+    pixels = _request_pixels()
+    pixels.append(pixels[0])
+    ec = EngineChat(chat, max_rows=4, max_len=4096, page_size=128,
+                    chunk_size=512, decode_block=8, **engine_kw)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = [ec.engine.submit_chat(pv, q, max_new_tokens=MAX_NEW)
+                for pv, (_, q) in zip(pixels[:3], CHAT_REQUESTS[:3])]
+        for r in reqs:
+            r.result(timeout=600)
+        cold = dict(ec.engine.stats)
+        reqs.append(ec.engine.submit_chat(pixels[3], CHAT_REQUESTS[3][1],
+                                          max_new_tokens=MAX_NEW))
+        reqs[3].result(timeout=600)
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        stats = dict(ec.engine.stats)
+        pool = ec.engine.cache
+        stats["pool_bytes"] = 2 * nbytes(pool.k_pages)
+    finally:
+        ec.stop()
+    again = stats["prefill_chunks"] - cold["prefill_chunks"]
+    log(f"engine chat ({tag}): pool of {pool.k_pages.shape[2]} pages of "
+        f"{pool.page_size}: {stats['pool_bytes']} bytes of k and v, "
+        f"{2 * nbytes(pool.k_scales)} of scales; 4 requests in {wall:.3f}s, tokens "
+        f"{[len(r.tokens) for r in reqs]}; the first three ran "
+        f"{cold['prefill_chunks']} prefill chunks, the 8-tile request again "
+        f"{again} with {stats['prefix_hit_pages']} prefix pages hit; stats "
+        f"{stats}; launches {counts}")
+    if not (stats["prefix_hit_pages"] > 0 and again < 5
+            and all(r.tokens for r in reqs)):
+        raise AssertionError(f"engine chat ({tag}): no prefix hit: {stats}")
+    return reqs, counts, stats
+
+
+def _token_share(a, b) -> str:
+    pairs = [(x, y) for r, s in zip(a, b) for x, y in zip(r.tokens, s.tokens)]
+    return f"{sum(x == y for x, y in pairs)}/{len(pairs)}"
+
+
+def phase_engine_chat(model, cfg, tok, served: dict) -> list:
+    """Chat requests through EngineChat at full width: bf16 pool (held to
+    the isolated paged chat: first-token logits within the bf16 limit, the
+    share of equal tokens printed; the repeated request to its first run),
+    then an int8 and an int4 pool (int4 against int8), then
+    speculative_k = 4; then one request over HTTP through
+    ModelWorker(engine=...). Returns the launch counts of each path."""
+    import threading
+    import urllib.request
+
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+    from v2pe_tpu_torch.serve.worker import ModelWorker
+
+    chat = ChatModel(model, cfg, tok, cache_mode="paged")
+    ids, pos, pix = served["ids"], served["pos"], served["pixels"]
+    paths = []
+    bf16, counts, _ = _engine_chats(chat, cfg, "bf16 pool")
+    require(counts, ("flash_fwd", "paged_prefill", "paged_store",
+                     "paged_decode"), "engine chat")
+    paths.append(counts)
+    alone = first_logits(chat, cfg, ids, pos, pix, [], "paged", steps=0)[0]
+    d = _rel(bf16[0].first_logits.float(), alone)
+    d_again = _rel(bf16[3].first_logits.float(), bf16[0].first_logits.float())
+    same = sum(x == int(y) for x, y in zip(bf16[0].tokens, served["tokens"]))
+    log(f"engine chat: 8-tile request's first-token logits vs the isolated "
+        f"paged prefill: max|dlogit|/max|logit| {d:.3e}; on its prefix hit "
+        f"vs its cold run {d_again:.3e} (tol {LOGIT_TOL}); tokens equal to "
+        f"the isolated generate's {same}/{len(bf16[0].tokens)}, hit vs cold "
+        f"{_token_share(bf16[3:], bf16[:1])}")
+    if not (d <= LOGIT_TOL and d_again <= LOGIT_TOL):
+        raise AssertionError("engine chat disagrees with the isolated chat")
+
+    pools, held = {}, {}
+    for kv in ("int8", "int4"):
+        pools[kv], counts, stats = _engine_chats(chat, cfg, f"{kv} pool",
+                                                 kv_dtype=kv)
+        require(counts, ("flash_fwd", "paged_prefill", "paged_store",
+                         "paged_decode"), f"engine chat ({kv} pool)")
+        paths.append(counts)
+        held[kv] = stats["pool_bytes"]
+    if 2 * held["int4"] != held["int8"]:
+        raise AssertionError(f"the int4 pool holds {held['int4']} bytes, the "
+                             f"int8 pool {held['int8']}: not half")
+    d = max(_rel(a.first_logits.float(), b.first_logits.float())
+            for a, b in zip(pools["int4"], pools["int8"]))
+    finite = all(bool(torch.isfinite(r.first_logits).all())
+                 for r in pools["int4"])
+    log(f"engine chat: int4 pool vs int8 pool, first-token logits of the 4 "
+        f"requests: max|dlogit|/max|logit| {d:.3e} (tol {KV4_LOGIT_TOL}), "
+        f"finite {finite}; equal tokens "
+        f"{_token_share(pools['int4'], pools['int8'])}; int8 vs bf16 "
+        f"{_token_share(pools['int8'], bf16)}; the int4 pool's k and v take "
+        f"{held['int4']} bytes, half the int8 pool's {held['int8']}")
+    if not (finite and d <= KV4_LOGIT_TOL):
+        raise AssertionError("int4 pool disagrees with the int8 pool")
+
+    spec, counts, stats = _engine_chats(
+        chat, cfg, "bf16 pool, speculative_k 4",
+        generation_config=GenerationConfig(speculative_k=4,
+                                           speculative_ngram=3))
+    require(counts, ("flash_fwd", "paged_prefill", "paged_decode"),
+            "engine chat (speculative)")
+    paths.append(counts)
+    log(f"engine chat: speculative_k 4 vs plain, equal tokens "
+        f"{_token_share(spec, bf16)}; {stats.get('spec_accepted', 0)} tokens "
+        f"from {stats.get('spec_forwards', 0)} verify forwards, "
+        f"{stats.get('spec_suspends', 0)} suspends")
+    if not stats.get("spec_forwards"):
+        raise AssertionError("the speculative engine ran no verify forward")
+
+    question, n_new = "Write a haiku about the sea.", 24
+    want = chat.chat(None, question, GenerationConfig(max_new_tokens=n_new))
+    engine = InferenceEngine(chat, max_rows=4, max_len=2048, page_size=128,
+                             chunk_size=512, decode_block=8)
+    server = ModelWorker(chat, model_name="internvl2-2b",
+                         engine=engine).make_server(host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        reset_launches()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}"
+            "/worker_generate_stream", data=json.dumps({
+                "prompt": chat.build_query(question, []),
+                "max_new_tokens": n_new, "temperature": 0.0}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            raw = r.read()
+        counts = read_launches()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+        engine.stop()
+    chunks = [json.loads(c) for c in raw.split(b"\0") if c]
+    got = chunks[-1]["text"].strip() if chunks else ""
+    n = min(len(got), len(want))
+    agree = next((i for i in range(n) if got[i] != want[i]), n)
+    log(f"worker over the engine: {len(chunks)} chunks, {len(got)} chars, "
+        f"the first {agree} equal to chat()'s {len(want)}; launches {counts}")
+    if not (chunks and all(c["error_code"] == 0 for c in chunks) and got):
+        raise AssertionError(f"worker over the engine: {chunks[-3:]}")
+    require(counts, ("paged_store", "paged_decode"), "worker over the engine")
+    paths.append(counts)
+    return paths
+
+
+def phase_w4kv4(quantized, cfg, tok) -> dict:
+    """int4 weights over an int4 pool: the 32k-history session of phase 7
+    once more (the 2k turn, decode at 34k)."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+
+    chat = ChatModel(quantized, cfg, tok, cache_mode="paged",
+                     kv_dtype="int4")
+    counts = long_session(chat, cfg, "int4", "w4kv4: int4 weights, int4 pool")
+    require(counts, ("q4dot", "q4dot_stacked"), "w4kv4 session")
+    return counts
+
+
+def phase_beam(chat, cfg) -> None:
+    """One text request with 3 beams at full width (a dense 3-row cache)."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+
+    _, question = REQUESTS[2]
+    t0 = time.perf_counter()
+    answer = chat.chat(None, question, GenerationConfig(
+        max_new_tokens=MAX_NEW, num_beams=3))
+    torch.cuda.synchronize()
+    log(f"beam search: 3 beams, up to {MAX_NEW} tokens in "
+        f"{time.perf_counter() - t0:.3f}s; answer {len(answer)} chars")
+    if not isinstance(answer, str):
+        raise AssertionError("beam search returned no text")
 
 
 # ------------------------------------------------ phase 2c: flash backward
@@ -1488,7 +1996,9 @@ def phase_quant_serve(model, cfg, tok, served: dict) -> list:
     TTFT and decode rate of the 8-tile request, stream equal to generate,
     and the first-token logits against the bf16 model's (reported; the
     quantization error through 24 random layers is real). Returns the
-    launch counts of each path."""
+    launch counts of each path and the quantized models by width. The
+    stream check runs on the paged path only (the dense ones ran it in
+    bf16)."""
     from v2pe_tpu_torch.infer.chat import ChatModel
     from v2pe_tpu_torch.infer.generate import GenerationConfig
 
@@ -1541,8 +2051,9 @@ def phase_quant_serve(model, cfg, tok, served: dict) -> list:
         log(f"quantized serve ({tag}): prompt {len(ids)} tokens ({tiles} "
             f"tiles): TTFT {ttft * 1e3:.1f} ms, {len(tokens)} tokens in "
             f"{total * 1e3:.1f} ms, decode {rate:.1f} tok/s")
-        phase_stream(chat, cfg, dict(served, tokens=tokens), cache_mode=mode,
-                     kv_dtype=kv)
+        if mode == "paged":
+            phase_stream(chat, cfg, dict(served, tokens=tokens),
+                         cache_mode=mode, kv_dtype=kv)
         mine_logits = first_logits(chat, cfg, ids, pos, pix, [], mode,
                                    kv_dtype=kv, steps=0)
         ok = bool(torch.isfinite(mine_logits).all())
@@ -1555,7 +2066,7 @@ def phase_quant_serve(model, cfg, tok, served: dict) -> list:
             raise AssertionError(f"quantized serve ({tag}): logits not "
                                  f"finite")
         paths.append(counts)
-    return paths
+    return paths, quantized
 
 
 # ------------------------------------------------------------ phase 9: train
@@ -1922,6 +2433,93 @@ def profile_generate(chat, cfg) -> None:
                     f" {e.key[:80]}")
 
 
+def profile_engine_block(chat, cfg) -> None:
+    """``--profile``, second part: one decode block of the engine (64 steps
+    over 8 rows of 8192-token prompts, the bench recipe) under
+    torch.profiler: wall, device time, busy share, kernels a step, and the
+    top kernels by device time; for a bf16 and an int4 pool."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for kv in (None, "int4"):
+        eng = engine_recipe(chat, cfg, kv_dtype=kv)
+        _engine_submit(eng, cfg, np.random.default_rng(0), ENGINE_ROWS,
+                       ENGINE_NEW)
+        eng.step()  # the admissions and a first block
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = sum(e.self_device_time_total for e in ev) / 1e3
+        n = sum(e.count for e in ev)
+        log(f"profile engine block, {kv or 'bf16'} pool, {ENGINE_ROWS} rows "
+            f"x {ENGINE_BLOCK} steps: wall {wall:.1f} ms "
+            f"({wall / ENGINE_BLOCK:.2f} a step), device {dev:.1f} ms "
+            f"({dev / wall:.0%} busy), {n} kernels = "
+            f"{n // ENGINE_BLOCK} a step")
+        for e in sorted(ev, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<6}"
+                f" {e.key[:80]}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def profile_host_reads(chat, cfg) -> None:
+    """``--profile``, third part: what a read of the card per decode step
+    costs. One row over a 2167-token prompt decodes 64 tokens through the
+    engine (a block of 64 steps, state on the device, one read at the end)
+    and through paged ``generate`` (``decode_from_logits`` reads
+    ``all(done)`` back every step; the speculative loop does the same):
+    ms a step of each."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    n, steps = PREFILL_ROWS, 64
+    rng = np.random.default_rng(1)
+    ids = rng.integers(10, cfg.llm.vocab_size - 2, n)
+    pos = np.arange(n, dtype=np.float32)
+    gc = GenerationConfig(max_new_tokens=steps + 1,
+                          eos_token_ids=(cfg.llm.vocab_size - 1,))
+    eng = InferenceEngine(chat, max_rows=1, max_len=4096, page_size=128,
+                          chunk_size=512, decode_block=steps,
+                          generation_config=gc, prefix_caching=False)
+    times = []
+    for _ in range(3):
+        eng.decode_block = 1
+        eng.submit(ids, pos, max_new_tokens=steps + 2)
+        eng.step()                       # the admission and one step
+        eng.decode_block = steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()                       # one block of 64 steps
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / steps * 1e3)
+        eng.run_until_idle()
+    args = (torch.as_tensor(ids[None]), torch.tensor([n]),
+            torch.as_tensor(pos[None]), torch.zeros(1, 3, 448, 448),
+            torch.zeros(1, dtype=torch.int32), chat.img_context_token_id)
+    loop = []
+    for _ in range(3):
+        t = []
+        for new in (1, steps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            generate(chat.model, cfg, dataclasses.replace(
+                gc, max_new_tokens=new), *args, cache_mode="paged")
+            torch.cuda.synchronize()
+            t.append(time.perf_counter() - t0)
+        loop.append((t[1] - t[0]) / steps * 1e3)
+    log(f"profile host reads: one row over {n} tokens, {steps} decode "
+        f"steps: engine block (no read inside) {sorted(times)[1]:.2f} ms a "
+        f"step (3 runs: {', '.join(f'{x:.2f}' for x in times)}); "
+        f"decode_from_logits (one read a step) {sorted(loop)[1]:.2f} ms a "
+        f"step ({', '.join(f'{x:.2f}' for x in loop)})")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1934,10 +2532,17 @@ def kernel_record(name: str, recs: list, launches: int) -> dict:
     if len(main) != 1:
         raise AssertionError(f"{name}: {len(main)} main forms")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return dict(name=name, route="cuda", source=KERNEL_SOURCES[name],
-                replaces=KERNEL_REPLACES[name], launches=launches,
-                max_abs_err=max(f["max_abs_err"] for f in recs),
-                form=main[0]["form"], **{k: main[0][k] for k in keys})
+    rec = dict(name=name, route="cuda", source=KERNEL_SOURCES[name],
+               replaces=KERNEL_REPLACES[name], launches=launches,
+               max_abs_err=max(f["max_abs_err"] for f in recs),
+               form=main[0]["form"], **{k: main[0][k] for k in keys})
+    # the paged kernels: the main form again over an int8 and an int4 pool
+    pools = {f["pool"]: {"form": f["form"], "max_abs_err": f["max_abs_err"],
+                         **{k: f[k] for k in keys}}
+             for f in recs if f.get("pool")}
+    if pools:
+        rec["pools"] = pools
+    return rec
 
 
 
@@ -1976,6 +2581,8 @@ def main(argv=None) -> int:
     if args.profile or args.profile_train:
         if args.profile:
             profile_generate(chat, cfg)
+            profile_engine_block(chat, cfg)
+            profile_host_reads(chat, cfg)
         else:
             profile_train(model, cfg)
         log(card_line())
@@ -1988,13 +2595,22 @@ def main(argv=None) -> int:
     phase_small_reference()
     phase_small_train_reference()
     phase_small_quant_reference()
+    phase_small_engine_reference()
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
     phase_packed(chat, cfg, batch)
     # the paged paths, each driven with the launch counts zeroed before it
     paths = [served["counts"], phase_paged_serve(model, cfg, tok, served),
-             phase_session(model, cfg, tok), phase_worker(model, cfg, tok),
-             *phase_quant_serve(model, cfg, tok, served)]
+             phase_session(model, cfg, tok), phase_worker(model, cfg, tok)]
+    quant_paths, quantized = phase_quant_serve(model, cfg, tok, served)
+    paths += quant_paths
+    paths.append(phase_w4kv4(quantized["int4"], cfg, tok))
+    del quantized
+    torch.cuda.empty_cache()
+    # the continuous-batching engine
+    paths.append(phase_engine(chat, cfg))
+    paths += phase_engine_chat(model, cfg, tok, served)
+    phase_beam(chat, cfg)
     del chat
     # last: the training paths update the weights
     paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg)]

@@ -153,7 +153,7 @@ def test_unported_options_raise():
     tok = _toy_tokenizer()
     cfg = _cfg(vocab=len(tok))
     _, model = _models(cfg, seed=0)
-    for kw in (dict(cache_mode="paged", kv_dtype="int4"),
+    for kw in (dict(cache_mode="paged", kv_dtype="fp8"),
                dict(cache_mode="ring"), dict(cache_mode="chunked"),
                dict(weights_dtype="fp8"), dict(weights_dtype="bfloat16"),
                dict(lora={})):
@@ -162,16 +162,23 @@ def test_unported_options_raise():
     for wd in ("int8", "int4"):  # ported: they quantize at construction
         assert ChatModel(model, port_config(cfg), tok, weights_dtype=wd).chat(
             None, "hi", GenerationConfig(max_new_tokens=2)) is not None
-    chat = ChatModel(model, port_config(cfg), tok)
-    with pytest.raises(NotImplementedError):
-        chat.chat(None, "hi", GenerationConfig(num_beams=2))
+    # an int4 pool, beam search and speculative decoding are served
+    chat = ChatModel(model, port_config(cfg), tok, cache_mode="paged",
+                     kv_dtype="int4")
+    for gc in (GenerationConfig(max_new_tokens=2),
+               GenerationConfig(max_new_tokens=2, num_beams=2),
+               GenerationConfig(max_new_tokens=3, speculative_k=2)):
+        assert isinstance(chat.chat(None, "hi", gc), str)
     ids, plen, pos, pixels, flags = _batch(cfg)
+    args = (torch.from_numpy(ids), torch.from_numpy(plen),
+            torch.from_numpy(pos), torch.from_numpy(pixels),
+            torch.from_numpy(flags), IMG)
     for gc, kw in ((GenerationConfig(), dict(cache_mode="paged",
-                                             kv_dtype="int4")),
-                   (GenerationConfig(speculative_k=2),
-                    dict(cache_mode="paged"))):
+                                             kv_dtype="fp8")),
+                   (GenerationConfig(), dict(cache_mode="ring"))):
         with pytest.raises(NotImplementedError):
-            generate(model, port_config(cfg), gc, torch.from_numpy(ids),
-                     torch.from_numpy(plen), torch.from_numpy(pos),
-                     torch.from_numpy(pixels), torch.from_numpy(flags), IMG,
-                     **kw)
+            generate(model, port_config(cfg), gc, *args, **kw)
+    # speculation needs the paged cache, as in JAX
+    with pytest.raises(ValueError):
+        generate(model, port_config(cfg), GenerationConfig(speculative_k=2),
+                 *args)

@@ -233,8 +233,8 @@ def test_quantize_kv_matches_jax():
     p = run_parity(jpk.quantize_kv, tpk.quantize_kv, x)
     assert p.max_abs == 0.0
     assert list(p.torch[0][0, 1, :8]) == [127, 0, 2, 2, 0, -2, 4, -127]
-    with pytest.raises(NotImplementedError):
-        tpk.quantize_kv(torch.from_numpy(x), bits=4)
+    with pytest.raises(ValueError):
+        tpk.quantize_kv(torch.from_numpy(x), bits=16)
 
 
 @pytest.mark.parametrize("kv", [None, "int8"])
@@ -288,9 +288,12 @@ def test_allocate_and_write_match_jax(kv):
 
 def test_pool_refuses_what_is_not_ported():
     cfg = _cfg_llm()
-    for kw in (dict(kv_dtype="int4"), dict(n_shards=2)):
+    for kw in (dict(n_shards=2), dict(n_shards=4, kv_dtype="int4")):
         with pytest.raises(NotImplementedError):
             tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4, **kw)
+    # an int4 pool is ported: packed bytes, half the int8 pool's
+    assert tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4,
+                                  kv_dtype="int4").k_pages.shape[-1] == HD // 2
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

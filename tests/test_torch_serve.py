@@ -92,8 +92,11 @@ def test_session_three_turns_two_images_match_jax(chats):
         assert got == want, q
     assert tsess.consumed == jsess.consumed > 0
     assert int(tsess.cache.lengths[0]) == int(jsess.cache.lengths[0])
-    with pytest.raises(NotImplementedError):
-        tsess.send(None, "Again?", GenerationConfig(speculative_k=2))
+    # a speculative turn is ported: the plain turn's reply
+    want = jsess.send(None, "Again?", JaxGenerationConfig(
+        max_new_tokens=5, speculative_k=2))
+    assert tsess.send(None, "Again?", GenerationConfig(
+        max_new_tokens=5, speculative_k=2)) == want
 
 
 # ---------------------------------------------------------------- worker
@@ -212,5 +215,15 @@ def test_openai_chat_completion_stream_matches_jax(servers):
 
 
 def test_worker_refuses_the_engine(chats):
-    with pytest.raises(NotImplementedError):
+    """What is not an engine is refused; an InferenceEngine is started
+    (its routes are held against JAX's in test_torch_engine.py)."""
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    with pytest.raises(AttributeError):
         ModelWorker(chats[1], engine=object())
+    engine = InferenceEngine(chats[1], max_rows=1, max_len=64, page_size=8)
+    try:
+        assert ModelWorker(chats[1], engine=engine).engine is engine
+        assert engine._thread is not None and engine._thread.is_alive()
+    finally:
+        engine.stop()

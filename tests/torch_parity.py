@@ -75,3 +75,58 @@ def run_parity(jax_fn: Callable, torch_fn: Callable, *inputs) -> Parity:
             max_rel = max(max_rel, float((d / np.maximum(np.abs(a),
                                                          1e-12)).max()))
     return Parity(ja, ta, max_abs, max_rel)
+
+
+def port_paged_cache(jcache):
+    """The port's ``PagedKVCache`` holding the state of a JAX one: a
+    ``jnp.int4`` pool becomes the port's packed bytes (two dims of a token
+    per byte), an int8 / fp32 / bf16 pool is carried as it is."""
+    from v2pe_tpu_torch.infer import paged_kv as tpk
+    from v2pe_tpu_torch.ops.paged_attention import pack_int4
+
+    int4 = jcache.k_pages.dtype == jnp.int4
+
+    def pages(x):
+        if int4:
+            return pack_int4(torch.from_numpy(
+                np.array(x.astype(jnp.int8))))
+        if x.dtype == jnp.bfloat16:
+            return torch.from_numpy(
+                np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+        return torch.from_numpy(np.array(x))
+
+    def plain(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    assert jcache.n_shards == 1
+    return tpk.PagedKVCache(
+        k_pages=pages(jcache.k_pages), v_pages=pages(jcache.v_pages),
+        page_table=plain(jcache.page_table), lengths=plain(jcache.lengths),
+        next_page=plain(jcache.next_page), k_scales=plain(jcache.k_scales),
+        v_scales=plain(jcache.v_scales), kv_bits=4 if int4 else 8)
+
+
+def jax_paged_cache(tcache):
+    """The JAX ``PagedKVCache`` holding the state of a port one (the
+    inverse of :func:`port_paged_cache`: packed int4 bytes are unpacked into
+    a ``jnp.int4`` pool)."""
+    from v2pe_tpu.infer import paged_kv as jpk
+    from v2pe_tpu_torch.ops.paged_attention import unpack_int4
+
+    int4 = tcache.quantized and tcache.kv_bits == 4
+
+    def pages(x):
+        if int4:
+            return jnp.asarray(unpack_int4(x).numpy()).astype(jnp.int4)
+        if x.dtype == torch.bfloat16:
+            return jnp.asarray(x.float().numpy()).astype(jnp.bfloat16)
+        return jnp.asarray(x.numpy())
+
+    def plain(x):
+        return None if x is None else jnp.asarray(x.numpy())
+
+    return jpk.PagedKVCache(
+        k_pages=pages(tcache.k_pages), v_pages=pages(tcache.v_pages),
+        page_table=plain(tcache.page_table), lengths=plain(tcache.lengths),
+        next_page=plain(tcache.next_page), k_scales=plain(tcache.k_scales),
+        v_scales=plain(tcache.v_scales))

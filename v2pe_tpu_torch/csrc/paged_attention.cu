@@ -6,10 +6,18 @@
 //   paged_decode_kernel  <- _attn_kernel    (wrapper paged_decode_attention)
 //   paged_prefill_kernel <- _prefill_kernel (wrapper paged_prefill_attention)
 // Pool layout as in JAX: values (L, Hkv, NP, ps, D) in the queries' dtype or
-// int8, int8 scales (L, Hkv, NP, 1, ps) fp32; page_table and slot_base
-// (B, MP) int32 (-1 = unallocated / dead entry), lengths (B,) int32. Each
-// kernel takes the whole pool and a layer index, as the Pallas index maps
-// do, so nothing copies the pool per layer.
+// int8, quantized pools with scales (L, Hkv, NP, 1, ps) fp32; page_table and
+// slot_base (B, MP) int32 (-1 = unallocated / dead entry), lengths (B,)
+// int32. Each kernel takes the whole pool and a layer index, as the Pallas
+// index maps do, so nothing copies the pool per layer.
+//
+// int4 pools (JAX: jnp.int4 pages) are bytes here, (L, Hkv, NP, ps, D/2):
+// byte d of a slot holds dim d in its low nibble and dim d + D/2 in its high
+// nibble (the convention of quantized_matmul.cu), so one token's vector of
+// one head is D/2 whole bytes and a store never shares a byte with another
+// token. It is a mode of the same three kernels (pool type int4x2): the
+// store quantizes with qmax 7 and packs, decode and prefill unpack while
+// they stage a chunk; the scales enter exactly as in the int8 mode.
 //
 // Design. The TPU kernels walk a row's page table over a sequential grid
 // axis and carry (acc, m, l) in VMEM scratch. Here one thread block owns the
@@ -43,6 +51,7 @@
 // few hundred bytes per row.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,25 +75,69 @@ __device__ __forceinline__ void store(int8_t* p, float x) {
   *p = static_cast<int8_t>(x);
 }
 
+// An int4 pool's element: two codes of one token in a byte.
+struct int4x2 {
+  int8_t b;
+};
+// the low nibble sign-extended, and the high one by an arithmetic shift
+__device__ __forceinline__ int nibble_lo(int b) {
+  return static_cast<int>(static_cast<unsigned>(b) << 28) >> 28;
+}
+__device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
+
+// Pool elements per slot of D values, and the largest code.
+template <typename KV, int D>
+struct PoolRow {
+  static constexpr int W = D;
+  static constexpr float QMAX = 127.f;
+};
+template <int D>
+struct PoolRow<int4x2, D> {
+  static constexpr int W = D / 2;
+  static constexpr float QMAX = 7.f;
+};
+
 // Stage `cap` rows of D values into dst (fp32, row stride ld), times mul:
 // rows [0, nrows) from src (row stride `stride` elements, 16-byte aligned),
 // the rest zero.
 template <typename T, int D>
 __device__ void load_rows(float* dst, int ld, const T* src, size_t stride,
                           int nrows, int cap, float mul) {
-  constexpr int V = 16 / sizeof(T), NV = D / V;
-  for (int idx = threadIdx.x; idx < cap * NV; idx += blockDim.x) {
-    const int r = idx / NV, cv = idx % NV;
-    float* o = dst + r * ld + cv * V;
-    if (r < nrows) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(src + r * stride + cv * V);
-      const T* e = reinterpret_cast<const T*>(&raw);
+  if constexpr (std::is_same<T, int4x2>::value) {
+    // 16 bytes hold dims [16 cv, 16 cv + 16) and the same plus D/2
+    constexpr int NV = D / 32;
+    for (int idx = threadIdx.x; idx < cap * NV; idx += blockDim.x) {
+      const int r = idx / NV, cv = idx % NV;
+      float* o = dst + r * ld + cv * 16;
+      if (r < nrows) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(src + r * stride + cv * 16);
+        const int8_t* e = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-      for (int i = 0; i < V; ++i) o[i] = to_float(e[i]) * mul;
-    } else {
+        for (int i = 0; i < 16; ++i) {
+          o[i] = static_cast<float>(nibble_lo(e[i])) * mul;
+          o[D / 2 + i] = static_cast<float>(nibble_hi(e[i])) * mul;
+        }
+      } else {
 #pragma unroll
-      for (int i = 0; i < V; ++i) o[i] = 0.f;
+        for (int i = 0; i < 16; ++i) o[i] = o[D / 2 + i] = 0.f;
+      }
+    }
+  } else {
+    constexpr int V = 16 / sizeof(T), NV = D / V;
+    for (int idx = threadIdx.x; idx < cap * NV; idx += blockDim.x) {
+      const int r = idx / NV, cv = idx % NV;
+      float* o = dst + r * ld + cv * V;
+      if (r < nrows) {
+        const uint4 raw =
+            *reinterpret_cast<const uint4*>(src + r * stride + cv * V);
+        const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = to_float(e[i]) * mul;
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) o[i] = 0.f;
+      }
     }
   }
 }
@@ -96,7 +149,7 @@ struct StoreParams {
   const void* v_new;
   void* k_pages;
   void* v_pages;
-  float* k_scales;  // nullptr unless int8
+  float* k_scales;  // nullptr unless the pool is quantized
   float* v_scales;
   const int* page_table;
   const int* lengths;
@@ -126,6 +179,8 @@ __device__ float2 block_max2(float a, float b, float* red) {
 
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(D) paged_store_kernel(const StoreParams p) {
+  constexpr int W = PoolRow<KV, D>::W;
+  constexpr float QMAX = PoolRow<KV, D>::QMAX;
   __shared__ float red[64];
   const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
   const int len = p.lengths[b];
@@ -140,17 +195,31 @@ __global__ void __launch_bounds__(D) paged_store_kernel(const StoreParams p) {
   float xv = to_float(static_cast<const T*>(p.v_new)[src]);
   if (p.k_scales != nullptr) {
     const float2 amax = block_max2(fabsf(xk), fabsf(xv), red);
-    const float sk = amax.x > 0.f ? amax.x / 127.f : 1.f;
-    const float sv = amax.y > 0.f ? amax.y / 127.f : 1.f;
-    xk = fminf(fmaxf(rintf(xk / sk), -127.f), 127.f);
-    xv = fminf(fmaxf(rintf(xv / sv), -127.f), 127.f);
+    const float sk = amax.x > 0.f ? amax.x / QMAX : 1.f;
+    const float sv = amax.y > 0.f ? amax.y / QMAX : 1.f;
+    xk = fminf(fmaxf(rintf(xk / sk), -QMAX), QMAX);
+    xv = fminf(fmaxf(rintf(xv / sv), -QMAX), QMAX);
     if (d == 0) {
       p.k_scales[slot] = sk;
       p.v_scales[slot] = sv;
     }
   }
-  store(static_cast<KV*>(p.k_pages) + slot * D + d, xk);
-  store(static_cast<KV*>(p.v_pages) + slot * D + d, xv);
+  if constexpr (std::is_same<KV, int4x2>::value) {
+    // thread d < D/2 packs its code with that of thread d + D/2
+    __shared__ int code[2][D];
+    code[0][d] = static_cast<int>(xk);
+    code[1][d] = static_cast<int>(xv);
+    __syncthreads();
+    if (d < W) {
+      int8_t* kp = static_cast<int8_t*>(p.k_pages) + slot * W + d;
+      int8_t* vp = static_cast<int8_t*>(p.v_pages) + slot * W + d;
+      *kp = static_cast<int8_t>((code[0][d] & 0xF) | (code[0][d + W] << 4));
+      *vp = static_cast<int8_t>((code[1][d] & 0xF) | (code[1][d + W] << 4));
+    }
+  } else {
+    store(static_cast<KV*>(p.k_pages) + slot * W + d, xk);
+    store(static_cast<KV*>(p.v_pages) + slot * W + d, xv);
+  }
 }
 
 // ----------------------------------------------------------------- decode
@@ -248,7 +317,7 @@ __device__ void decode_chunk(const float* sQ, const float* sK, const float* sV,
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(DEC_THREADS)
     paged_decode_kernel(const DecodeParams p) {
-  constexpr int LDK = D + 1;
+  constexpr int LDK = D + 1, W = PoolRow<KV, D>::W;
   const int b = blockIdx.x, hk = blockIdx.y, tid = threadIdx.x;
   const int G = p.Hq / p.Hkv, R = p.T * G;
   extern __shared__ float smem[];
@@ -292,8 +361,8 @@ __global__ void __launch_bounds__(DEC_THREADS)
     for (int c0 = 0; c0 < p.ps && sb + c0 < page_end; c0 += BK) {
       const int nk = min(BK, p.ps - c0);
       __syncthreads();  // the previous chunk's readers are done
-      load_rows<KV, D>(sK, LDK, kp + (row0 + c0) * D, D, nk, nk, 1.f);
-      load_rows<KV, D>(sV, D, vp + (row0 + c0) * D, D, nk, nk, 1.f);
+      load_rows<KV, D>(sK, LDK, kp + (row0 + c0) * W, W, nk, nk, 1.f);
+      load_rows<KV, D>(sV, D, vp + (row0 + c0) * W, W, nk, nk, 1.f);
       if (quant && tid < nk) {
         sKs[tid] = p.k_scales[row0 + c0 + tid];
         sVs[tid] = p.v_scales[row0 + c0 + tid];
@@ -368,6 +437,7 @@ template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(PF_THREADS)
     paged_prefill_kernel(const PrefillParams p) {
   constexpr int LDQ = D + 1, LDK = D + 1, LDS = BK + 1, NC = D / 16;
+  constexpr int W = PoolRow<KV, D>::W;
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sK = sQ + BQ * LDQ;
@@ -413,8 +483,8 @@ __global__ void __launch_bounds__(PF_THREADS)
       // keys [0, nv) of the chunk are cached slots (< length)
       const int nv = min(min(BK, p.ps - c0), length - sb - c0);
       __syncthreads();  // the previous chunk's readers are done
-      load_rows<KV, D>(sK, LDK, kp + (row0 + c0) * D, D, nv, BK, 1.f);
-      load_rows<KV, D>(sV, D, vp + (row0 + c0) * D, D, nv, BK, 1.f);
+      load_rows<KV, D>(sK, LDK, kp + (row0 + c0) * W, W, nv, BK, 1.f);
+      load_rows<KV, D>(sV, D, vp + (row0 + c0) * W, W, nv, BK, 1.f);
       if (quant && tid < BK) {
         sKs[tid] = tid < nv ? p.k_scales[row0 + c0 + tid] : 0.f;
         sVs[tid] = tid < nv ? p.v_scales[row0 + c0 + tid] : 0.f;
@@ -551,23 +621,27 @@ cudaError_t launch_prefill(const PrefillParams& p, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// Dispatch over (input dtype, pool dtype, head dim) to a launcher.
+// Dispatch over (input dtype, pool type, head dim) to a launcher. kv_bits:
+// 0 for a pool in the queries' dtype, 8 for int8 codes, 4 for packed int4.
+template <template <typename, typename, int> class L, typename T, typename P>
+cudaError_t dispatch_pool(const P& p, int B, int D, int kv_bits,
+                          cudaStream_t st) {
+  if (kv_bits == 8)
+    return D == 64 ? L<T, int8_t, 64>::run(p, B, st)
+                   : L<T, int8_t, 128>::run(p, B, st);
+  if (kv_bits == 4)
+    return D == 64 ? L<T, int4x2, 64>::run(p, B, st)
+                   : L<T, int4x2, 128>::run(p, B, st);
+  return D == 64 ? L<T, T, 64>::run(p, B, st) : L<T, T, 128>::run(p, B, st);
+}
+
 template <template <typename, typename, int> class L, typename P>
-cudaError_t dispatch(const P& p, int B, int D, int is_bf16, int quantized,
+cudaError_t dispatch(const P& p, int B, int D, int is_bf16, int kv_bits,
                      cudaStream_t st) {
-  if (D != 64 && D != 128) return cudaErrorInvalidValue;
-  if (is_bf16) {
-    if (quantized)
-      return D == 64 ? L<__nv_bfloat16, int8_t, 64>::run(p, B, st)
-                     : L<__nv_bfloat16, int8_t, 128>::run(p, B, st);
-    return D == 64 ? L<__nv_bfloat16, __nv_bfloat16, 64>::run(p, B, st)
-                   : L<__nv_bfloat16, __nv_bfloat16, 128>::run(p, B, st);
-  }
-  if (quantized)
-    return D == 64 ? L<float, int8_t, 64>::run(p, B, st)
-                   : L<float, int8_t, 128>::run(p, B, st);
-  return D == 64 ? L<float, float, 64>::run(p, B, st)
-                 : L<float, float, 128>::run(p, B, st);
+  if ((D != 64 && D != 128) || (kv_bits != 0 && kv_bits != 8 && kv_bits != 4))
+    return cudaErrorInvalidValue;
+  return is_bf16 ? dispatch_pool<L, __nv_bfloat16>(p, B, D, kv_bits, st)
+                 : dispatch_pool<L, float>(p, B, D, kv_bits, st);
 }
 
 template <typename T, typename KV, int D>
@@ -599,11 +673,11 @@ extern "C" int v2pe_paged_store(const void* k_new, const void* v_new,
                                 float* v_scales, const int* page_table,
                                 const int* lengths, int B, int Hkv, int NP,
                                 int ps, int D, int MP, int layer, int is_bf16,
-                                int quantized, void* stream) {
+                                int kv_bits, void* stream) {
   const StoreParams p{k_new,      v_new,   k_pages, v_pages, k_scales,
                       v_scales,   page_table, lengths, Hkv,  NP,
                       ps,         MP,      layer};
-  return static_cast<int>(dispatch<Store>(p, B, D, is_bf16, quantized,
+  return static_cast<int>(dispatch<Store>(p, B, D, is_bf16, kv_bits,
                                           static_cast<cudaStream_t>(stream)));
 }
 
@@ -612,14 +686,14 @@ extern "C" int v2pe_paged_decode(
     const void* v_pages, const float* k_scales, const float* v_scales,
     const int* page_table, const int* slot_base, const int* lengths,
     void* out, float* lse, int B, int T, int Hq, int Hkv, int NP, int ps,
-    int D, int MP, int layer, int is_bf16, int quantized, int fresh_in_pages,
+    int D, int MP, int layer, int is_bf16, int kv_bits, int fresh_in_pages,
     int fold, float scale, void* stream) {
   const DecodeParams p{q,          k_new,      v_new,   k_pages, v_pages,
                        k_scales,   v_scales,   page_table, slot_base,
                        lengths,    out,        lse,     T,       Hq,
                        Hkv,        NP,         ps,      MP,      layer,
                        fresh_in_pages, fold,   scale};
-  return static_cast<int>(dispatch<Decode>(p, B, D, is_bf16, quantized,
+  return static_cast<int>(dispatch<Decode>(p, B, D, is_bf16, kv_bits,
                                            static_cast<cudaStream_t>(stream)));
 }
 
@@ -628,11 +702,11 @@ extern "C" int v2pe_paged_prefill(
     const float* k_scales, const float* v_scales, const int* page_table,
     const int* slot_base, const int* lengths, void* out, float* lse, int B,
     int S, int Hq, int Hkv, int NP, int ps, int D, int MP, int layer,
-    int is_bf16, int quantized, float scale, void* stream) {
+    int is_bf16, int kv_bits, float scale, void* stream) {
   const PrefillParams p{q,        k_pages,  v_pages, k_scales, v_scales,
                         page_table, slot_base, lengths, out,   lse,
                         S,        Hq,       Hkv,     NP,       ps,
                         MP,       layer,    scale};
-  return static_cast<int>(dispatch<Prefill>(p, B, D, is_bf16, quantized,
+  return static_cast<int>(dispatch<Prefill>(p, B, D, is_bf16, kv_bits,
                                             static_cast<cudaStream_t>(stream)));
 }

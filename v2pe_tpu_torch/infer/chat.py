@@ -7,6 +7,7 @@ ids from ``positional``, and decode through
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,9 +30,9 @@ class ChatModel:
     the reference's semantics. ``cache_mode="paged"`` decodes through the
     paged-KV kernels (``ops/paged_attention.py``) from a pool of
     ``page_size``-token pages, in the model's dtype or, with
-    ``kv_dtype="int8"``, quantized. ``weights_dtype="int8"`` or ``"int4"``
-    quantizes the LLM's matmul weights and the vocab head once, here
-    (``ops/quantized_matmul.py``): everything that takes this ChatModel
+    ``kv_dtype="int8"`` or ``"int4"``, quantized. ``weights_dtype="int8"``
+    or ``"int4"`` quantizes the LLM's matmul weights and the vocab head
+    once, here (``ops/quantized_matmul.py``): everything that takes this ChatModel
     (chat, generate, ``ChatSession``, ``ModelWorker``) then decodes against
     the quantized weights; the ViT and the projector stay as they are."""
 
@@ -40,9 +41,8 @@ class ChatModel:
                  kv_dtype=None, weights_dtype=None, lora=None):
         if cache_mode not in ("dense", "paged"):
             raise NotImplementedError(f"cache_mode={cache_mode!r}")
-        if kv_dtype not in (None, "int8"):
-            raise NotImplementedError(f"kv_dtype={kv_dtype!r}: int4 pools "
-                                      f"are not ported")
+        if kv_dtype not in (None, "int8", "int4"):
+            raise NotImplementedError(f"kv_dtype={kv_dtype!r}")
         if weights_dtype not in (None, "int8", "int4"):
             raise NotImplementedError(f"weights_dtype={weights_dtype!r}")
         if lora is not None:
@@ -136,8 +136,6 @@ class ChatModel:
             rope_pos_id_stride=rope_pos_id_stride)
 
         gc = generation_config or GenerationConfig()
-        if gc.num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet")
         stop_ids = tuple(self.conv_template.stop_token_ids) or \
             (self.cfg.llm.eos_token_id,)
         gc = dataclasses.replace(gc, eos_token_ids=stop_ids)
@@ -150,12 +148,22 @@ class ChatModel:
             pixel_values = torch.as_tensor(pixel_values)
             flags = torch.ones((pixel_values.shape[0],), dtype=torch.int32)
 
-        tokens, _, gen_lens = generate(
-            self.model, self.cfg, gc, torch.as_tensor(ids[None]),
-            torch.tensor([len(ids)]), torch.as_tensor(pos[None]),
-            pixel_values, flags, self.img_context_token_id,
-            cache_mode=self.cache_mode, page_size=self.page_size,
-            kv_dtype=self.kv_dtype)
+        batch = (torch.as_tensor(ids[None]), torch.tensor([len(ids)]),
+                 torch.as_tensor(pos[None]), pixel_values, flags,
+                 self.img_context_token_id)
+        if gc.num_beams > 1:
+            from v2pe_tpu_torch.infer.beam import beam_generate
+
+            if self.cache_mode != "dense" or self.kv_dtype is not None:
+                logging.getLogger(__name__).warning(
+                    "beam search decodes with a dense B*num_beams KV cache;"
+                    " cache_mode=%r/kv_dtype=%r are ignored for this call",
+                    self.cache_mode, self.kv_dtype)
+            tokens, gen_lens = beam_generate(self.model, self.cfg, gc, *batch)
+        else:
+            tokens, _, gen_lens = generate(
+                self.model, self.cfg, gc, *batch, cache_mode=self.cache_mode,
+                page_size=self.page_size, kv_dtype=self.kv_dtype)
         response = self._decode(tokens[0].cpu().numpy(), int(gen_lens[0]))
         history = list(history or []) + [(question, response)]
         if verbose:

@@ -1,6 +1,7 @@
 """Autoregressive generation (port of ``v2pe_tpu/infer/generate.py``) over
-the dense KV cache or the paged one (``cache_mode="paged"``, with a bf16 or
-int8 pool).
+the dense KV cache or the paged one (``cache_mode="paged"``, with a bf16,
+int8 or int4 pool; ``speculative_k > 0`` decodes through
+``infer/speculative.py``).
 
 Prefill scatters the ViT features into the prompt, runs the decoder once
 and fills a preallocated cache (or the pages it allocates); the decode loop
@@ -61,13 +62,16 @@ def _check_supported(gc: GenerationConfig, cache_mode: str,
                      kv_dtype=None) -> None:
     if cache_mode not in ("dense", "paged"):
         raise NotImplementedError(f"cache_mode={cache_mode!r}")
-    if kv_dtype not in (None, "int8"):
+    if kv_dtype not in (None, "int8", "int4"):
         raise NotImplementedError(f"kv_dtype={kv_dtype!r}: the port has "
-                                  f"bf16/fp32 and int8 pools")
-    if gc.num_beams > 1:
-        raise NotImplementedError("beam search is not ported yet")
+                                  f"bf16/fp32, int8 and int4 pools")
     if gc.speculative_k > 0:
-        raise NotImplementedError("speculative decoding is not ported yet")
+        if cache_mode != "paged" or gc.do_sample:
+            raise ValueError("speculative decoding: paged cache + greedy "
+                             "only")
+        if not 1 <= gc.speculative_k <= 15:
+            raise ValueError("speculative_k must be 1..15: K+1 tokens ride "
+                             "the <=16-token paged path")
 
 
 def _default_generator(device, generator):
@@ -142,7 +146,10 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
     rope_pos_ids = rope_pos_ids.to(device=device, dtype=torch.float32)
     generator = _default_generator(device, generator)
     B, S = input_ids.shape
-    max_len = S + gc.max_new_tokens
+    speculative = gc.speculative_k > 0
+    # +K+1 slack: the last speculative forward may write K+1 fresh tokens
+    max_len = S + gc.max_new_tokens + \
+        (gc.speculative_k + 1 if speculative else 0)
 
     embeds = prompt_embeds(model, cfg, input_ids, pixel_values, image_flags,
                            img_context_token_id)
@@ -177,6 +184,16 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
     last_hidden = hidden[torch.arange(B, device=device), last][:, None]
     last_logits = internlm2.head_logits(last_hidden, llm.output)[:, 0]
     last_pos = rope_pos_ids[torch.arange(B, device=device), last]
+    if speculative:
+        from v2pe_tpu_torch.infer.speculative import \
+            speculative_decode_from_logits
+
+        ctx = torch.zeros((B, max_len + 8), dtype=torch.int32, device=device)
+        ctx[:, :S] = input_ids
+        out, steps, lens, _ = speculative_decode_from_logits(
+            llm, cfg.llm, gc, cache, last_logits, last_pos, ctx,
+            prompt_lengths.to(torch.int32))
+        return out, steps, lens
     out, steps, lens, _ = decode_from_logits(
         llm, cfg.llm, gc, cache, last_logits, last_pos, generator,
         kv_valid_at=kv_valid_fn)

@@ -2,9 +2,10 @@
 
 One physical pool, (L, Hkv, n_pages, page_size, hd), shared by all rows of
 a batch through per-row page tables, so ragged rows share memory and a row
-grows one page at a time. An int8 pool carries fp32 scales per (layer,
-head, token) in (L, Hkv, n_pages, 1, page_size). Page 0 is the reserved
-null page: the allocator never hands it out.
+grows one page at a time. A quantized pool (int8, or int4 as packed bytes
+of shape (..., page_size, hd/2): ``ops/paged_attention.pack_int4``) carries
+fp32 scales per (layer, head, token) in (L, Hkv, n_pages, 1, page_size).
+Page 0 is the reserved null page: the allocator never hands it out.
 
 The port mutates the pool in place (the JAX package donates it to each jit
 call instead): every write below indexes into the pool tensors and returns
@@ -20,17 +21,22 @@ from typing import Optional, Tuple
 import torch
 
 from v2pe_tpu_torch.core.config import LLMConfig
-from v2pe_tpu_torch.ops.paged_attention import quantize_kv
+from v2pe_tpu_torch.ops.paged_attention import (pack_int4, quantize_kv,
+                                                unpack_int4)
+
 
 @dataclasses.dataclass
 class PagedKVCache:
     """Physical pool and page tables.
 
-    k_pages/v_pages: (L, Hkv, n_pages, page_size, hd)
+    k_pages/v_pages: (L, Hkv, n_pages, page_size, hd), or hd/2 packed bytes
+        for an int4 pool
     page_table: (B, max_pages_per_row) int32, physical page id or -1
     lengths: (B,) int32, tokens written per row
     next_page: (1,) int32, the bump allocator's head (starts at page 1)
-    k_scales/v_scales: (L, Hkv, n_pages, 1, page_size) fp32, int8 pools only
+    k_scales/v_scales: (L, Hkv, n_pages, 1, page_size) fp32, quantized
+        pools only
+    kv_bits: 8 or 4, the width of a quantized pool's codes
     """
 
     k_pages: torch.Tensor
@@ -40,6 +46,7 @@ class PagedKVCache:
     next_page: torch.Tensor
     k_scales: Optional[torch.Tensor] = None
     v_scales: Optional[torch.Tensor] = None
+    kv_bits: int = 8
 
     @property
     def page_size(self) -> int:
@@ -61,16 +68,17 @@ class PagedKVCache:
         if n_shards != 1:
             raise NotImplementedError("a sequence-sharded pool belongs to the "
                                       "multi-GPU slice")
-        if kv_dtype in ("int4", "torch.int4"):
-            raise NotImplementedError("int4 KV needs a nibble-packed pool "
-                                      "layout of its own")
-        quant = kv_dtype in ("int8", torch.int8)
+        quant = kv_dtype in ("int8", "int4", torch.int8)
+        bits = 4 if kv_dtype == "int4" else 8
         if quant:
             dtype = torch.int8
         elif kv_dtype is not None:
             dtype = kv_dtype
+        if bits == 4 and cfg.head_dim % 2:
+            raise ValueError("an int4 pool packs two dims of a head per byte: "
+                             "the head dim must be even")
         shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, n_pages,
-                 page_size, cfg.head_dim)
+                 page_size, cfg.head_dim // 2 if bits == 4 else cfg.head_dim)
 
         def scales():
             return torch.zeros(shape[:3] + (1, page_size),
@@ -84,7 +92,7 @@ class PagedKVCache:
                                   dtype=torch.int32, device=device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
             next_page=torch.ones((1,), dtype=torch.int32, device=device),
-            k_scales=scales(), v_scales=scales())
+            k_scales=scales(), v_scales=scales(), kv_bits=bits)
 
 
 def allocate_rows(cache: PagedKVCache, new_lengths: torch.Tensor
@@ -141,13 +149,15 @@ def token_slots(cache: PagedKVCache, T: int,
 
 def scatter_layers(cache: PagedKVCache, layers: slice, k_new: torch.Tensor,
                    v_new: torch.Tensor, slots) -> None:
-    """Write (L', B, T, Hkv, hd) k/v (quantized for an int8 pool) into the
-    pool layers ``layers`` at ``slots`` from :func:`token_slots`, in
-    place."""
+    """Write (L', B, T, Hkv, hd) k/v (quantized, and packed for an int4
+    pool) into the pool layers ``layers`` at ``slots`` from
+    :func:`token_slots`, in place."""
     idx, mask = slots
     if cache.quantized:
-        k_new, ks = quantize_kv(k_new)
-        v_new, vs = quantize_kv(v_new)
+        k_new, ks = quantize_kv(k_new, cache.kv_bits)
+        v_new, vs = quantize_kv(v_new, cache.kv_bits)
+        if cache.kv_bits == 4:
+            k_new, v_new = pack_int4(k_new), pack_int4(v_new)
         for pool, s in ((cache.k_scales, ks), (cache.v_scales, vs)):
             # (L', B, T, Hkv, 1) -> (L', Hkv, n)
             _flat_scales(pool)[layers, :, idx] = \
@@ -183,7 +193,7 @@ def write_tokens(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
 def gather_row_kv(cache: PagedKVCache, layer: int
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(B, max_len, Hkv, hd) k/v of ``layer`` read through the page tables
-    (fp32, dequantized for an int8 pool) and the (B, max_len) validity
+    (fp32, dequantized for a quantized pool) and the (B, max_len) validity
     mask. Test path only: the kernels read pages directly."""
     B, MP = cache.page_table.shape
     ps = cache.page_size
@@ -191,6 +201,8 @@ def gather_row_kv(cache: PagedKVCache, layer: int
     k = cache.k_pages[layer][:, phys]               # (Hkv, B, MP, ps, hd)
     v = cache.v_pages[layer][:, phys]
     if cache.quantized:
+        if cache.kv_bits == 4:
+            k, v = unpack_int4(k), unpack_int4(v)
         k = k.float() * cache.k_scales[layer][:, phys, 0][..., None]
         v = v.float() * cache.v_scales[layer][:, phys, 0][..., None]
     Hkv, hd = k.shape[0], k.shape[-1]

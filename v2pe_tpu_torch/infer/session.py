@@ -31,6 +31,7 @@ from v2pe_tpu_torch.infer.chunked_prefill import chunked_prefill
 from v2pe_tpu_torch.infer.generate import (GenerationConfig,
                                            _default_generator,
                                            decode_from_logits, prompt_embeds)
+from v2pe_tpu_torch.infer.speculative import speculative_decode_from_logits
 from v2pe_tpu_torch.models import internlm2
 
 
@@ -55,6 +56,14 @@ class ChatSession:
         self.history = []
         self.num_patches_list = []
         self._prev_ids = np.zeros(0, np.int64)
+        # adaptive speculation, as in serve/engine.py: when the EMA of
+        # accepted tokens per verify forward drops below spec_min_accept,
+        # the next spec_reprobe_turns turns decode plainly, then one
+        # speculative turn probes again
+        self.spec_min_accept = 1.5
+        self.spec_reprobe_turns = 4
+        self._spec_accept_ema = None
+        self._spec_suspended_for = 0
 
     def _set_length(self, n: int) -> None:
         self.cache = dataclasses.replace(
@@ -66,9 +75,6 @@ class ChatSession:
         """One turn: ``pixel_values`` are the NEW image's tiles (from
         ``chat_model.load_pixels``) or None for text only."""
         gc = generation_config or GenerationConfig()
-        if gc.speculative_k > 0:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet")
         m = self.m
         new_patches = [pixel_values.shape[0]] if pixel_values is not None \
             else []
@@ -86,9 +92,11 @@ class ChatSession:
                 version=version, stride=self.cfg.rope_pos_id_stride)
         else:
             pos = np.arange(len(ids), dtype=np.float32)
-        if len(ids) + gc.max_new_tokens > self.max_len:
+        spec_slack = gc.speculative_k + 1 if gc.speculative_k else 0
+        if len(ids) + gc.max_new_tokens + spec_slack > self.max_len:
             raise ValueError("session max_len exceeded: prompt + "
-                             "max_new_tokens must fit the pool")
+                             "max_new_tokens (+ K + 1 when speculative) "
+                             "must fit the pool")
         # roll the cache back to the longest common prefix with last turn
         n = min(self.consumed, len(ids), len(self._prev_ids))
         eq = ids[:n] == self._prev_ids[:n]
@@ -127,9 +135,32 @@ class ChatSession:
         gc = dataclasses.replace(gc, eos_token_ids=stop_ids)
         last_pos = torch.tensor([float(suf_pos[-1])], dtype=torch.float32,
                                 device=dev)
-        out, _, lens, self.cache = decode_from_logits(
-            llm, self.cfg.llm, gc, self.cache, last_logits, last_pos,
-            _default_generator(dev, None))
+        want_spec = gc.speculative_k > 0 and not gc.do_sample
+        if want_spec and self._spec_suspended_for > 0:
+            self._spec_suspended_for -= 1
+            if self._spec_suspended_for == 0:
+                self._spec_accept_ema = None  # a fresh estimate on re-probe
+            want_spec = False
+        if want_spec:
+            # the whole conversation rides the draft buffer, so drafts can
+            # copy from any earlier turn
+            need = len(ids) + gc.max_new_tokens + gc.speculative_k + 9
+            width = -(-need // self.chunk_multiple) * self.chunk_multiple
+            ctx = torch.zeros((1, width), dtype=torch.int32, device=dev)
+            ctx[0, :len(ids)] = torch.as_tensor(ids, device=dev)
+            out, steps, lens, self.cache = speculative_decode_from_logits(
+                llm, self.cfg.llm, gc, self.cache, last_logits, last_pos,
+                ctx, torch.tensor([len(ids)], dtype=torch.int32, device=dev))
+            accept = float(lens.sum()) / max(int(steps), 1)
+            ema = self._spec_accept_ema
+            self._spec_accept_ema = accept if ema is None \
+                else 0.5 * ema + 0.5 * accept
+            if self._spec_accept_ema < self.spec_min_accept:
+                self._spec_suspended_for = self.spec_reprobe_turns
+        else:
+            out, _, lens, self.cache = decode_from_logits(
+                llm, self.cfg.llm, gc, self.cache, last_logits, last_pos,
+                _default_generator(dev, None))
         # roll the generated tokens back out of the cache (see module doc)
         self._set_length(len(ids))
 

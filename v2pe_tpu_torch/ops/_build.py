@@ -131,7 +131,7 @@ def load() -> ctypes.CDLL:
             p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
             p, p,               # page_table, lengths
             i, i, i, i, i, i,   # B, Hkv, NP, ps, D, MP
-            i, i, i,            # layer, is_bf16, quantized
+            i, i, i,            # layer, is_bf16, kv_bits (0, 8 or 4)
             p,                  # cudaStream_t
         ]
         lib.v2pe_paged_decode.argtypes = [
@@ -141,7 +141,7 @@ def load() -> ctypes.CDLL:
             p, p,               # out, lse (may be NULL)
             i, i, i, i, i, i,   # B, T, Hq, Hkv, NP, ps
             i, i, i,            # D, MP, layer
-            i, i, i, i,         # is_bf16, quantized, fresh_in_pages, fold
+            i, i, i, i,         # is_bf16, kv_bits, fresh_in_pages, fold
             ctypes.c_float,     # scale
             p,                  # cudaStream_t
         ]
@@ -151,7 +151,7 @@ def load() -> ctypes.CDLL:
             p, p,               # out, lse
             i, i, i, i, i, i,   # B, S, Hq, Hkv, NP, ps
             i, i, i,            # D, MP, layer
-            i, i,               # is_bf16, quantized
+            i, i,               # is_bf16, kv_bits
             ctypes.c_float,     # scale
             p,                  # cudaStream_t
         ]

@@ -1,12 +1,17 @@
 """Paged-KV attention: the CUDA kernels' wrappers and their plain twins.
 
 Port of ``v2pe_tpu/ops/paged_attention.py``. The pool is the JAX layout,
-(L, Hkv, NP, ps, hd) values plus, for an int8 pool, (L, Hkv, NP, 1, ps)
+(L, Hkv, NP, ps, hd) values plus, for a quantized pool, (L, Hkv, NP, 1, ps)
 fp32 scales, and every function takes the WHOLE pool and a layer index:
-nothing slices or copies the pool per layer.
+nothing slices or copies the pool per layer. An int4 pool (JAX:
+``jnp.int4`` pages) is int8 bytes of shape (L, Hkv, NP, ps, hd/2): byte d
+of a slot holds dim d in its low nibble and dim d + hd/2 in its high one
+(:func:`pack_int4`), so a token's vector of one head is whole bytes. The
+functions tell an int4 pool from an int8 one by that last dim.
 
 * :func:`store_fresh_token` writes each row's fresh k/v (quantized for an
-  int8 pool) at slot ``lengths % ps`` of its current page, in place.
+  int8 pool, and packed for an int4 one) at slot ``lengths % ps`` of its
+  current page, in place.
 * :func:`paged_decode_attention` attends T <= 16 fresh queries per row over
   the row's pages: either with the fresh tokens already stored
   (``fresh_in_pages``, fresh token t sees slots <= lengths + t) or with the
@@ -16,7 +21,7 @@ nothing slices or copies the pool per layer.
   chunk's own causal attention.
 
 Page-table entries of -1 are unallocated; ``slot_base`` (B, MP) gives each
-entry's first global slot, -1 for a dead entry, which is skipped. int8
+entry's first global slot, -1 for a dead entry, which is skipped. Quantized
 pools: the k scale multiplies the score before the softmax, the v scale
 multiplies the softmax weight after the sum l was taken, so l stays
 unscaled. A row with nothing to attend gives out 0 and lse -1e30.
@@ -54,20 +59,46 @@ def default_slot_base(page_table: torch.Tensor, page_size: int):
 
 
 def quantize_kv(x: torch.Tensor, bits: int = 8):
-    """Symmetric int8 quantization per vector of the last dim: returns (int8
-    values, fp32 scales with the last dim kept as 1). The scale is amax/127,
-    or 1 where amax is 0; values round half to even and clip to +-127."""
-    if bits != 8:
-        raise NotImplementedError("int4 KV needs a nibble-packed pool layout "
-                                  "of its own; only int8 is ported")
+    """Symmetric int8 / int4 quantization per vector of the last dim:
+    returns (codes as int8, one per value, fp32 scales with the last dim
+    kept as 1). The scale is amax/qmax (qmax 127, or 7 for ``bits=4``), or 1
+    where amax is 0; values round half to even and clip to +-qmax. int4
+    codes go into a pool through :func:`pack_int4`."""
+    if bits not in (4, 8):
+        raise ValueError(f"quantize_kv takes 4 or 8 bits, got {bits}")
+    qmax = 7.0 if bits == 4 else 127.0
     xf = x.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
     # a tensor divisor: CUDA divides by a Python scalar through its
     # reciprocal, which is not jnp's (nor the store kernel's) exact division
-    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, qmax),
                         torch.ones_like(amax))
-    q = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax)
     return q.to(torch.int8), scale
+
+
+def pack_int4(codes: torch.Tensor) -> torch.Tensor:
+    """(..., hd) int8 codes in [-7, 7] -> (..., hd/2) bytes: dim d in the low
+    nibble, dim d + hd/2 in the high one."""
+    h = codes.shape[-1] // 2
+    lo, hi = codes[..., :h].to(torch.int32), codes[..., h:].to(torch.int32)
+    return ((lo & 0xF) | (hi << 4)).to(torch.int8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`pack_int4`: (..., hd/2) bytes -> (..., hd) int8
+    codes (the low nibble sign-extended, the high one by an arithmetic
+    shift)."""
+    b = packed.to(torch.int32)
+    return torch.cat([((b & 0xF) ^ 8) - 8, b >> 4], dim=-1).to(torch.int8)
+
+
+def pool_bits(k_pages: torch.Tensor, k_scales, hd: int) -> int:
+    """0 for a pool in the values' own dtype, 8 for int8 codes, 4 for packed
+    int4 (quantized, and half of ``hd`` bytes per slot)."""
+    if k_scales is None:
+        return 0
+    return 4 if k_pages.shape[-1] * 2 == hd else 8
 
 
 # ---------------------------------------------------------------- twins
@@ -86,8 +117,11 @@ def store_fresh_token_torch(k_new, v_new, k_pages, v_pages, page_table,
     page, off = page[ok], off[ok]
     kn, vn = k_new[ok, 0], v_new[ok, 0]           # (n, Hkv, hd)
     if k_scales is not None:
-        kn, ks = quantize_kv(kn)
-        vn, vs = quantize_kv(vn)
+        bits = pool_bits(k_pages, k_scales, k_new.shape[-1])
+        kn, ks = quantize_kv(kn, bits)
+        vn, vs = quantize_kv(vn, bits)
+        if bits == 4:
+            kn, vn = pack_int4(kn), pack_int4(vn)
         k_scales[layer][:, page, 0, off] = ks[..., 0].t()
         v_scales[layer][:, page, 0, off] = vs[..., 0].t()
     k_pages[layer][:, page, off] = kn.transpose(0, 1).to(k_pages.dtype)
@@ -97,14 +131,17 @@ def store_fresh_token_torch(k_new, v_new, k_pages, v_pages, page_table,
     return k_pages, v_pages
 
 
-def _gather_pages(pages, scales, page_table, layer: int):
+def _gather_pages(pages, scales, page_table, layer: int, hd: int):
     """(B, Hkv, MP*ps, hd) fp32 values of each row's pages (page -1 reads
-    page 0, masked by the caller) and their (B, Hkv, MP*ps) scales."""
+    page 0, masked by the caller; int4 bytes unpacked) and their
+    (B, Hkv, MP*ps) scales."""
     B, MP = page_table.shape
-    Hkv, _, ps, hd = pages.shape[1:]
+    Hkv, _, ps, _ = pages.shape[1:]
     phys = page_table.clamp_min(0).long()
-    x = pages[layer][:, phys].float()               # (Hkv, B, MP, ps, hd)
-    x = x.transpose(0, 1).reshape(B, Hkv, MP * ps, hd)
+    x = pages[layer][:, phys]                       # (Hkv, B, MP, ps, .)
+    if pool_bits(pages, scales, hd) == 4:
+        x = unpack_int4(x)
+    x = x.float().transpose(0, 1).reshape(B, Hkv, MP * ps, hd)
     if scales is None:
         return x, None
     s = scales[layer][:, phys, 0]                   # (Hkv, B, MP, ps)
@@ -152,8 +189,8 @@ def paged_decode_attention_torch(q, k_new, v_new, k_pages, v_pages,
         scale = hd ** -0.5
     if slot_base is None:
         slot_base = default_slot_base(page_table, ps)
-    k, ks = _gather_pages(k_pages, k_scales, page_table, layer)
-    v, vs = _gather_pages(v_pages, v_scales, page_table, layer)
+    k, ks = _gather_pages(k_pages, k_scales, page_table, layer, hd)
+    v, vs = _gather_pages(v_pages, v_scales, page_table, layer, hd)
     # q row (t, g) of kv head h: (B, Hkv, T*G, hd)
     qf = (q.float() * scale).reshape(B, T, Hkv, G, hd).permute(0, 2, 1, 3, 4)
     qf = qf.reshape(B, Hkv, T * G, hd)
@@ -199,8 +236,8 @@ def paged_prefill_attention_torch(q, k_pages, v_pages, page_table, lengths,
         scale = hd ** -0.5
     if slot_base is None:
         slot_base = default_slot_base(page_table, ps)
-    k, ks = _gather_pages(k_pages, k_scales, page_table, layer)
-    v, vs = _gather_pages(v_pages, v_scales, page_table, layer)
+    k, ks = _gather_pages(k_pages, k_scales, page_table, layer, hd)
+    v, vs = _gather_pages(v_pages, v_scales, page_table, layer, hd)
     slot = _slots(slot_base, ps)
     mask = (slot >= 0) & (slot < lengths.long()[:, None])   # (B, K)
     k, v = k[:, :, None], v[:, :, None]             # (B, Hkv, 1, K, hd)
@@ -245,14 +282,20 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def _check_pool(k_pages, v_pages, k_scales, v_scales, dtype, device):
-    """Pool of the given value dtype, or int8 with fp32 scales."""
+def _check_pool(k_pages, v_pages, k_scales, v_scales, dtype, device,
+                hd: int) -> int:
+    """Pool of the given value dtype, or int8 (codes, or packed int4 with
+    hd/2 bytes a slot) with fp32 scales, for values of head dim ``hd``.
+    Returns its :func:`pool_bits`."""
     if k_pages.ndim != 5 or k_pages.shape != v_pages.shape:
         raise ValueError(f"bad pool shapes {tuple(k_pages.shape)}/"
                          f"{tuple(v_pages.shape)}")
-    L, Hkv, NP, ps, hd = k_pages.shape
+    L, Hkv, NP, ps, width = k_pages.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"paged kernels take head dim {HEAD_DIMS}, got {hd}")
+    bits = pool_bits(k_pages, k_scales, hd)
+    if width != (hd // 2 if bits == 4 else hd):
+        raise ValueError(f"pool slots of {width} values for head dim {hd}")
     tensors = [k_pages, v_pages]
     if k_scales is None:
         if k_pages.dtype != dtype or v_pages.dtype != dtype:
@@ -263,13 +306,14 @@ def _check_pool(k_pages, v_pages, k_scales, v_scales, dtype, device):
         for s in (k_scales, v_scales):
             if s is None or s.shape != (L, Hkv, NP, 1, ps) \
                     or s.dtype != torch.float32:
-                raise ValueError("int8 pool needs (L, Hkv, NP, 1, ps) fp32 "
-                                 "k and v scales")
+                raise ValueError("a quantized pool needs (L, Hkv, NP, 1, ps) "
+                                 "fp32 k and v scales")
         tensors += [k_scales, v_scales]
     for t in tensors:
         if t.device != device or not t.is_contiguous():
             raise ValueError("pool tensors must be contiguous on the "
                              "queries' device")
+    return bits
 
 
 def _check_index(B: int, device, *vecs):
@@ -310,7 +354,7 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
                       layer: int, *, k_scales=None, v_scales=None):
     """Write each row's fresh (B, 1, Hkv, hd) k/v at slot ``lengths % ps``
     of page ``page_table[b, min(lengths // ps, MP - 1)]`` of ``layer``, in
-    place (an int8 pool also takes the scales). Returns the pool tensors,
+    place (a quantized pool also takes the scales). Returns the pool tensors,
     as the JAX function does."""
     if _route(k_new, "paged_store"):
         return store_fresh_token_torch(
@@ -323,9 +367,9 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
         raise ValueError(f"fresh k/v must be contiguous (B, 1, Hkv, hd) "
                          f"float32/bfloat16, got {tuple(k_new.shape)} "
                          f"{k_new.dtype}")
-    _check_pool(k_pages, v_pages, k_scales, v_scales, k_new.dtype,
-                k_new.device)
-    if k_pages.shape[1] != Hkv or k_pages.shape[4] != hd:
+    bits = _check_pool(k_pages, v_pages, k_scales, v_scales, k_new.dtype,
+                       k_new.device, hd)
+    if k_pages.shape[1] != Hkv:
         raise ValueError("fresh k/v do not match the pool's heads")
     _check_index(B, k_new.device, page_table, lengths)
     layer = _check_layer(layer, k_pages)
@@ -336,7 +380,7 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
         _ptr(k_new), _ptr(v_new), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scales), _ptr(v_scales), _ptr(page_table), _ptr(lengths),
         B, Hkv, NP, ps, hd, page_table.shape[1], layer,
-        int(k_new.dtype == torch.bfloat16), int(k_scales is not None),
+        int(k_new.dtype == torch.bfloat16), bits,
         ctypes.c_void_p(torch.cuda.current_stream(k_new.device).cuda_stream))
     _launch("paged_store", err)
     if k_scales is not None:
@@ -349,17 +393,18 @@ def _check_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
     if q.dtype not in DTYPES or not q.is_contiguous():
         raise ValueError(f"queries must be contiguous float32/bfloat16, got "
                          f"{q.dtype}")
-    _check_pool(k_pages, v_pages, k_scales, v_scales, q.dtype, q.device)
     B, _, Hq, hd = q.shape
+    bits = _check_pool(k_pages, v_pages, k_scales, v_scales, q.dtype,
+                       q.device, hd)
     Hkv = k_pages.shape[1]
-    if k_pages.shape[4] != hd or Hq % Hkv != 0:
+    if Hq % Hkv != 0:
         raise ValueError(f"queries {tuple(q.shape)} do not fit the pool "
                          f"{tuple(k_pages.shape)}")
     if page_table.ndim != 2 or lengths.shape != (B,) \
             or slot_base.shape != page_table.shape:
         raise ValueError("page_table/slot_base must be (B, MP), lengths (B,)")
     _check_index(B, q.device, page_table, lengths, slot_base)
-    return _check_layer(layer, k_pages)
+    return _check_layer(layer, k_pages), bits
 
 
 def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
@@ -383,8 +428,8 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
     ps = k_pages.shape[3]
     if slot_base is None:
         slot_base = default_slot_base(page_table, ps)
-    layer = _check_attention(q, k_pages, v_pages, k_scales, v_scales,
-                             page_table, lengths, slot_base, layer)
+    layer, bits = _check_attention(q, k_pages, v_pages, k_scales, v_scales,
+                                   page_table, lengths, slot_base, layer)
     if not 1 <= T <= MAX_FRESH:
         raise ValueError(f"decode takes 1..{MAX_FRESH} fresh tokens, got {T}")
     Hkv = k_pages.shape[1]
@@ -406,7 +451,7 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
         _ptr(page_table), _ptr(slot_base), _ptr(lengths), _ptr(out),
         _ptr(lse), B, T, Hq, Hkv, k_pages.shape[2], ps, hd,
         page_table.shape[1], layer, int(q.dtype == torch.bfloat16),
-        int(k_scales is not None), int(fresh_in_pages), fold,
+        bits, int(fresh_in_pages), fold,
         float(hd ** -0.5 if scale is None else scale),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _launch("paged_decode", err)
@@ -428,8 +473,8 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, lengths,
     ps = k_pages.shape[3]
     if slot_base is None:
         slot_base = default_slot_base(page_table, ps)
-    layer = _check_attention(q, k_pages, v_pages, k_scales, v_scales,
-                             page_table, lengths, slot_base, layer)
+    layer, bits = _check_attention(q, k_pages, v_pages, k_scales, v_scales,
+                                   page_table, lengths, slot_base, layer)
     from v2pe_tpu_torch.ops import _build
 
     out = torch.empty_like(q)
@@ -441,8 +486,7 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, lengths,
         _ptr(v_scales), _ptr(page_table), _ptr(slot_base), _ptr(lengths),
         _ptr(out), _ptr(lse), B, S, Hq, k_pages.shape[1], k_pages.shape[2],
         ps, hd, page_table.shape[1], layer, int(q.dtype == torch.bfloat16),
-        int(k_scales is not None),
-        float(hd ** -0.5 if scale is None else scale),
+        bits, float(hd ** -0.5 if scale is None else scale),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _launch("paged_prefill", err)
     return out, lse

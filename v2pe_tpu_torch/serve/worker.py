@@ -8,7 +8,10 @@ controller registration and heartbeat, a semaphore concurrency limit, and
 dynamic tiling of base64 images (PIL, imported when an image arrives).
 V2PE position ids are passed at serve time. Requests decode through the
 port's ``stream_generate`` with the chat model's cache mode, page size and
-KV dtype. The continuous-batching ``engine`` is not ported yet."""
+KV dtype, or, when the worker is given an ``engine``
+(``serve/engine.InferenceEngine``), through the continuous-batching engine:
+concurrent generations then share one batched decode instead of taking
+turns."""
 
 from __future__ import annotations
 
@@ -45,10 +48,10 @@ class ModelWorker:
         heartbeat_interval: float = 15.0,
         engine=None,
     ):
-        if engine is not None:
-            raise NotImplementedError("the continuous-batching engine is not "
-                                      "ported yet")
         self.model = chat_model
+        self.engine = engine
+        if engine is not None:
+            engine.start()
         self.model_name = model_name
         self.worker_id = str(uuid.uuid4())[:6]
         self.controller_addr = controller_addr
@@ -160,6 +163,34 @@ class ModelWorker:
             list(stop_str) if stop_str else [self.model.conv_template.sep])
         stop_ids = set(gc.eos_token_ids)
         keep = []
+        if self.engine is not None:
+            # continuous batching: this request decodes interleaved with
+            # every other in-flight one. Sampling settings are the
+            # ENGINE's (per-request max_new_tokens/stop are honored).
+            req = self.engine.submit(
+                ids, pos,
+                pixel_values=np.concatenate(pixel_list) if pixel_list
+                else None,
+                max_new_tokens=max_new_tokens)
+            while True:
+                tok = req.token_queue.get()
+                if tok is None:
+                    if meta is not None:
+                        meta["completion_tokens"] = len(keep)
+                    if req.error is not None:
+                        raise RuntimeError("engine failed") from req.error
+                    return
+                if int(tok) in stop_ids:
+                    continue
+                keep.append(int(tok))
+                text = self.model.tokenizer.decode(
+                    keep, skip_special_tokens=True)
+                if meta is not None:
+                    meta["completion_tokens"] = len(keep)
+                if stopper.should_stop(text):
+                    yield {"text": stopper.trim(text), "error_code": 0}
+                    return
+                yield {"text": text, "error_code": 0}
         for chunk in stream_generate(
                 self.model.model, self.model.cfg, gc, ids[None],
                 pos[None].astype(np.float32), pixels, flags,
