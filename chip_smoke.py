@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths once on one CUDA card.
+"""Drive the PyTorch port's serving, training and sequence-parallel paths
+once on one CUDA card.
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --profile        # only a torch.profiler breakdown
@@ -76,6 +77,24 @@ bytes moved once at 3.35 TB/s and operations at the peak of their type)
 and the time of one PyTorch library call where one computes the same
 function (timed here, used nowhere in the port); the other forms' numbers
 are on their ``kernel ...`` lines.
+Sequence parallelism (``parallel/``: every shard of the ``seq`` axis on this
+one card): phase 2 also holds the fused ring forward against its plain
+version at six forms (main: 4 ranks, zigzag, causal, 32,768 tokens, bf16;
+the ring trainer's 8192 tokens) and against the flash forward on the
+unsharded sequence, the scan ring against the fused one with their launches
+and reads of the card, the ring's backward against the plain and the dense
+flash backward, and the three flash kernels against their plain twins at
+the rectangles the ring cuts at both full-width shapes; a small fp32 model under
+``seq_shards=4`` runs on the card against the CPU (forward in both ring
+modes, one train step). Phase 13, the long eval: InternVL2-2B answers one
+32,768-token, 32-tile needle prompt through
+``evalkit.mm_niah_long.teacher_forced_eval``, unsharded and under
+``ShardingContext(seq_shards=4)`` with the scan and the fused ring (the fused
+kernel once a decoder layer; the fused ring's logits and answer tokens held
+against the scan ring's, and both against the unsharded run's).
+Phase 14, after the other training phases: two steps of ``make_train_step``
+under ``MeshConfig(seq=4)`` with the fused ring on 8192 tokens + 8 tiles,
+held against an unsharded step on the same weights.
 Then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
@@ -109,6 +128,7 @@ KERNEL_SOURCES = {
     "qdot_stacked": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
     "q4dot": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
     "q4dot_stacked": "v2pe_tpu_torch/csrc/quantized_matmul.cu",
+    "ring_fused_fwd": "v2pe_tpu_torch/csrc/ring_fused_fwd.cu",
 }
 KERNEL_REPLACES = {  # the Pallas kernel bodies
     "flash_fwd": "v2pe_tpu/ops/flash_pallas.py:68",
@@ -121,6 +141,7 @@ KERNEL_REPLACES = {  # the Pallas kernel bodies
     "qdot_stacked": "v2pe_tpu/ops/quantized_matmul.py:297",
     "q4dot": "v2pe_tpu/ops/quantized_matmul.py:405",
     "q4dot_stacked": "v2pe_tpu/ops/quantized_matmul.py:437",
+    "ring_fused_fwd": "v2pe_tpu/parallel/ring_fused.py:63",
 }
 # the card's published peaks (H100 SXM, dense): device memory, and the
 # rate of the operands' type (fp32 runs outside the tensor cores)
@@ -186,8 +207,10 @@ def reset_launches() -> None:
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
     from v2pe_tpu_torch.ops import quantized_matmul as qm
+    from v2pe_tpu_torch.parallel import ring_fused
 
     flash_fwd.LAUNCHES = 0
+    ring_fused.LAUNCHES = 0
     for counts in (pa.LAUNCHES, flash_bwd.LAUNCHES, qm.LAUNCHES):
         for name in counts:
             counts[name] = 0
@@ -198,10 +221,12 @@ def read_launches() -> dict:
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
     from v2pe_tpu_torch.ops import paged_attention as pa
     from v2pe_tpu_torch.ops import quantized_matmul as qm
+    from v2pe_tpu_torch.parallel import ring_fused
 
     torch.cuda.synchronize()
     return {"flash_fwd": flash_fwd.LAUNCHES, **flash_bwd.LAUNCHES,
-            **pa.LAUNCHES, **qm.LAUNCHES}
+            **pa.LAUNCHES, **qm.LAUNCHES,
+            "ring_fused_fwd": ring_fused.LAUNCHES}
 
 
 def require(counts: dict, names, where: str) -> None:
@@ -2100,18 +2125,20 @@ def synthetic_sample(rng, n_tokens: int, tiles: int, nit: int, size: int,
                 image_flags=np.ones(tiles, np.int64))
 
 
-def small_train_batch(cfg, device) -> dict:
+def small_train_batch(cfg, device, max_tokens: int = 300,
+                      seq_shards: int = 1) -> dict:
     """Two samples (150 and 130 tokens, one 112-pixel tile each) packed
-    into a 300-token row with a padded tail, as the trainer collates."""
+    into a 300-token row with a padded tail, as the trainer collates
+    (zigzag-permuted for ``seq_shards`` ring shards)."""
     from v2pe_tpu_torch import packing
 
     rng = np.random.default_rng(13)
     nit = cfg.num_image_token
     rows = [[synthetic_sample(rng, n, 1, nit, 112, ids=(997, 998, 999),
                               vocab_hi=990, stride=2) for n in (150, 130)]]
-    batch = packing.collate_rows(rows, max_tokens=300, max_tiles=2,
+    batch = packing.collate_rows(rows, max_tokens=max_tokens, max_tiles=2,
                                  img_context_token_id=999,
-                                 num_image_token=nit)
+                                 num_image_token=nit, seq_shards=seq_shards)
     batch.pop("statistics")
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -2380,6 +2407,719 @@ def profile_train(model, cfg) -> None:
             f" {e.key[:80]}")
 
 
+# --------------------------------------- sequence parallelism (the ring)
+
+
+RING_SHARDS = 4
+RING_EVAL_TOKENS, RING_EVAL_TILES = 32768, 32
+
+
+def _zigzag(x: torch.Tensor, world: int, axis: int = 1) -> torch.Tensor:
+    """Global order -> the layout whose contiguous shards are the ranks'."""
+    from v2pe_tpu_torch.parallel import ring
+
+    return torch.cat([ring.zigzag_shard(x, r, world, axis=axis)
+                      for r in range(world)], dim=axis).contiguous()
+
+
+def ring_forms(device):
+    """(name, ranks, unsharded args, kwargs) of every form the fused ring
+    forward is held at. Main: 4 ranks, causal, 32,768 tokens, 16/8 heads of
+    128, bf16, three packed segments and a padded tail (the long eval's
+    shape), and the same at 8192 tokens (the ring trainer's shape). Then 8
+    ranks in fp32 at the JAX ring test's shape (512 tokens, 4/2 x 16, three segments + 8 padded), a
+    bidirectional form, batch 2 with shards that no 64-row tile divides and
+    a batch row whose first shard is all padding, and one rank. The args
+    are in global order with arange positions; the ring gets them
+    zigzag-permuted."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+
+    def form(name, world, B, S, Hq, Hkv, D, dtype, pad, causal=True):
+        q, k, v = (torch.randn(B, S, H, D, generator=g).to(device, dtype)
+                   for H in (Hq, Hkv, Hkv))
+        seg = torch.ones(B, S, dtype=torch.int32, device=device)
+        seg[:, S // 3: 2 * S // 3] = 2
+        seg[:, 2 * S // 3:] = 3
+        seg[:, S - pad:] = 0
+        if B > 1:  # the last rank's low half and rank 0's shard, in zigzag
+            seg[1, :S // world // 2] = 0
+            seg[1, S - S // world // 2:] = 0
+        pos = torch.arange(S, dtype=torch.int32,
+                           device=device).expand(B, S).contiguous()
+        return name, world, (q, k, v, seg, seg, pos, pos), dict(
+            causal=causal, scale=D ** -0.5)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        form("ring4_zigzag_32768_3seg_pad_bf16", RING_SHARDS,
+             1, RING_EVAL_TOKENS, LLM_HQ, LLM_HKV, LLM_HD, bf16, 200),
+        form(f"ring4_zigzag_{TRAIN_TOKENS}_3seg_pad_bf16", RING_SHARDS,
+             1, TRAIN_TOKENS, LLM_HQ, LLM_HKV, LLM_HD, bf16, 72),
+        form("ring8_zigzag_512_3seg_pad_fp32", 8, 1, 512, 4, 2, 16, f32, 8),
+        form("ring4_noncausal_1024_fp32", 4, 1, 1024, 4, 2, 64, f32, 8,
+             causal=False),
+        form("ring4_B2_2000_ragged_tiles_bf16", 4, 2, 2000, LLM_HQ, LLM_HKV,
+             LLM_HD, bf16, 40),
+        form("ring1_300_bf16", 1, 1, 300, LLM_HQ, LLM_HKV, LLM_HD, bf16, 10),
+    ]
+
+
+def ring_library_ms(world, zz, causal: bool, scale: float):
+    """One ``scaled_dot_product_attention`` call that computes the ring
+    forward of every rank: the ranks as the batch, each with its chunks
+    gathered in hop order, the kv heads repeated to the query heads and the
+    segment / position mask made explicit (all outside the timing). No
+    call without an explicit mask expresses the zigzag layout."""
+    import torch.nn.functional as F
+
+    q, k, v, seg_q, seg_k, pos_q, pos_k = zz
+    B, S, Hq, D = q.shape
+    Sl, G = S // world, Hq // k.shape[2]
+    order = torch.tensor([[(r - s) % world for s in range(world)]
+                          for r in range(world)], device=q.device)
+
+    def gathered(x):  # (B, S, ...) -> (world * B, S, ...), rank-major
+        chunks = x.reshape(B, world, Sl, *x.shape[2:])
+        return chunks[:, order].transpose(0, 1).reshape(
+            world * B, S, *x.shape[2:])
+
+    def ranks(x):     # (B, S, ...) -> (world * B, Sl, ...)
+        return x.reshape(B, world, Sl, *x.shape[2:]).transpose(0, 1).reshape(
+            world * B, Sl, *x.shape[2:])
+
+    qr = ranks(q).transpose(1, 2)
+    kg = gathered(k).repeat_interleave(G, dim=2).transpose(1, 2)
+    vg = gathered(v).repeat_interleave(G, dim=2).transpose(1, 2)
+    sq, sk = ranks(seg_q)[:, :, None], gathered(seg_k)[:, None, :]
+    mask = (sq == sk) & (sq != 0)
+    if causal:
+        mask &= ranks(pos_q)[:, :, None] >= gathered(pos_k)[:, None, :]
+    mask = mask[:, None]
+    return library_ms(lambda: F.scaled_dot_product_attention(
+        qr, kg, vg, attn_mask=mask, scale=scale), iters=2)
+
+
+def ring_rectangles(name, world, zz, kw, grads=None) -> dict:
+    """The flash kernels at the shapes the ring gives them: for every
+    distinct branch of the ring's schedule (a full shard against a full
+    chunk, against a chunk's low half, a shard's high half against a full
+    chunk, ...) the first (rank, chunk) pair that takes it. On that
+    rectangle's rows, with their zigzag positions, the forward kernel is
+    held against its plain twin; with ``grads`` = (out, lse, do) of the
+    whole ring, also the two backward kernels against theirs, on the ring's
+    out and lse as the ring's second pass hands them over. Returns form
+    records per kernel."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+    from v2pe_tpu_torch.parallel import ring
+
+    statics = ring.RingStatics(kw["causal"], kw["scale"])
+    schedule = ring.ring_schedule(statics, world, *zz[3:])
+    shard_len = zz[0].shape[1] // world
+    first = {}
+    for r, c in itertools.product(range(world), repeat=2):
+        if schedule[r][c]:
+            first.setdefault(schedule[r][c], (r, c))
+    dtype = zz[0].dtype
+    up = lambda ts: [t.float() if t.is_floating_point() else t for t in ts]
+    records = {"flash_fwd": [], **{n: [] for n in BWD_KERNELS}}
+    for branch, (r, c) in sorted(first.items()):
+        qr, kr = ring._rectangle(branch, r, c, shard_len)
+        rows = (qr, kr, kr, qr, kr, qr, kr)
+        args = [ring._rows(t, sl) for t, sl in zip(zz, rows)]
+        form = (f"{name}_rect{branch}_{args[0].shape[1]}x{args[1].shape[1]}")
+        out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+        ref_out, ref_lse = flash_fwd.flash_attention_fwd_torch(*up(args),
+                                                               **kw)
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        tol = TOL[dtype]
+        msg = ""
+        ok = bool(torch.isfinite(out).all()) and err_out <= tol["out"] \
+            and err_lse <= tol["lse"]
+        records["flash_fwd"].append(dict(
+            form=form, max_abs_err=max(err_out, err_lse), main=False))
+        del ref_out, ref_lse
+        if grads is not None:
+            full = (*args, ring._rows(grads[0], qr),
+                    ring._rows(grads[1], qr, axis=2), ring._rows(grads[2], qr))
+            got = flash_bwd.flash_attention_bwd(*full, **kw)
+            want = flash_bwd.flash_attention_bwd_torch(*up(full), **kw)
+            rels = [((a.float() - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(got, want)]
+            errs = [(a.float() - b).abs().max().item()
+                    for a, b in zip(got, want)]
+            msg = (f"; backward max|d-twin|/max|twin| dq {rels[0]:.3e} dk "
+                   f"{rels[1]:.3e} dv {rels[2]:.3e} (tol {BWD_TOL[dtype]:.3e})")
+            ok = ok and all(torch.isfinite(t).all() for t in got) \
+                and max(rels) <= BWD_TOL[dtype]
+            for n in BWD_KERNELS:
+                records[n].append(dict(form=form, max_abs_err=max(errs),
+                                       max_rel_err=max(rels), main=False))
+            del got, want, full
+        log(f"kernel ring rectangle {form} (rank {r} x chunk {c}): forward "
+            f"max|out-twin| {err_out:.3e} (tol {tol['out']}) max|lse-twin| "
+            f"{err_lse:.3e} (tol {tol['lse']}){msg}")
+        if not ok:
+            raise AssertionError(f"flash kernel disagrees with twin at {form}")
+    return records
+
+
+def phase_ring_kernel() -> dict:
+    """The fused ring forward against its plain version at every form, and
+    against the flash forward kernel on the unsharded sequence (an
+    independent check of the layout: zigzag_unshard of the ring's output is
+    plain causal attention), with the tolerances of the flash forward. At
+    the two full-width forms also the flash forward at the scan ring's
+    rectangles against its plain twin. At the main form also: the scan
+    ring's output and its launches (at most ranks x ranks flash launches,
+    less the skipped pairs) against the fused ring's one, and the
+    synchronising reads of the card each makes. Returns form records per
+    kernel."""
+    from v2pe_tpu_torch.ops import flash_fwd
+    from v2pe_tpu_torch.parallel import ring, ring_fused
+
+    records, rect_records = [], []
+    for name, world, args, kw in ring_forms(torch.device("cuda")):
+        main = name.startswith(f"ring4_zigzag_{RING_EVAL_TOKENS}")
+        zz = [_zigzag(a, world) for a in args]
+        dtype = args[0].dtype
+        out, lse = ring_fused.fused_ring_fwd(world, *zz, **kw)
+        torch.cuda.synchronize()
+        up = [a.float() if a.is_floating_point() else a for a in zz]
+        ref_out, ref_lse = ring_fused.fused_ring_fwd_torch(world, *up, **kw)
+        err_out = (out.float() - ref_out).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        del up, ref_out, ref_lse
+        tol = TOL[dtype]
+        msg = ""
+        ok = bool(torch.isfinite(out).all()) and err_out <= tol["out"] \
+            and err_lse <= tol["lse"]
+        if args[0].shape[3] in flash_fwd.HEAD_DIMS:
+            o1, l1 = flash_fwd.flash_attention_fwd(*args, **kw)
+            d_out = (ring.zigzag_unshard(out, world).float()
+                     - o1.float()).abs().max().item()
+            d_lse = (ring.zigzag_unshard(lse, world, axis=2)
+                     - l1).abs().max().item()
+            msg = (f"; against flash_fwd on the unsharded sequence max|dout| "
+                   f"{d_out:.3e} max|dlse| {d_lse:.3e}")
+            ok = ok and d_out <= tol["out"] and d_lse <= tol["lse"]
+            del o1, l1
+        iters = 3 if main else 5
+        ms = time_ms(lambda: ring_fused.fused_ring_fwd(world, *zz, **kw),
+                     iters=iters)
+        plain_ms = time_ms(
+            lambda: ring_fused.fused_ring_fwd_torch(world, *zz, **kw),
+            iters=2 if main else 5)
+        q, k, v, seg_q, seg_k, pos_q, pos_k = args
+        pairs = attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"])
+        bound = attention_roof(q, k, v, pairs, 2, out, lse)
+        lib = ring_library_ms(world, zz, kw["causal"], kw["scale"]) \
+            if main else None
+        log(f"kernel ring_fused_fwd {name}: max|out-plain| {err_out:.3e} "
+            f"(tol {tol['out']}) max|lse-plain| {err_lse:.3e} (tol "
+            f"{tol['lse']}){msg}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"({pairs} attended pairs a head), library "
+            f"(scaled_dot_product_attention, ranks as the batch, explicit "
+            f"mask) {'none' if lib is None else f'{lib:.3f} ms'}")
+        if not ok:
+            raise AssertionError(f"fused ring forward disagrees at {name}")
+        records.append(dict(form=name, max_abs_err=max(err_out, err_lse),
+                            ms=ms, plain_ms=plain_ms, **bound,
+                            library_ms=lib, main=main))
+        if name.startswith("ring4_zigzag"):
+            rect_records += ring_rectangles(name, world, zz, kw)["flash_fwd"]
+        if not main:
+            continue
+        statics = ring.RingStatics(kw["causal"], kw["scale"])
+        reset_launches()
+        (s_out, s_lse), scan_reads = count_syncs(
+            lambda: ring._ring_fwd_impl(world, statics, *zz))
+        scan_n = read_launches()["flash_fwd"]
+        reset_launches()
+        _, fused_reads = count_syncs(
+            lambda: ring_fused.fused_ring_fwd(world, *zz, **kw))
+        fused_n = read_launches()["ring_fused_fwd"]
+        live = int((ring.branch_table(statics, world, *zz[3:]) != 0).sum())
+        d_out = (s_out.float() - out.float()).abs().max().item()
+        d_lse = (s_lse - lse).abs().max().item()
+        scan_ms = time_ms(lambda: ring._ring_fwd_impl(world, statics, *zz),
+                          iters=3, behind_spin=False)
+        log(f"ring scan vs fused at {name}: max|dout| {d_out:.3e} (tol "
+            f"{tol['out']}) max|dlse| {d_lse:.3e} (tol {tol['lse']}); scan "
+            f"{scan_n} flash_fwd launches ({live} live of {world * world} "
+            f"(rank, chunk) pairs), {scan_reads} read of the card, "
+            f"{scan_ms:.3f} ms; fused {fused_n} launch, {fused_reads} reads, "
+            f"{ms:.3f} ms")
+        if d_out > tol["out"] or d_lse > tol["lse"] or scan_n != live \
+                or scan_n > world * world or fused_n != 1 \
+                or scan_reads != 1 or fused_reads != 0:
+            raise AssertionError("scan and fused ring disagree, or their "
+                                 "launches or reads are not as designed")
+        del s_out, s_lse
+    torch.cuda.empty_cache()
+    return {"ring_fused_fwd": records, "flash_fwd": rect_records}
+
+
+def phase_ring_bwd() -> dict:
+    """The ring's training pass at the ring trainer's shape (4 ranks, 8192
+    tokens, 16/8 x 128, bf16, three segments and a padded tail) and at a
+    small fp32 form with batch 2. The fused forward's out and lse against
+    its plain version on the zigzag inputs; the ring's backward (the second
+    ring pass on the flash backward kernels) against the plain flash
+    backward on the same unsharded inputs, out and lse, and against the
+    dense flash backward kernels: dq, dk, dv relative to their range; then
+    the three flash kernels at each rectangle the ring cuts, against their
+    plain twins. Returns the rectangles' form records per kernel."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+    from v2pe_tpu_torch.parallel import ring, ring_fused
+
+    g = torch.Generator(device="cpu").manual_seed(9)
+    records = {"flash_fwd": [], **{n: [] for n in BWD_KERNELS}}
+    for name, B, S, Hq, Hkv, D, dtype in (
+            (f"ring4_zigzag_{TRAIN_TOKENS}_3seg_pad_bf16", 1, TRAIN_TOKENS,
+             LLM_HQ, LLM_HKV, LLM_HD, torch.bfloat16),
+            ("ring4_B2_1024_fp32", 2, 1024, 4, 2, 64, torch.float32)):
+        world = RING_SHARDS
+        q, k, v = (torch.randn(B, S, H, D, generator=g).to("cuda", dtype)
+                   for H in (Hq, Hkv, Hkv))
+        seg = torch.ones(B, S, dtype=torch.int32, device="cuda")
+        seg[:, S // 3: 2 * S // 3], seg[:, 2 * S // 3:] = 2, 3
+        seg[:, S - 72:] = 0
+        pos = torch.arange(S, dtype=torch.int32,
+                           device="cuda").expand(B, S).contiguous()
+        do = torch.randn(B, S, Hq, D, generator=g).to("cuda", dtype)
+        kw = dict(causal=True, scale=D ** -0.5)
+        up = lambda ts: [t.float() if t.is_floating_point() else t
+                         for t in ts]
+        zz = [_zigzag(x, world) for x in (q, k, v, seg, seg, pos, pos)]
+        # the fused forward against its plain version, at this shape
+        out_z, lse_z = ring_fused.fused_ring_fwd(world, *zz, **kw)
+        ref_out, ref_lse = ring_fused.fused_ring_fwd_torch(world, *up(zz),
+                                                           **kw)
+        err_out = (out_z.float() - ref_out).abs().max().item()
+        err_lse = (lse_z - ref_lse).abs().max().item()
+        del ref_out, ref_lse
+        ftol = TOL[dtype]
+        # the ring's backward through autograd
+        leaves = [x.clone().requires_grad_() for x in zz[:3]]
+        reset_launches()
+        o = ring_fused.fused_ring_attention(
+            *leaves, seq_shards=world, q_segment_ids=zz[3],
+            kv_segment_ids=zz[4], q_positions=zz[5], kv_positions=zz[6], **kw)
+        do_z = _zigzag(do, world)
+        o.backward(do_z)
+        counts = read_launches()
+        got = [ring.zigzag_unshard(x.grad, world) for x in leaves]
+        # ... against the plain backward on the same out, lse and do
+        out_g = ring.zigzag_unshard(out_z, world)
+        lse_g = ring.zigzag_unshard(lse_z, world, axis=2)
+        plain = flash_bwd.flash_attention_bwd_torch(
+            *up((q, k, v, seg, seg, pos, pos, out_g, lse_g, do)), **kw)
+        rels_plain = [((a.float() - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(got, plain)]
+        del plain
+        # ... and against the dense flash kernels on the unsharded sequence
+        out, lse = flash_fwd.flash_attention_fwd(q, k, v, seg, seg, pos, pos,
+                                                 **kw)
+        want = flash_bwd.flash_attention_bwd(q, k, v, seg, seg, pos, pos,
+                                             out, lse, do, **kw)
+        rels = [((a.float() - b.float()).abs().max()
+                 / b.float().abs().max()).item() for a, b in zip(got, want)]
+        tol = BWD_TOL[dtype]
+        live = int((ring.branch_table(ring.RingStatics(True, kw["scale"]),
+                                      world, *zz[3:]) != 0).sum())
+        log(f"kernel ring bwd {name}: fused forward against its plain "
+            f"version max|dout| {err_out:.3e} (tol {ftol['out']}) max|dlse| "
+            f"{err_lse:.3e} (tol {ftol['lse']}); fused forward + ring "
+            f"backward against the plain flash backward, max|d|/max dq "
+            f"{rels_plain[0]:.3e} dk {rels_plain[1]:.3e} dv "
+            f"{rels_plain[2]:.3e}, against the dense flash backward kernels "
+            f"dq {rels[0]:.3e} dk {rels[1]:.3e} dv {rels[2]:.3e} (tol "
+            f"{tol:.3e}); launches ring_fused_fwd "
+            f"{counts['ring_fused_fwd']}, flash_bwd_dkv "
+            f"{counts['flash_bwd_dkv']}, flash_bwd_dq "
+            f"{counts['flash_bwd_dq']} ({live} live pairs)")
+        ok = all(torch.isfinite(t).all() for t in got) \
+            and err_out <= ftol["out"] and err_lse <= ftol["lse"] \
+            and max(rels + rels_plain) <= tol \
+            and counts["ring_fused_fwd"] == 1 \
+            and counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == live
+        if not ok:
+            raise AssertionError(f"ring backward disagrees at {name}")
+        del got, want, leaves, o
+        rect = ring_rectangles(name, world, zz, kw, (out_z, lse_z, do_z))
+        for n in records:
+            records[n] += rect[n]
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_small_ring_reference(devices=("cpu", "cuda")) -> None:
+    """A 2-layer fp32 model under ``seq_shards=4``, on the card (the
+    kernels) against the CPU (their plain versions): the packed forward's
+    logits in both ring modes (1e-4, and against the unsharded forward of
+    the same device after un-permuting), then one train step through
+    ``make_train_step(mesh=MeshConfig(seq=4), ring_mode='fused')``: loss,
+    grad norm and every updated parameter as in the unsharded reference;
+    then the teacher-forced eval, whose answer tokens must be identical in
+    every run."""
+    import copy
+
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.evalkit import mm_niah_long as niah
+    from v2pe_tpu_torch.models.internvl_chat import forward
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.parallel import context as pctx
+    from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    cfg = config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+        rope_pos_id_stride=2)
+    base = init_vlm_params(cfg, torch.Generator().manual_seed(23))
+    tc = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10,
+                     use_8bit_optimizer=True)
+
+    def logits(model, batch, ctx):
+        with torch.inference_mode(), pctx.use_sharding(ctx):
+            out = forward(model, cfg, input_ids=batch["input_ids"].long(),
+                          pixel_values=batch["pixel_values"],
+                          image_flags=batch["image_flags"],
+                          rope_pos_ids=batch["rope_pos_ids"],
+                          img_context_token_id=999,
+                          segment_ids=batch["segment_ids"],
+                          token_positions=batch["token_positions"],
+                          vit_gather_idx=batch["vit_gather_idx"]).logits
+        # back to global order; the padded tail's logits are not compared
+        order = torch.argsort(batch["token_positions"], dim=1)
+        live = torch.gather(batch["segment_ids"], 1, order) != 0
+        return (torch.gather(out, 1, order[..., None].expand_as(out))
+                * live[..., None]).cpu()
+
+    res = {}
+    for dev in devices:
+        model = copy.deepcopy(base).to(dev)
+        ring_batch = small_train_batch(cfg, dev, 320, RING_SHARDS)
+        res[dev] = {"plain": logits(model, small_train_batch(cfg, dev, 320),
+                                    None)}
+        for mode in ("scan", "fused"):
+            res[dev][mode] = logits(model, ring_batch, pctx.ShardingContext(
+                seq_shards=RING_SHARDS, ring_mode=mode))
+        model = model.train()
+        opt = build_optimizer(tc, model, cfg)
+        step = make_train_step(cfg, opt, config.MeshConfig(seq=RING_SHARDS),
+                               img_context_token_id=999, remat="full",
+                               ring_mode="fused")
+        loss, gnorm = step(model, opt.init(), ring_batch)
+        res[dev]["step"] = (loss.item(), gnorm.item(), {
+            n: p.detach().cpu() for n, p in model.named_parameters()})
+    cpu, gpu = (res[d] for d in devices)
+    errs = {m: (gpu[m] - cpu[m]).abs().max().item()
+            for m in ("plain", "scan", "fused")}
+    sharded = max((gpu[m] - gpu["plain"]).abs().max().item()
+                  for m in ("scan", "fused"))
+    log(f"reference: small ring forward fp32 ({RING_SHARDS} shards, 320 "
+        f"packed tokens), card vs CPU max|dlogit| unsharded "
+        f"{errs['plain']:.3e} scan {errs['scan']:.3e} fused "
+        f"{errs['fused']:.3e}; ring vs unsharded on the card {sharded:.3e} "
+        f"(tol 1e-4, |logit| <= {cpu['plain'].abs().max().item():.3f})")
+    (l_c, g_c, p_c), (l_g, g_g, p_g) = cpu["step"], gpu["step"]
+    d_loss, d_gn = abs(l_g - l_c) / abs(l_c), abs(g_g - g_c) / abs(g_c)
+    d_par = max(((p_g[n] - p_c[n]).abs().max() / (
+        1e-4 * p_c[n].abs().max() + 1e-2 * tc.learning_rate)).item()
+        for n in p_c)  # <= 1 passes
+    log(f"reference: small ring train step fp32 (seq=4, fused, int8 Adam), "
+        f"card vs CPU: loss {l_g:.6f} vs {l_c:.6f} (rel {d_loss:.2e}), "
+        f"grad_norm {g_g:.6f} vs {g_c:.6f} (rel {d_gn:.2e}) (tol 1e-4); "
+        f"params max|d| at {d_par:.2f} of the tolerance")
+    if max(*errs.values(), sharded) > 1e-4 or max(d_loss, d_gn) > 1e-4 \
+            or d_par > 1.0:
+        raise AssertionError("card and CPU ring paths disagree")
+
+    # the teacher-forced eval in fp32: the answer tokens of every run equal
+    rng = np.random.default_rng(29)
+    ids, pos = rng.integers(5, 990, 300), np.arange(300, dtype=np.float32)
+    preds = []
+    for dev in devices:
+        model = copy.deepcopy(base).to(dev).eval()
+        for shards, mode in ((1, "scan"), (RING_SHARDS, "scan"),
+                             (RING_SHARDS, "fused")):
+            inputs = niah.build_teacher_forced_inputs(
+                ids, (284, 300), pos, seq_shards=shards, pad_multiple=64)
+            with pctx.use_sharding(pctx.ShardingContext(
+                    seq_shards=shards, ring_mode=mode)):
+                preds.append(niah.teacher_forced_eval(
+                    model, cfg, inputs, np.zeros((1, 3, 112, 112),
+                                                 np.float32),
+                    np.zeros(1, np.int32), 999))
+    same = all(np.array_equal(p, preds[0]) for p in preds)
+    log(f"reference: small teacher-forced eval fp32, 16 answer tokens of "
+        f"unsharded / scan / fused on CPU and card identical {same}")
+    if not same:
+        raise AssertionError("teacher-forced predictions differ")
+
+
+def needle_prompt(cfg, n_tokens: int, tiles: int, answer: int = 8):
+    """A needle-in-a-haystack prompt as the MM-NIAH-long eval packs it: 16
+    text tokens, ``tiles`` image tiles in one span, random text, and the
+    last ``answer`` tokens as the gold answer; V2PE ids at stride 64.
+    Returns (ids, answer span, rope ids, pixels, the flat ViT row of every
+    token in global order)."""
+    rng = np.random.default_rng(17)
+    sample = synthetic_sample(rng, n_tokens, tiles, cfg.num_image_token, 448)
+    ids = sample["input_ids"]
+    is_ctx = ids == 92546
+    gather = np.where(is_ctx, np.cumsum(is_ctx) - 1, -1).astype(np.int32)
+    return (ids, (n_tokens - answer, n_tokens), sample["pos_ids"],
+            sample["pixel_values"], gather)
+
+
+def eval_logits(model, cfg, inputs, pixels, flags, idx, ctx):
+    """The fp32 logits (S_pad, V) of the eval's forward under ``ctx``, in
+    the layout of ``inputs`` (row ``inverse_perm[g]`` is global token g)."""
+    from v2pe_tpu_torch.models.internvl_chat import forward
+    from v2pe_tpu_torch.parallel import context as pctx
+
+    t = lambda a: torch.as_tensor(np.asarray(a)).cuda()
+    with torch.inference_mode(), pctx.use_sharding(ctx):
+        return forward(
+            model, cfg, input_ids=t(inputs["input_ids"]).long(),
+            pixel_values=t(pixels), image_flags=t(flags),
+            rope_pos_ids=t(inputs["rope_pos_ids"]),
+            img_context_token_id=92546,
+            segment_ids=t(inputs["segment_ids"]),
+            token_positions=t(inputs["token_positions"]),
+            vit_gather_idx=t(idx)).logits[0]
+
+
+def logit_distance(a, b, n_rows: int, span) -> tuple:
+    """(max|a - b| over the first ``n_rows`` global rows / max|b| there,
+    max|a - b| at the answer rows, b's answer rows), ``a`` and ``b`` being
+    (logits, inverse permutation) of two runs; 4096 rows at a time, so no
+    second (S, V) buffer is made."""
+    (la, ia), (lb, ib) = a, b
+    d = m = 0.0
+    for r0 in range(0, n_rows, 4096):
+        xb = lb[ib[r0:min(r0 + 4096, n_rows)]]
+        d = max(d, (la[ia[r0:min(r0 + 4096, n_rows)]] - xb).abs().max()
+                .item())
+        m = max(m, xb.abs().max().item())
+    rows = slice(span[0] - 1, span[1] - 1)
+    rows_b = lb[ib[rows]]
+    return d / m, (la[ia[rows]] - rows_b).abs().max().item(), rows_b
+
+
+def same_or_tied(pred, rows_ref, dist: float) -> tuple:
+    """(how many of ``pred`` are the argmax of the reference rows, whether
+    every other one is a token whose reference logit is within 2 * dist of
+    the row's top: a near tie that a distance of ``dist`` can turn)."""
+    top = rows_ref.max(dim=-1).values
+    chosen = rows_ref.gather(1, torch.as_tensor(
+        pred, device=rows_ref.device)[:, None])[:, 0]
+    return int((chosen == top).sum()), bool((chosen >= top - 2 * dist).all())
+
+
+def phase_ring_eval(model, cfg) -> dict:
+    """The MM-NIAH-long teacher-forced eval at full width: one 32,768-token
+    prompt with 32 tiles through ``teacher_forced_eval``, unsharded and
+    under ``ShardingContext(seq_shards=4)`` with the scan and the fused
+    ring. The fused run launches the fused kernel once a layer and the
+    flash forward for the ViT only. A second forward of each run (launches
+    not counted) gives its logits. In bf16 any two paths through the 24
+    layers end about 3e-2 of the logits' range apart, whatever they differ
+    in (the fused ring from the scan ring as far as either from unsharded,
+    or the paged cache from the dense one), so there the logits are held
+    within LOGIT_TOL and an answer token may differ where the reference's
+    top logits are closer than the paths. The exact check is the same
+    eval with the same weights in fp32, where the kernels differ by
+    summation order only: logits within LOGIT_TOL_FP32 of the unsharded
+    run's, every answer token identical, the same launches."""
+    import copy
+
+    from v2pe_tpu_torch.evalkit import mm_niah_long as niah
+    from v2pe_tpu_torch.parallel import context as pctx
+
+    ids, span, pos, pixels, gather = needle_prompt(
+        cfg, RING_EVAL_TOKENS, RING_EVAL_TILES)
+    flags = np.ones(RING_EVAL_TILES, np.int32)
+    L, Lv = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers
+    n_ans = span[1] - span[0]
+    answer = slice(span[0] - 1, span[1] - 1)
+    model.eval()
+
+    def launches_ok(tag, c):
+        if tag == "fused":
+            return c["ring_fused_fwd"] == L and c["flash_fwd"] == Lv
+        return c["ring_fused_fwd"] == 0 and (
+            c["flash_fwd"] == Lv + L if tag == "unsharded"
+            else Lv < c["flash_fwd"] <= Lv + L * RING_SHARDS ** 2)
+
+    runs = {}
+    for dtype, tol in ((torch.bfloat16, LOGIT_TOL),
+                       (torch.float32, LOGIT_TOL_FP32)):
+        exact = dtype == torch.float32
+        m = copy.deepcopy(model).float() if exact else model
+        kind = "fp32" if exact else "bf16"
+        for tag, shards, mode in (("unsharded", 1, "scan"),
+                                  ("scan", RING_SHARDS, "scan"),
+                                  ("fused", RING_SHARDS, "fused")):
+            inputs = niah.build_teacher_forced_inputs(ids, span, pos,
+                                                      seq_shards=shards)
+            perm = np.argsort(inputs["inverse_perm"])
+            idx = gather[perm][None]
+            ctx = pctx.ShardingContext(seq_shards=shards, ring_mode=mode)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with pctx.use_sharding(ctx):
+                pred = niah.teacher_forced_eval(
+                    m, cfg, inputs, pixels, flags, 92546, vit_gather_idx=idx)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = read_launches()
+            logits = eval_logits(m, cfg, inputs, pixels, flags, idx, ctx)
+            inv = torch.as_tensor(inputs["inverse_perm"]).cuda()
+            finite = bool(torch.isfinite(logits).all())
+            again = logits[inv[answer]].argmax(-1).cpu().numpy()
+            runs[tag] = dict(pred=pred, s=dt, counts=counts,
+                             logits=(logits, inv))
+            del logits
+            rel, dist, rows = logit_distance(
+                runs[tag]["logits"], runs["unsharded"]["logits"], len(ids),
+                span)
+            equal, tied = same_or_tied(pred, rows, dist)
+            log(f"ring eval ({tag}, {kind}): {RING_EVAL_TOKENS} tokens, "
+                f"{RING_EVAL_TILES} tiles, seq_shards {shards}: {dt:.2f} s = "
+                f"{RING_EVAL_TOKENS / dt:.0f} tok/s; answer predictions "
+                f"{pred.tolist()}: {equal} of {n_ans} the unsharded run's, "
+                f"the others within the paths' distance at the answer rows "
+                f"{tied} (max|dlogit| there {dist:.3e}); logits finite "
+                f"{finite}, max|dlogit|/max|logit| against unsharded "
+                f"{rel:.3e} (tol {tol}); launches flash_fwd "
+                f"{counts['flash_fwd']}, ring_fused_fwd "
+                f"{counts['ring_fused_fwd']}")
+            if not finite or rel > tol or not tied \
+                    or not np.array_equal(pred, again) \
+                    or (exact and equal != n_ans):
+                raise AssertionError(
+                    f"ring eval ({tag}, {kind}): logits malformed or far "
+                    f"from the unsharded run, or other answer tokens")
+            if not launches_ok(tag, counts):
+                raise AssertionError(f"ring eval ({tag}, {kind}): launches "
+                                     f"are not one fused launch a layer")
+            if exact and tag != "unsharded":
+                del runs[tag]["logits"]  # room for the next run
+        # the fused ring against the scan ring
+        if not exact:
+            rel, dist, rows = logit_distance(
+                runs["fused"]["logits"], runs["scan"]["logits"], len(ids),
+                span)
+            equal, tied = same_or_tied(runs["fused"]["pred"], rows, dist)
+            log(f"ring eval (bf16): fused against scan max|dlogit|/"
+                f"max|logit| {rel:.3e} (tol {tol}), at the answer rows "
+                f"max|dlogit| {dist:.3e}; {equal} of {n_ans} answer tokens "
+                f"the scan ring's, the others within that distance of its "
+                f"top {tied}")
+            if rel > tol or not tied:
+                raise AssertionError("ring eval: the fused ring is far from "
+                                     "the scan ring")
+            fused_counts = runs["fused"]["counts"]
+        log(f"ring eval ({kind}): seconds unsharded "
+            f"{runs['unsharded']['s']:.2f} scan {runs['scan']['s']:.2f} "
+            f"fused {runs['fused']['s']:.2f}")
+        del rows, m
+        runs.clear()
+        torch.cuda.empty_cache()
+    return fused_counts
+
+
+RING_TRAIN_TOL = {"loss": 1e-2, "grad_norm": 5e-2}  # relative, bf16: the
+# ring rotates q outside the kernel (rounded to bf16) and sums each
+# gradient over 16 (rank, chunk) rectangles
+
+
+def phase_ring_train(model, cfg) -> dict:
+    """Two steps of ``make_train_step`` under ``MeshConfig(seq=4)`` with the
+    fused ring on make_synthetic_batch's 8192 tokens + 8 tiles
+    (zigzag-permuted; remat 'full', int8 Adam, lr 1e-5, warmup 1), held
+    against one unsharded step on the same batch in global order. The first
+    step of a run has learning rate 0 (warmup 1), so the ring's and the
+    unsharded run's first steps see the same weights. Launches a step: the
+    fused forward twice a decoder layer (remat), the flash forward twice a
+    ViT layer, each backward kernel once a ViT layer and once a live
+    (rank, chunk) pair of a decoder layer."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.parallel import ring
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    dev = next(model.parameters()).device
+
+    def setup(shards):
+        opt = build_optimizer(train_config(), model, cfg)
+        mesh = config.MeshConfig(seq=shards) if shards > 1 else None
+        step = make_train_step(cfg, opt, mesh, IMG_CONTEXT_ID, remat="full",
+                               ring_mode="fused")
+        batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
+                                     tiles_per_row=TRAIN_TILES, stride=64,
+                                     seq_shards=shards)
+        return step, opt.init(), {k: torch.as_tensor(v).to(dev)
+                                  for k, v in batch.items()}
+
+    def run(step, state, batch, tag):
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, gnorm = step(model, state, batch)
+        loss, gnorm = loss.item(), gnorm.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"ring train step ({tag}): loss {loss:.4f} grad_norm "
+            f"{gnorm:.4f} {ms:.1f} ms {TRAIN_TOKENS / ms * 1e3:.0f} tok/s, "
+            f"peak {peak:.2f} GiB allocated; "
+            f"launches { {k: v for k, v in counts.items() if v} }")
+        return loss, gnorm, counts
+
+    model.train()
+    ring_step, ring_state, ring_batch = setup(RING_SHARDS)
+    plain_step, plain_state, plain_batch = setup(1)
+    seg, pos = ring_batch["segment_ids"], ring_batch["token_positions"]
+    live = int((ring.branch_table(ring.RingStatics(True, 1.0), RING_SHARDS,
+                                  seg, seg, pos, pos) != 0).sum())
+    l_r, g_r, c1 = run(ring_step, ring_state, ring_batch,
+                       "seq=4 fused, step 1, lr 0")
+    l_p, g_p, _ = run(plain_step, plain_state, plain_batch,
+                      "unsharded, step 1, lr 0")
+    l_2, g_2, c2 = run(ring_step, ring_state, ring_batch,
+                       "seq=4 fused, step 2")
+    model.eval()
+    d_loss, d_gn = abs(l_r - l_p) / abs(l_p), abs(g_r - g_p) / abs(g_p)
+    L, Lv = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers
+    want = {"ring_fused_fwd": 2 * L, "flash_fwd": 2 * Lv,
+            "flash_bwd_dkv": Lv + L * live, "flash_bwd_dq": Lv + L * live}
+    log(f"ring train: seq=4 fused against unsharded on the same weights: "
+        f"loss rel {d_loss:.2e} (tol {RING_TRAIN_TOL['loss']}), grad_norm "
+        f"rel {d_gn:.2e} (tol {RING_TRAIN_TOL['grad_norm']}); {live} live "
+        f"(rank, chunk) pairs a layer; launches a step expected {want}")
+    ok = all(np.isfinite(x) for x in (l_r, g_r, l_2, g_2)) \
+        and d_loss <= RING_TRAIN_TOL["loss"] \
+        and d_gn <= RING_TRAIN_TOL["grad_norm"] \
+        and all(c[k] == v for c in (c1, c2) for k, v in want.items())
+    if not ok:
+        raise AssertionError("ring train steps disagree with the unsharded "
+                             "step, or their launches are not as designed")
+    return {k: c1[k] + c2[k] for k in c1}
+
+
 # ---------------------------------------------------------------- profile
 
 
@@ -2592,8 +3332,14 @@ def main(argv=None) -> int:
     forms = {"flash_fwd": phase_kernels(prompt_lens, batch),
              **phase_bwd_kernels(batch), **phase_paged_kernels(prompt_lens),
              **phase_quant_kernels(cfg)}
+    # the ring: the fused forward's forms, and the flash kernels' forms at
+    # the rectangles the ring cuts
+    for recs in (phase_ring_kernel(), phase_ring_bwd()):
+        for name, more in recs.items():
+            forms.setdefault(name, []).extend(more)
     phase_small_reference()
     phase_small_train_reference()
+    phase_small_ring_reference()
     phase_small_quant_reference()
     phase_small_engine_reference()
     served = phase_serve(chat, cfg)
@@ -2612,8 +3358,11 @@ def main(argv=None) -> int:
     paths += phase_engine_chat(model, cfg, tok, served)
     phase_beam(chat, cfg)
     del chat
+    # sequence parallelism: the long teacher-forced eval over the ring
+    paths.append(phase_ring_eval(model, cfg))
     # last: the training paths update the weights
-    paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg)]
+    paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg),
+              phase_ring_train(model, cfg)]
     launches = {k: sum(c[k] for c in paths) for k in forms}
 
     log(json.dumps({"kernels": [kernel_record(name, recs, launches[name])

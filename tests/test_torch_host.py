@@ -27,6 +27,7 @@ from v2pe_tpu.data import packing as jpacking
 from v2pe_tpu.data import preprocess as jpre
 from v2pe_tpu.data import tiling as jtiling
 from v2pe_tpu.data import transforms as jtransforms
+from v2pe_tpu.evalkit import mm_niah_long as jniah
 from v2pe_tpu.train import synth as jsynth
 from v2pe_tpu_torch import native as tnative
 from v2pe_tpu_torch import positional as tpos
@@ -39,6 +40,7 @@ from v2pe_tpu_torch.data import packing as tpacking
 from v2pe_tpu_torch.data import preprocess as tpre
 from v2pe_tpu_torch.data import tiling as ttiling
 from v2pe_tpu_torch.data import transforms as ttransforms
+from v2pe_tpu_torch.evalkit import mm_niah_long as tniah
 from v2pe_tpu_torch.train import synth as tsynth
 
 from .test_data_pipeline import _toy_tokenizer
@@ -81,7 +83,12 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
     assert {"v2pe_tpu_torch.core.config", "v2pe_tpu_torch.data.datasets",
             "v2pe_tpu_torch.native", "v2pe_tpu_torch.positional.v2pe",
             "v2pe_tpu_torch.ops.quantized_matmul",
-            "v2pe_tpu_torch.train.synth"} <= set(names)
+            "v2pe_tpu_torch.train.synth", "v2pe_tpu_torch.parallel",
+            "v2pe_tpu_torch.parallel.context", "v2pe_tpu_torch.parallel.ring",
+            "v2pe_tpu_torch.parallel.ring_fused",
+            "v2pe_tpu_torch.parallel.ulysses",
+            "v2pe_tpu_torch.parallel.shard_attn", "v2pe_tpu_torch.evalkit",
+            "v2pe_tpu_torch.evalkit.mm_niah_long"} <= set(names)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, "chip_smoke", *names],
         capture_output=True, text=True, cwd=str(ROOT))
@@ -416,3 +423,32 @@ def test_object_store_openers(tmp_path):
     assert not tstore.is_remote(str(blob)) and tstore.is_remote("gs://b/k")
     tstore.register_opener("toy", lambda url: url.encode())
     assert tstore.open_blob("toy://x").read() == b"toy://x"
+
+
+# ------------------------------------------------------------ mm_niah_long
+
+
+@pytest.mark.parametrize("seq_shards,pad_multiple,S",
+                         [(1, 256, 300), (4, 64, 300), (2, 100, 257),
+                          (8, 256, 1000)])
+def test_teacher_forced_inputs_and_predictions_equal(seq_shards,
+                                                     pad_multiple, S):
+    """``build_teacher_forced_inputs`` (padding, zigzag permutation and its
+    inverse) and ``extract_answer_prediction`` of the port's copy against
+    the JAX package's: every array equal."""
+    rng = np.random.default_rng(S + seq_shards)
+    ids = rng.integers(5, 280, S).astype(np.int64)
+    pos = np.cumsum(rng.choice([0.25, 1.0], S)).astype(np.float32)
+    span = (S - 10, S)
+    kw = dict(seq_shards=seq_shards, pad_multiple=pad_multiple)
+    want = jniah.build_teacher_forced_inputs(ids, span, pos, **kw)
+    got = tniah.build_teacher_forced_inputs(ids, span, pos, **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
+    logits = rng.standard_normal(
+        (1, want["input_ids"].shape[1], 40)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tniah.extract_answer_prediction(logits, got),
+        jniah.extract_answer_prediction(logits, want))

@@ -57,7 +57,12 @@ def test_port_imports_without_jax():
             "v2pe_tpu_torch.train.trainer, v2pe_tpu_torch.train.cli, "
             "v2pe_tpu_torch.core.config, v2pe_tpu_torch.positional, "
             "v2pe_tpu_torch.data.datasets, v2pe_tpu_torch.data.packing, "
-            "v2pe_tpu_torch.data.object_store, v2pe_tpu_torch.native\n"
+            "v2pe_tpu_torch.data.object_store, v2pe_tpu_torch.native, "
+            "v2pe_tpu_torch.parallel.context, v2pe_tpu_torch.parallel.ring, "
+            "v2pe_tpu_torch.parallel.ring_fused, "
+            "v2pe_tpu_torch.parallel.ulysses, "
+            "v2pe_tpu_torch.parallel.shard_attn, "
+            "v2pe_tpu_torch.evalkit.mm_niah_long\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'v2pe_tpu', 'PIL', 'transformers', 'tokenizers')]\n"
             "assert not bad, bad")

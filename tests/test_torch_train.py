@@ -434,11 +434,21 @@ def test_unported_options_raise():
                             port_config(cfg))
     opt = topt.build_optimizer(topt.TrainConfig(), model,
                                port_config(cfg))
-    for kw in (dict(mesh=object()), dict(lora=True),
-               dict(pipe_microbatches=2), dict(ring_mode="fused"),
-               dict(offload_optimizer=True)):
+    from v2pe_tpu_torch.core.config import MeshConfig
+
+    for kw in (dict(mesh=MeshConfig(fsdp=2)), dict(mesh=MeshConfig(data=2)),
+               dict(mesh=MeshConfig(seq=2, tensor=2)),
+               dict(mesh=MeshConfig(pipe=2)), dict(lora=True),
+               dict(pipe_microbatches=2), dict(offload_optimizer=True)):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(port_config(cfg), opt, **kw)
+    # the seq axis is ported, in both ring modes; an unknown mode is refused
+    for mode in ("scan", "fused"):
+        tstep.make_train_step(port_config(cfg), opt, mesh=MeshConfig(seq=2),
+                              ring_mode=mode)
+    with pytest.raises(ValueError):
+        tstep.make_train_step(port_config(cfg), opt, mesh=MeshConfig(seq=2),
+                              ring_mode="rdma")
     with pytest.raises(NotImplementedError):
         topt.build_optimizer(topt.TrainConfig(use_8bit_optimizer=True,
                                               offload_optimizer=True),
@@ -572,7 +582,10 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
     with caplog.at_level(logging.INFO):
         cli.main(argv)
     assert "resumed from" in caplog.text
-    for bad in (["--mesh_seq", "2"], ["--use_llm_lora", "4"],
+    for bad in (["--mesh_fsdp", "2"], ["--mesh_data", "2"],
+                ["--mesh_tensor", "2"], ["--mesh_pipe", "2"],
+                ["--mesh_seq", "2", "--pipe_microbatches", "2"],
+                ["--use_llm_lora", "4"],
                 ["--compress_seq"], ["--offload_optimizer"],
                 ["--llm_arch", "qwen2"], ["--model_name_or_path", "ckpt"]):
         with pytest.raises(NotImplementedError):

@@ -11,12 +11,13 @@ own copy, under the same relative names (``core/config.py``,
 ``positional/``, ``data/``, ``native/``, ``train/synth.py``): nothing here
 imports ``v2pe_tpu``. The most used modules are re-exported below.
 
-The TPU kernels on the serving and training paths (the Pallas flash
-forward and backward, the paged-attention kernels, the weight-only int8 /
-int4 matrix products) are hand-written CUDA kernels for ``sm_90a`` in
-``csrc/``, built with ``nvcc`` at first use (``ops/_build.py``) and wrapped
-by ``ops/flash_fwd.py``, ``ops/flash_bwd.py``, ``ops/paged_attention.py``
-and ``ops/quantized_matmul.py``.
+The TPU kernels on the serving, training and sequence-parallel paths (the
+Pallas flash forward and backward, the paged-attention kernels, the
+weight-only int8 / int4 matrix products, the fused ring forward) are
+hand-written CUDA kernels for ``sm_90a`` in ``csrc/``, built with ``nvcc``
+at first use (``ops/_build.py``) and wrapped by ``ops/flash_fwd.py``,
+``ops/flash_bwd.py``, ``ops/paged_attention.py``,
+``ops/quantized_matmul.py`` and ``parallel/ring_fused.py``.
 """
 
 from v2pe_tpu_torch import positional

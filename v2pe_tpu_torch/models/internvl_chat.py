@@ -18,6 +18,7 @@ from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.intern_vit import InternVisionModel, vision_forward
 from v2pe_tpu_torch.ops.norms import layer_norm
+from v2pe_tpu_torch.parallel import context as parallel_context
 
 
 class Projector(nn.Module):
@@ -198,14 +199,22 @@ def chunked_cross_entropy(hidden: torch.Tensor, output_weight: torch.Tensor,
                           loss_weight_sum: Optional[torch.Tensor] = None,
                           chunk: int = 2048) -> torch.Tensor:
     """Weighted CE of pre-shifted targets from the final hidden states
-    (B, S, D) and the (V, D) head, per sequence chunk of ``chunk`` rows
-    (halved until it divides S). Each chunk's projection and log-softmax
-    run under ``torch.utils.checkpoint``, so the backward recomputes them
-    and at most one (chunk, V) fp32 logits block is live."""
+    (B, S, D) and the (V, D) head, per sequence block of ``chunk`` rows
+    (halved until it divides S). Under a sharding context with a sharded
+    sequence axis a block is one shard instead, whatever ``chunk``, as in
+    the JAX package. Each block's projection and log-softmax run under
+    ``torch.utils.checkpoint``, so the backward recomputes them and at most
+    one block's fp32 logits are live; with every shard on one card that
+    holds for the shards' blocks too."""
     B, S, _ = hidden.shape
-    c = min(chunk, S)
-    while S % c:
-        c //= 2
+    ctx = parallel_context.current()
+    shards = ctx.seq_shards if ctx is not None else 1
+    if shards > 1 and S % shards == 0:
+        c = S // shards
+    else:
+        c = min(chunk, S)
+        while S % c:
+            c //= 2
     w = loss_weight if loss_weight is not None else \
         torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     wf = output_weight.float()  # fp32 products of the (bf16) operands

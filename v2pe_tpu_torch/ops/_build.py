@@ -166,7 +166,19 @@ def load() -> ctypes.CDLL:
         lib.v2pe_qdot_stacked.argtypes = weight + [i] + qdot_tail   # layer
         lib.v2pe_q4dot.argtypes = weight + q4dot_tail
         lib.v2pe_q4dot_stacked.argtypes = weight + [i] + q4dot_tail
-        for fn in (lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq,
+        ll = ctypes.c_longlong
+        lib.v2pe_ring_fused_fwd.argtypes = [
+            p, p, p,            # q, seg_q, pos_q (all ranks' rows)
+            p,                  # (4, n) chunk pointers: k, v, seg_k, pos_k
+            p, p,               # out, lse
+            i, i, i, i, i, i,   # B, n, Sl, Hq, Hkv, D
+            ll, ll,             # a chunk's batch strides: k/v, seg/pos
+            i, i,               # is_bf16, causal
+            ctypes.c_float,     # scale
+            p,                  # cudaStream_t
+        ]
+        for fn in (lib.v2pe_ring_fused_fwd,
+                   lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq,
                    lib.v2pe_paged_store, lib.v2pe_paged_decode,
                    lib.v2pe_paged_prefill, lib.v2pe_qdot,
                    lib.v2pe_qdot_stacked, lib.v2pe_q4dot,

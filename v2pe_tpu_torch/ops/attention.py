@@ -6,7 +6,9 @@ Routing as in the JAX package: a query block of at most 16 tokens over a
 longer key sequence (decode) goes to the grouped einsum of
 ``attention_reference`` (plain autograd); everything else goes to the flash
 kernel (``ops/flash_fwd.py``: the CUDA kernel on the card, its twin on the
-CPU) inside :class:`_Flash`, whose backward is the flash backward
+CPU) inside :class:`_Flash`, or, under an active sharding context
+(``parallel/context.py``), through ``parallel/shard_attn.py`` to the ring
+over the ``seq`` axis. :class:`_Flash`'s backward is the flash backward
 (``ops/flash_bwd.py``): when a gradient is needed it saves the
 pre-rotation q and k, the ids, out and lse, as ``_flash_fwd`` does.
 
@@ -109,10 +111,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kv_segment_ids=kv_segment_ids, causal=causal, scale=scale,
             q_positions=q_positions, kv_positions=kv_positions)
 
-    return _Flash.apply(
-        q.contiguous(), k.contiguous(), v.contiguous(), _i32(q_segment_ids),
-        _i32(kv_segment_ids), _i32(q_positions), _i32(kv_positions), rope_q,
-        rope_k, causal, float(scale), float(theta))
+    args = (q.contiguous(), k.contiguous(), v.contiguous(),
+            _i32(q_segment_ids), _i32(kv_segment_ids), _i32(q_positions),
+            _i32(kv_positions), rope_q, rope_k)
+    from v2pe_tpu_torch.parallel import context as parallel_context
+
+    ctx = parallel_context.current()
+    if ctx is not None:
+        from v2pe_tpu_torch.parallel.shard_attn import sharded_flash_attention
+
+        return sharded_flash_attention(ctx, causal, float(scale),
+                                       float(theta), *args)
+    return _Flash.apply(*args, causal, float(scale), float(theta))
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,

@@ -261,18 +261,25 @@ def paged_prefill_attention_torch(q, k_pages, v_pages, page_table, lengths,
     return out, lse
 
 
-def merge_lse(out1, lse1, out2, lse2):
+def merge_partials(out1, lse1, out2, lse2):
     """Logsumexp-merge two attention partials over disjoint key sets:
     out* (B, S, H, hd), lse* (B, H, S) fp32; a partial with lse -1e30
-    contributes zero."""
+    contributes zero. Returns (out fp32, lse); where both partials are
+    empty, out is 0 and lse stays -1e30."""
     m = torch.maximum(lse1, lse2)
     w1 = torch.where(lse1 <= NEG_INF / 2, 0.0, torch.exp(lse1 - m))
     w2 = torch.where(lse2 <= NEG_INF / 2, 0.0, torch.exp(lse2 - m))
-    den = torch.clamp(w1 + w2, min=1e-30)
+    total = w1 + w2
+    den = torch.clamp(total, min=1e-30)
+    lse = torch.where(total > 0, m + torch.log(den), NEG_INF)
     w1 = (w1 / den).transpose(1, 2)[..., None]      # (B, S, H, 1)
     w2 = (w2 / den).transpose(1, 2)[..., None]
-    out = out1.float() * w1 + out2.float() * w2
-    return out.to(out1.dtype)
+    return out1.float() * w1 + out2.float() * w2, lse
+
+
+def merge_lse(out1, lse1, out2, lse2):
+    """:func:`merge_partials`' output alone, in out1's dtype."""
+    return merge_partials(out1, lse1, out2, lse2)[0].to(out1.dtype)
 
 
 # --------------------------------------------------------------- kernels

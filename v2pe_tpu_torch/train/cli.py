@@ -2,10 +2,11 @@
 training on one device.
 
 Flags that need a module the port does not have yet raise
-``NotImplementedError``: a mesh axis above 1, LoRA, ``--compress_seq``,
-``--model_name_or_path`` (the safetensors converter), a decoder family
-other than internlm2, ``--ring_mode fused``, ``--offload_optimizer`` and a
-multi-host launcher.
+``NotImplementedError``: a mesh axis other than ``seq`` above 1, LoRA,
+``--compress_seq``, ``--model_name_or_path`` (the safetensors converter), a
+decoder family other than internlm2, ``--offload_optimizer`` and a
+multi-host launcher. ``--mesh_seq N --ring_mode scan|fused`` shards the
+sequence over ring attention with all ``N`` shards on the one device.
 
 Example (a toy dataset and tokenizer, see the README):
   python -m v2pe_tpu_torch.train.cli --model_preset debug_tiny \
@@ -82,12 +83,10 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="GPipe microbatches (0 = auto; must divide the "
                         "global row count)")
     p.add_argument("--ring_mode", choices=["scan", "fused"], default="scan",
-                   help="ring-attention transport: 'scan' = ppermute ring "
-                        "(memory-lean), 'fused' = in-kernel RDMA streaming "
-                        "(parallel/ring_fused.py; holds gathered KV). "
-                        "Off-TPU, 'fused' runs via the Pallas interpreter "
-                        "and requires --no_remat (its DMA-simulator IO "
-                        "effects cannot live under jax.checkpoint)")
+                   help="ring-attention forward: 'scan' = one flash call "
+                        "per hop and shard, merged by lse; 'fused' = one "
+                        "kernel launch sweeps every hop "
+                        "(parallel/ring_fused.py)")
     p.add_argument("--sync_save", action="store_true",
                    help="write checkpoints synchronously (default: async — "
                         "the step loop resumes once arrays are snapshotted "
@@ -166,11 +165,10 @@ def build_argparser() -> argparse.ArgumentParser:
 def _unported(args) -> list:
     """The flags given that need a module the port lacks."""
     mesh = {a: getattr(args, f"mesh_{a}") for a in
-            ("data", "fsdp", "seq", "tensor", "pipe")}
+            ("data", "fsdp", "tensor", "pipe")}
     checks = [
         (any(v > 1 for v in mesh.values()), f"mesh axes {mesh}"),
         (args.pipe_microbatches, "--pipe_microbatches"),
-        (args.ring_mode != "scan", "--ring_mode fused"),
         (args.use_backbone_lora or args.use_llm_lora, "LoRA"),
         (args.compress_seq, "--compress_seq"),
         (args.model_name_or_path, "--model_name_or_path"),
@@ -259,9 +257,11 @@ def main(argv=None):
         freeze_mlp=args.freeze_mlp, unfreeze_lm_head=args.unfreeze_lm_head,
         unfreeze_vit_layers=args.unfreeze_vit_layers)
     hook = build_metrics_hook(args.output_dir, args.report_to)
-    return train(cfg, model, packer, run, tc, img_context_token_id=ctx_id,
-                 resume=not args.no_resume, pixel_dtype=np.float32,
-                 metrics_hook=hook,
+    mesh_cfg = cfg_lib.MeshConfig(seq=args.mesh_seq)
+    return train(cfg, model, packer, run, tc, mesh_cfg=mesh_cfg,
+                 img_context_token_id=ctx_id, ring_mode=args.ring_mode,
+                 resume=not args.no_resume,
+                 pixel_dtype=np.float32, metrics_hook=hook,
                  remat=False if args.no_remat else args.remat_policy,
                  async_save=not args.sync_save)
 

@@ -8,8 +8,12 @@ Batch contract (tensors on the model's device; ``data/packing.py`` and
   loss_weight (B,S) f32 | pixel_values (T,3,sz,sz) | image_flags (T,) i32
   vit_gather_idx (B,S) i32 (-1 = text token)
 
-A mesh, LoRA, pipeline microbatches, the fused ring and the offloaded
-optimizer raise ``NotImplementedError``: they need the multi-card port.
+``mesh`` is a ``MeshConfig``: its ``seq`` axis shards the sequence over
+ring attention with every shard on the model's card (``ring_mode`` 'scan'
+or 'fused'; the batch then arrives zigzag-permuted, as
+``collate_rows(seq_shards=n)`` makes it). Any other axis above 1, LoRA,
+pipeline microbatches and the offloaded optimizer raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 
 from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models import internvl_chat
+from v2pe_tpu_torch.parallel import context as pctx
 from v2pe_tpu_torch.train.optimizer import Optimizer
 
 
@@ -49,20 +54,24 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     """Returns ``step(model, opt_state, batch, drop_path_generator=None) ->
     (loss, grad_norm)``: the model's parameters and ``opt_state`` are
     updated in place; grad_norm is the global norm of the raw gradients."""
-    for flag, what in ((mesh is not None, "a mesh"), (lora, "LoRA"),
+    for flag, what in ((lora, "LoRA"),
                        (pipe_microbatches, "pipeline microbatches"),
-                       (ring_mode != "scan", f"ring_mode={ring_mode!r}"),
                        (offload_optimizer, "the offloaded optimizer")):
         if flag:
-            raise NotImplementedError(f"{what} is not ported (one device)")
+            raise NotImplementedError(f"{what} is not ported")
+    # unlike the JAX package off the TPU, 'fused' takes any remat mode: the
+    # backward recomputes the fused forward like any other op
+    ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
+        mesh, ring_mode=ring_mode)
 
     def step(model, opt_state, batch, drop_path_generator=None):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        loss = loss_fn(model, cfg, batch, img_context_token_id, remat,
-                       drop_path_generator)
-        loss.backward()
+        with pctx.use_sharding(ctx):
+            loss = loss_fn(model, cfg, batch, img_context_token_id, remat,
+                           drop_path_generator)
+            loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         gnorm = optimizer.step(grads, opt_state)

@@ -1,4 +1,5 @@
-"""Training loop (port of ``v2pe_tpu/train/trainer.py``) on one device:
+"""Training loop (port of ``v2pe_tpu/train/trainer.py``) on one device
+(the ``seq`` mesh axis, ring attention, runs with all its shards there):
 host-side packing in a background thread, the train step, asynchronous
 checkpoints and resume with the data-iterator state of the last CONSUMED
 batch."""
@@ -102,10 +103,12 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     """Run the training loop on the model's device; returns (model,
     opt_state, step). The model is trained in place.
 
-    A mesh of more than one device, LoRA and the offloaded optimizer raise
+    ``mesh_cfg.seq`` shards the sequence over ring attention on that one
+    device (the batches are collated zigzag-permuted); any other mesh axis
+    above 1, LoRA and the offloaded optimizer raise
     ``NotImplementedError``."""
-    if mesh_cfg is not None and mesh_cfg.num_devices > 1:
-        raise NotImplementedError("a multi-device mesh is not ported")
+    mesh = mesh_cfg if mesh_cfg and mesh_cfg.num_devices > 1 else None
+    seq_shards = mesh_cfg.seq if mesh_cfg else 1
     if use_backbone_lora or use_llm_lora:
         raise NotImplementedError("LoRA training is not ported")
     if offload_optimizer:
@@ -114,7 +117,7 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     device = next(model.parameters()).device
     optimizer = build_optimizer(tc, model, cfg)
     opt_state = optimizer.init()
-    step_fn = make_train_step(cfg, optimizer, None, img_context_token_id,
+    step_fn = make_train_step(cfg, optimizer, mesh, img_context_token_id,
                               remat=remat,
                               pipe_microbatches=pipe_microbatches,
                               ring_mode=ring_mode,
@@ -142,7 +145,8 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
             rows, max_tokens=run.max_packed_tokens, max_tiles=run.max_tiles,
             img_context_token_id=img_context_token_id,
             num_image_token=cfg.num_image_token,
-            loss_reduction=run.loss_reduction, pixel_dtype=pixel_dtype)
+            loss_reduction=run.loss_reduction, seq_shards=seq_shards,
+            pixel_dtype=pixel_dtype)
         batch.pop("statistics")
         return batch, data_state
 
