@@ -381,6 +381,10 @@ def test_datasets_packing_and_collate_equal(toy_meta):
     got_ds = tdatasets.build_datasets(toy_meta, tok, **kw)
     assert sorted(got_ds) == sorted(want_ds) == ["toy"]
     assert len(got_ds["toy"]) == len(want_ds["toy"]) == 12
+    # the native tiler and the PIL route differ by one fp32 ulp in some
+    # pixels; the JAX package takes PIL when its native build lost a race
+    # with another process, so the port takes the route the JAX twin took
+    got_ds["toy"]._native_ok = want_ds["toy"]._native_ok
     for i in (0, 1, 2, 7):
         _same_tree(got_ds["toy"][i], want_ds["toy"][i], f"item {i}")
     ctx = tok.convert_tokens_to_ids("<IMG_CONTEXT>")

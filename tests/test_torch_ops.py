@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's ops (v2pe_tpu_torch/ops) with the JAX
 package on the CPU: rotary, norms, reference attention, and the flash
-kernel's plain twin against JAX flash attention (jnp and Pallas-interpret).
+kernel's plain twin against JAX flash attention (jnp and Pallas-interpret;
+in bf16 against the Pallas kernel's precision="bf16all").
 The CUDA kernel itself is checked against the twin on the card by
 chip_smoke.py."""
 
@@ -23,7 +24,7 @@ from v2pe_tpu_torch.ops import flash_fwd
 from v2pe_tpu_torch.ops import norms as tnorms
 from v2pe_tpu_torch.ops import rope as trope
 
-from .torch_parity import run_parity
+from .torch_parity import run_parity, to_numpy
 
 THETA = 1e6
 
@@ -254,6 +255,44 @@ def test_flash_twin_lse_matches_pallas(form):
     dead = (seg_q == 0) | (seg_q == 9)
     assert np.all(lse.transpose(0, 2, 1)[dead] == np.float32(
         flash_fwd.NEG_INF))
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_flash_twin_bf16_matches_pallas_bf16all(form):
+    """bf16 q/k/v: the plain version rounds where the kernel's tensor cores
+    do, which are the Pallas kernel's precision="bf16all" points. The scale
+    is a power of two here, so scaling q before its rounding (Pallas) and
+    scaling the fp32 scores (the port) give the same products."""
+    (q, k, v, seg_q, seg_k, pos_q, pos_k, ids, causal, explicit,
+     rope) = _flash_case(form)
+    rope_kw = lambda r: dict(rope_q=r, rope_k=r if rope == "qk" else None,
+                             rope_theta=THETA) if rope else {}
+    scale = 0.25
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(x).bfloat16() for x in (q, k, v))
+    want = flash_attention_fwd_pallas(
+        jq, jk, jv, *map(jnp.asarray, (seg_q, seg_k, pos_q, pos_k)),
+        causal=causal, scale=scale, block_q=64, block_k=64,
+        ordered=not explicit, interpret=True, precision="bf16all",
+        **rope_kw(jnp.asarray(ids)))
+    got = flash_fwd.flash_attention_fwd(
+        tq, tk, tv, *map(torch.from_numpy, (seg_q, seg_k, pos_q, pos_k)),
+        causal=causal, scale=scale, **rope_kw(torch.from_numpy(ids)))
+    assert got[0].dtype == torch.bfloat16
+    (wo, wl), (go, gl) = ([np.asarray(to_numpy(x), np.float64) for x in y]
+                          for y in (want, got))
+    # out: Pallas rounds P against the running max of its 64-key blocks,
+    # the plain version against the row's final max, and both round out to
+    # bf16: one bf16 step (2^-7 at |out| < 4) each, at most
+    np.testing.assert_allclose(go, wo, atol=2.0 ** -6, rtol=0)
+    # lse sums the unrounded fp32 weights in both: fp32 sums in another
+    # order. With rotary, the packages compute the angles by different fp32
+    # formulas, which moves a few rotated elements to the neighbouring bf16
+    # value; each such flip moves a score by one bf16 step of
+    # scale * q_i * k_i (~1e-3 at most for these unit-normal inputs)
+    np.testing.assert_allclose(gl, wl, atol=1e-3 if rope else 2e-5, rtol=0)
+    if form == "dead_row":
+        assert np.all(go[:, 60:70] == 0)
 
 
 def test_flash_with_lse_and_decode_path_match_jax():

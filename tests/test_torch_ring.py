@@ -1,5 +1,6 @@
 """The port's sequence-parallel path against the JAX package's, on the CPU
-in fp32 at small sizes: the zigzag helpers, the scan ring and the fused
+in fp32 at small sizes (and the fused ring's bf16 rounding against the
+flash forward's): the zigzag helpers, the scan ring and the fused
 ring's plain version against ``ring_attention`` / ``fused_ring_attention``
 under ``shard_map`` on the forced host devices (the fused Pallas kernel in
 interpret mode), the ring's gradients, the half-chunk branch choice,
@@ -199,6 +200,36 @@ def test_fused_plain_forward_matches_jax_fused_kernel_interpreted():
         dense * _live(seg), rtol=FWD_TOL, atol=FWD_TOL)
 
 
+@pytest.mark.parametrize("b,s,world,causal", [(1, 256, 4, True),
+                                              (2, 200, 2, False)])
+def test_fused_plain_bf16_matches_flash_plain_on_the_whole_sequence(
+        b, s, world, causal):
+    """bf16: the fused ring's plain version inherits the flash forward's
+    bf16 rounding points (bf16 operands, P rounded for the PV product), so
+    its zigzag output un-permuted equals the flash forward's plain version
+    on the unsharded bf16 sequence: the same weights, summed over the keys
+    in hop order instead of in sequence order."""
+    q, k, v, seg = _inputs(seed=11, b=b, s=s)
+    q, k, v = (_t(x).bfloat16() for x in (q, k, v))
+    seg = _t(seg)
+    pos = _t(np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy())
+    zz = [torch.cat([tring.zigzag_shard(x, r, world) for r in range(world)],
+                    dim=1) for x in (q, k, v, seg, seg, pos, pos)]
+    got, got_lse = tfused.fused_ring_fwd(world, *zz, causal=causal,
+                                         scale=D ** -0.5)
+    want, want_lse = tfused.flash_attention_fwd_torch(
+        q, k, v, seg, seg, pos, pos, causal=causal, scale=D ** -0.5)
+    assert got.dtype == torch.bfloat16
+    # the fp32 sums in another order: the bf16 output one step apart at
+    # most (2^-7 at |out| < 2), lse to fp32 rounding
+    np.testing.assert_allclose(
+        tring.zigzag_unshard(got, world).float().numpy(),
+        want.float().numpy(), atol=2.0 ** -7, rtol=0)
+    np.testing.assert_allclose(
+        tring.zigzag_unshard(got_lse, world, axis=2).numpy(),
+        want_lse.numpy(), atol=FWD_TOL, rtol=0)
+
+
 @pytest.mark.parametrize("b,s,world,causal", [(2, 256, 4, True),
                                               (1, 512, 8, False),
                                               (1, 200, 2, True),
@@ -362,6 +393,12 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
         (3, *ok),                                     # 64 rows, 3 shards
         (4, q, k[:, :32], v[:, :32], seg, seg[:, :32], pos, pos[:, :32]),
     ]
+    big = [_t(x) for x in _inputs(s=1024)]   # 16 ranks of 64 rows, bf16
+    bpos = _t(_zig_positions(1, 1024, 16))
+    tfused._check(8, *(t.bfloat16() for t in big[:3]), big[3], big[3], bpos,
+                  bpos)
+    bad.append((16, *(t.bfloat16() for t in big[:3]), big[3], big[3], bpos,
+                bpos))  # a tensor map of each chunk: 8 ranks at most in bf16
     for args in bad:
         with pytest.raises(ValueError):
             tfused._check(*args)

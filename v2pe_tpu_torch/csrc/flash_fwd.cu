@@ -11,8 +11,14 @@
 // Design. The TPU kernel walks the kv axis sequentially per grid step and
 // carries (acc, m, l) in VMEM scratch. Here one thread block owns one
 // (batch row, q head, 64-row q tile) and sweeps the 64-row K/V tiles of its
-// batch row itself. The tile update, what bounds it and the rotary are in
-// flash_tile.cuh, which the fused ring forward (ring_fused_fwd.cu) shares.
+// batch row itself. bf16 inputs run the tensor-core tile (wgmma, K/V by TMA
+// into a 2-stage mbarrier ring, a producer warp and a consumer warpgroup),
+// launched heaviest query tile first; the tensor maps of k and v are
+// encoded here on the host, per call (cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint, so no -lcuda). fp32 inputs run the fp32
+// CUDA-core tile. Both tiles, what bounds each and the rotary are described
+// in flash_tile.cuh, which the fused ring forward (ring_fused_fwd.cu)
+// shares.
 
 #include "flash_tile.cuh"
 
@@ -36,7 +42,7 @@ struct Params {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   extern __shared__ float smem[];
   const Smem<D> sm(smem);
@@ -44,8 +50,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const size_t b = blockIdx.z;
   const int hk = h / (p.Hq / p.Hkv);
 
-  const QSummary qs = load_q<T, D>(
-      sm, static_cast<const T*>(p.q) + b * p.Sq * p.Hq * D,
+  const QSummary qs = load_q<D>(
+      sm, static_cast<const float*>(p.q) + b * p.Sq * p.Hq * D,
       p.seg_q + b * p.Sq, p.pos_q + b * p.Sq,
       p.rope_q ? p.rope_q + b * p.Sq : nullptr, p.inv_freq, q0, p.Sq, p.Hq,
       h, p.scale);
@@ -56,26 +62,86 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < D / 16; ++c) acc[r][c] = 0.f;
 
-  sweep_kv<T, D>(sm, qs, acc,
-                 static_cast<const T*>(p.k) + b * p.Sk * p.Hkv * D,
-                 static_cast<const T*>(p.v) + b * p.Sk * p.Hkv * D,
+  sweep_kv<D>(sm, qs, acc,
+                 static_cast<const float*>(p.k) + b * p.Sk * p.Hkv * D,
+                 static_cast<const float*>(p.v) + b * p.Sk * p.Hkv * D,
                  p.seg_k + b * p.Sk, p.pos_k + b * p.Sk,
                  p.rope_k ? p.rope_k + b * p.Sk : nullptr, p.inv_freq, p.Sk,
                  p.Hkv, hk, p.causal);
 
-  write_out<T, D>(sm, acc, static_cast<T*>(p.out) + b * p.Sq * p.Hq * D,
+  write_out<D>(sm, acc, static_cast<float*>(p.out) + b * p.Sq * p.Hq * D,
                   p.lse + (b * p.Hq + h) * p.Sq, q0, p.Sq, p.Hq, h);
 }
 
-template <typename T, int D>
+// bf16: the tensor-core tile, with the tensor maps of k and v, each viewed
+// as (Hkv*D, Sk, B). Grid (Hq, B, query tiles), the query tile counted down
+// so that the heaviest causal tiles start first.
+struct TcParams {
+  Params p;
+  CUtensorMap kmap, vmap;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    flash_fwd_tc_kernel(const __grid_constant__ TcParams tp) {
+  const Params& p = tp.p;
+  extern __shared__ uint8_t smem_raw[];
+  const tc::Smem<D> sm(smem_raw);
+  const int h = blockIdx.x;
+  const size_t b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * tc::BQ;
+  const int hk = h / (p.Hq / p.Hkv);
+  using bf16 = tc::bf16;
+
+  tc::setup<D>(sm, static_cast<const bf16*>(p.q) + b * p.Sq * p.Hq * D,
+               p.seg_q + b * p.Sq, p.pos_q + b * p.Sq,
+               p.rope_q ? p.rope_q + b * p.Sq : nullptr, p.inv_freq, q0,
+               p.Sq, p.Hq, h);
+  if (threadIdx.x >= tc::CONSUMERS) {
+    const tc::QRange qr = tc::q_range<D>(sm, min(tc::BQ, p.Sq - q0));
+    tc::Pipe pp;
+    tc::produce<D>(sm, pp, qr, &tp.kmap, &tp.vmap, static_cast<int>(b),
+                   static_cast<const bf16*>(p.k) + b * p.Sk * p.Hkv * D,
+                   p.seg_k + b * p.Sk, p.pos_k + b * p.Sk,
+                   p.rope_k ? p.rope_k + b * p.Sk : nullptr, p.inv_freq, p.Sk,
+                   p.Hkv, hk, p.causal);
+    tc::finish<D>(sm, pp);
+  } else {
+    tc::Acc<D> acc;
+    tc::consume<D>(sm, acc, p.scale, p.causal);
+    tc::write_out<D>(acc, static_cast<bf16*>(p.out) + b * p.Sq * p.Hq * D,
+                     p.lse + (b * p.Hq + h) * p.Sq, q0, p.Sq, p.Hq, h);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = tc::Smem<D>::BYTES;
+  TcParams tp{p, {}, {}};
+  const long long cols = static_cast<long long>(p.Hkv) * D;
+  cudaError_t err = tc::kv_map(&tp.kmap, p.k, cols, p.Sk, p.B, p.Sk * cols);
+  if (err == cudaSuccess)
+    err = tc::kv_map(&tp.vmap, p.v, cols, p.Sk, p.B, p.Sk * cols);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hq, p.B, (p.Sq + tc::BQ - 1) / tc::BQ);
+  flash_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(tp);
+  return cudaGetLastError();
+}
+
+// fp32: the CUDA-core tile.
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, p.Hq, p.B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -97,10 +163,9 @@ extern "C" int v2pe_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (D == 64) {
-    err = is_bf16 ? launch<__nv_bfloat16, 64>(p, st) : launch<float, 64>(p, st);
+    err = is_bf16 ? launch_tc<64>(p, st) : launch<64>(p, st);
   } else if (D == 128) {
-    err = is_bf16 ? launch<__nv_bfloat16, 128>(p, st)
-                  : launch<float, 128>(p, st);
+    err = is_bf16 ? launch_tc<128>(p, st) : launch<128>(p, st);
   } else {
     err = cudaErrorInvalidValue;
   }

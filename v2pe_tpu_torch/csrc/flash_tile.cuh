@@ -1,40 +1,94 @@
 // The tile machinery of the forward flash-attention kernels for NVIDIA
 // Hopper (sm_90a), shared by flash_fwd.cu (one K/V sequence per query tile)
 // and ring_fused_fwd.cu (the K/V chunks of every rank of a ring, one after
-// another, per query tile). A kernel stages its query tile with load_q,
-// calls sweep_kv once per K/V sequence it attends (the online-softmax state
-// m, l and the output accumulator carry over from one sweep to the next),
-// and ends with write_out.
+// another, per query tile). Both replace the loop body of a Pallas TPU
+// kernel: v2pe_tpu/ops/flash_pallas.py:_kernel and, per hop,
+// v2pe_tpu/parallel/ring_fused.py:_kernel. The operand type follows the
+// input type; there are two tiles.
 //
-// One thread block owns one 64-row query tile of one head. K/V tiles of 64
-// keys are staged in shared memory as fp32, the 64x64 scores and the
-// online-softmax update run in fp32, and the output accumulator stays in
-// registers (4 rows x D/16 columns per thread). The max is clamped at
-// -1e30/2, so masked scores (-1e30) underflow exp to exactly 0 and a fully
-// masked row ends with l = 0. A K/V tile is skipped without loading when the
-// min/max of the tile's segment ids and positions show that no query of the
-// block can attend any of its keys (this also skips the causal upper
-// triangle of a packed prefill, whose positions need not be arange, and the
-// dead half of a zigzag ring's hops).
+// bf16 q/k/v: the tensor-core tile (namespace tc), with the rounding points
+// of the Pallas kernel's precision="bf16all": bf16 operands, fp32
+// accumulators; q rotated in fp32 from the fp32 ids and rounded once to
+// bf16 (k too, with rope_k); P rounded to bf16 for the PV product only; m, l
+// and the accumulator in fp32, l summing the unrounded fp32 e. One
+// difference by design: the softmax scale multiplies the fp32 scores, as
+// FlashAttention does, instead of q before its rounding, so unrotated bf16
+// inputs give exactly the fp32 scores.
 //
-// What bounds it. The products are plain fp32 FMAs fed from shared memory,
-// two loads per FMA-pair of a 4x4 register tile, so the kernels are bound by
-// shared-memory bandwidth and the CUDA cores, far below the tensor cores'
-// bf16 rate. They are written to be right and simple first: moving QK^T and
-// PV to wgmma with TMA-fed K/V tiles is the work of a later change.
+//   One block owns one (batch row, q head, 64-row query tile): one consumer
+//   warpgroup (warps 0-3) and one producer warp (warp 4), 160 threads, about
+//   84 KB of shared memory at D 128, so two blocks share an SM and one's
+//   softmax overlaps the other's products. Query tiles are launched heaviest
+//   first (the slowest grid axis counts down), since the main forms have
+//   only 2-4 waves on 132 SMs. The query tile is staged once, rotated and
+//   rounded, in the 128-byte-swizzled layout wgmma reads; heads narrower
+//   than 64 are stored as 64 columns (the rest zero) so that one swizzle
+//   serves every D.
 //
-// Rotary. cos/sin come from sincosf of the fp32 angle id * inv_freq[i] with
-// inv_freq passed in by the wrapper (the same table the plain twin uses).
-// Not built with --use_fast_math: angles reach the context length in
-// radians, where __sinf/__cosf lose accuracy.
+//   K/V tiles of 64 keys reach a ring of STAGES = 2 shared-memory slots by
+//   TMA: one thread issues a 64-row x 64-column box per 64 columns of k
+//   and of v, through tensor maps encoded on the host (k and v viewed as
+//   (Hkv*D, S, B); boxes past S arrive as zeros, so a ragged tail never
+//   holds stale data) in the 128-byte swizzle that the wgmma descriptors
+//   name; a full/empty mbarrier pair guards each slot, the full one
+//   counting the boxes' bytes. The producer alone decides which tiles are
+//   live, reading the ids of 4 tiles at a time: a K/V tile is skipped
+//   before any load of k or v when the min/max of its segment ids and
+//   positions show that no query of the tile can attend any of its keys
+//   (the causal upper triangle of a packed prefill, whose positions need
+//   not be arange, and the dead half of a zigzag ring's hops); a tile in
+//   which every (query, key) pair is live is marked FULL and runs with no
+//   mask (the Pallas kernel's full/boundary split); the last slot it hands
+//   over says END. So producer and consumers walk one sequence of live
+//   tiles, and the producer runs as many tiles ahead as there are slots.
+//   With rope_k the producer warp stages K itself, rotated in fp32 and
+//   rounded once (not on a main path).
+//
+//   The consumers: S = Q K^T by wgmma m64n64k16 with Q and K (K-major) from
+//   shared memory; the scale, and on BOUNDARY tiles the mask from the ids in
+//   the slot, applied on the accumulator fragment; the online softmax in
+//   registers (each row's max and sum over the four lanes that share it);
+//   then O = O corr + P V by wgmma m64nDk16 with P converted from the score
+//   fragment to bf16 in registers as the A operand and V read from shared
+//   memory through the descriptor's transpose bit (no transposed copy).
+//
+//   What bounds it: the tensor cores' bf16 rate at these shapes (about 300
+//   operations per byte of q, k, v and out), and it runs well below it: a
+//   warpgroup waits for its own products before the softmax, so the tensor
+//   cores overlap only with the other block(s) on the SM (two at D 128,
+//   three at D 64; a third K/V slot did not help). What would come next:
+//   issue the next tile's QK^T before this tile's softmax (a second score
+//   fragment), and two consumer warpgroups sharing each K/V tile.
+//
+// fp32 q/k/v: the CUDA-core tile, the counterpart of precision="fp32" and
+// exact to fp32 rounding: one 256-thread block owns one 64-row query tile of
+// one head, K/V tiles of 64 keys are staged in shared memory as fp32, the
+// 64x64 scores and the online-softmax update run in fp32 FMAs from shared
+// memory, and the output accumulator stays in registers (4 rows x D/16
+// columns per thread). Bound by shared-memory bandwidth and the CUDA cores.
+// It skips dead tiles by the same min/max test.
+//
+// Both: the max is clamped at -1e30/2, so masked scores (-1e30) underflow
+// exp to exactly 0 and a fully masked row ends with l = 0, out 0 and lse
+// -1e30. Rotary: cos/sin from sincosf of the fp32 angle id * inv_freq[i],
+// inv_freq passed in by the wrapper (the table the plain version uses). Not
+// built with --use_fast_math: angles reach the context length in radians,
+// where __sinf/__cosf lose accuracy.
 
 #pragma once
 
 #include <climits>
+#include <cstdint>
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+// ------------------------------------------------------------------------
+// The fp32 tile: CUDA-core FMAs, K/V staged by the whole block.
+// ------------------------------------------------------------------------
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per K/V tile
@@ -42,14 +96,6 @@ constexpr int THREADS = 256;  // 16 x 16 threads; thread (ty, tx) owns rows
                               // ty + 16r and columns tx + 16c of each tile
 constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr int smem_floats() {
@@ -96,8 +142,8 @@ struct Smem {
 // Stage rows [row0, row0 + 64) of head h of one batch row x (S,H,D) into dst
 // (fp32, row stride ld), rotated by the V2PE rotary at rope[s] when rope (the
 // batch row's (S,) ids) is given, times mul. Rows past S are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* x,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* x,
                                           int row0, int S, int H, int h,
                                           const float* rope,
                                           const float* inv_freq, float mul) {
@@ -106,9 +152,9 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* x,
     const int r = idx / HALF, d = idx % HALF, s = row0 + r;
     float x1 = 0.f, x2 = 0.f;
     if (s < S) {
-      const T* src = x + (static_cast<size_t>(s) * H + h) * D;
-      x1 = to_float(src[d]);
-      x2 = to_float(src[d + HALF]);
+      const float* src = x + (static_cast<size_t>(s) * H + h) * D;
+      x1 = src[d];
+      x2 = src[d + HALF];
       if (rope != nullptr) {
         // x * cos + rotate_half(x) * sin, with rotate_half = [-x2, x1]
         float sn, cs;
@@ -132,15 +178,15 @@ struct QSummary {
 // Stage the query tile [q0, q0 + 64) of head h: q (one batch row, (Sq,Hq,D))
 // times scale, its segment ids and positions ((Sq,) of the batch row; rows
 // past Sq get segment 0 and position -1), and the empty softmax state.
-template <typename T, int D>
-__device__ __forceinline__ QSummary load_q(const Smem<D>& sm, const T* q,
+template <int D>
+__device__ __forceinline__ QSummary load_q(const Smem<D>& sm, const float* q,
                                            const int* seg_q, const int* pos_q,
                                            const float* rope_q,
                                            const float* inv_freq, int q0,
                                            int Sq, int Hq, int h,
                                            float scale) {
   const int tid = threadIdx.x;
-  load_tile<T, D>(sm.q, Smem<D>::LDQ, q, q0, Sq, Hq, h, rope_q, inv_freq,
+  load_tile<D>(sm.q, Smem<D>::LDQ, q, q0, Sq, Hq, h, rope_q, inv_freq,
                   scale);
   if (tid < BQ) {
     const int s = q0 + tid;
@@ -165,10 +211,11 @@ __device__ __forceinline__ QSummary load_q(const Smem<D>& sm, const T* q,
 // Attend the staged query tile to one K/V sequence: k/v (one batch row,
 // (Sk,Hkv,D)), head hk, segment ids and positions (Sk,). Updates m, l in
 // shared memory and acc in registers.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void sweep_kv(const Smem<D>& sm, const QSummary& qs,
-                                         float (&acc)[4][D / 16], const T* k,
-                                         const T* v, const int* seg_k,
+                                         float (&acc)[4][D / 16],
+                                         const float* k, const float* v,
+                                         const int* seg_k,
                                          const int* pos_k, const float* rope_k,
                                          const float* inv_freq, int Sk,
                                          int Hkv, int hk, int causal) {
@@ -202,8 +249,8 @@ __device__ __forceinline__ void sweep_kv(const Smem<D>& sm, const QSummary& qs,
                       (causal && qs.pq_max < pk_min);
     if (dead) continue;  // uniform across the block
 
-    load_tile<T, D>(sK, LDK, k, k0, Sk, Hkv, hk, rope_k, inv_freq, 1.f);
-    load_tile<T, D>(sV, D, v, k0, Sk, Hkv, hk, nullptr, nullptr, 1.f);
+    load_tile<D>(sK, LDK, k, k0, Sk, Hkv, hk, rope_k, inv_freq, 1.f);
+    load_tile<D>(sV, D, v, k0, Sk, Hkv, hk, nullptr, nullptr, 1.f);
     __syncthreads();
 
     // Scores: a 4x4 register tile per thread, masked into sS.
@@ -289,14 +336,14 @@ __device__ __forceinline__ void sweep_kv(const Smem<D>& sm, const QSummary& qs,
   }
 }
 
-// Normalize and write the tile: out (one batch row, (Sq,Hq,D)) in the input
-// dtype, lse (this batch row's and head's (Sq,)) fp32. A row that attended
+// Normalize and write the tile: out (one batch row, (Sq,Hq,D)) and lse
+// (this batch row's and head's (Sq,)), fp32. A row that attended
 // nothing gives out 0 and lse -1e30.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void write_out(const Smem<D>& sm,
                                           const float (&acc)[4][D / 16],
-                                          T* out, float* lse, int q0, int Sq,
-                                          int Hq, int h) {
+                                          float* out, float* lse, int q0,
+                                          int Sq, int Hq, int h) {
   constexpr int NC = D / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -305,11 +352,674 @@ __device__ __forceinline__ void write_out(const Smem<D>& sm,
     if (s >= Sq) continue;
     const float l = sm.l[row];
     const float l_safe = l > 0.f ? l : 1.f;
-    T* o = out + (static_cast<size_t>(s) * Hq + h) * D;
+    float* o = out + (static_cast<size_t>(s) * Hq + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(o + tx + 16 * c, acc[r][c] / l_safe);
+    for (int c = 0; c < NC; ++c) o[tx + 16 * c] = acc[r][c] / l_safe;
     if (tx == 0) lse[s] = l > 0.f ? sm.m[row] + logf(l_safe) : NEG_INF;
   }
 }
+
+// ------------------------------------------------------------------------
+// The bf16 tile: wgmma on the tensor cores, K/V fed asynchronously.
+// ------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 64;           // query rows per block: one wgmma M
+constexpr int BK = 64;           // keys per K/V tile: the QK^T product's N
+constexpr int CONSUMERS = 128;   // one warpgroup (warps 0-3)
+constexpr int THREADS = CONSUMERS + 32;  // + one producer warp (warp 4)
+constexpr int BOUNDARY = 0, FULL = 1, END = 2;  // what a stage carries
+constexpr int STAGES = 2;        // K/V tiles in flight
+constexpr int LOOK = 4;          // K/V tiles whose ids are loaded at once
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of (row r, column c) in a tile of 64 rows stored in
+// 64-column blocks of 64 x 128 bytes, with the 128-byte swizzle: the 16-byte
+// chunk j of row r sits at chunk j ^ (r % 8). This is the layout wgmma reads
+// through a SWIZZLE_128B descriptor, K-major (q, k) and MN-major (v) alike.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 6) * (64 * 64) + r * 64 + ((((c & 63) >> 3) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle; lbo and sbo
+// in bytes (the tiles are 1024-byte aligned, so the base offset is 0).
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\n"
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+constexpr uint32_t BOX_BYTES = 64 * 128;  // one TMA box: 64 rows x 128 B
+
+// mbarrier arrive that also expects bytes of asynchronous copies
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at (c0, c1, c2) into shared memory at dst,
+// completing on bar's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Make this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (+)= A B: m64n64k16, A and B from shared memory (K-major both)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B: m64n64k16, A from registers (bf16 pairs), B from shared
+// memory MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (+)= A B: m64n128k16, A from registers (bf16 pairs), B from shared
+// memory MN-major (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db, 1);
+  } else {
+    wgmma_rs_n128(d, a, db, 1);
+  }
+}
+
+// The V2PE rotary of one pair (x1, x2) = (x[d], x[d + D/2]) by an fp32
+// angle: x cos + rotate_half(x) sin, each product and sum rounded on its
+// own (no fused multiply-add), as the plain version computes it, so that
+// the one bf16 rounding that follows sees the same fp32 value.
+__device__ __forceinline__ void rotate(float& x1, float& x2, float angle) {
+  float sn, cs;
+  sincosf(angle, &sn, &cs);
+  const float y1 = __fadd_rn(__fmul_rn(x1, cs), __fmul_rn(-x2, sn));
+  const float y2 = __fadd_rn(__fmul_rn(x2, cs), __fmul_rn(x1, sn));
+  x1 = y1;
+  x2 = y2;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The block's dynamic shared memory: the query tile, STAGES K and V tiles
+// (each 64 rows of DP bf16 columns, swizzled, 1024-byte aligned), the staged
+// ids, and the full/empty barrier pair of each stage.
+template <int D>
+struct Smem {
+  static constexpr int DP = D < 64 ? 64 : D;  // stored columns (zero pad)
+  static constexpr int TILE = 64 * DP * 2;    // bytes of one tile
+  static constexpr int INTS = STAGES * 2 * BK + 2 * BQ + STAGES;
+  static constexpr size_t BYTES =
+      1024 + TILE * (1 + 2 * STAGES) + INTS * 4 + 8 + 2 * STAGES * 8;
+  uint8_t* base;
+  __device__ explicit Smem(uint8_t* raw) {
+    base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+  }
+  __device__ bf16* q() const { return reinterpret_cast<bf16*>(base); }
+  __device__ bf16* k(int st) const {
+    return reinterpret_cast<bf16*>(base + TILE * (1 + st));
+  }
+  __device__ bf16* v(int st) const {
+    return reinterpret_cast<bf16*>(base + TILE * (1 + STAGES + st));
+  }
+  __device__ int* ints() const {
+    return reinterpret_cast<int*>(base + TILE * (1 + 2 * STAGES));
+  }
+  __device__ int* seg_k(int st) const { return ints() + st * 2 * BK; }
+  __device__ int* pos_k(int st) const { return ints() + st * 2 * BK + BK; }
+  __device__ int* seg_q() const { return ints() + STAGES * 2 * BK; }
+  __device__ int* pos_q() const { return seg_q() + BQ; }
+  __device__ int* flag() const { return pos_q() + BQ; }
+  __device__ uint64_t* full() const {
+    return reinterpret_cast<uint64_t*>(
+        (reinterpret_cast<uintptr_t>(ints() + INTS) + 7) & ~uintptr_t(7));
+  }
+  __device__ uint64_t* empty() const { return full() + STAGES; }
+};
+
+// Stage the 8 pairs (x[d0 + i], x[d0 + HALF + i]) of row r of a 64-row
+// tile from src (the row's D values; zeros when !valid) into the swizzled
+// tile dst by 16-byte loads and stores, rotated by angle id * inv_freq[d0 +
+// i] and rounded once to bf16 when inv_freq is given.
+template <int D>
+__device__ __forceinline__ void stage_pairs(bf16* dst, int r, int d0,
+                                            bool valid, const bf16* src,
+                                            float id, const float* inv_freq) {
+  constexpr int HALF = D / 2;
+  uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
+  if (valid) {
+    lo = *reinterpret_cast<const uint4*>(src + d0);
+    hi = *reinterpret_cast<const uint4*>(src + d0 + HALF);
+    if (inv_freq != nullptr) {
+      bf16* a = reinterpret_cast<bf16*>(&lo);
+      bf16* b = reinterpret_cast<bf16*>(&hi);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float x1 = __bfloat162float(a[i]), x2 = __bfloat162float(b[i]);
+        rotate(x1, x2, id * inv_freq[d0 + i]);
+        a[i] = __float2bfloat16_rn(x1);
+        b[i] = __float2bfloat16_rn(x2);
+      }
+    }
+  }
+  *reinterpret_cast<uint4*>(dst + swz(r, d0)) = lo;
+  *reinterpret_cast<uint4*>(dst + swz(r, d0 + HALF)) = hi;
+}
+
+// Set-up by all THREADS of the block, before the roles split: the barriers
+// (full: the producer warp's 32 lanes arrive; empty: the 128 consumer
+// threads), the query tile [q0, q0 + 64) of head h rotated in fp32 by the
+// V2PE rotary at rope_q (when given) and rounded once to bf16, its ids (rows
+// past Sq: segment 0, position -1) and, for D < 64, zeros in the K/V
+// columns no load writes. Ends with the block's one __syncthreads.
+template <int D>
+__device__ __forceinline__ void setup(const Smem<D>& sm, const bf16* q,
+                                      const int* seg_q, const int* pos_q,
+                                      const float* rope_q,
+                                      const float* inv_freq, int q0, int Sq,
+                                      int Hq, int h) {
+  constexpr int HALF = D / 2;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(sm.full() + st, 32);
+      mbar_init(sm.empty() + st, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (D < 64) {
+    uint32_t* kv = reinterpret_cast<uint32_t*>(sm.k(0));
+    for (int i = tid; i < 2 * STAGES * Smem<D>::TILE / 4; i += THREADS)
+      kv[i] = 0u;
+  }
+  for (int idx = tid; idx < BQ * (HALF / 8); idx += THREADS) {
+    const int r = idx / (HALF / 8), d0 = idx % (HALF / 8) * 8, s = q0 + r;
+    stage_pairs<D>(sm.q(), r, d0, s < Sq,
+                   q + (static_cast<size_t>(s) * Hq + h) * D,
+                   rope_q != nullptr ? rope_q[min(s, Sq - 1)] : 0.f,
+                   rope_q != nullptr ? inv_freq : nullptr);
+  }
+  if (tid < BQ) {
+    const int s = q0 + tid;
+    const bool ok = s < Sq;
+    sm.seg_q()[tid] = ok ? seg_q[s] : 0;
+    sm.pos_q()[tid] = ok ? pos_q[s] : -1;
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// The producer warp's view of the query tile: min/max over its valid rows.
+struct QRange {
+  int sq_min, sq_max, pq_min, pq_max;
+};
+
+template <int D>
+__device__ __forceinline__ QRange q_range(const Smem<D>& sm, int nq) {
+  const int lane = threadIdx.x & 31;
+  QRange qr{INT_MAX, INT_MIN, INT_MAX, INT_MIN};
+  for (int r = lane; r < nq; r += 32) {
+    qr.sq_min = min(qr.sq_min, sm.seg_q()[r]);
+    qr.sq_max = max(qr.sq_max, sm.seg_q()[r]);
+    qr.pq_min = min(qr.pq_min, sm.pos_q()[r]);
+    qr.pq_max = max(qr.pq_max, sm.pos_q()[r]);
+  }
+  qr.sq_min = __reduce_min_sync(0xffffffffu, qr.sq_min);
+  qr.sq_max = __reduce_max_sync(0xffffffffu, qr.sq_max);
+  qr.pq_min = __reduce_min_sync(0xffffffffu, qr.pq_min);
+  qr.pq_max = __reduce_max_sync(0xffffffffu, qr.pq_max);
+  return qr;
+}
+
+// The ring position of the producer (and, separately, of the consumers).
+struct Pipe {
+  int st = 0, ph = 0;
+  __device__ void advance() {
+    if (++st == STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// Producer warp: walk the K/V tiles of one sequence (batch row b of the
+// (Hkv*D, Sk, B) views kmap/vmap of k/v at head hk; that row's ids (Sk,)),
+// skip the dead ones from the min/max of their ids before touching k or v,
+// and hand each live tile to the consumers through the ring: ids and the
+// tile's kind (FULL: every pair is live, no mask; else BOUNDARY) by
+// st.shared, K and V by TMA, one 64 x 64 box per 64 columns, in the 128-byte
+// swizzle (rows past Sk arrive as zeros). The producer never waits for its
+// own loads: it runs up to STAGES tiles ahead. With rope_k (k: batch row b's
+// (Sk,Hkv,D)), K is instead loaded by the warp, rotated in fp32 and rounded
+// once to bf16 on its way to shared memory.
+template <int D>
+__device__ __forceinline__ void produce(const Smem<D>& sm, Pipe& pp,
+                                        const QRange& qr,
+                                        const CUtensorMap* kmap,
+                                        const CUtensorMap* vmap, int b,
+                                        const bf16* k, const int* seg_k,
+                                        const int* pos_k, const float* rope_k,
+                                        const float* inv_freq, int Sk,
+                                        int Hkv, int hk, int causal) {
+  constexpr int HALF = D / 2, BOXES = Smem<D>::DP / 64;
+  const int lane = threadIdx.x & 31;
+  int sg[LOOK][2], ps[LOOK][2];
+  for (int k0 = 0, t = 0; k0 < Sk; k0 += BK, t = (t + 1) % LOOK) {
+    if (t == 0) {  // the ids of the next LOOK tiles, all loads in flight
+#pragma unroll
+      for (int u = 0; u < LOOK; ++u)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = k0 + u * BK + lane + 32 * e;
+          sg[u][e] = j < Sk ? seg_k[j] : 0;
+          ps[u][e] = j < Sk ? pos_k[j] : (1 << 30);
+        }
+    }
+    const int nk = min(BK, Sk - k0);
+    int sk_min = INT_MAX, sk_max = INT_MIN, pk_min = INT_MAX, pk_max = INT_MIN;
+    int tile_sg[2], tile_ps[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int u = 0; u < LOOK; ++u)  // constant indices: registers
+        if (u == t) {
+          tile_sg[e] = sg[u][e];
+          tile_ps[e] = ps[u][e];
+        }
+      if (lane + 32 * e < nk) {
+        sk_min = min(sk_min, tile_sg[e]);
+        sk_max = max(sk_max, tile_sg[e]);
+        pk_min = min(pk_min, tile_ps[e]);
+        pk_max = max(pk_max, tile_ps[e]);
+      }
+    }
+    sk_min = __reduce_min_sync(0xffffffffu, sk_min);
+    sk_max = __reduce_max_sync(0xffffffffu, sk_max);
+    pk_min = __reduce_min_sync(0xffffffffu, pk_min);
+    pk_max = __reduce_max_sync(0xffffffffu, pk_max);
+    const bool dead = qr.sq_max < sk_min || sk_max < qr.sq_min ||
+                      (sk_min == 0 && sk_max == 0) ||
+                      (qr.sq_min == 0 && qr.sq_max == 0) ||
+                      (causal && qr.pq_max < pk_min);
+    if (dead) continue;  // uniform across the warp
+    const bool full = nk == BK && sk_min == sk_max && qr.sq_min == qr.sq_max &&
+                      sk_min == qr.sq_min && sk_min != 0 &&
+                      (!causal || qr.pq_min >= pk_max);
+
+    mbar_wait(sm.empty() + pp.st, pp.ph ^ 1);
+    sm.seg_k(pp.st)[lane] = tile_sg[0];
+    sm.seg_k(pp.st)[lane + 32] = tile_sg[1];
+    sm.pos_k(pp.st)[lane] = tile_ps[0];
+    sm.pos_k(pp.st)[lane + 32] = tile_ps[1];
+    if (lane == 0) sm.flag()[pp.st] = full ? FULL : BOUNDARY;
+    if (rope_k != nullptr) {
+      for (int idx = lane; idx < BK * (HALF / 8); idx += 32) {
+        const int r = idx / (HALF / 8), d0 = idx % (HALF / 8) * 8;
+        const int s = k0 + min(r, nk - 1);
+        stage_pairs<D>(sm.k(pp.st), r, d0, r < nk,
+                       k + (static_cast<size_t>(s) * Hkv + hk) * D, rope_k[s],
+                       inv_freq);
+      }
+      fence_proxy_async();
+    }
+    uint64_t* bar = sm.full() + pp.st;
+    if (lane == 0) {
+      const int loads = rope_k != nullptr ? BOXES : 2 * BOXES;
+      mbar_arrive_tx(bar, loads * BOX_BYTES);
+      const uint32_t dk = smem_u32(sm.k(pp.st)), dv = smem_u32(sm.v(pp.st));
+#pragma unroll
+      for (int x = 0; x < BOXES; ++x) {
+        if (rope_k == nullptr)
+          tma_load(dk + x * BOX_BYTES, kmap, bar, hk * D + 64 * x, k0, b);
+        tma_load(dv + x * BOX_BYTES, vmap, bar, hk * D + 64 * x, k0, b);
+      }
+    } else {
+      mbar_arrive(bar);
+    }
+    pp.advance();
+  }
+}
+
+// Producer warp, after its last sequence: a stage that tells the consumers
+// to stop.
+template <int D>
+__device__ __forceinline__ void finish(const Smem<D>& sm, Pipe& pp) {
+  mbar_wait(sm.empty() + pp.st, pp.ph ^ 1);
+  if ((threadIdx.x & 31) == 0) sm.flag()[pp.st] = END;
+  mbar_arrive(sm.full() + pp.st);
+}
+
+// A consumer thread's share of the online-softmax state: thread t of the
+// warpgroup holds rows r0 = 16 (t / 32) + (t % 32) / 4 and r0 + 8 of the
+// wgmma accumulator fragment; o[4j + 2h + e] is row r0 + 8h, column
+// 8j + 2 (t % 4) + e (the same layout as the scores s of one K/V tile).
+template <int D>
+struct Acc {
+  float o[Smem<D>::DP / 2];
+  float m[2], l[2];
+};
+
+// The consumer warpgroup: for every tile the producer hands over,
+// S = Q K^T (wgmma, fp32 accumulators), the scale and (BOUNDARY tiles) the
+// mask on the fragment, the online softmax in registers (row max and sum
+// over the four lanes that share a row), then O = O corr + bf16(P) V with P
+// as the A operand straight from registers.
+template <int D>
+__device__ __forceinline__ void consume(const Smem<D>& sm, Acc<D>& acc,
+                                        float scale, int causal) {
+  constexpr int DP = Smem<D>::DP;
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+  const int sgq[2] = {sm.seg_q()[r0], sm.seg_q()[r0 + 8]};
+  const int pq[2] = {sm.pos_q()[r0], sm.pos_q()[r0 + 8]};
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc.o[i] = 0.f;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    acc.m[hr] = NEG_INF;
+    acc.l[hr] = 0.f;
+  }
+  const uint32_t q_addr = smem_u32(sm.q());
+  Pipe pp;
+  while (true) {
+    mbar_wait(sm.full() + pp.st, pp.ph);
+    const int kind = sm.flag()[pp.st];
+    if (kind == END) break;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint32_t k_addr = smem_u32(sm.k(pp.st));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      wgmma_ss_n64(s, desc(q_addr + off, 16, 1024),
+                   desc(k_addr + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] *= scale;
+    if (kind == BOUNDARY) {
+      const int* sk = sm.seg_k(pp.st);
+      const int* pk = sm.pos_k(pp.st);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + cq + e;
+          const int sgk = sk[col], psk = pk[col];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const bool ok = sgq[hr] != 0 && sgq[hr] == sgk &&
+                            (!causal || pq[hr] >= psk);
+            if (!ok) s[4 * j + 2 * hr + e] = NEG_INF;
+          }
+        }
+    }
+
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(fmaxf(acc.m[hr], mx), NEG_INF / 2);
+      corr[hr] = expf(acc.m[hr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ev = expf(s[4 * j + 2 * hr + e] - m_new);
+          s[4 * j + 2 * hr + e] = ev;
+          sum += ev;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      acc.l[hr] = acc.l[hr] * corr[hr] + sum;  // the fp32 e, unrounded
+      acc.m[hr] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc.o[i] *= corr[(i >> 1) & 1];
+
+    // P in bf16 as wgmma's A fragment: keys 16 kk .. 16 kk + 15 of rows r0
+    // and r0 + 8 are exactly the scores' registers 8 kk .. 8 kk + 7
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+    const uint32_t v_addr = smem_u32(sm.v(pp.st));
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 keys = two 8-row groups of 1024 B
+      wgmma_pv<DP>(acc.o, pa[kk], desc(v_addr + kk * 2048, 8192, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    mbar_arrive(sm.empty() + pp.st);
+    pp.advance();
+  }
+}
+
+// Normalize and write a consumer thread's rows: out (one batch row,
+// (Sq,Hq,D)) bf16, lse (this batch row's and head's (Sq,)) fp32. A row that
+// attended nothing gives out 0 and lse -1e30.
+template <int D>
+__device__ __forceinline__ void write_out(const Acc<D>& acc, bf16* out,
+                                          float* lse, int q0, int Sq, int Hq,
+                                          int h) {
+  constexpr int DP = Smem<D>::DP;
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = q0 + r0 + 8 * hr;
+    if (s >= Sq) continue;
+    const float l = acc.l[hr];
+    const float l_safe = l > 0.f ? l : 1.f;
+    bf16* o = out + (static_cast<size_t>(s) * Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + cq;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(o + col) =
+            __floats2bfloat162_rn(acc.o[4 * j + 2 * hr] / l_safe,
+                                  acc.o[4 * j + 2 * hr + 1] / l_safe);
+    }
+    if ((lane & 3) == 0) lse[s] = l > 0.f ? acc.m[hr] + logf(l_safe) : NEG_INF;
+  }
+}
+
+// Host: cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so that the library needs no -lcuda.
+inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(ptr);
+  }
+  return fn;
+}
+
+// Host: the tensor map of one K or V operand, bf16 viewed as 3-D (cols,
+// rows, batches) at base (row stride cols, batch stride batch_stride
+// elements), read in boxes of 64 columns x 64 rows with the 128-byte
+// swizzle that the wgmma descriptors name; a box past an edge reads zeros.
+inline cudaError_t kv_map(CUtensorMap* map, const void* base, long long cols,
+                          long long rows, long long batches,
+                          long long batch_stride) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batches)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(batch_stride) * 2};
+  const cuuint32_t box[3] = {64, BK, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace tc
 
 }  // namespace

@@ -11,26 +11,32 @@
 //
 // Design. One launch serves every rank whose shard lives on this card: a
 // thread block owns one (rank, batch row, q head, 64-row query tile) and
-// sweeps all n chunks itself, so the fp32 online-softmax state (m, l in
-// shared memory, the accumulator in registers) stays on chip across the hops
-// and nothing is merged through device memory, which is what the TPU kernel
-// keeps in VMEM across its (hop, kv-block) grid axes. The tile update is
-// flash_tile.cuh's, shared with flash_fwd.cu: per hop only the K/V base
-// pointers change.
+// sweeps all n chunks itself, so the fp32 online-softmax state stays on
+// chip across the hops and nothing is merged through device memory, which
+// is what the TPU kernel keeps in VMEM across its (hop, kv-block) grid
+// axes. The tile is flash_tile.cuh's, shared with flash_fwd.cu: bf16 inputs
+// run the tensor-core tile, whose producer warp walks the chunks of all
+// hops in order and feeds their live K/V tiles through one TMA ring to the
+// consumer warpgroup (its wgmma products and softmax state never see a hop
+// boundary); fp32 inputs run the CUDA-core tile once per hop.
 //
 // Chunks are reached through a table of n base pointers per operand (k, v,
-// segment ids, positions), read from device memory. The TPU kernel's slots,
-// semaphores, startup barrier and drain move chunks between chips by remote
-// DMA; here a block pulls a chunk's tiles through the table instead. With
-// every shard on one card the entries point into one tensor; entries that
-// point at a peer card's memory are all a multi-card ring changes.
-//
+// segment ids, positions), read from device memory, and, for the bf16
+// tile's TMA loads, through a tensor map of each chunk's k and v encoded on
+// the host from the same addresses (kernel parameters: at most 8 ranks). The
+// TPU kernel's slots, semaphores, startup barrier and drain move chunks
+// between chips by remote DMA; here a block pulls a chunk's tiles itself.
+// With every shard on one card the addresses point into one tensor;
+// addresses of a peer card's memory, in the table and the maps, are all a
+// multi-card ring changes.
+
 // Under a causal zigzag layout half of all (query tile, hop) pairs are dead;
-// sweep_kv skips a dead K/V tile from the min/max of its segment ids and
-// positions before it loads k or v, so a dead hop costs its ids only.
+// both tiles skip a dead K/V tile from the min/max of its segment ids and
+// positions before they load k or v, so a dead hop costs its ids only.
 //
-// What bounds it: operations. The products are fp32 FMAs from shared memory
-// (see flash_tile.cuh), far from the tensor cores' rate.
+// What bounds it: in bf16 the tensor cores' rate (see flash_tile.cuh for
+// what the tile does and does not overlap); in fp32 the CUDA cores' FMAs
+// from shared memory.
 
 #include "flash_tile.cuh"
 
@@ -52,7 +58,7 @@ struct RingParams {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS) ring_fused_fwd_kernel(
     const RingParams p) {
   extern __shared__ float smem[];
@@ -64,8 +70,8 @@ __global__ void __launch_bounds__(THREADS) ring_fused_fwd_kernel(
   const size_t S = static_cast<size_t>(p.n) * p.Sl;
   const size_t row0 = b * S + static_cast<size_t>(r) * p.Sl;  // rank's rows
 
-  const QSummary qs = load_q<T, D>(
-      sm, static_cast<const T*>(p.q) + row0 * p.Hq * D, p.seg_q + row0,
+  const QSummary qs = load_q<D>(
+      sm, static_cast<const float*>(p.q) + row0 * p.Hq * D, p.seg_q + row0,
       p.pos_q + row0, nullptr, nullptr, q0, p.Sl, p.Hq, h, p.scale);
 
   float acc[4][D / 16];
@@ -76,47 +82,135 @@ __global__ void __launch_bounds__(THREADS) ring_fused_fwd_kernel(
 
   for (int s = 0; s < p.n; ++s) {
     const int c = (r - s + p.n) % p.n;  // hop s: the chunk of rank r - s
-    const T* k = reinterpret_cast<const T*>(p.table[c]);
-    const T* v = reinterpret_cast<const T*>(p.table[p.n + c]);
+    const float* k = reinterpret_cast<const float*>(p.table[c]);
+    const float* v = reinterpret_cast<const float*>(p.table[p.n + c]);
     const int* seg_k = reinterpret_cast<const int*>(p.table[2 * p.n + c]);
     const int* pos_k = reinterpret_cast<const int*>(p.table[3 * p.n + c]);
-    sweep_kv<T, D>(sm, qs, acc, k + b * p.kv_batch_stride,
+    sweep_kv<D>(sm, qs, acc, k + b * p.kv_batch_stride,
                    v + b * p.kv_batch_stride, seg_k + b * p.vec_batch_stride,
                    pos_k + b * p.vec_batch_stride, nullptr, nullptr, p.Sl,
                    p.Hkv, hk, p.causal);
   }
 
-  write_out<T, D>(sm, acc, static_cast<T*>(p.out) + row0 * p.Hq * D,
+  write_out<D>(sm, acc, static_cast<float*>(p.out) + row0 * p.Hq * D,
                   p.lse + (b * p.Hq + h) * S + static_cast<size_t>(r) * p.Sl,
                   q0, p.Sl, p.Hq, h);
 }
 
-template <typename T, int D>
+// bf16: the tensor-core tile, with a tensor map of every chunk's k and v
+// (each viewed as (Hkv*D, Sl, B) with the chunk's batch stride), as kernel
+// parameters. Grid (Hq, n B, query tiles), the query tile counted down so
+// that the heaviest causal tiles start first.
+constexpr int MAX_TC_RANKS = 8;
+
+struct RingTcParams {
+  RingParams p;
+  CUtensorMap kmap[MAX_TC_RANKS], vmap[MAX_TC_RANKS];
+};
+
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    ring_fused_fwd_tc_kernel(const __grid_constant__ RingTcParams tp) {
+  const RingParams& p = tp.p;
+  extern __shared__ uint8_t smem_raw[];
+  const tc::Smem<D> sm(smem_raw);
+  using bf16 = tc::bf16;
+  const int h = blockIdx.x;
+  const int r = blockIdx.y / p.B;
+  const size_t b = blockIdx.y % p.B;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * tc::BQ;
+  const int hk = h / (p.Hq / p.Hkv);
+  const size_t S = static_cast<size_t>(p.n) * p.Sl;
+  const size_t row0 = b * S + static_cast<size_t>(r) * p.Sl;  // rank's rows
+
+  tc::setup<D>(sm, static_cast<const bf16*>(p.q) + row0 * p.Hq * D,
+               p.seg_q + row0, p.pos_q + row0, nullptr, nullptr, q0, p.Sl,
+               p.Hq, h);
+  if (threadIdx.x >= tc::CONSUMERS) {
+    const tc::QRange qr = tc::q_range<D>(sm, min(tc::BQ, p.Sl - q0));
+    tc::Pipe pp;
+    for (int s = 0; s < p.n; ++s) {
+      const int c = (r - s + p.n) % p.n;  // hop s: the chunk of rank r - s
+      const int* seg_k = reinterpret_cast<const int*>(p.table[2 * p.n + c]);
+      const int* pos_k = reinterpret_cast<const int*>(p.table[3 * p.n + c]);
+      tc::produce<D>(sm, pp, qr, &tp.kmap[c], &tp.vmap[c],
+                     static_cast<int>(b), nullptr,
+                     seg_k + b * p.vec_batch_stride,
+                     pos_k + b * p.vec_batch_stride, nullptr, nullptr, p.Sl,
+                     p.Hkv, hk, p.causal);
+    }
+    tc::finish<D>(sm, pp);
+  } else {
+    tc::Acc<D> acc;
+    tc::consume<D>(sm, acc, p.scale, p.causal);
+    tc::write_out<D>(acc, static_cast<bf16*>(p.out) + row0 * p.Hq * D,
+                     p.lse + (b * p.Hq + h) * S +
+                         static_cast<size_t>(r) * p.Sl,
+                     q0, p.Sl, p.Hq, h);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const RingParams& p, const long long* k_chunks,
+                      const long long* v_chunks, cudaStream_t stream) {
+  constexpr size_t smem = tc::Smem<D>::BYTES;
+  if (p.n > MAX_TC_RANKS || k_chunks == nullptr || v_chunks == nullptr)
+    return cudaErrorInvalidValue;
+  RingTcParams tp{};
+  tp.p = p;
+  const long long cols = static_cast<long long>(p.Hkv) * D;
+  cudaError_t err = cudaSuccess;
+  for (int c = 0; c < p.n && err == cudaSuccess; ++c) {
+    err = tc::kv_map(&tp.kmap[c], reinterpret_cast<const void*>(k_chunks[c]),
+                     cols, p.Sl, p.B, p.kv_batch_stride);
+    if (err == cudaSuccess)
+      err = tc::kv_map(&tp.vmap[c],
+                       reinterpret_cast<const void*>(v_chunks[c]), cols, p.Sl,
+                       p.B, p.kv_batch_stride);
+  }
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      ring_fused_fwd_tc_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.Hq, p.n * p.B, (p.Sl + tc::BQ - 1) / tc::BQ);
+  ring_fused_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(tp);
+  return cudaGetLastError();
+}
+
+// fp32: the CUDA-core tile, one sweep per hop.
+template <int D>
 cudaError_t launch(const RingParams& p, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      ring_fused_fwd_kernel<T, D>,
+      ring_fused_fwd_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sl + BQ - 1) / BQ, p.Hq, p.n * p.B);
-  ring_fused_fwd_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  ring_fused_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dtype(const RingParams& p, int is_bf16, cudaStream_t st) {
-  return is_bf16 ? launch<__nv_bfloat16, D>(p, st) : launch<float, D>(p, st);
+cudaError_t launch_dtype(const RingParams& p, const long long* k_chunks,
+                         const long long* v_chunks, int is_bf16,
+                         cudaStream_t st) {
+  return is_bf16 ? launch_tc<D>(p, k_chunks, v_chunks, st)
+                 : launch<D>(p, st);
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Returns a cudaError_t: 0 when
-// the launch was accepted.
+// Plain C entry point (loaded with ctypes). k_chunks / v_chunks: host
+// arrays of the n chunks' addresses (the table's first two rows, which the
+// bf16 tile's tensor maps are encoded from; the fp32 tile reads the table).
+// Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int v2pe_ring_fused_fwd(const void* q, const int* seg_q,
                                    const int* pos_q, const long long* table,
-                                   void* out, float* lse, int B, int n, int Sl,
-                                   int Hq, int Hkv, int D,
-                                   long long kv_batch_stride,
+                                   const long long* k_chunks,
+                                   const long long* v_chunks, void* out,
+                                   float* lse, int B, int n, int Sl, int Hq,
+                                   int Hkv, int D, long long kv_batch_stride,
                                    long long vec_batch_stride, int is_bf16,
                                    int causal, float scale, void* stream) {
   const RingParams p{q,  seg_q, pos_q, table,           out,
@@ -124,10 +218,10 @@ extern "C" int v2pe_ring_fused_fwd(const void* q, const int* seg_q,
                      Hkv, kv_batch_stride, vec_batch_stride, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return static_cast<int>(launch_dtype<16>(p, is_bf16, st));
-    case 32: return static_cast<int>(launch_dtype<32>(p, is_bf16, st));
-    case 64: return static_cast<int>(launch_dtype<64>(p, is_bf16, st));
-    case 128: return static_cast<int>(launch_dtype<128>(p, is_bf16, st));
+    case 16: return launch_dtype<16>(p, k_chunks, v_chunks, is_bf16, st);
+    case 32: return launch_dtype<32>(p, k_chunks, v_chunks, is_bf16, st);
+    case 64: return launch_dtype<64>(p, k_chunks, v_chunks, is_bf16, st);
+    case 128: return launch_dtype<128>(p, k_chunks, v_chunks, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -170,6 +170,7 @@ def load() -> ctypes.CDLL:
         lib.v2pe_ring_fused_fwd.argtypes = [
             p, p, p,            # q, seg_q, pos_q (all ranks' rows)
             p,                  # (4, n) chunk pointers: k, v, seg_k, pos_k
+            p, p,               # host arrays of the n k and v chunk addresses
             p, p,               # out, lse
             i, i, i, i, i, i,   # B, n, Sl, Hq, Hkv, D
             ll, ll,             # a chunk's batch strides: k/v, seg/pos

@@ -14,6 +14,16 @@ Contract (the JAX layouts):
   Returns out (B, Sq, Hq, D) in q's dtype and lse (B, Hq, Sq) float32; a
   row with nothing to attend gives out = 0 and lse = -1e30.
 
+Rounding: the operand type follows the input type. fp32 q/k/v compute in
+fp32 throughout (the Pallas kernel's ``precision="fp32"``). bf16 q/k/v
+round where the tensor cores take bf16 operands, at the points of the
+Pallas kernel's ``precision="bf16all"``: q (and k, with ``rope_k``) rotated
+in fp32 and rounded once to bf16, the scores' products accumulated in
+fp32, the probabilities rounded to bf16 for the PV product only, the
+softmax state and the normaliser (the sum of the unrounded fp32 weights) in
+fp32. Unlike Pallas, the scale multiplies the fp32 scores rather than q
+before its rounding, so unrotated bf16 inputs give exactly the fp32 scores.
+
 :func:`flash_attention_fwd` runs the twin for tensors on the CPU and the
 kernel for tensors on a CUDA device; it never falls back from one to the
 other.
@@ -54,21 +64,28 @@ def flash_attention_fwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
                               rope_q: Optional[torch.Tensor] = None,
                               rope_k: Optional[torch.Tensor] = None,
                               rope_theta: float = 0.0):
-    """Plain PyTorch twin of the kernel: exact fp32 softmax over all keys,
-    blocked over queries to bound the (Hq, TWIN_BLOCK_Q, Sk) score
+    """Plain PyTorch twin of the kernel: exact softmax over all keys, in
+    fp32 with the bf16 rounding points of the module docstring for bf16
+    inputs, blocked over queries to bound the (Hq, TWIN_BLOCK_Q, Sk) score
     buffer."""
+    bf16 = q.dtype == torch.bfloat16
+    qf, kf, vf = q.float(), k.float(), v.float()
     if rope_theta:
-        q, k = _apply_rope(q, k, rope_q, rope_k, rope_theta)
+        qf, kf = _apply_rope(qf, kf, rope_q, rope_k, rope_theta)
+    if bf16:  # the operands the tensor cores take
+        qf, kf = qf.bfloat16().float(), kf.bfloat16().float()
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
-    kf, vf = k.float(), v.float()
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     for s0 in range(0, Sq, TWIN_BLOCK_Q):
         s1 = min(s0 + TWIN_BLOCK_Q, Sq)
-        qb = (q[:, s0:s1].float() * scale).reshape(B, s1 - s0, Hkv, G, D)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf)
+        qb = qf[:, s0:s1].reshape(B, s1 - s0, Hkv, G, D)
+        if bf16:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * scale
+        else:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb * scale, kf)
         sq = seg_q[:, s0:s1, None]
         mask = (sq == seg_k[:, None, :]) & (sq != 0)
         if causal:
@@ -80,7 +97,11 @@ def flash_attention_fwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, *,
         e = torch.exp(s - m)
         l = e.sum(dim=-1, keepdim=True)
         l_safe = torch.where(l > 0, l, 1.0)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", e / l_safe, vf)
+        if bf16:  # P rounded for the PV product, l from the fp32 e
+            o = torch.einsum("bhgqk,bkhd->bqhgd", e.bfloat16().float(),
+                             vf) / l_safe.permute(0, 3, 1, 2, 4)
+        else:
+            o = torch.einsum("bhgqk,bkhd->bqhgd", e / l_safe, vf)
         out[:, s0:s1] = o.reshape(B, s1 - s0, Hq, D).to(q.dtype)
         lse[:, :, s0:s1] = torch.where(l > 0, m + torch.log(l_safe),
                                        NEG_INF).reshape(B, Hq, s1 - s0)

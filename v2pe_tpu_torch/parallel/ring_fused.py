@@ -14,9 +14,11 @@ half-chunk branches, so the forward needs no schedule and reads nothing
 back from the card.
 
 The kernel reaches the chunks through a table of ``n`` base pointers per
-operand, built on the device. With every shard on one card the entries
-point into the global k, v, segment-id and position tensors; what a ring
-over several cards changes is what is written into the table.
+operand, built on the device; in bf16 its TMA loads of k and v go through a
+tensor map of each chunk, encoded on the host from the same addresses (so
+at most 8 ranks in bf16). With every shard on one card the addresses point
+into the global k, v, segment-id and position tensors; what a ring over
+several cards changes is which addresses are written.
 
 The backward is the scan ring's second pass (the lse contract is the same),
 so ``fused_ring_attention`` is a drop-in forward upgrade of
@@ -40,6 +42,7 @@ from v2pe_tpu_torch.parallel import ring as _ring
 from v2pe_tpu_torch.parallel.ring import RingStatics
 
 HEAD_DIMS = (16, 32, 64, 128)
+MAX_BF16_RANKS = 8  # csrc/ring_fused_fwd.cu MAX_TC_RANKS
 
 # Kernel launches since the last reset: the smoke run zeroes it, drives a
 # sequence-parallel path, and reads how often that path went through the
@@ -77,6 +80,10 @@ def _check(n: int, q, k, v, seg_q, seg_k, pos_q, pos_k):
     if D not in HEAD_DIMS:
         raise ValueError(f"fused ring kernel takes head dim {HEAD_DIMS}, "
                          f"got {D}")
+    if q.dtype == torch.bfloat16 and n > MAX_BF16_RANKS:
+        raise ValueError(f"fused ring kernel takes at most {MAX_BF16_RANKS} "
+                         f"ranks in bf16 (a tensor map of each chunk is a "
+                         f"kernel parameter), got {n}")
     if k.ndim != 4 or k.shape != v.shape or k.shape[0] != B \
             or k.shape[3] != D or Hq % k.shape[2] != 0:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
@@ -132,10 +139,15 @@ def fused_ring_fwd(n: int, q, k, v, seg_q, seg_k, pos_q, pos_k, *,
     # referenced until the function returns; the launch is ordered before
     # any reuse of its memory on this stream
     table = chunk_pointer_table(n, k, v, seg_k, pos_k)
+    # the same k and v chunk addresses on the host, for the bf16 tile's
+    # tensor maps
+    k_chunks, v_chunks = ((ctypes.c_longlong * n)(*(
+        t.data_ptr() + r * (S // n) * t[0, 0].numel() * t.element_size()
+        for r in range(n))) for t in (k, v))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.v2pe_ring_fused_fwd(
-        _ptr(q), _ptr(seg_q), _ptr(pos_q), _ptr(table), _ptr(out), _ptr(lse),
-        B, n, S // n, Hq, Hkv, D, S * Hkv * D, S,
+        _ptr(q), _ptr(seg_q), _ptr(pos_q), _ptr(table), k_chunks, v_chunks,
+        _ptr(out), _ptr(lse), B, n, S // n, Hq, Hkv, D, S * Hkv * D, S,
         int(q.dtype == torch.bfloat16), int(causal), float(scale),
         ctypes.c_void_p(stream))
     if err != 0:
