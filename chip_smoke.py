@@ -8,7 +8,8 @@ once on one CUDA card.
     python3 chip_smoke.py --profile-train  # only a torch.profiler breakdown
                                            # of one full-width train step
     python3 chip_smoke.py --probe          # only a quick check and times of
-                                           # the forward flash tile
+                                           # the flash tiles (backward and
+                                           # forward)
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -69,7 +70,10 @@ quantized-product kernels against their plain
 versions (the head at M = 1 and 3, each layer product at M = 3, wqkv and
 w2 at the 2167-row prefill; bf16 and fp32 x) and the two flash-backward kernels against their twin at
 the training path's forms (the 8192-token packed LLM, 8 ViT tiles, a
-ragged fp32 form). A small fp32 model on the card against the same model
+ragged fp32 form; bf16 both on fp32 copies and on the same bf16 inputs with
+the kernels' rounding points), then at 24 seeded random forms (head dims,
+GQA ratios, zigzag rectangles, ragged tails, padding rows, bf16 and fp32).
+A small fp32 model on the card against the same model
 on the CPU (the kernels against their twins: a packed forward, then the
 paged path with identical tokens, then one train step and a checkpoint
 resume; then 2-layer int8 and int4 models; then a 2-row engine that must
@@ -1805,6 +1809,13 @@ def phase_beam(chat, cfg) -> None:
 
 BWD_TOL = {torch.bfloat16: 2.0 ** -7, torch.float32: 1e-4}  # max|kernel -
 # twin| / max|twin| of each of dq, dk, dv; the twin computes in fp32
+BWD_SAME_TOL = 2.0 ** -8  # the bf16 kernels against the twin on the same
+# bf16 inputs with the same rounding points (p to bf16 for dV, ds for dK and
+# dQ), taken before the twin's last rounding: both multiply the same bf16
+# operands and differ by the order of the fp32 sums (where that moves a p or
+# ds across a bf16 rounding boundary, one term of a sum of many moves by a
+# bf16 step: ~1e-5 of the range), then the kernel rounds its output once to
+# bf16, by at most half a bf16 step, which is below 2^-8 of the range
 BWD_KERNELS = ("flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -1853,7 +1864,8 @@ def bwd_forms(device, packed: dict):
 
 def device_ms_by_kernel(fn, names) -> dict:
     """Device time of one call of ``fn`` per kernel whose name contains
-    each of ``names`` (torch.profiler's kernel events), in ms."""
+    each of ``names`` (torch.profiler's kernel events), in ms; raises when
+    a name matched no time, so that no record shows 0 ms."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1862,8 +1874,57 @@ def device_ms_by_kernel(fn, names) -> dict:
         fn()
         torch.cuda.synchronize()
     ev = prof.key_averages()
-    return {n: sum(e.self_device_time_total for e in ev if n in e.key) / 1e3
-            for n in names}
+    ms = {n: sum(e.self_device_time_total for e in ev if n in e.key) / 1e3
+          for n in names}
+    if not all(t > 0 for t in ms.values()):
+        raise AssertionError(f"no device time for a kernel: {ms} among "
+                             f"{sorted({e.key for e in ev})}")
+    return ms
+
+
+def _grad_rel(a, b) -> float:
+    """max|a - b| / max|b| (0 where both are 0: a form where nothing
+    attends has zero gradients)."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def check_bwd(full, kw, got) -> tuple:
+    """The backward kernels' (dq, dk, dv) ``got`` on ``full`` = (q, k, v,
+    ids..., out, lse, do) against the twin: on fp32 copies of the inputs
+    (BWD_TOL, the Pallas kernels' fp32 arithmetic) and, for bf16 inputs,
+    on the same bf16 inputs with the kernels' rounding points
+    (BWD_SAME_TOL): there the kernels run again on q and k rotated as the
+    wrapper rotates them, so that only the kernels' arithmetic is held.
+    Returns the text, whether every error is within its limit, the largest
+    absolute error on fp32 copies, and the largest relative one."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+
+    up = lambda ts: [t.float() if t.is_floating_point() else t for t in ts]
+    want = flash_bwd.flash_attention_bwd_torch(*up(full), **kw)
+    rels = [_grad_rel(a, b) for a, b in zip(got, want)]
+    errs = [(a.float() - b).abs().max().item() for a, b in zip(got, want)]
+    tol = BWD_TOL[full[0].dtype]
+    ok = all(bool(torch.isfinite(t).all()) for t in got) and max(rels) <= tol
+    text = (f"max|d-twin|/max|twin| dq {rels[0]:.3e} dk {rels[1]:.3e} dv "
+            f"{rels[2]:.3e} (tol {tol:.3e})")
+    del want
+    if full[0].dtype == torch.bfloat16:
+        full, kw = list(full), dict(kw)
+        theta = kw.pop("rope_theta", 0.0)
+        rope_q, rope_k = kw.pop("rope_q", None), kw.pop("rope_k", None)
+        if theta:
+            full[0], full[1] = flash_fwd._apply_rope(full[0], full[1],
+                                                     rope_q, rope_k, theta)
+        same = [_grad_rel(a, b) for a, b in zip(
+            flash_bwd.flash_attention_bwd(*full, **kw),
+            flash_bwd.flash_attention_bwd_torch(
+                *up(full), rounding=torch.bfloat16, **kw))]
+        ok = ok and max(same) <= BWD_SAME_TOL
+        text += (f"; same bf16 inputs dq {same[0]:.3e} dk {same[1]:.3e} dv "
+                 f"{same[2]:.3e} (tol {BWD_SAME_TOL:.3e})")
+        rels += same
+    return text, ok, max(errs), max(rels)
 
 
 def sdpa_backward_ms(q, k, v, do, causal: bool, scale: float):
@@ -1897,12 +1958,7 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
         full = (*args, out, lse, do)
         got = flash_bwd.flash_attention_bwd(*full, **kw)
         torch.cuda.synchronize()
-        up = [a.float() if a.is_floating_point() else a for a in full]
-        want = flash_bwd.flash_attention_bwd_torch(*up, **kw)
-        rels = [((a.float() - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(got, want)]
-        errs = [(a.float() - b).abs().max().item() for a, b in zip(got, want)]
-        tol = BWD_TOL[args[0].dtype]
+        text, ok, err, rel = check_bwd(full, kw, got)
         ms = time_ms(lambda: flash_bwd.flash_attention_bwd(*full, **kw),
                      iters=3)
         split = device_ms_by_kernel(
@@ -1920,8 +1976,14 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
                                            got[0])}
         lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"]) \
             if name.startswith("vit_tiles") and device == "cuda" else None
-        log(f"kernel bwd {name}: max|d-twin|/max|twin| dq {rels[0]:.3e} "
-            f"dk {rels[1]:.3e} dv {rels[2]:.3e} (tol {tol:.3e}); dkv "
+        if name.startswith("llm_packed") and device == "cuda":
+            # a yardstick only: the library cannot mask segments, so it
+            # runs the whole row as one causal sequence (more pairs)
+            one = sdpa_backward_ms(q, k, v, do, True, kw["scale"])
+            log(f"    the backward of scaled_dot_product_attention on the "
+                f"same shapes as one causal sequence: "
+                f"{'none' if one is None else f'{one:.3f} ms'}")
+        log(f"kernel bwd {name}: {text}; dkv "
             f"{split['flash_bwd_dkv_kernel']:.3f} ms + dq "
             f"{split['flash_bwd_dq_kernel']:.3f} ms on the device, wrapper "
             f"{ms:.3f} ms, twin {plain_ms:.3f} ms; bound dkv "
@@ -1930,19 +1992,115 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
             f"{bounds['flash_bwd_dq']['bound_by']}; library (the backward "
             f"of scaled_dot_product_attention, dq, dk and dv together) "
             f"{'none' if lib is None else f'{lib:.3f} ms'}")
-        ok = all(torch.isfinite(t).all() for t in got) and max(rels) <= tol
         if not ok:
             raise AssertionError(f"flash backward disagrees with twin at "
                                  f"{name}")
         for n in BWD_KERNELS:
-            records[n].append(dict(form=name, max_abs_err=max(errs),
-                                   max_rel_err=max(rels),
+            records[n].append(dict(form=name, max_abs_err=err,
+                                   max_rel_err=rel,
                                    ms=split[n + "_kernel"],
                                    plain_ms=plain_ms, **bounds[n],
                                    library_ms=lib,
                                    main=name.startswith("vit_tiles")))
-        del got, want, full, up
+        del got, full
     torch.cuda.empty_cache()
+    return records
+
+
+BWD_SWEEP_FORMS = 24  # seeded random forms of the flash backward
+
+
+def bwd_sweep_form(rng, device):
+    """(name, args, kwargs) of one random form of the flash backward: head
+    dim 64 or 128, GQA ratio 1, 2 or 4; positions in order, or zigzag as the
+    ring cuts them (a rank's two chunks of 2 W chunks, or one of them, for
+    queries and keys of two ranks: Sq and Sk may differ); 1-3 segments cut
+    at random with a ragged padded tail, at times a batch row of padding;
+    causal or not; bf16 or fp32."""
+    D, G = int(rng.choice([64, 128])), int(rng.choice([1, 2, 4]))
+    Hkv, B = int(rng.integers(1, 3)), int(rng.integers(1, 3))
+    causal, dtype = bool(rng.integers(2)), \
+        [torch.bfloat16, torch.float32][int(rng.integers(2))]
+    zigzag = rng.random() < 0.5
+    if zigzag:  # a rectangle of a ring of W ranks over 2 W chunks of c
+        W, c = int(rng.integers(2, 5)), int(rng.integers(20, 200))
+        chunks = np.arange(2 * W * c).reshape(2 * W, c)
+
+        def rank_rows(half):
+            r = int(rng.integers(W))
+            two = [chunks[r], chunks[2 * W - 1 - r]]
+            return two[half] if half is not None else np.concatenate(two)
+
+        pick = lambda: [None, 0, 1][int(rng.integers(3))]
+        pq, pk = rank_rows(pick()), rank_rows(pick())
+        Sq, Sk = len(pq), len(pk)
+        pos_q, pos_k = (np.broadcast_to(p, (B, len(p))).copy()
+                        for p in (pq, pk))
+    else:
+        Sq = int(rng.integers(1, 600))
+        Sk = Sq if rng.random() < 0.5 else int(rng.integers(1, 700))
+        pos_q = np.broadcast_to(np.arange(Sq) + max(Sk - Sq, 0),
+                                (B, Sq)).copy()
+        pos_k = np.broadcast_to(np.arange(Sk), (B, Sk)).copy()
+
+    # 1-3 segments cut at the same positions for queries and keys
+    cuts = np.sort(rng.integers(0, max(pos_q.max(), pos_k.max()) + 2,
+                                int(rng.integers(0, 3))))
+
+    def segments(pos):
+        seg = (np.searchsorted(cuts, pos, side="right") + 1).astype(np.int32)
+        S = pos.shape[1]
+        seg[:, S - int(rng.integers(0, max(S // 4, 1))):] = 0  # ragged tail
+        return seg
+
+    seg_q = segments(pos_q)
+    seg_k = segments(pos_k)
+    if B > 1 and rng.random() < 0.5:
+        seg_q[int(rng.integers(B))] = 0  # a row of padding
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device, dtype)
+    i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
+        device)
+    args = (x(B, Sq, Hkv * G, D), x(B, Sk, Hkv, D), x(B, Sk, Hkv, D),
+            i32(seg_q), i32(seg_k), i32(pos_q), i32(pos_k))
+    name = (f"B{B}_{Sq}x{Sk}_{Hkv * G}/{Hkv}x{D}_"
+            f"{'causal' if causal else 'bidir'}_"
+            f"{'zigzag' if zigzag else 'ordered'}_"
+            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}")
+    return name, args, dict(causal=causal, scale=D ** -0.5)
+
+
+def phase_bwd_sweep(device: str = "cuda") -> dict:
+    """The two backward kernels at BWD_SWEEP_FORMS seeded random forms
+    (bwd_sweep_form), out and lse from the forward kernel, each held as
+    phase_bwd_kernels holds its forms (check_bwd); one line with the count
+    and the largest errors. Returns form records per kernel."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    records = {n: [] for n in BWD_KERNELS}
+    worst = {torch.bfloat16: (0.0, ""), torch.float32: (0.0, "")}
+    for _ in range(BWD_SWEEP_FORMS):
+        name, args, kw = bwd_sweep_form(rng, device)
+        out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+        do = torch.from_numpy(rng.standard_normal(out.shape).astype(
+            np.float32)).to(out)
+        full = (*args, out, lse, do)
+        text, ok, err, rel = check_bwd(
+            full, kw, flash_bwd.flash_attention_bwd(*full, **kw))
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with twin at "
+                                 f"sweep {name}: {text}")
+        worst[args[0].dtype] = max(worst[args[0].dtype], (rel, name))
+        for n in BWD_KERNELS:
+            records[n].append(dict(form=f"sweep_{name}", max_abs_err=err,
+                                   main=False))
+    log(f"kernel bwd sweep: {BWD_SWEEP_FORMS} seeded random forms within "
+        f"their limits; largest relative error bf16 "
+        f"{worst[torch.bfloat16][0]:.3e} at {worst[torch.bfloat16][1]}, "
+        f"fp32 {worst[torch.float32][0]:.3e} at "
+        f"{worst[torch.float32][1]}; {time.perf_counter() - t0:.1f} s")
     return records
 
 
@@ -2658,8 +2816,6 @@ def ring_rectangles(name, world, zz, kw, grads=None) -> dict:
     for r, c in itertools.product(range(world), repeat=2):
         if schedule[r][c]:
             first.setdefault(schedule[r][c], (r, c))
-    dtype = zz[0].dtype
-    up = lambda ts: [t.float() if t.is_floating_point() else t for t in ts]
     records = {"flash_fwd": [], **{n: [] for n in BWD_KERNELS}}
     for branch, (r, c) in sorted(first.items()):
         qr, kr = ring._rectangle(branch, r, c, shard_len)
@@ -2675,20 +2831,14 @@ def ring_rectangles(name, world, zz, kw, grads=None) -> dict:
         if grads is not None:
             full = (*args, ring._rows(grads[0], qr),
                     ring._rows(grads[1], qr, axis=2), ring._rows(grads[2], qr))
-            got = flash_bwd.flash_attention_bwd(*full, **kw)
-            want = flash_bwd.flash_attention_bwd_torch(*up(full), **kw)
-            rels = [((a.float() - b).abs().max() / b.abs().max()).item()
-                    for a, b in zip(got, want)]
-            errs = [(a.float() - b).abs().max().item()
-                    for a, b in zip(got, want)]
-            msg = (f"; backward max|d-twin|/max|twin| dq {rels[0]:.3e} dk "
-                   f"{rels[1]:.3e} dv {rels[2]:.3e} (tol {BWD_TOL[dtype]:.3e})")
-            ok = ok and all(torch.isfinite(t).all() for t in got) \
-                and max(rels) <= BWD_TOL[dtype]
+            btext, bok, berr, brel = check_bwd(
+                full, kw, flash_bwd.flash_attention_bwd(*full, **kw))
+            msg = f"; backward {btext}"
+            ok = ok and bok
             for n in BWD_KERNELS:
-                records[n].append(dict(form=form, max_abs_err=max(errs),
-                                       max_rel_err=max(rels), main=False))
-            del got, want, full
+                records[n].append(dict(form=form, max_abs_err=berr,
+                                       max_rel_err=brel, main=False))
+            del full
         log(f"kernel ring rectangle {form} (rank {r} x chunk {c}): forward "
             f"{text}{msg}")
         if not ok:
@@ -3404,23 +3554,31 @@ def profile_host_reads(chat, cfg) -> None:
 
 
 def probe_flash(device: str = "cuda") -> None:
-    """``--probe``: a short first call for a changed forward tile. The
-    compiler's registers and spills of the two forward sources, the flash
+    """``--probe``: a short first call for a changed flash tile. The
+    compiler's registers and spills of the forward and backward sources;
+    the two backward kernels against their twin at the sweep's random forms
+    and at phase 2c's forms (on a synthetic packed row of PACKED_LEN tokens
+    in three segments), each timed beside the library's backward; the flash
     forward against its twin at the sweep's random forms, the fused ring
     against its plain version at every head dim it takes, then both timed
     at their main forms beside scaled_dot_product_attention."""
     from v2pe_tpu_torch.ops import _build, flash_fwd
     from v2pe_tpu_torch.parallel import ring_fused
 
-    for src in ("flash_fwd.cu", "ring_fused_fwd.cu"):
+    for src in ("flash_bwd.cu", "flash_fwd.cu", "ring_fused_fwd.cu"):
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
              "/dev/null", f"{_build.CSRC}/{src}"], capture_output=True,
             text=True)
         for line in (proc.stdout + proc.stderr).splitlines():
             if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
+                    or "spill" in line or "wgmma" in line:
                 log(f"probe {src}: {line.strip()}")
+    phase_bwd_sweep(device)
+    seg = torch.ones(1, PACKED_LEN, dtype=torch.int32)
+    seg[:, PACKED_LEN // 3:], seg[:, 2 * PACKED_LEN // 3:] = 2, 3
+    phase_bwd_kernels({"segment_ids": seg, "rope_pos_ids": torch.arange(
+        PACKED_LEN, dtype=torch.float32)[None]}, device)
     phase_flash_sweep(device)
     g = torch.Generator(device="cpu").manual_seed(3)
     rn = lambda *shape: torch.randn(*shape, generator=g).to(
@@ -3503,8 +3661,9 @@ def main(argv=None) -> int:
                     help="only profile one full-width train step with "
                     "torch.profiler; no result line")
     ap.add_argument("--probe", action="store_true",
-                    help="only check and time the forward flash tile "
-                    "(#1, #11) at a few forms; no result line")
+                    help="only check and time the flash tiles (the "
+                    "backward #2-#3, the forward #1, #11) at a few forms; "
+                    "no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3543,12 +3702,13 @@ def main(argv=None) -> int:
     batch = packed_batch(chat, PACKED_LEN, "cuda")
     prompt_lens = prompt_lengths(chat)
     forms = {"flash_fwd": phase_kernels(prompt_lens, batch)
-             + phase_flash_sweep(),
-             **phase_bwd_kernels(batch), **phase_paged_kernels(prompt_lens),
-             **phase_quant_kernels(cfg)}
-    # the ring: the fused forward's forms, and the flash kernels' forms at
-    # the rectangles the ring cuts
-    for recs in (phase_ring_kernel(), phase_ring_bwd()):
+             + phase_flash_sweep(), **phase_bwd_kernels(batch)}
+    # the backward's random forms, the paged and quantized kernels, the
+    # ring: the fused forward's forms, and the flash kernels' forms at the
+    # rectangles the ring cuts
+    for recs in (phase_bwd_sweep(), phase_paged_kernels(prompt_lens),
+                 phase_quant_kernels(cfg), phase_ring_kernel(),
+                 phase_ring_bwd()):
         for name, more in recs.items():
             forms.setdefault(name, []).extend(more)
     phase_small_reference()

@@ -203,3 +203,107 @@ def test_unsupported_device_raises():
     with pytest.raises(ValueError, match="no flash backward kernel"):
         flash_bwd.flash_attention_bwd(t, t, t, ids, ids, ids, ids, t, lse, t,
                                       causal=True, scale=0.125)
+
+
+# ------------------------------------------------ bf16: the tensor cores' rounding
+
+BF16_REL = 2.0 ** -7  # max|d| / max|reference| of each gradient, as the card's
+# check of the bf16 kernels against the fp32 plain version (chip_smoke.BWD_TOL)
+
+
+def _bf16_valued(a):
+    return torch.from_numpy(np.array(a, np.float32)).bfloat16().float() \
+        .numpy()
+
+
+def _bf16_case(name):
+    """_case with q, k, v and do rounded to bf16 values, and out and lse
+    from the jnp forward on those values (out rounded to bf16 as well)."""
+    statics, args, rope_q, rope_k = _case(name)
+    q, k, v, seg, seg_k, pos_q, pos_k, _, _, do = args
+    q, k, v, do = (_bf16_valued(a) for a in (q, k, v, do))
+    out, lse = jattn._fwd_dispatch(
+        statics, *map(jnp.asarray, (q, k, v, seg, seg_k, pos_q, pos_k)),
+        _opt(rope_q), _opt(rope_k))
+    return statics, (q, k, v, seg, seg_k, pos_q, pos_k,
+                     _bf16_valued(np.asarray(out)), np.asarray(lse), do), \
+        rope_q, rope_k
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_bwd_bf16_twin_matches_pallas_interpret(name):
+    """The bf16 plain version (p and ds rounded to bf16 where the tensor
+    cores take them, bf16 outputs) against the Pallas kernels in fp32 on
+    the same bf16-valued inputs: within the limit the card holds the bf16
+    kernels to against the fp32 plain version."""
+    statics, args, rope_q, rope_k = _bf16_case(name)
+    want = flash_attention_bwd_pallas(
+        *map(jnp.asarray, args), causal=statics.causal, scale=statics.scale,
+        block_q=64, block_k=64, ordered=False, interpret=True,
+        rope_q=_opt(rope_q), rope_k=_opt(rope_k),
+        rope_theta=statics.rope_theta)
+    t = [torch.from_numpy(np.array(a)) for a in args]
+    for i in (0, 1, 2, 7, 9):  # q, k, v, out, do
+        t[i] = t[i].bfloat16()
+    got = _torch_bwd(statics, rope_q, rope_k)(*t)
+    for name_g, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w, np.float64)
+        rel = np.abs(g.double().numpy() - w).max() / np.abs(w).max()
+        assert rel <= BF16_REL, (name_g, rel)
+
+
+def test_bwd_bf16_twin_rounds_p_and_ds_only():
+    """On a tiny form the bf16 plain version is a hand-written fp32
+    backward with p rounded to bf16 for dV and ds for dK and dQ, nothing
+    else rounded (``rounding=torch.bfloat16`` on fp32 copies gives it
+    before the outputs' rounding); on the bf16 inputs themselves it is that
+    result rounded once to bf16."""
+    rng = np.random.default_rng(11)
+    B, S, Hq, Hkv, D, scale = 1, 12, 2, 1, 64, 64 ** -0.5
+    r = lambda *shape: _bf16_valued(rng.standard_normal(shape))
+    q, k, v, do = r(B, S, Hq, D), r(B, S, Hkv, D), r(B, S, Hkv, D), \
+        r(B, S, Hq, D)
+    seg = np.array([[1] * 7 + [2] * 4 + [0]], np.int32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    out, lse = jattn._fwd_dispatch(
+        jattn.AttnStatics(causal=True, scale=scale, block_q=64, block_k=64,
+                          impl="jnp", ordered=False),
+        *map(jnp.asarray, (q, k, v, seg, seg, pos, pos)), None, None)
+    out, lse = _bf16_valued(np.asarray(out)), np.asarray(lse)
+    t = lambda a: torch.from_numpy(np.array(a))
+    qf, kf, vf, dof, outf, lsef = map(t, (q, k, v, do, out, lse))
+    segt, post = t(seg), t(pos)
+
+    bf = lambda x: x.bfloat16().float()
+    mask = (segt[0, :, None] == segt[0, None, :]) & (segt[0, :, None] != 0) \
+        & (post[0, :, None] >= post[0, None, :])
+    di = (outf * dof).sum(-1)[0]  # (S, Hq)
+    dq = torch.zeros(S, Hq, D)
+    dk, dv = torch.zeros(S, D), torch.zeros(S, D)
+    for h in range(Hq):
+        s = (qf[0, :, h] @ kf[0, :, 0].T) * scale
+        p = torch.where(mask, torch.exp(s - lsef[0, h][:, None]), 0.0)
+        dv += bf(p).T @ dof[0, :, h]
+        ds = bf(p * (dof[0, :, h] @ vf[0, :, 0].T - di[:, h][:, None]))
+        dk += ds.T @ qf[0, :, h]
+        dq[:, h] = (ds @ kf[0, :, 0]) * scale
+    want = (dq[None], (dk * scale)[None, :, None], dv[None, :, None])
+
+    args = (segt, segt, post, post)
+    got = flash_bwd.flash_attention_bwd_torch(
+        qf, kf, vf, *args, outf, lsef, dof, causal=True, scale=scale,
+        rounding=torch.bfloat16)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+    exact = flash_bwd.flash_attention_bwd_torch(
+        qf, kf, vf, *args, outf, lsef, dof, causal=True, scale=scale)
+    assert max(((e - w).abs().max() / w.abs().max()).item()
+               for e, w in zip(exact, want)) > 1e-4  # the roundings show
+    in_bf16 = flash_bwd.flash_attention_bwd_torch(
+        qf.bfloat16(), kf.bfloat16(), vf.bfloat16(), *args, outf.bfloat16(),
+        lsef, dof.bfloat16(), causal=True, scale=scale)
+    for g, w in zip(in_bf16, got):
+        assert g.dtype == torch.bfloat16
+        assert torch.equal(g, w.bfloat16())

@@ -456,3 +456,24 @@ def test_teacher_forced_inputs_and_predictions_equal(seq_shards,
     np.testing.assert_array_equal(
         tniah.extract_answer_prediction(logits, got),
         jniah.extract_answer_prediction(logits, want))
+
+
+def test_chip_ablate_imports_only_the_port_and_its_edits_apply(tmp_path,
+                                                               monkeypatch):
+    """chip_ablate.py, which times variants of the flash backward's source
+    on the card, imports as chip_smoke.py does (nothing of jax or the JAX
+    package), and every edit it names applies to the sources as they are."""
+    proc = subprocess.run(
+        [sys.executable, "-c", BLOCKED_IMPORT, "chip_ablate"],
+        capture_output=True, text=True, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_ablate
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(chip_ablate, "OUT", str(tmp_path))
+    for name, edits in chip_ablate.VARIANTS.items():
+        d = pathlib.Path(chip_ablate.write_variant(name))
+        for where, _, new in edits:
+            assert new in (d / where).read_text(), (name, where)

@@ -590,3 +590,21 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
                 ["--llm_arch", "qwen2"], ["--model_name_or_path", "ckpt"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + bad)
+
+
+def test_cli_without_platform_needs_a_cuda_device(tmp_path, monkeypatch):
+    """With no --platform the CLI trains on the CUDA card: where there is
+    none it raises, naming --platform cpu, before anything is built or
+    written (it never falls back to the CPU by itself)."""
+    from v2pe_tpu_torch.train import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="--platform cpu"):
+        cli.main(["--model_preset", "debug_tiny", "--tokenizer",
+                  str(tmp_path / "tok"), "--meta_path",
+                  str(tmp_path / "meta.json"), "--output_dir", str(out),
+                  "--max_steps", "1"])
+    assert not out.exists()
+    assert cli.build_argparser().parse_args(
+        ["--tokenizer", "t", "--meta_path", "m"]).platform == "cuda"

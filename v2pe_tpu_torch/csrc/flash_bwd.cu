@@ -2,7 +2,8 @@
 //
 // Replaces the two Pallas TPU kernels of v2pe_tpu/ops/flash_pallas_bwd.py
 // (wrapper flash_attention_bwd_pallas): _dkv_kernel, by flash_bwd_dkv_kernel
-// below, and _dq_kernel, by flash_bwd_dq_kernel. Same contract as the
+// (fp32) and flash_bwd_dkv_kernel_tc (bf16) below, and _dq_kernel, by
+// flash_bwd_dq_kernel and flash_bwd_dq_kernel_tc. Same contract as the
 // forward (csrc/flash_fwd.cu): q/do (B,Sq,Hq,D), k/v (B,Sk,Hkv,D), q head h
 // reads kv head h / (Hq/Hkv); a query attends a key iff both carry the same
 // nonzero segment id and, if causal, pos_q >= pos_k. Probabilities are
@@ -14,52 +15,78 @@
 // the input dtype. The rotary is applied by the wrapper (in torch) before
 // these kernels run, so they see rotated q and k.
 //
-// Design. The TPU kernels walk a sequential grid axis and carry their
-// accumulators in VMEM scratch. Here:
-// - dkv: one thread block owns one (batch row, kv head, 64-key tile) and
-//   loops itself over the G query heads of the group and every 64-row query
-//   tile; dk and dv accumulate in registers (4 key rows x D/16 columns per
-//   thread, each) and are written once, with no atomics.
-// - dq: one thread block owns one (batch row, q head, 64-query tile) and
-//   loops over the key tiles, dq in registers.
-// Tiles are staged in shared memory as fp32; the 64x64 products (q k^T,
-// do v^T) and the accumulations are fp32 FMAs from shared memory. A tile
-// pair is skipped, without loading q/do or k/v, when the min/max of its
-// segment ids and positions show that no query can attend any key (this
-// also skips the causal upper triangle for any positions, not only arange).
-// A pair whose queries and keys all share one nonzero segment, and where
-// (causal) every query comes at or after every key, is "full" and skips the
-// element mask. The mask SELECTS p (never multiplies it): a row that attends
-// nothing has lse = -1e30, where exp(s - lse) overflows to inf, and 0 * inf
-// would put NaN into ds. A full pair has no such row (padding is segment 0,
-// and partial tiles at the sequence end are never full).
+// Both dtypes: dkv is one thread block per (batch row, kv head, 64-key
+// tile) that walks the G query heads of the group and every 64-row query
+// tile, dk and dv in registers, written once with no atomics (the Pallas
+// kernel's scratch accumulator); dq is one block per (batch row, q head,
+// 64-query tile) that walks the key tiles, dq in registers. A tile pair is
+// skipped before q/do or k/v is loaded when the min/max of its segment ids
+// and positions show that no query can attend any key (this also skips the
+// causal upper triangle for any positions, not only arange). A pair whose
+// queries and keys all share one nonzero segment, and where (causal) every
+// query comes at or after every key, is FULL and skips the element mask.
+// The mask SELECTS p (never multiplies it): a row that attends nothing has
+// lse = -1e30, where exp(s - lse) overflows to inf, and 0 * inf would put
+// NaN into ds. A FULL pair has no such row (padding is segment 0, and a
+// tile cut by the sequence end is never FULL on the walked side).
 //
-// What bounds it. Like the forward, plain fp32 FMAs fed from shared memory:
-// the CUDA cores and shared-memory bandwidth, far below the tensor cores'
-// bf16 rate, with one 256-thread block per SM at D = 128 (~165 KB of shared
-// memory). Right and simple first: wgmma with TMA-fed tiles is the work of
-// a later change.
+// bf16: the tensor-core kernels, on the machinery of flash_tile.cuh (the
+// forward's): one consumer warpgroup and one producer warp, 160 threads. The
+// block's own tile pair is staged once by all threads (dq: Q and dO; dkv: K
+// and V), swizzled for wgmma; the producer walks the other side's 64-row
+// tiles with flash_tile.cuh's one walk (tc::produce; for dkv turned round,
+// over the query tiles of the G heads, each with its 64 rows of lse and di),
+// skips the dead ones, and feeds the live ones by TMA (tensor maps of k/v,
+// or of q/do, viewed as (H*D, S, B)) through the 2-stage full/empty
+// mbarrier ring, each marked FULL or BOUNDARY. Per live tile the consumers
+// run, all by wgmma with fp32 accumulators:
+//   dq:  S = Q K^T and dP = dO V^T (both operands from shared memory,
+//        K-major, issued together), p and ds on the fragments, then
+//        dQ += bf16(ds) K with ds as the A operand from registers and K
+//        read through the descriptor's transpose bit;
+//   dkv: S^T = K Q^T and dP^T = V dO^T, p^T and ds^T on the fragments, then
+//        dV += bf16(p^T) dO and dK += bf16(ds^T) Q the same way.
+// The rounding points: bf16 operands, p rounded to bf16 for dV only, ds for
+// dK and dQ only; s, dP, p for ds, ds and every accumulator stay fp32; the
+// scale multiplies the fp32 scores and the final dK and dQ. The exponential
+// is the special function unit's ex2.approx (relative error ~2^-22). dq
+// launches the last (heaviest causal) query tiles first, dkv the first key
+// tiles (which every later query attends). Registers (ptxas): dkv 220 at D
+// 128 (dK and dV are 128 fp32 a thread beside the two score fragments), so
+// one block an SM with up to 255; dkv 156 at D 64 and dq 154 / 122 run two
+// or three blocks an SM, where one's elementwise step overlaps the others'
+// products. Nothing spills.
+//
+// What bounds it: the tensor cores' bf16 rate in principle (dkv runs four
+// 64 x 64 x D products per live tile pair, dq three, far above the card's
+// ~300 operations per byte of q, k, v and do), and it runs well below it. A
+// warpgroup waits for its own products before the elementwise step and for
+// the next products after it, so the tensor cores overlap only across the
+// blocks of an SM. Timed variants (chip_ablate.py): the loads are hidden
+// (without TMA at all: no faster); the accurate expf cost a third of the
+// time, hence ex2.approx; issuing dP's product before S's exp within a
+// warpgroup was slower (more registers, no gain); a third stage slows dq at
+// D 128 (one block an SM fewer); two dkv blocks an SM at D 128 spill and
+// take twice as long. What would come next: a second consumer warpgroup in
+// dkv at D 128 (128 keys a block, each warpgroup 64 of them, sharing every
+// Q/dO tile), and a di = rowsum(do * out) prologue fused into dq.
+//
+// fp32: the CUDA-core kernels, the exact counterpart of the Pallas kernels'
+// fp32 arithmetic: tiles staged in shared memory as fp32, the 64x64
+// products (q k^T, do v^T) and the accumulations in fp32 FMAs from shared
+// memory, bound by the CUDA cores and shared-memory bandwidth (one
+// 256-thread block per SM at D = 128, ~165 KB of shared memory).
 
-#include <climits>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 threads: thread (ty, tx) owns rows
-                              // ty + 16r and columns tx + 16c of each tile
+// BQ = BK = 64 and THREADS = 256 (16 x 16 threads: thread (ty, tx) owns rows
+// ty + 16r and columns tx + 16c of each tile) come from flash_tile.cuh.
 constexpr int LDP = BK + 1;   // row stride of the 64x64 p / ds tiles
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 struct Params {
   const void* q;
@@ -418,26 +445,333 @@ cudaError_t launch_dq(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-using LaunchFn = cudaError_t (*)(const Params&, cudaStream_t);
+// ------------------------------------------------------------------------
+// bf16: the tensor-core kernels.
+// ------------------------------------------------------------------------
 
-// The launcher for (kernel, dtype, D), or nullptr for a head dim without one.
-LaunchFn pick(bool dkv, int is_bf16, int D) {
-  LaunchFn fn = nullptr;
-  if (D == 64 && dkv && is_bf16) fn = launch_dkv<__nv_bfloat16, 64>;
-  if (D == 64 && dkv && !is_bf16) fn = launch_dkv<float, 64>;
-  if (D == 64 && !dkv && is_bf16) fn = launch_dq<__nv_bfloat16, 64>;
-  if (D == 64 && !dkv && !is_bf16) fn = launch_dq<float, 64>;
-  if (D == 128 && dkv && is_bf16) fn = launch_dkv<__nv_bfloat16, 128>;
-  if (D == 128 && dkv && !is_bf16) fn = launch_dkv<float, 128>;
-  if (D == 128 && !dkv && is_bf16) fn = launch_dq<__nv_bfloat16, 128>;
-  if (D == 128 && !dkv && !is_bf16) fn = launch_dq<float, 128>;
-  return fn;
+using bf16 = tc::bf16;
+
+// dq: Q and dO staged, K and V streamed. dkv: K and V staged, Q and dO
+// streamed with the 64 rows' lse and di.
+template <int D>
+using DqSmem = tc::Smem<D, 2>;
+template <int D>
+using DkvSmem = tc::Smem<D, 2, 2 * BQ>;
+
+struct TcParams {
+  Params p;
+  CUtensorMap amap, bmap;  // dq: k, v as (Hkv*D, Sk, B); dkv: q, do as
+                           // (Hq*D, Sq, B)
+};
+
+// d = A B^T over D, 64 x 64: A and B 64-row tiles at a and b (swizzled,
+// K-major, as staged), by m64n64k16 steps along D.
+template <int D>
+__device__ __forceinline__ void scores(float (&d)[32], uint32_t a,
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+    tc::wgmma_ss_n64(d, tc::desc(a + off, 16, 1024),
+                     tc::desc(b + off, 16, 1024), kk > 0);
+  }
 }
 
+// d += A B, 64 x D: A a 64 x 64 fragment in bf16 registers (to_a), B the
+// 64-row tile at b whose rows are the product's depth (MN-major through the
+// descriptor's transpose bit: no transposed copy). 16 rows = two 8-row
+// groups of 1024 bytes.
+template <int D>
+__device__ __forceinline__ void accumulate(float (&d)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    tc::wgmma_pv<D>(d, a[kk], tc::desc(b + kk * 2048, 8192, 1024));
+}
+
+// A 64 x 64 fp32 fragment rounded to bf16 as wgmma's A operand: columns
+// 16 kk .. 16 kk + 15 of rows r0 and r0 + 8 are registers 8 kk .. 8 kk + 7.
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
+                                     const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = tc::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+}
+
+// e^x by the special function unit's 2^x (ex2.approx, relative error about
+// 2^-22, subnormal results flushed to 0). expf's exact range reduction made
+// the exponentials a third of the kernels' time.
+__device__ __forceinline__ float exp_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// On a consumer thread's share of a 64 x 64 fragment (rows r0 and r0 + 8 of
+// the staged tile, columns 8j + 2 (t % 4) + e of the streamed one; the
+// forward's layout): s becomes p = exp(s scale - lse) where the mask lets the
+// pair through and 0 elsewhere (selected, never multiplied), dp becomes
+// ds = p (dp - di). Rows are queries (dq: lse_r, di_r per row) or, KEY_ROWS,
+// keys (dkv: lse and di per column from the stage, lse_c and di_c). The ids:
+// the rows' own, and the columns' from the stage; read only on BOUNDARY
+// tiles.
+template <bool KEY_ROWS>
+__device__ __forceinline__ void probs_ds(
+    float (&s)[32], float (&dp)[32], bool full, const int (&seg_r)[2],
+    const int (&pos_r)[2], const int* seg_c, const int* pos_c,
+    const float (&lse_r)[2], const float (&di_r)[2], const float* lse_c,
+    const float* di_c, int causal, float scale) {
+  const int cq = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + cq + e;
+      const float lse_col = KEY_ROWS ? lse_c[col] : 0.f;
+      const float di_col = KEY_ROWS ? di_c[col] : 0.f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = 4 * j + 2 * hr + e;
+        const bool ok =
+            full || (seg_r[hr] != 0 && seg_r[hr] == seg_c[col] &&
+                     (!causal || (KEY_ROWS ? pos_c[col] >= pos_r[hr]
+                                           : pos_r[hr] >= pos_c[col])));
+        const float lse = KEY_ROWS ? lse_col : lse_r[hr];
+        const float di = KEY_ROWS ? di_col : di_r[hr];
+        const float pr = ok ? exp_sfu(s[i] * scale - lse) : 0.f;
+        s[i] = pr;
+        dp[i] = pr * (dp[i] - di);
+      }
+    }
+}
+
+// Write a consumer thread's rows of a 64 x D fp32 accumulator, times mul, in
+// bf16: rows row0 + r0 and row0 + r0 + 8 (those below S) of head h of one
+// batch row's (S,H,D).
+template <int D>
+__device__ __forceinline__ void write_rows(const float (&acc)[D / 2],
+                                           float mul, bf16* out, int row0,
+                                           int S, int H, int h) {
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = row0 + r0 + 8 * hr;
+    if (s >= S) continue;
+    bf16* o = out + (static_cast<size_t>(s) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + cq) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * hr] * mul,
+                                acc[4 * j + 2 * hr + 1] * mul);
+  }
+}
+
+// dq: grid (Hq, B, query tiles), the query tile counted down so that the
+// heaviest causal tiles start first.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, 2)
+    flash_bwd_dq_kernel_tc(const __grid_constant__ TcParams tp) {
+  const Params& p = tp.p;
+  extern __shared__ uint8_t smem_raw[];
+  const DqSmem<D> sm(smem_raw);
+  const int h = blockIdx.x;
+  const size_t b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int hk = h / (p.Hq / p.Hkv);
+  const size_t qoff = b * p.Sq * p.Hq * D;
+
+  tc::stage_rows<D>(sm.fixed(1), static_cast<const bf16*>(p.dout) + qoff,
+                    nullptr, nullptr, q0, p.Sq, p.Hq, h);
+  tc::setup<D>(sm, static_cast<const bf16*>(p.q) + qoff, p.seg_q + b * p.Sq,
+               p.pos_q + b * p.Sq, nullptr, nullptr, q0, p.Sq, p.Hq, h);
+  if (threadIdx.x >= tc::CONSUMERS) {
+    const tc::QRange qr = tc::q_range<D>(sm, min(BQ, p.Sq - q0));
+    tc::Pipe pp;
+    tc::produce<D>(sm, pp, qr, &tp.amap, &tp.bmap, static_cast<int>(b),
+                   nullptr, p.seg_k + b * p.Sk, p.pos_k + b * p.Sk, nullptr,
+                   nullptr, p.Sk, p.Hkv, hk, p.causal);
+    tc::finish<D>(sm, pp);
+    return;
+  }
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);
+  const size_t vec = (b * p.Hq + h) * p.Sq;
+  int seg_r[2], pos_r[2];
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr, s = q0 + r;
+    seg_r[hr] = sm.seg_q()[r];
+    pos_r[hr] = sm.pos_q()[r];
+    lse_r[hr] = s < p.Sq ? p.lse[vec + s] : 0.f;
+    di_r[hr] = s < p.Sq ? p.di[vec + s] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t q_addr = tc::smem_u32(sm.q());
+  const uint32_t do_addr = tc::smem_u32(sm.fixed(1));
+  tc::Pipe pp;
+  while (true) {
+    tc::mbar_wait(sm.full() + pp.st, pp.ph);
+    const int kind = sm.flag()[pp.st];
+    if (kind == tc::END) break;
+    const uint32_t k_addr = tc::smem_u32(sm.k(pp.st));
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    scores<D>(s, q_addr, k_addr);
+    scores<D>(dp, do_addr, tc::smem_u32(sm.v(pp.st)));
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    probs_ds<false>(s, dp, kind == tc::FULL, seg_r, pos_r, sm.seg_k(pp.st),
+                    sm.pos_k(pp.st), lse_r, di_r, nullptr, nullptr, p.causal,
+                    p.scale);
+    uint32_t ds[4][4];
+    to_a(ds, dp);
+    tc::wgmma_fence();
+    accumulate<D>(acc, ds, k_addr);
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    tc::mbar_arrive(sm.empty() + pp.st);
+    pp.advance();
+  }
+  write_rows<D>(acc, p.scale, static_cast<bf16*>(p.dq) + qoff, q0, p.Sq,
+                p.Hq, h);
+}
+
+// dkv: grid (Hkv, B, key tiles), the key tile counted up so that the first
+// key tiles, which every later causal query attends, start first.
+template <int D>
+__global__ void __launch_bounds__(tc::THREADS, D == 64 ? 2 : 1)
+    flash_bwd_dkv_kernel_tc(const __grid_constant__ TcParams tp) {
+  const Params& p = tp.p;
+  extern __shared__ uint8_t smem_raw[];
+  const DkvSmem<D> sm(smem_raw);
+  const int hk = blockIdx.x;
+  const size_t b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;
+  const int G = p.Hq / p.Hkv;
+  const size_t koff = b * p.Sk * p.Hkv * D;
+
+  tc::stage_rows<D>(sm.fixed(1), static_cast<const bf16*>(p.v) + koff,
+                    nullptr, nullptr, k0, p.Sk, p.Hkv, hk);
+  tc::setup<D>(sm, static_cast<const bf16*>(p.k) + koff, p.seg_k + b * p.Sk,
+               p.pos_k + b * p.Sk, nullptr, nullptr, k0, p.Sk, p.Hkv, hk);
+  if (threadIdx.x >= tc::CONSUMERS) {
+    const tc::QRange kr = tc::q_range<D>(sm, min(BK, p.Sk - k0));
+    tc::Pipe pp;
+    for (int g = 0; g < G; ++g) {
+      const int h = hk * G + g;
+      const size_t vec = (b * p.Hq + h) * p.Sq;
+      tc::produce<D, true>(sm, pp, kr, &tp.amap, &tp.bmap,
+                           static_cast<int>(b), nullptr, p.seg_q + b * p.Sq,
+                           p.pos_q + b * p.Sq, nullptr, nullptr, p.Sq, p.Hq,
+                           h, p.causal, p.lse + vec, p.di + vec);
+    }
+    tc::finish<D>(sm, pp);
+    return;
+  }
+  const int t = threadIdx.x, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2);
+  const int seg_r[2] = {sm.seg_q()[r0], sm.seg_q()[r0 + 8]};
+  const int pos_r[2] = {sm.pos_q()[r0], sm.pos_q()[r0 + 8]};
+  const float none[2] = {0.f, 0.f};
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const uint32_t k_addr = tc::smem_u32(sm.q());
+  const uint32_t v_addr = tc::smem_u32(sm.fixed(1));
+  tc::Pipe pp;
+  while (true) {
+    tc::mbar_wait(sm.full() + pp.st, pp.ph);
+    const int kind = sm.flag()[pp.st];
+    if (kind == tc::END) break;
+    const uint32_t q_addr = tc::smem_u32(sm.k(pp.st));
+    const uint32_t do_addr = tc::smem_u32(sm.v(pp.st));
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    tc::wgmma_fence();
+    scores<D>(s, k_addr, q_addr);
+    scores<D>(dp, v_addr, do_addr);
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    const float* rows = sm.extra(pp.st);  // lse, then di, of the 64 queries
+    probs_ds<true>(s, dp, kind == tc::FULL, seg_r, pos_r, sm.seg_k(pp.st),
+                   sm.pos_k(pp.st), none, none, rows, rows + BQ, p.causal,
+                   p.scale);
+    uint32_t pa[4][4], da[4][4];
+    to_a(pa, s);
+    to_a(da, dp);
+    tc::wgmma_fence();
+    accumulate<D>(dv, pa, do_addr);
+    accumulate<D>(dk, da, q_addr);
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    tc::mbar_arrive(sm.empty() + pp.st);
+    pp.advance();
+  }
+  write_rows<D>(dk, p.scale, static_cast<bf16*>(p.dk) + koff, k0, p.Sk,
+                p.Hkv, hk);
+  write_rows<D>(dv, 1.f, static_cast<bf16*>(p.dv) + koff, k0, p.Sk, p.Hkv,
+                hk);
+}
+
+// Host: the tensor maps of the streamed tiles, the shared-memory size and
+// the grid.
+template <int D>
+cudaError_t launch_tc(bool dkv, const Params& p, cudaStream_t stream) {
+  TcParams tp{p, {}, {}};
+  const void* a = dkv ? p.q : p.k;
+  const void* bb = dkv ? p.dout : p.v;
+  const long long rows = dkv ? p.Sq : p.Sk;
+  const long long cols = static_cast<long long>(dkv ? p.Hq : p.Hkv) * D;
+  cudaError_t err = tc::kv_map(&tp.amap, a, cols, rows, p.B, rows * cols);
+  if (err == cudaSuccess)
+    err = tc::kv_map(&tp.bmap, bb, cols, rows, p.B, rows * cols);
+  if (err != cudaSuccess) return err;
+  if (dkv) {
+    constexpr size_t smem = DkvSmem<D>::BYTES;
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_tc<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.Hkv, p.B, (p.Sk + BK - 1) / BK);
+    flash_bwd_dkv_kernel_tc<D><<<grid, tc::THREADS, smem, stream>>>(tp);
+  } else {
+    constexpr size_t smem = DqSmem<D>::BYTES;
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel_tc<D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid(p.Hq, p.B, (p.Sq + BQ - 1) / BQ);
+    flash_bwd_dq_kernel_tc<D><<<grid, tc::THREADS, smem, stream>>>(tp);
+  }
+  return cudaGetLastError();
+}
+
+// bf16 inputs run the tensor-core kernels, fp32 inputs the CUDA-core ones.
 int run(bool dkv, const Params& p, int D, int is_bf16, void* stream) {
-  const LaunchFn fn = pick(dkv, is_bf16, D);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(fn(p, static_cast<cudaStream_t>(stream)));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (D == 64) {
+    err = is_bf16 ? launch_tc<64>(dkv, p, st)
+                  : (dkv ? launch_dkv<float, 64>(p, st)
+                         : launch_dq<float, 64>(p, st));
+  } else if (D == 128) {
+    err = is_bf16 ? launch_tc<128>(dkv, p, st)
+                  : (dkv ? launch_dkv<float, 128>(p, st)
+                         : launch_dq<float, 128>(p, st));
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace

@@ -4,7 +4,9 @@
 // another, per query tile). Both replace the loop body of a Pallas TPU
 // kernel: v2pe_tpu/ops/flash_pallas.py:_kernel and, per hop,
 // v2pe_tpu/parallel/ring_fused.py:_kernel. The operand type follows the
-// input type; there are two tiles.
+// input type; there are two tiles. The bf16 backward (flash_bwd.cu) builds
+// its own consumers on the same staging, producer walk, barriers and wgmma
+// helpers (the walk also runs over query tiles for dk/dv: WALK_Q).
 //
 // bf16 q/k/v: the tensor-core tile (namespace tc), with the rounding points
 // of the Pallas kernel's precision="bf16all": bf16 operands, fp32
@@ -584,33 +586,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The block's dynamic shared memory: the query tile, STAGES K and V tiles
-// (each 64 rows of DP bf16 columns, swizzled, 1024-byte aligned), the staged
-// ids, and the full/empty barrier pair of each stage.
-template <int D>
+// The block's dynamic shared memory: F tiles staged once (the forward: the
+// query tile), STAGES pairs of tiles that the producer streams (the forward:
+// K and V), each 64 rows of DP bf16 columns, swizzled, 1024-byte aligned;
+// per stage the streamed tiles' ids and X more 32-bit words; the staged
+// tile's ids, and the full/empty barrier pair of each stage.
+template <int D, int F = 1, int X = 0>
 struct Smem {
   static constexpr int DP = D < 64 ? 64 : D;  // stored columns (zero pad)
   static constexpr int TILE = 64 * DP * 2;    // bytes of one tile
-  static constexpr int INTS = STAGES * 2 * BK + 2 * BQ + STAGES;
+  static constexpr int SLOT = 2 * BK + X;     // 32-bit words of one stage
+  static constexpr int INTS = STAGES * SLOT + 2 * BQ + STAGES;
   static constexpr size_t BYTES =
-      1024 + TILE * (1 + 2 * STAGES) + INTS * 4 + 8 + 2 * STAGES * 8;
+      1024 + TILE * (F + 2 * STAGES) + INTS * 4 + 8 + 2 * STAGES * 8;
   uint8_t* base;
   __device__ explicit Smem(uint8_t* raw) {
     base = raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
   }
   __device__ bf16* q() const { return reinterpret_cast<bf16*>(base); }
+  __device__ bf16* fixed(int i) const {
+    return reinterpret_cast<bf16*>(base + TILE * i);
+  }
   __device__ bf16* k(int st) const {
-    return reinterpret_cast<bf16*>(base + TILE * (1 + st));
+    return reinterpret_cast<bf16*>(base + TILE * (F + st));
   }
   __device__ bf16* v(int st) const {
-    return reinterpret_cast<bf16*>(base + TILE * (1 + STAGES + st));
+    return reinterpret_cast<bf16*>(base + TILE * (F + STAGES + st));
   }
   __device__ int* ints() const {
-    return reinterpret_cast<int*>(base + TILE * (1 + 2 * STAGES));
+    return reinterpret_cast<int*>(base + TILE * (F + 2 * STAGES));
   }
-  __device__ int* seg_k(int st) const { return ints() + st * 2 * BK; }
-  __device__ int* pos_k(int st) const { return ints() + st * 2 * BK + BK; }
-  __device__ int* seg_q() const { return ints() + STAGES * 2 * BK; }
+  __device__ int* seg_k(int st) const { return ints() + st * SLOT; }
+  __device__ int* pos_k(int st) const { return ints() + st * SLOT + BK; }
+  __device__ float* extra(int st) const {
+    return reinterpret_cast<float*>(ints() + st * SLOT + 2 * BK);
+  }
+  __device__ int* seg_q() const { return ints() + STAGES * SLOT; }
   __device__ int* pos_q() const { return seg_q() + BQ; }
   __device__ int* flag() const { return pos_q() + BQ; }
   __device__ uint64_t* full() const {
@@ -649,19 +660,38 @@ __device__ __forceinline__ void stage_pairs(bf16* dst, int r, int d0,
   *reinterpret_cast<uint4*>(dst + swz(r, d0 + HALF)) = hi;
 }
 
+// Stage rows [row0, row0 + 64) of head h of one batch row x (S,H,D) into
+// the swizzled tile dst (rows past S zero), rotated in fp32 by the V2PE
+// rotary at rope (the row's (S,) ids, when given) and rounded once to bf16.
+// All THREADS of the block take part.
+template <int D>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* x,
+                                           const float* rope,
+                                           const float* inv_freq, int row0,
+                                           int S, int H, int h) {
+  constexpr int HALF = D / 2;
+  for (int idx = threadIdx.x; idx < BQ * (HALF / 8); idx += THREADS) {
+    const int r = idx / (HALF / 8), d0 = idx % (HALF / 8) * 8, s = row0 + r;
+    stage_pairs<D>(dst, r, d0, s < S,
+                   x + (static_cast<size_t>(s) * H + h) * D,
+                   rope != nullptr ? rope[min(s, S - 1)] : 0.f,
+                   rope != nullptr ? inv_freq : nullptr);
+  }
+}
+
 // Set-up by all THREADS of the block, before the roles split: the barriers
 // (full: the producer warp's 32 lanes arrive; empty: the 128 consumer
 // threads), the query tile [q0, q0 + 64) of head h rotated in fp32 by the
 // V2PE rotary at rope_q (when given) and rounded once to bf16, its ids (rows
 // past Sq: segment 0, position -1) and, for D < 64, zeros in the K/V
-// columns no load writes. Ends with the block's one __syncthreads.
-template <int D>
-__device__ __forceinline__ void setup(const Smem<D>& sm, const bf16* q,
+// columns no load writes. Ends with the block's one __syncthreads. (The
+// backward stages a key tile here in the query tile's place.)
+template <int D, int F, int X>
+__device__ __forceinline__ void setup(const Smem<D, F, X>& sm, const bf16* q,
                                       const int* seg_q, const int* pos_q,
                                       const float* rope_q,
                                       const float* inv_freq, int q0, int Sq,
                                       int Hq, int h) {
-  constexpr int HALF = D / 2;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -672,16 +702,10 @@ __device__ __forceinline__ void setup(const Smem<D>& sm, const bf16* q,
   }
   if constexpr (D < 64) {
     uint32_t* kv = reinterpret_cast<uint32_t*>(sm.k(0));
-    for (int i = tid; i < 2 * STAGES * Smem<D>::TILE / 4; i += THREADS)
+    for (int i = tid; i < 2 * STAGES * Smem<D, F, X>::TILE / 4; i += THREADS)
       kv[i] = 0u;
   }
-  for (int idx = tid; idx < BQ * (HALF / 8); idx += THREADS) {
-    const int r = idx / (HALF / 8), d0 = idx % (HALF / 8) * 8, s = q0 + r;
-    stage_pairs<D>(sm.q(), r, d0, s < Sq,
-                   q + (static_cast<size_t>(s) * Hq + h) * D,
-                   rope_q != nullptr ? rope_q[min(s, Sq - 1)] : 0.f,
-                   rope_q != nullptr ? inv_freq : nullptr);
-  }
+  stage_rows<D>(sm.q(), q, rope_q, inv_freq, q0, Sq, Hq, h);
   if (tid < BQ) {
     const int s = q0 + tid;
     const bool ok = s < Sq;
@@ -697,8 +721,8 @@ struct QRange {
   int sq_min, sq_max, pq_min, pq_max;
 };
 
-template <int D>
-__device__ __forceinline__ QRange q_range(const Smem<D>& sm, int nq) {
+template <int D, int F, int X>
+__device__ __forceinline__ QRange q_range(const Smem<D, F, X>& sm, int nq) {
   const int lane = threadIdx.x & 31;
   QRange qr{INT_MAX, INT_MIN, INT_MAX, INT_MIN};
   for (int r = lane; r < nq; r += 32) {
@@ -735,16 +759,26 @@ struct Pipe {
 // own loads: it runs up to STAGES tiles ahead. With rope_k (k: batch row b's
 // (Sk,Hkv,D)), K is instead loaded by the warp, rotated in fp32 and rounded
 // once to bf16 on its way to shared memory.
-template <int D>
-__device__ __forceinline__ void produce(const Smem<D>& sm, Pipe& pp,
+//
+// WALK_Q (the backward's dk/dv): the staged tile holds keys and the walk
+// runs over query tiles instead: kmap/vmap are q and do viewed as
+// (Hq*D, Sq, B) at head hk, seg_k/pos_k/Sk the query ids, the causal tests
+// are turned round (a query sees a key at or before it), and the stage's
+// X = 128 extra words carry the 64 rows' lse and then di (the (Sq,) rows of
+// this batch row and head; 0 past Sq).
+template <int D, bool WALK_Q = false, int F, int X>
+__device__ __forceinline__ void produce(const Smem<D, F, X>& sm, Pipe& pp,
                                         const QRange& qr,
                                         const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, int b,
                                         const bf16* k, const int* seg_k,
                                         const int* pos_k, const float* rope_k,
                                         const float* inv_freq, int Sk,
-                                        int Hkv, int hk, int causal) {
-  constexpr int HALF = D / 2, BOXES = Smem<D>::DP / 64;
+                                        int Hkv, int hk, int causal,
+                                        const float* lse = nullptr,
+                                        const float* di = nullptr) {
+  static_assert(!WALK_Q || X >= 2 * BQ, "WALK_Q stages lse and di");
+  constexpr int HALF = D / 2, BOXES = Smem<D, F, X>::DP / 64;
   const int lane = threadIdx.x & 31;
   int sg[LOOK][2], ps[LOOK][2];
   for (int k0 = 0, t = 0; k0 < Sk; k0 += BK, t = (t + 1) % LOOK) {
@@ -780,14 +814,28 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, Pipe& pp,
     sk_max = __reduce_max_sync(0xffffffffu, sk_max);
     pk_min = __reduce_min_sync(0xffffffffu, pk_min);
     pk_max = __reduce_max_sync(0xffffffffu, pk_max);
+    // the queries' and the keys' position ranges
+    const int q_lo = WALK_Q ? pk_min : qr.pq_min;
+    const int q_hi = WALK_Q ? pk_max : qr.pq_max;
+    const int k_lo = WALK_Q ? qr.pq_min : pk_min;
+    const int k_hi = WALK_Q ? qr.pq_max : pk_max;
     const bool dead = qr.sq_max < sk_min || sk_max < qr.sq_min ||
                       (sk_min == 0 && sk_max == 0) ||
                       (qr.sq_min == 0 && qr.sq_max == 0) ||
-                      (causal && qr.pq_max < pk_min);
+                      (causal && q_hi < k_lo);
     if (dead) continue;  // uniform across the warp
     const bool full = nk == BK && sk_min == sk_max && qr.sq_min == qr.sq_max &&
                       sk_min == qr.sq_min && sk_min != 0 &&
-                      (!causal || qr.pq_min >= pk_max);
+                      (!causal || q_lo >= k_hi);
+    float rows[WALK_Q ? 4 : 1];  // lse and di of the walked rows
+    if constexpr (WALK_Q) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = k0 + lane + 32 * e;
+        rows[e] = j < Sk ? lse[j] : 0.f;
+        rows[2 + e] = j < Sk ? di[j] : 0.f;
+      }
+    }
 
     mbar_wait(sm.empty() + pp.st, pp.ph ^ 1);
     sm.seg_k(pp.st)[lane] = tile_sg[0];
@@ -795,6 +843,10 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, Pipe& pp,
     sm.pos_k(pp.st)[lane] = tile_ps[0];
     sm.pos_k(pp.st)[lane + 32] = tile_ps[1];
     if (lane == 0) sm.flag()[pp.st] = full ? FULL : BOUNDARY;
+    if constexpr (WALK_Q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm.extra(pp.st)[lane + 32 * e] = rows[e];
+    }
     if (rope_k != nullptr) {
       for (int idx = lane; idx < BK * (HALF / 8); idx += 32) {
         const int r = idx / (HALF / 8), d0 = idx % (HALF / 8) * 8;
@@ -825,8 +877,8 @@ __device__ __forceinline__ void produce(const Smem<D>& sm, Pipe& pp,
 
 // Producer warp, after its last sequence: a stage that tells the consumers
 // to stop.
-template <int D>
-__device__ __forceinline__ void finish(const Smem<D>& sm, Pipe& pp) {
+template <int D, int F, int X>
+__device__ __forceinline__ void finish(const Smem<D, F, X>& sm, Pipe& pp) {
   mbar_wait(sm.empty() + pp.st, pp.ph ^ 1);
   if ((threadIdx.x & 31) == 0) sm.flag()[pp.st] = END;
   mbar_arrive(sm.full() + pp.st);

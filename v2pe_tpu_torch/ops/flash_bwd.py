@@ -18,6 +18,14 @@ Contract (the forward's layouts, ``ops/flash_fwd.py``):
   kernels run on the rotated states, and dq (and dk, when rope_k is given)
   go back through Rᵀ; R is orthogonal, so this is exact.
 
+Rounding: the operand type follows the input type. fp32 inputs compute in
+fp32 throughout (the Pallas kernels' arithmetic). bf16 inputs round where
+the tensor cores take bf16 operands, at exactly two points beyond the
+inputs: p to bf16 for the dV product, and ds to bf16 for the dK and dQ
+products; the scores, dP, p (for ds), ds and every sum stay fp32, and the
+scale multiplies the fp32 scores and the final dK and dQ (as the forward's
+bf16 tile scales its scores).
+
 :func:`flash_attention_bwd` runs the twin for tensors on the CPU and the
 kernels for tensors on a CUDA device; it never falls back from one to the
 other.
@@ -25,6 +33,7 @@ other.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -55,13 +64,21 @@ def flash_attention_bwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse,
                               do, *, causal: bool, scale: float,
                               rope_q: Optional[torch.Tensor] = None,
                               rope_k: Optional[torch.Tensor] = None,
-                              rope_theta: float = 0.0):
-    """Plain PyTorch twin of the kernels: exact fp32 over all keys, blocked
-    over queries to bound the (Hq, TWIN_BLOCK_Q, Sk) buffers."""
+                              rope_theta: float = 0.0,
+                              rounding: Optional[torch.dtype] = None):
+    """Plain PyTorch twin of the kernels: exact softmax gradients over all
+    keys, in fp32 with the bf16 rounding points of the module docstring for
+    bf16 inputs, blocked over queries to bound the (Hq, TWIN_BLOCK_Q, Sk)
+    buffers. ``rounding`` names the operand type whose rounding points to
+    take (default: q's dtype): ``torch.bfloat16`` on fp32 copies of bf16
+    inputs gives the bf16 result before its last rounding, in fp32 (without
+    rotary: bf16 inputs are rotated, and rotated back, in bf16)."""
     if rope_theta:
-        return _rotated_bwd(flash_attention_bwd_torch, q, k, v, seg_q, seg_k,
-                            pos_q, pos_k, out, lse, do, causal, scale,
-                            rope_q, rope_k, rope_theta)
+        return _rotated_bwd(
+            functools.partial(flash_attention_bwd_torch, rounding=rounding),
+            q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, causal, scale,
+            rope_q, rope_k, rope_theta)
+    bf16 = (rounding or q.dtype) == torch.bfloat16
     B, Sq, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
@@ -73,7 +90,10 @@ def flash_attention_bwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse,
     for s0 in range(0, Sq, TWIN_BLOCK_Q):
         s1 = min(s0 + TWIN_BLOCK_Q, Sq)
         n = s1 - s0
-        qb = (q[:, s0:s1].float() * scale).reshape(B, n, Hkv, G, D)
+        qb = q[:, s0:s1].float()
+        if not bf16:
+            qb = qb * scale
+        qb = qb.reshape(B, n, Hkv, G, D)
         dob = do[:, s0:s1].float().reshape(B, n, Hkv, G, D)
         lse_b = lse[:, :, s0:s1].reshape(B, Hkv, G, n, 1)
         di_b = di[:, s0:s1].reshape(B, n, Hkv, G).permute(0, 2, 3, 1)[..., None]
@@ -82,14 +102,21 @@ def flash_attention_bwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse,
         if causal:
             mask &= pos_q[:, s0:s1, None] >= pos_k[:, None, :]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf)
+        if bf16:
+            s = s * scale
         # the mask selects, never multiplies: a row with nothing to attend
         # has lse = -1e30, where exp(s - lse) overflows to inf
         p = torch.where(mask[:, None, None], torch.exp(s - lse_b), 0.0)
-        dv += torch.einsum("bhgqk,bqhgd->bkhd", p, dob)
+        dv += torch.einsum("bhgqk,bqhgd->bkhd",
+                           p.bfloat16().float() if bf16 else p, dob)
         ds = p * (torch.einsum("bqhgd,bkhd->bhgqk", dob, vf) - di_b)
+        if bf16:  # the operand of the dK and dQ products
+            ds = ds.bfloat16().float()
         dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb)
         dq[:, s0:s1] = (torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * scale
                         ).reshape(B, n, Hq, D).to(q.dtype)
+    if bf16:
+        dk *= scale
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 

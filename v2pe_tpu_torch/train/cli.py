@@ -61,10 +61,11 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["default", "v2pe_fix", "v2pe_rnd"])
     p.add_argument("--rope_pos_id_stride", type=int, default=64)
     # parallelism (replaces --attn_type ring --chunk_num N + DeepSpeed cfg)
-    p.add_argument("--platform", default=None,
+    p.add_argument("--platform", default="cuda",
                    choices=["cpu", "cuda", "gpu"],
-                   help="the device to train on (default: the CUDA card "
-                        "when there is one, else the CPU)")
+                   help="the device to train on: the CUDA card (default; "
+                        "raises when there is none) or, only when asked "
+                        "for, the CPU")
     p.add_argument("--launcher", default="auto",
                    choices=["auto", "env", "slurm", "mpi", "tpu", "none"],
                    help="multi-host bootstrap detection "
@@ -203,8 +204,10 @@ def main(argv=None):
     from v2pe_tpu_torch.train.optimizer import TrainConfig
     from v2pe_tpu_torch.train.trainer import RunConfig, train
 
-    device = {"gpu": "cuda"}.get(args.platform, args.platform) or (
-        "cuda" if torch.cuda.is_available() else "cpu")
+    device = {"gpu": "cuda"}.get(args.platform, args.platform)
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--platform cuda: no CUDA device is available; "
+                           "pass --platform cpu to train on the CPU")
     cfg = getattr(cfg_lib, args.model_preset)()
     cfg = dataclasses.replace(
         cfg, rope_pos_id_version=args.rope_pos_id_version,
