@@ -1,11 +1,14 @@
-"""Time variants of the flash backward's CUDA source against each other on
-one CUDA card, in one process, so that their times compare.
+"""Time variants of a kernel's CUDA source against each other on one CUDA
+card, in one process, so that their times compare.
 
-    python3 chip_ablate.py [--variants kernel,expf,...] [--iters 20]
+    python3 chip_ablate.py [--family flash_bwd|qmm] [--variants a,b,...]
+                           [--iters 20]
 
-Each variant is ``v2pe_tpu_torch/csrc/flash_bwd.cu`` and ``flash_tile.cuh``
-with one named edit (VARIANTS), written under ``build/ablate/<name>/`` and
-built alone into a shared library by ``nvcc``, all builds started together.
+Family ``flash_bwd`` (the default): each variant is
+``v2pe_tpu_torch/csrc/flash_bwd.cu`` and ``flash_tile.cuh`` (with
+``hopper.cuh``) with one named edit (VARIANTS), written under
+``build/ablate/<name>/`` and built alone into a shared library by ``nvcc``,
+all builds started together.
 Both bf16 kernels of every variant are timed (``chip_smoke.time_ms``, the
 best of three) at the ViT's form (8 tiles of 1025 tokens, 16 x 64,
 bidirectional), the packed 8192-token form (three segments and a padded
@@ -15,6 +18,15 @@ Each line also gives the variant's largest difference from the port's own
 kernels relative to the gradient's range: the ablations (``no_*``) compute
 something else and are there only for their time. Prints the compiler's
 registers, spills and ``wgmma`` notes of each variant first.
+
+Family ``qmm``: variants of ``quantized_matmul.cu`` (QMM_VARIANTS: an edit
+of the source, a change of ``launch_plan``'s split of the strip body's
+depth, or both), built the same way under ``build/ablate/qmm_<name>/``.
+Each is held against the plain version (its outputs allocated full of
+NaN, so that an element it leaves unwritten fails) and timed at the
+decode forms (M = 1 and 3), the prefill forms (the 8-tile prompt's 2167
+rows and its last 119-row chunk) of the layer products and the head, int8
+and int4, beside ``F.linear`` on a bf16 weight of the same shape.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -54,14 +67,151 @@ VARIANTS = {
 }
 
 
-def write_variant(name: str) -> str:
-    """The variant's sources under OUT/name; returns its directory."""
-    d = os.path.join(OUT, name)
+# quantized_matmul.cu: name -> (edits, plan rule); the rule maps
+# launch_plan's plan (and K, Npad, M, the split granule) to the variant's,
+# or to None to skip the form (no rule: launch_plan's own)
+QMM_VARIANTS = {
+    "kernel": ([], None),
+    "strip_int8_4k": ([("quantized_matmul.cu",
+                        "TILE = INT4 ? 4096 : 8192;", "TILE = 4096;"),
+                       ("quantized_matmul.cu",
+                        "STAGES = INT4 ? 6 : 4;", "STAGES = 6;")], None),
+    "strip_stages8": ([("quantized_matmul.cu",
+                        "STAGES = INT4 ? 6 : 4;", "STAGES = INT4 ? 8 : 6;")],
+                      None),
+    "strip_2_blocks": ([("quantized_matmul.cu",
+                         "constexpr int STRIP_MIN_BLOCKS = 4;",
+                         "constexpr int STRIP_MIN_BLOCKS = 2;")], None),
+    "no_split_handshake": ([("quantized_matmul.cu",
+                             "    last = before == p.splits - 1;",
+                             "    last = 0 * before;")], None),
+    "strip_empty": ([("quantized_matmul.cu",
+                      "  constexpr int PER = Strip<INT4>::TILE / 4096;",
+                      "  if (p.M > 0) return;\n"
+                      "  constexpr int PER = Strip<INT4>::TILE / 4096;")],
+                    None),
+    "no_strip_compute": ([("quantized_matmul.cu",
+                           "if (kr >= rows) continue;",
+                           "if (kr >= rows || p.M > 0) continue;")], None),
+    "no_dequant": ([("quantized_matmul.cu", "      fr.build(p, scale,",
+                     "      if (p.M < 0) fr.build(p, scale,")], None),
+    "no_wgmma": ([("quantized_matmul.cu",
+                   "          tc::wgmma_rs_n128<0>(acc, a[h][kk], db, 1);",
+                   "          if (p.M < 0)\n"
+                   "          tc::wgmma_rs_n128<0>(acc, a[h][kk], db, 1);")],
+                 None),
+    "tc_stages_3_4": ([("quantized_matmul.cu",
+                        "STAGES = INT4 ? 5 : 8;", "STAGES = INT4 ? 3 : 4;")],
+                      None),
+    "no_x_load": ([("quantized_matmul.cu",
+                    "tc::mbar_arrive_tx(bar, Sm::CODE + (lp.x_tma ? H * Sm::XT : 0));",
+                    "tc::mbar_arrive_tx(bar, Sm::CODE);"),
+                   ("quantized_matmul.cu", "        if (lp.x_tma)\n          for (int h",
+                    "        if (lp.x_tma && p.M < 0)\n          for (int h")], None),
+    "no_code_load": ([("quantized_matmul.cu",
+                       "tc::mbar_arrive_tx(bar, Sm::CODE + (lp.x_tma ? H * Sm::XT : 0));",
+                       "tc::mbar_arrive_tx(bar, lp.x_tma ? H * Sm::XT : 0);"),
+                      ("quantized_matmul.cu",
+                       "        tc::tma_load(tc::smem_u32(sm.code(st)), &lp.wmap,",
+                       "        if (p.M < 0) tc::tma_load(tc::smem_u32(sm.code(st)), &lp.wmap,")],
+                     None),
+    # the strip body's codes by TMA bulk copies (one a code row, completing
+    # on a stage's mbarrier) in place of 16-byte cp.async (M <= 16)
+    "strip_tma": ([("quantized_matmul.cu",
+                    """  auto issue = [&](int t) {
+    if (t < steps) {
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {""",
+                    """  __shared__ uint64_t bars[STAGES];
+  if (tid == 0) {
+    for (int st = 0; st < STAGES; ++st) tc::mbar_init(bars + st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int t) {
+    if (t < steps) {
+      const int live = min(bk, rows - t * bk);
+      if (tid == 0) tc::mbar_arrive_tx(bars + t % STAGES, live * bn);
+      if (tid < live)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+            "::bytes [%0], [%1], %2, [%3];\\n" ::"r"(
+                tc::smem_u32(smem + (t % STAGES) * SLOT + tid * P)),
+            "l"(w + static_cast<size_t>(k_begin + t * bk + tid) * p.Npad +
+                n0),
+            "r"(bn), "r"(tc::smem_u32(bars + t % STAGES))
+            : "memory");
+#pragma unroll
+      for (int i = 0; i < PER && p.M < 0; ++i) {"""),
+                   ("quantized_matmul.cu",
+                    "    cp_async_wait<STAGES - 2>();\n",
+                    "    tc::mbar_wait(bars + t % STAGES, (t / STAGES) & 1);\n")],
+                  None),
+    # the wgmma body's codes by 16-byte cp.async from the producer warp,
+    # each lane's copies completing on the stage's mbarrier, in place of
+    # one TMA box (M > 16)
+    "tc_cp_async": ([("quantized_matmul.cu",
+                      "tc::mbar_init(sm.full() + st, lp.x_tma ? 1 : 2);",
+                      "tc::mbar_init(sm.full() + st, (lp.x_tma ? 1 : 2) + 32);"),
+                     ("quantized_matmul.cu",
+                      "tc::mbar_arrive_tx(bar, Sm::CODE + (lp.x_tma ? H * Sm::XT : 0));",
+                      "tc::mbar_arrive_tx(bar, lp.x_tma ? H * Sm::XT : 0);"),
+                     ("quantized_matmul.cu",
+                      "        tc::tma_load(tc::smem_u32(sm.code(st)), &lp.wmap, bar, n0, k, p.li);\n",
+                      """      }
+      for (int c = lane; c < TC_BK * 8; c += 32) {
+        const int r = c / 8, ch = c % 8;
+        const bool ok = k + r < p.K;
+        cp_async16(tc::smem_u32(sm.code(st)) + r * 128 + ((ch ^ (r & 7)) << 4),
+                   layer_codes(p) + static_cast<size_t>(ok ? k + r : 0) *
+                       p.Npad + n0 + 16 * ch,
+                   ok ? 16 : 0);
+      }
+      asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\\n"
+                   ::"r"(tc::smem_u32(bar)) : "memory");
+      if (lane == 0) {
+""")], None),
+    "splits_half": ([], lambda *a: resplit(*a, lambda s: max(1, s // 2))),
+    "splits_double": ([], lambda *a: resplit(*a, lambda s: 2 * s)),
+    "splits_triple": ([], lambda *a: resplit(*a, lambda s: 3 * s)),
+    "no_split": ([], lambda *a: resplit(*a, lambda s: 1)),
+    "strip_bn32_whole": ([], lambda base, K, npad, M, gran: base._replace(
+        bn=32, splits=1, split_rows=K, grid=(npad // 32, 1), ws_bytes=0)
+        if base.body == 0 and K <= 2048 and gran == 16 else None),
+}
+
+
+def resplit(base, K, npad, M, gran, rule):
+    """The strip plan ``base`` with its split count changed by ``rule``
+    (whole granules: 16 rows, int4 groups), or None for the wgmma body
+    (which does not split) and when a split would stage more rows of x
+    than the strip takes."""
+    if base.body == 1:
+        return None
+    splits = min(max(1, rule(base.splits)), -(-K // gran))
+    rows = -(-(-(-K // splits)) // gran) * gran
+    if rows > (1024 if gran != 16 else 2048):
+        return None
+    splits = -(-K // rows)
+    return base._replace(splits=splits, split_rows=rows if splits > 1 else K,
+                         grid=(*base.grid[:-1], splits),
+                         ws_bytes=4 * splits * M * npad if splits > 1 else 0)
+
+
+FAMILY_FILES = {"flash_bwd": ("flash_bwd.cu", "flash_tile.cuh", "hopper.cuh"),
+                "qmm": ("quantized_matmul.cu", "hopper.cuh")}
+
+
+def write_variant(name: str, family: str = "flash_bwd") -> str:
+    """The variant's sources under OUT/name (OUT/qmm_name for the qmm
+    family); returns its directory."""
+    edits = VARIANTS[name] if family == "flash_bwd" else QMM_VARIANTS[name][0]
+    d = os.path.join(OUT, name if family == "flash_bwd" else f"qmm_{name}")
     os.makedirs(d, exist_ok=True)
-    for f in ("flash_bwd.cu", "flash_tile.cuh"):
+    for f in FAMILY_FILES[family]:
         with open(os.path.join(CSRC, f)) as fh:
             text = fh.read()
-        for where, old, new in VARIANTS[name]:
+        for where, old, new in edits:
             if where == f:
                 if old not in text:
                     raise ValueError(f"{name}: {old!r} not in {f}")
@@ -71,16 +221,16 @@ def write_variant(name: str) -> str:
     return d
 
 
-def build(names) -> dict:
+def build(names, family: str = "flash_bwd") -> dict:
     """Build every variant at once; returns name -> loaded library."""
     from v2pe_tpu_torch.ops import _build
 
     procs = []
     for name in names:
-        d = write_variant(name)
+        d = write_variant(name, family)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-shared", "-o", os.path.join(d, "lib.so"),
-               os.path.join(d, "flash_bwd.cu")]
+               os.path.join(d, FAMILY_FILES[family][0])]
         procs.append((name, d, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -92,16 +242,25 @@ def build(names) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
         lines = log.splitlines()
-        regs = [ln.split("Used")[1].split(",")[0].strip()
-                for ln in lines if "Used" in ln]
+        regs, fn = [], ""
+        for ln in lines:  # "<kernel>[<template argument>]: N registers"
+            if "Compiling entry function" in ln:
+                m = re.search(r"(\w+_kernel\w*?)I?L?i?(\d*)E", ln)
+                fn = f"{m.group(1)}<{m.group(2)}>" if m else ln.split()[-1]
+            elif "Used" in ln:
+                regs.append(f"{fn}: "
+                            + ln.split("Used")[1].split(",")[0].strip())
         notes = [ln.strip() for ln in lines
                  if ("spill" in ln and " 0 bytes spill stores" not in ln)
                  or ("wgmma" in ln and "Compiling" not in ln)]
         print(f"variant {name}: registers {regs}; {notes or 'no spills'}",
               flush=True)
         lib = ctypes.CDLL(os.path.join(d, "lib.so"))
-        lib.v2pe_flash_bwd_dkv.argtypes = [p] * 12 + tail
-        lib.v2pe_flash_bwd_dq.argtypes = [p] * 11 + tail
+        if family == "flash_bwd":
+            lib.v2pe_flash_bwd_dkv.argtypes = [p] * 12 + tail
+            lib.v2pe_flash_bwd_dq.argtypes = [p] * 11 + tail
+        else:
+            _build.bind_qdot(lib)
         libs[name] = lib
     return libs
 
@@ -126,18 +285,119 @@ def forms(device="cuda"):
             (f"causal_{S}_one_segment_bf16", llm(one), True)]
 
 
+def qmm_forms():
+    """(kernel, form, bits, (L, D, N), M) of the quantized products:
+    InternVL2-2B's layer products at decode (M = 1, 3), wqkv and w2 at the
+    8-tile prompt's last 119-row chunk and its whole 2167 rows, and the
+    vocab head at M = 1; int8 and int4."""
+    D, I, V, L = 2048, 8192, 92553, 24
+    forms = []
+    for bits, k2d, kst in ((8, "qdot", "qdot_stacked"),
+                           (4, "q4dot", "q4dot_stacked")):
+        for M in (1, 3, cs.PREFILL_TAIL, cs.PREFILL_ROWS):
+            for name, shape in (("wqkv", (D, 4096)), ("wo", (D, D)),
+                                ("w1", (D, I)), ("w2", (I, D))):
+                if M > 16 and name in ("wo", "w1"):
+                    continue
+                forms.append((kst, f"{name}_M{M}", bits, (L, *shape), M))
+        forms.append((k2d, "head_M1", bits, (D, V), 1))
+    return forms
+
+
+def run_qmm(args) -> int:
+    """The qmm family: every variant against the plain version and timed,
+    form by form, beside F.linear on a bf16 weight of the same shape."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from v2pe_tpu_torch.ops import _build
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
+
+    libs = build(args.variants.split(","), "qmm")
+    own_plan, own_load = qm.launch_plan, _build.load
+    g = torch.Generator(device="cuda").manual_seed(5)
+    try:
+        for kernel, form, bits, shape, M in qmm_forms():
+            *lead, D, N = shape
+            w = cs._random_weight(bits, shape, g, "cuda")
+            dense = torch.empty((*lead, N, D), dtype=torch.bfloat16,
+                                device="cuda").normal_(0, 0.02, generator=g)
+            x = torch.randn((M, D), generator=g, device="cuda").to(
+                torch.bfloat16)
+            odt = torch.float32 if not lead else torch.bfloat16
+            layers = itertools.cycle(range(lead[0])) if lead \
+                else itertools.repeat(None)
+            if lead:
+                run = lambda: qm.quantized_dot_stacked(x, w, next(layers),
+                                                       odt)
+                want = qm.quantized_dot_stacked_torch(x, w, 0, odt).float()
+                first = lambda: qm.quantized_dot_stacked(x, w, 0, odt)
+                lin = lambda: F.linear(x, dense[next(layers)])
+            else:
+                run = first = lambda: qm.quantized_dot(x, w, odt)
+                want = qm.quantized_dot_torch(x, w, odt).float()
+                lin = lambda: F.linear(x, dense)
+            base = own_plan(M, D, w.payload.shape[-1],
+                            getattr(w, "group_size", 0), bits == 4)
+            lib_ms = min(cs.time_ms(lin, args.iters) for _ in range(2))
+            print(f"ablate qmm int{bits} {form}: F.linear {lib_ms:.4f} ms; "
+                  f"plan {base}", flush=True)
+            for vname, lib in libs.items():
+                rule = QMM_VARIANTS[vname][1]
+                _build.load = lambda lib=lib: lib
+                plan = None if rule is None else rule(
+                    base, D // 2 if bits == 4 else D, w.payload.shape[-1], M,
+                    w.group_size if bits == 4 else 16)
+                if rule is not None and plan is None:
+                    print(f"ablate qmm int{bits} {form} {vname}: skipped")
+                    continue
+                qm.launch_plan = own_plan if plan is None \
+                    else lambda *a, plan=plan: plan
+                with cs.nan_empty():
+                    got = first().float()
+                    again = first().float()
+                torch.cuda.synchronize()
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                same = bool(torch.equal(got, again))
+                ms = min(cs.time_ms(run, args.iters) for _ in range(3))
+                host = cs.time_ms(run, args.iters, behind_spin=False)
+                print(f"ablate qmm int{bits} {form} {vname}: {ms:.4f} ms "
+                      f"({ms / lib_ms:.2f}x F.linear), back to back "
+                      f"{host:.4f} ms; max|kernel-plain|/max|plain| "
+                      f"{rel:.2e} (tol {cs.QDOT_TOL[odt]:.1e}); repeat "
+                      f"bitwise equal {same}", flush=True)
+                # a cut variant (no_split_handshake) leaves the split
+                # counters raised: the next variant starts from zeros
+                qm._COUNTERS.clear()
+            qm.launch_plan = own_plan
+            del w, dense, x
+            torch.cuda.empty_cache()
+    finally:
+        qm.launch_plan, _build.load = own_plan, own_load
+    print(cs.card_line())
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS))
+    ap.add_argument("--family", default="flash_bwd",
+                    choices=("flash_bwd", "qmm"))
+    ap.add_argument("--variants", default=None)
     ap.add_argument("--iters", type=int, default=20)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_ablate: no CUDA device", file=sys.stderr)
         return 1
-    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
-
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
+    if args.variants is None:
+        args.variants = ",".join(VARIANTS if args.family == "flash_bwd"
+                                 else QMM_VARIANTS)
+    if args.family == "qmm":
+        return run_qmm(args)
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+
     libs = build(args.variants.split(","))
     ptr = flash_fwd._ptr
     stream = torch.cuda.current_stream().cuda_stream

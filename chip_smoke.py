@@ -114,6 +114,7 @@ the pixels come from numpy and the text from a code-point tokenizer.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -2112,7 +2113,30 @@ QDOT_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # max |kernel -
 # bf16-exact operands and sum in fp32 in another order (1e-5); a bf16
 # output may then round to the neighbouring value (one step, 2^-8 of it)
 QDOT_KERNELS = ("qdot", "qdot_stacked", "q4dot", "q4dot_stacked")
+
+
+@contextlib.contextmanager
+def nan_empty():
+    """While active, ``torch.empty`` fills floating tensors with NaN: an
+    output element that a kernel leaves unwritten then fails a check,
+    instead of holding what an earlier call left in the caching
+    allocator's block."""
+    empty = torch.empty
+
+    def poisoned(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+
+    torch.empty = poisoned
+    try:
+        yield
+    finally:
+        torch.empty = empty
+
+
 PREFILL_ROWS = 2167  # the 8-tile request's prompt
+SESSION_CHUNK = 2048  # a session's (and the engine's) prefill chunk
+PREFILL_TAIL = PREFILL_ROWS - SESSION_CHUNK  # the prompt's last chunk
 
 
 def _random_weight(bits: int, shape, g, device):
@@ -2136,9 +2160,12 @@ def _random_weight(bits: int, shape, g, device):
 def quant_forms(cfg):
     """(kernel, name, weight shape, M, x dtype, out dtype) of every form the
     quantized serving path launches: the vocab head at M = 3 and 1 (fp32
-    logits), each of the five layer products at M = 3 (decode), w1 at
-    M = 1, and wqkv and w2 at the 8-tile request's prefill rows; x in bf16
-    (the served model) and fp32; int8 then int4."""
+    logits), each of the five layer products at M = 3 (decode), and wqkv
+    and w2 at the 8-tile request's prefill rows, x in bf16 (the served
+    model) and fp32; then, x bf16, the five layer products at M = 1, and
+    wqkv and w2 at the kernels' body switch (M = 16, 17), at a session's
+    2048-token chunk and at the 8-tile prompt's last 119 rows; int8 then
+    int4."""
     lc = cfg.llm
     D, I, L, V = lc.hidden_size, lc.intermediate_size, \
         lc.num_hidden_layers, lc.vocab_size
@@ -2159,9 +2186,102 @@ def quant_forms(cfg):
             for name in ("wqkv", "w2"):
                 forms.append((kst, f"{name}_M{PREFILL_ROWS}_{tag}", bits,
                               (L, *layer[name]), PREFILL_ROWS, xdt, xdt))
-        forms.append((kst, "w1_M1_bf16", bits, (L, *layer["w1"]), 1,
-                      torch.bfloat16, torch.bfloat16))
+        bf = torch.bfloat16
+        for name, shape in layer.items():
+            forms.append((kst, f"{name}_M1_bf16", bits, (L, *shape), 1, bf,
+                          bf))
+        for name in ("wqkv", "w2"):
+            for M in (16, 17, SESSION_CHUNK, PREFILL_TAIL):
+                forms.append((kst, f"{name}_M{M}_bf16", bits,
+                              (L, *layer[name]), M, bf, bf))
     return forms
+
+
+QUANT_SWEEP_FORMS = 24  # seeded random forms of the four quantized products
+
+
+def quant_sweep_form(rng, device):
+    """One random quantized product: int8 or int4, a 2-D weight (qdot,
+    q4dot) or a stack of 1-3 layers read at a random layer; M from 1 to
+    2200 (half of the forms at M <= 16, the strip body); D from 40 to full
+    width (small D shrinks int4's group: D = 352 gives gs 16, D = 40 gs 4);
+    N from 1 to 9000 (padded to 128); bf16 or fp32 x and out. Returns
+    (kernel, name, weight, x, li, out dtype)."""
+    bits = int(rng.choice([8, 4]))
+    stacked = bool(rng.random() < 0.75)
+    M = int(rng.integers(1, 17) if rng.random() < 0.5
+            else rng.integers(17, 2201))
+    D = int(rng.choice([40, 96, 256, 352, 1000, 2048, 4096, 8192]))
+    N = int(rng.integers(1, 9001))
+    L = int(rng.integers(1, 4)) if stacked else 0
+    xdt, odt = (torch.bfloat16 if rng.random() < 0.6 else torch.float32
+                for _ in range(2))
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    shape = (L, D, N) if stacked else (D, N)
+    w = _random_weight(bits, shape, g, device)
+    x = torch.randn((M, D), generator=g, device=device).to(xdt)
+    li = int(rng.integers(0, L)) if stacked else None
+    kernel = ("q4dot" if bits == 4 else "qdot") + ("_stacked" * stacked)
+    name = (f"M{M}_D{D}_N{N}_L{L}_li{li}_x{str(xdt)[6:]}_"
+            f"out{str(odt)[6:]}")
+    return kernel, name, w, x, li, odt
+
+
+def phase_quant_sweep(device: str = "cuda") -> dict:
+    """QUANT_SWEEP_FORMS seeded random forms of the four quantized products
+    against their plain versions (QDOT_TOL) and run twice (bitwise equal);
+    each with kernel, bound, plain and F.linear times."""
+    import torch.nn.functional as F
+
+    from v2pe_tpu_torch.ops import quantized_matmul as qm
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(29)
+    records = {n: [] for n in QDOT_KERNELS}
+    worst = 0.0
+    for _ in range(QUANT_SWEEP_FORMS):
+        kernel, name, w, x, li, odt = quant_sweep_form(rng, device)
+        if li is None:
+            run = lambda: qm.quantized_dot(x, w, odt)
+            plain = lambda: qm.quantized_dot_torch(x, w, odt)
+        else:
+            run = lambda: qm.quantized_dot_stacked(x, w, li, odt)
+            plain = lambda: qm.quantized_dot_stacked_torch(x, w, li, odt)
+        with nan_empty():
+            got, again = run(), run()
+        want = plain().float()
+        err = (got.float() - want).abs().max().item()
+        rel = err / max(want.abs().max().item(), 1e-30)
+        same = bool(torch.equal(got, again))
+        dense = torch.randn(w.n_out, x.shape[1], device=device).to(
+            torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        n = 3 if x.shape[0] > 16 else 10
+        ms, plain_ms, lib = (time_ms(f, iters=n) for f in (
+            run, plain, lambda: F.linear(xb, dense)))
+        layers = w.payload.shape[0] if li is not None else 1
+        bound = roof(nbytes(w.payload, w.scale) // layers + nbytes(x, got),
+                     2.0 * x.shape[0] * x.shape[1] * w.n_out)
+        log(f"kernel sweep {kernel} {name}: max|kernel-plain| {err:.3e} = "
+            f"{rel:.3e} of max|plain| (tol {QDOT_TOL[odt]:.1e}); repeat "
+            f"bitwise equal {same}; kernel {ms:.4f} ms, bound "
+            f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}, plain "
+            f"{plain_ms:.3f} ms, F.linear {lib:.4f} ms")
+        if not (got.shape == want.shape and got.dtype == odt and same
+                and bool(torch.isfinite(got).all())
+                and rel <= QDOT_TOL[odt]):
+            raise AssertionError(f"{kernel} disagrees with its plain "
+                                 f"version (or with itself) at {name}")
+        worst = max(worst, rel)
+        records[kernel].append(dict(
+            form=f"sweep_{name}", max_abs_err=err, max_rel_err=rel, ms=ms,
+            plain_ms=plain_ms, **bound, library_ms=lib, main=False))
+        del w, x, got, again, want, dense
+    torch.cuda.empty_cache()
+    log(f"kernel quant sweep: {QUANT_SWEEP_FORMS} forms within QDOT_TOL "
+        f"(largest {worst:.3e} of the range), each bitwise repeatable; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return records
 
 
 def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
@@ -2177,6 +2297,7 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
 
     from v2pe_tpu_torch.ops import quantized_matmul as qm
 
+    t0 = time.perf_counter()
     dev = torch.device(device)
     g = torch.Generator(device=dev).manual_seed(17)
     records = {n: [] for n in QDOT_KERNELS}
@@ -2208,11 +2329,16 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
             linear = lambda li: F.linear(x.to(torch.bfloat16), dense)
         li = lead[0] // 2 if lead else None
         before = qm.LAUNCHES[kernel]
-        got = run(li)
+        with nan_empty():
+            got, again = run(li), run(li)
         torch.cuda.synchronize()
-        if dev.type == "cuda" and qm.LAUNCHES[kernel] != before + 1:
+        if dev.type == "cuda" and qm.LAUNCHES[kernel] != before + 2:
             raise AssertionError(f"{name}: the wrapper did not launch "
                                  f"{kernel}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{kernel} at {name}: two launches on the "
+                                 f"same inputs differ (or leave elements "
+                                 f"unwritten)")
         want = plain(li).float()
         err = (got.float() - want).abs().max().item()
         rel = err / want.abs().max().item()
@@ -2227,7 +2353,8 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
         bound = roof(per_layer(w.payload) + per_layer(w.scale) + nbytes(x)
                      + got.numel() * got.element_size(), 2.0 * M * D * N)
         log(f"kernel {kernel} int{bits} {name}: max|kernel-plain| {err:.3e} "
-            f"= {rel:.3e} of max|plain| (tol {tol:.3e}); on the device: "
+            f"= {rel:.3e} of max|plain| (tol {tol:.3e}), two launches "
+            f"bitwise equal; on the device: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
             f"{bound['bound_ms']:.5f} ms by {bound['bound_by']}, F.linear on "
             f"a bf16 weight of this shape (the product it replaces) "
@@ -2240,17 +2367,19 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
             form=f"int{bits}_{name}", max_abs_err=err, max_rel_err=rel,
             ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms, **bound,
             library_ms=lib, main=name in ("head_M1_bf16", "w1_M1_bf16")))
-        del got, want, x
+        del got, again, want, x
     del w, dense
     torch.cuda.empty_cache()
+    log(f"kernel quant forms: {len(quant_forms(cfg))} in "
+        f"{time.perf_counter() - t0:.1f} s")
     return records
 
 
 def _small_quant_logits(llm, lc, dev: str):
     """fp32 logits of a quantized 2-layer decoder on one device: a 40-token
-    forward without a cache (the tiled kernel body), then over a dense cache
-    a 24-token prefill, four 1-token steps, a 3-token and a 9-token step
-    (the strip body at 4 and at 16 rows)."""
+    forward without a cache (the wgmma body), then over a dense cache a
+    24-token prefill, four 1-token steps, a 3-token and a 9-token step (the
+    strip body at 8 and at 16 rows)."""
     from v2pe_tpu_torch.models import internlm2
 
     m = llm.to(dev)
@@ -3668,6 +3797,14 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    seconds, mark = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        """Seconds since the last lap, kept under ``name``."""
+        now = time.perf_counter()
+        seconds[name] = round(now - mark[0], 1)
+        mark[0] = now
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
@@ -3699,6 +3836,7 @@ def main(argv=None) -> int:
             profile_train(model, cfg)
         log(card_line())
         return 0
+    lap("build and model")
     batch = packed_batch(chat, PACKED_LEN, "cuda")
     prompt_lens = prompt_lengths(chat)
     forms = {"flash_fwd": phase_kernels(prompt_lens, batch)
@@ -3707,15 +3845,18 @@ def main(argv=None) -> int:
     # ring: the fused forward's forms, and the flash kernels' forms at the
     # rectangles the ring cuts
     for recs in (phase_bwd_sweep(), phase_paged_kernels(prompt_lens),
-                 phase_quant_kernels(cfg), phase_ring_kernel(),
+                 phase_quant_kernels(cfg), phase_quant_sweep(),
+                 phase_ring_kernel(),
                  phase_ring_bwd()):
         for name, more in recs.items():
             forms.setdefault(name, []).extend(more)
+    lap("kernels")
     phase_small_reference()
     phase_small_train_reference()
     phase_small_ring_reference()
     phase_small_quant_reference()
     phase_small_engine_reference()
+    lap("references")
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
     phase_packed(chat, cfg, batch)
@@ -3727,18 +3868,23 @@ def main(argv=None) -> int:
     paths.append(phase_w4kv4(quantized["int4"], cfg, tok))
     del quantized
     torch.cuda.empty_cache()
+    lap("serve")
     # the continuous-batching engine
     paths.append(phase_engine(chat, cfg))
     paths += phase_engine_chat(model, cfg, tok, served)
     phase_beam(chat, cfg)
     del chat
+    lap("engine")
     # sequence parallelism: the long teacher-forced eval over the ring
     paths.append(phase_ring_eval(model, cfg))
+    lap("ring eval")
     # last: the training paths update the weights
     paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg),
               phase_ring_train(model, cfg)]
     launches = {k: sum(c[k] for c in paths) for k in forms}
-
+    lap("train")
+    log(f"seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in "
+        f"all")
     log(json.dumps({"kernels": [kernel_record(name, recs, launches[name])
                                 for name, recs in forms.items()]}))
     log(card_line())

@@ -477,3 +477,21 @@ def test_chip_ablate_imports_only_the_port_and_its_edits_apply(tmp_path,
         d = pathlib.Path(chip_ablate.write_variant(name))
         for where, _, new in edits:
             assert new in (d / where).read_text(), (name, where)
+
+
+def test_chip_ablate_quantized_edits_apply(tmp_path, monkeypatch):
+    """Every named edit of chip_ablate.py's qmm family (variants of
+    quantized_matmul.cu) applies to the source as it is, and its variant
+    directory holds every file the source includes."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_ablate
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(chip_ablate, "OUT", str(tmp_path))
+    for name, (edits, _) in chip_ablate.QMM_VARIANTS.items():
+        d = pathlib.Path(chip_ablate.write_variant(name, "qmm"))
+        assert sorted(f.name for f in d.iterdir()) == sorted(
+            chip_ablate.FAMILY_FILES["qmm"]), name
+        for where, _, new in edits:
+            assert new in (d / where).read_text(), (name, where)

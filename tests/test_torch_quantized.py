@@ -181,6 +181,110 @@ def test_int4_products_match_pallas_and_jnp(D, N, M, xdtype):
     assert out.dtype == tx.dtype and out.shape == (1, M, N)
 
 
+# M on both sides of the kernels' body switch (16 / 17) and of the wgmma
+# body's 64-row warpgroup tiles; (40, 130) has gs 4, below the strip's
+# 16-row split granule
+EDGE_M = [16, 17, 64, 65]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M", EDGE_M)
+@pytest.mark.parametrize("D,N", [SHAPES[0], SHAPES[2]])
+def test_products_match_pallas_and_jnp_at_the_body_edges(D, N, M, bits):
+    """The stacked plain versions against the Pallas kernels (interpret
+    mode) and the jnp arms at the M where the CUDA kernels change body,
+    bf16 x, fp32 out."""
+    w = _weights((2, D, N), 11 * D + N + bits)
+    jx, tx = _x(M, D, 3 * M + bits, jnp.bfloat16)
+    if bits == 8:
+        jw = jq.quantize_weight(jnp.asarray(w))
+        tw = tq.QuantizedWeight(torch.from_numpy(np.array(jw.q)),
+                                torch.from_numpy(np.array(jw.scale)), N)
+        want = jq._qdot_2d_stacked(jx, jw.q, jw.scale, jnp.int32(1), N, True)
+        arm = jnp.dot(jx, jw.q[1].astype(jnp.bfloat16),
+                      preferred_element_type=jnp.float32) * jw.scale[1]
+    else:
+        jw = jq.quantize_weight_int4(jnp.asarray(w))
+        gs = jw.group_size
+        tw = tq.Int4Weight(torch.from_numpy(np.array(jw.p)),
+                           torch.from_numpy(np.array(jw.scale)), N, gs)
+        want = jq._q4dot_2d_stacked(jx, jw.p, jw.scale, jnp.int32(1), N, gs,
+                                    True)
+        deq = jq._dequant_int4_jnp(jq.Int4Weight(jw.p[1], jw.scale[1], N, gs))
+        arm = jnp.dot(jx, deq, preferred_element_type=jnp.float32)
+    got = tq.quantized_dot_stacked_torch(tx, tw, 1, torch.float32)
+    _close(got, want)
+    _close(got, arm[:, :N])
+
+
+def _layer_forms(cfg):
+    """(D, N) of the five layer products and the vocab head of a config."""
+    lc = cfg.llm
+    D, I, hd = lc.hidden_size, lc.intermediate_size, lc.head_dim
+    qkv = lc.num_attention_heads * hd + 2 * lc.num_key_value_heads * hd
+    return [(D, qkv), (lc.num_attention_heads * hd, D), (D, I), (D, I),
+            (I, D), (D, lc.vocab_size)]
+
+
+PLAN_M = [1, 2, 3, 8, 9, 16, 17, 119, 2048, 2167]
+
+
+@pytest.mark.parametrize("preset", ["internvl2_2b", "internvl2_5_8b"])
+def test_launch_plan_covers_every_form(preset):
+    """Every product of InternVL2-2B and InternVL2.5-8B at decode, session
+    and prefill M, int8 and int4: each row of the depth lies in exactly one
+    split (M > 16: one split), int4 split edges on multiples of the group,
+    the grid covers Npad and M, the workspace matches the grid, and M <= 16
+    launches at least two blocks a SM."""
+    from v2pe_tpu_torch import config
+
+    for D, N in _layer_forms(getattr(config, preset)()):
+        npad = N + (-N) % tq.LANE
+        for int4 in (False, True):
+            gs = tq.int4_group_size(D) if int4 else 0
+            K = D // 2 if int4 else D
+            for M in PLAN_M:
+                plan = tq.launch_plan(M, D, npad, gs, int4)
+                form = (preset, D, N, M, int4, plan)
+                if M > tq.STRIP_MAX_M:
+                    assert plan.body == 1, form
+                    assert plan.grid[0] * tq.TC_TILE >= M > \
+                        (plan.grid[0] - 1) * tq.TC_TILE, form
+                    assert plan.grid[1] * tq.TC_TILE == npad, form
+                    assert len(plan.grid) == 2, form
+                    # a block walks the whole depth
+                    assert plan.splits == 1 and plan.split_rows == K, form
+                else:
+                    assert plan.body == 0 and plan.mt == (
+                        8 if M <= 8 else 16), form
+                    assert plan.grid == (npad // plan.bn, plan.splits), form
+                    assert plan.grid[0] * plan.grid[1] >= 2 * tq.SMS, form
+                    assert plan.split_rows <= tq.STRIP_ROWS[int4], form
+                covered = np.zeros(K, np.int64)
+                for s in range(plan.splits):
+                    lo = s * plan.split_rows
+                    assert lo < K, form  # no empty split
+                    covered[lo:lo + plan.split_rows] += 1
+                    if int4 and plan.body == 0:
+                        assert lo % gs == 0, form
+                assert (covered == 1).all(), form
+                assert plan.ws_bytes == (4 * plan.splits * M * npad
+                                         if plan.splits > 1 else 0), form
+
+
+@pytest.mark.parametrize("M,D,Npad,gs,int4", [
+    (1, 256, 300, 0, False),     # Npad not a multiple of 128
+    (1, 255, 384, 1, True),      # odd depth for int4
+    (3, 256, 384, 48, True),     # gs does not divide D/2
+    (0, 256, 384, 0, False),     # no rows
+    (3, 256, 384, 0, True),      # no group
+])
+def test_launch_plan_refuses_what_the_kernels_do_not_take(M, D, Npad, gs,
+                                                          int4):
+    with pytest.raises(ValueError):
+        tq.launch_plan(M, D, Npad, gs, int4)
+
+
 def test_products_refuse_what_they_do_not_take():
     w8 = tq.quantize_weight(torch.randn(3, 64, 32))
     x = torch.randn(2, 64)

@@ -155,17 +155,7 @@ def load() -> ctypes.CDLL:
             ctypes.c_float,     # scale
             p,                  # cudaStream_t
         ]
-        qdot_tail = [
-            i, i, i, i,         # M, D, Npad, n_out
-            i, i,               # x_is_bf16, out_is_bf16
-            p,                  # cudaStream_t
-        ]
-        q4dot_tail = qdot_tail[:4] + [i] + qdot_tail[4:]  # + group size
-        weight = [p, p, p, p]   # x, codes or packed nibbles, scale, out
-        lib.v2pe_qdot.argtypes = weight + qdot_tail
-        lib.v2pe_qdot_stacked.argtypes = weight + [i] + qdot_tail   # layer
-        lib.v2pe_q4dot.argtypes = weight + q4dot_tail
-        lib.v2pe_q4dot_stacked.argtypes = weight + [i] + q4dot_tail
+        bind_qdot(lib)
         ll = ctypes.c_longlong
         lib.v2pe_ring_fused_fwd.argtypes = [
             p, p, p,            # q, seg_q, pos_q (all ranks' rows)
@@ -181,9 +171,29 @@ def load() -> ctypes.CDLL:
         for fn in (lib.v2pe_ring_fused_fwd,
                    lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq,
                    lib.v2pe_paged_store, lib.v2pe_paged_decode,
-                   lib.v2pe_paged_prefill, lib.v2pe_qdot,
-                   lib.v2pe_qdot_stacked, lib.v2pe_q4dot,
-                   lib.v2pe_q4dot_stacked):
+                   lib.v2pe_paged_prefill):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def bind_qdot(lib: ctypes.CDLL) -> None:
+    """Argument types of the four quantized products' entry points."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    qdot_tail = [
+        i, i, i, i,         # M, D, Npad, n_out
+        i, i,               # x_is_bf16, out_is_bf16
+        i, i, i, i, i,      # the plan: body, mt, bn, splits, split_rows
+        p,                  # cudaStream_t
+    ]
+    q4dot_tail = qdot_tail[:4] + [i] + qdot_tail[4:]  # + group size
+    weight = [p, p, p, p,   # x, codes or packed nibbles, scale, out
+              p, p]         # workspace, split counters (may be NULL)
+    stack = [i, i]          # layer, layers
+    lib.v2pe_qdot.argtypes = weight + qdot_tail
+    lib.v2pe_qdot_stacked.argtypes = weight + stack + qdot_tail
+    lib.v2pe_q4dot.argtypes = weight + q4dot_tail
+    lib.v2pe_q4dot_stacked.argtypes = weight + stack + q4dot_tail
+    for fn in (lib.v2pe_qdot, lib.v2pe_qdot_stacked, lib.v2pe_q4dot,
+               lib.v2pe_q4dot_stacked):
+        fn.restype = ctypes.c_int

@@ -29,15 +29,18 @@ after the contraction, the result cast to ``out_dtype``.
 On a CUDA tensor ``quantized_dot`` / ``quantized_dot_stacked`` launch the
 hand-written kernels of ``csrc/quantized_matmul.cu`` (one per Pallas
 kernel: ``qdot``, ``qdot_stacked``, ``q4dot``, ``q4dot_stacked``); the
-stacked ones read layer ``li`` of an (L, D, Npad) stack in place. On a CPU
-tensor they take the plain versions. No gradient: serving only.
+stacked ones read layer ``li`` of an (L, D, Npad) stack in place. Each
+launch follows ``launch_plan``: the body (``strip`` at M <= 16, ``wgmma``
+above), its column tile, the split of the depth over blocks, the grid and
+the workspace of partial sums. On a CPU tensor they take the plain
+versions. No gradient: serving only.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -279,6 +282,70 @@ def quantized_dot_stacked_torch(x: torch.Tensor, w: _Weight, li: int,
     return _plain(x, w, w.payload[li], w.scale[li], out_dtype)
 
 
+# ------------------------------------------------------------ launch plan
+
+SMS = 132                # streaming multiprocessors of an H100
+STRIP_MAX_M = 16         # rows of x the strip body takes
+STRIP_THREADS = 256
+STRIP_ROWS = {False: 2048, True: 1024}  # code rows a split stages x for
+TC_TILE = 128            # the wgmma body's (rows of x, columns) tile
+TC_THREADS = 288
+
+
+class Plan(NamedTuple):
+    """One launch of a quantized product (``launch_plan``)."""
+    body: int         # 0: strip (M <= 16), 1: wgmma
+    mt: int           # strip: rows of x padded to 8 or 16 (wgmma: 0)
+    bn: int           # output columns a block
+    splits: int       # blocks that share a column tile's depth
+    split_rows: int   # code rows (int4: byte rows) of a split
+    grid: tuple       # blocks: strip (tiles, splits), wgmma (M tiles,
+                      # column tiles)
+    threads: int
+    ws_bytes: int     # fp32 partial sums (splits, M, Npad); 0 if no split
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(M: int, D: int, Npad: int, gs: int, int4: bool) -> Plan:
+    """The launch of one product of x (M, D) with codes (D or D/2, Npad).
+
+    M > 16: the wgmma body, a 128 x 128 output tile a block over the whole
+    depth, grid (M tiles, column tiles). M <= 16: the strip body. Its
+    column tile bn is the widest of 128, 64, 32 with which the product
+    launches at least two blocks a SM; the depth (K = D code rows, int4 D/2 byte rows) is cut into
+    ``splits`` runs of ``split_rows`` rows, a multiple of 16 (int4: of the
+    group size gs), the last one shorter, so that every row lies in exactly
+    one split; a split stages at most 2048 rows of x. A split's partial sums
+    go to a (splits, M, Npad) fp32 workspace. Raises ValueError on a form
+    the kernels do not take."""
+    M, D, Npad, gs, int4 = int(M), int(D), int(Npad), int(gs), bool(int4)
+    if M <= 0 or D <= 0 or Npad <= 0 or Npad % 128:
+        raise ValueError(f"no quantized-product launch for M={M}, D={D}, "
+                         f"Npad={Npad} (Npad a positive multiple of 128)")
+    if int4 and (D % 2 or gs <= 0 or (D // 2) % gs):
+        raise ValueError(f"int4 needs an even depth and a group size that "
+                         f"divides D/2: D={D}, gs={gs}")
+    K = D // 2 if int4 else D
+    if M > STRIP_MAX_M:
+        return Plan(1, 0, TC_TILE, 1, K, (-(-M // TC_TILE), Npad // TC_TILE),
+                    TC_THREADS, 0)
+    mt = 8 if M <= 8 else 16
+    gran = gs if int4 else 16
+    rmax = STRIP_ROWS[int4]
+    for bn in (128, 64, 32):
+        tiles = Npad // bn
+        want = max(-(-2 * SMS // tiles), -(-K // rmax))
+        rows = max(gran, K // want // gran * gran)
+        rows = min(rows, rmax)
+        splits = -(-K // rows)
+        if tiles * splits >= 2 * SMS:
+            break
+    if splits == 1:
+        rows = K
+    return Plan(0, mt, bn, splits, rows, (tiles, splits), STRIP_THREADS,
+                4 * splits * M * Npad if splits > 1 else 0)
+
+
 # ---------------------------------------------------------------- kernels
 
 
@@ -303,8 +370,26 @@ def _check(x: torch.Tensor, w: _Weight, ndim: int,
                          f"{payload.shape[0]} layers")
 
 
+_COUNTERS = {}  # device index -> zeroed int32 counters, one a column tile
+# the current stream of a device as an address (a CUDA build of torch has
+# the direct call)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+
+def _counters(device, tiles: int) -> torch.Tensor:
+    """The device's split counters: zero between launches (the last block
+    of a column tile resets its own), at least ``tiles`` of them."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
+
+
 def _launch(x: torch.Tensor, w: _Weight, li: Optional[int], out_dtype):
-    """Launch the kernel of (int8 | int4) x (2-D | layer of a stack)."""
+    """Launch the kernel of (int8 | int4) x (2-D | layer of a stack) as
+    ``launch_plan`` lays it out."""
     from v2pe_tpu_torch.ops import _build
 
     int4 = isinstance(w, Int4Weight)
@@ -318,31 +403,44 @@ def _launch(x: torch.Tensor, w: _Weight, li: Optional[int], out_dtype):
                          f"scale contiguous float32")
     out_dtype = out_dtype or x.dtype
     lead, D = x.shape[:-1], x.shape[-1]
-    x2 = x.reshape(-1, D)
+    x2 = x if x.dim() == 2 else x.reshape(-1, D)
     if x2.dtype not in (torch.bfloat16, torch.float32):
         x2 = x2.float()
-    x2 = x2.contiguous()
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
     M, npad = x2.shape[0], payload.shape[-1]
     kernel_dtype = out_dtype if out_dtype in (torch.bfloat16,
                                               torch.float32) else torch.float32
-    out = torch.empty((M, w.n_out), dtype=kernel_dtype, device=x.device)
+    # (M, n_out) rows, shaped as x's leading dims
+    out = torch.empty((*lead, w.n_out), dtype=kernel_dtype, device=x.device)
     if M == 0:
-        return out.reshape(*lead, w.n_out).to(out_dtype)
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
-    args = [ptr(x2), ptr(payload), ptr(scale), ptr(out)]
+        return out.to(out_dtype)
+    gs = w.group_size if int4 else 0
+    plan = launch_plan(M, D, npad, gs, int4)
+    if plan.body == 1 and x2.dtype == torch.float32:
+        x2 = x2.to(torch.bfloat16)  # the kernel's rounding, once, for TMA
+    ws = counters = None
+    if plan.splits > 1:
+        ws = torch.empty(plan.ws_bytes // 4, dtype=torch.float32,
+                         device=x.device)
+        counters = _counters(x.device, plan.grid[0])
+    args = [x2.data_ptr(), payload.data_ptr(), scale.data_ptr(),
+            out.data_ptr(), ws if ws is None else ws.data_ptr(),
+            counters if counters is None else counters.data_ptr()]
     if li is not None:
-        args.append(int(li))
+        args += [int(li), payload.shape[0]]
     args += [M, D, npad, w.n_out]
     if int4:
-        args.append(w.group_size)
+        args.append(gs)
     args += [int(x2.dtype == torch.bfloat16),
              int(kernel_dtype == torch.bfloat16),
-             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)]
+             plan.body, plan.mt, plan.bn, plan.splits, plan.split_rows,
+             _raw_stream(x.device.index)]
     err = getattr(_build.load(), "v2pe_" + name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
-    return out.reshape(*lead, w.n_out).to(out_dtype)
+    return out if kernel_dtype == out_dtype else out.to(out_dtype)
 
 
 def quantized_dot(x: torch.Tensor, w: _Weight, out_dtype=None):
