@@ -1,8 +1,9 @@
 """Time variants of a kernel's CUDA source against each other on one CUDA
 card, in one process, so that their times compare.
 
-    python3 chip_ablate.py [--family flash_bwd|qmm] [--variants a,b,...]
-                           [--iters 20]
+    python3 chip_ablate.py [--family flash_bwd|qmm|paged]
+                           [--variants a,b,...|none] [--iters 20]
+                           [--parent DIR] [--sweep]
 
 Family ``flash_bwd`` (the default): each variant is
 ``v2pe_tpu_torch/csrc/flash_bwd.cu`` and ``flash_tile.cuh`` (with
@@ -18,6 +19,20 @@ Each line also gives the variant's largest difference from the port's own
 kernels relative to the gradient's range: the ablations (``no_*``) compute
 something else and are there only for their time. Prints the compiler's
 registers, spills and ``wgmma`` notes of each variant first.
+
+Family ``paged``: variants of ``paged_attention.cu`` (PAGED_VARIANTS: an
+edit of the source, a change of ``decode_plan``'s split count, or both),
+built the same way under ``build/ablate/paged_<name>/``, and with
+``--parent DIR`` the paged source of another checkout (unpacked into DIR,
+e.g. by ``git archive``) as the variant ``parent``, bound through its own
+entry points. Each variant is held against the plain version at the paged
+kernels' main forms (twice into NaN-filled outputs, equal bits) and timed
+on the device beside scaled_dot_product_attention on the K/V gathered
+beforehand; with ``parent``, decode forms also give the median host time
+of a call of this checkout's decode wrapper and of the parent's own
+(``parent_wrappers``), called in turns.
+The decode split counters are cleared after each variant. ``--sweep``
+runs chip_smoke.py's random sweep of #5-#6 through each variant instead.
 
 Family ``qmm``: variants of ``quantized_matmul.cu`` (QMM_VARIANTS: an edit
 of the source, a change of ``launch_plan``'s split of the strip body's
@@ -144,7 +159,7 @@ QMM_VARIANTS = {
 #pragma unroll
       for (int i = 0; i < PER && p.M < 0; ++i) {"""),
                    ("quantized_matmul.cu",
-                    "    cp_async_wait<STAGES - 2>();\n",
+                    "    tc::cp_async_wait<STAGES - 2>();\n",
                     "    tc::mbar_wait(bars + t % STAGES, (t / STAGES) & 1);\n")],
                   None),
     # the wgmma body's codes by 16-byte cp.async from the producer warp,
@@ -162,7 +177,7 @@ QMM_VARIANTS = {
       for (int c = lane; c < TC_BK * 8; c += 32) {
         const int r = c / 8, ch = c % 8;
         const bool ok = k + r < p.K;
-        cp_async16(tc::smem_u32(sm.code(st)) + r * 128 + ((ch ^ (r & 7)) << 4),
+        tc::cp_async16(tc::smem_u32(sm.code(st)) + r * 128 + ((ch ^ (r & 7)) << 4),
                    layer_codes(p) + static_cast<size_t>(ok ? k + r : 0) *
                        p.Npad + n0 + 16 * ch,
                    ok ? 16 : 0);
@@ -178,6 +193,56 @@ QMM_VARIANTS = {
     "strip_bn32_whole": ([], lambda base, K, npad, M, gran: base._replace(
         bn=32, splits=1, split_rows=K, grid=(npad // 32, 1), ws_bytes=0)
         if base.body == 0 and K <= 2048 and gran == 16 else None),
+}
+
+
+# paged_attention.cu: name -> (edits, decode plan rule); the rule maps
+# decode_plan's split count to the variant's (chip_smoke.decode_resplit)
+PAGED = "paged_attention.cu"
+PAGED_VARIANTS = {
+    "kernel": ([], None),
+    "splits_half": ([], lambda s: max(1, s // 2)),
+    "splits_double": ([], lambda s: 2 * s),
+    "no_split": ([], lambda s: 1),
+    "dec_stages2": ([(PAGED, "constexpr int DEC_STAGES = 3;",
+                      "constexpr int DEC_STAGES = 2;")], None),
+    "dec_stages4": ([(PAGED, "constexpr int DEC_STAGES = 3;",
+                      "constexpr int DEC_STAGES = 4;")], None),
+    # the decode's ring on a 16-byte boundary only: eight lanes' 16-byte
+    # reads of a slot row then straddle two 128-byte lines
+    "dec_ring_align16": ([(PAGED, "extern __shared__ __align__(128) "
+                           "uint8_t smem[];", "extern __shared__ "
+                           "__align__(16) uint8_t smem[];")], None),
+    "pf_stages2": ([(PAGED, "constexpr int PF_STAGES = 3;",
+                     "constexpr int PF_STAGES = 2;")], None),
+    "pf_stages4": ([(PAGED, "constexpr int PF_STAGES = 3;",
+                     "constexpr int PF_STAGES = 4;")], None),
+    # K/V by cp.async rows through the page table where TMA boxes could be
+    "pf_cp_async": ([(PAGED, "constexpr int PF_TMA = 1;",
+                      "constexpr int PF_TMA = 0;")], None),
+    # one q head a block: each K/V tile loaded (and converted) G times
+    "pf_one_head": ([(PAGED, "const int hpb = (p.Hq / p.Hkv) % 2 == 0 ? 2 "
+                      ": 1;", "const int hpb = 1;")], None),
+    # the producer warp alone gathers and converts (no converter warps), or
+    # one producer warpgroup (no setmaxnreg: 168 registers for every thread)
+    "pf_producer_converts": ([(PAGED,
+                               "constexpr int PF_PRODUCER_WARPS = 8;",
+                               "constexpr int PF_PRODUCER_WARPS = 1;")],
+                             None),
+    "pf_producer_warps4": ([(PAGED, "constexpr int PF_PRODUCER_WARPS = 8;",
+                             "constexpr int PF_PRODUCER_WARPS = 4;")], None),
+    # diagnostic cuts (their outputs are wrong; only their times count):
+    # decode without its math, decode with every copy zero-filled (no
+    # device-memory reads), prefill with no conversion of codes
+    "dec_no_math": ([(PAGED, "for (int kg = 2 * ks; kg < DEC_CK / 4; "
+                      "kg += 2 * KS) {", "for (int kg = 2 * ks; kg < DEC_CK "
+                      "/ 4 && p.layer < 0; kg += 2 * KS) {")], None),
+    "dec_no_load": ([(PAGED, "            slot >= 0 ? 16 : 0);",
+                      "            slot >= 0 && p.layer < 0 ? 16 : 0);")],
+                    None),
+    "pf_no_convert": ([(PAGED, "for (int idx = pt; idx < 2 * 64 * U; "
+                        "idx += PT) {", "for (int idx = pt; idx < 2 * 64 * U "
+                        "&& p.layer < 0; idx += PT) {")], None),
 }
 
 
@@ -199,14 +264,18 @@ def resplit(base, K, npad, M, gran, rule):
 
 
 FAMILY_FILES = {"flash_bwd": ("flash_bwd.cu", "flash_tile.cuh", "hopper.cuh"),
-                "qmm": ("quantized_matmul.cu", "hopper.cuh")}
+                "qmm": ("quantized_matmul.cu", "hopper.cuh"),
+                "paged": (PAGED, "flash_tile.cuh", "hopper.cuh")}
 
 
 def write_variant(name: str, family: str = "flash_bwd") -> str:
-    """The variant's sources under OUT/name (OUT/qmm_name for the qmm
-    family); returns its directory."""
-    edits = VARIANTS[name] if family == "flash_bwd" else QMM_VARIANTS[name][0]
-    d = os.path.join(OUT, name if family == "flash_bwd" else f"qmm_{name}")
+    """The variant's sources under OUT/name (OUT/<family>_name for the qmm
+    and paged families); returns its directory."""
+    edits = {"flash_bwd": lambda: VARIANTS[name],
+             "qmm": lambda: QMM_VARIANTS[name][0],
+             "paged": lambda: PAGED_VARIANTS[name][0]}[family]()
+    d = os.path.join(OUT, name if family == "flash_bwd"
+                     else f"{family}_{name}")
     os.makedirs(d, exist_ok=True)
     for f in FAMILY_FILES[family]:
         with open(os.path.join(CSRC, f)) as fh:
@@ -221,13 +290,25 @@ def write_variant(name: str, family: str = "flash_bwd") -> str:
     return d
 
 
-def build(names, family: str = "flash_bwd") -> dict:
-    """Build every variant at once; returns name -> loaded library."""
+def build(names, family: str = "flash_bwd", parent=None) -> dict:
+    """Build every variant at once; returns name -> loaded library. With
+    ``parent`` (paged family), the variant ``parent`` is that checkout's
+    paged source as it is."""
     from v2pe_tpu_torch.ops import _build
 
     procs = []
     for name in names:
-        d = write_variant(name, family)
+        if name == "parent":
+            d = os.path.join(OUT, "paged_parent")
+            os.makedirs(d, exist_ok=True)
+            src = os.path.join(parent, "v2pe_tpu_torch", "csrc")
+            for f in os.listdir(src):
+                if f == PAGED or f.endswith(".cuh"):
+                    with open(os.path.join(src, f)) as fi, \
+                            open(os.path.join(d, f), "w") as fo:
+                        fo.write(fi.read())
+        else:
+            d = write_variant(name, family)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
                "-shared", "-o", os.path.join(d, "lib.so"),
                os.path.join(d, FAMILY_FILES[family][0])]
@@ -259,8 +340,12 @@ def build(names, family: str = "flash_bwd") -> dict:
         if family == "flash_bwd":
             lib.v2pe_flash_bwd_dkv.argtypes = [p] * 12 + tail
             lib.v2pe_flash_bwd_dq.argtypes = [p] * 11 + tail
-        else:
+        elif family == "qmm":
             _build.bind_qdot(lib)
+        elif name == "parent":
+            lib = ParentPaged(lib)
+        else:
+            _build.bind_paged(lib)
         libs[name] = lib
     return libs
 
@@ -302,6 +387,158 @@ def qmm_forms():
                 forms.append((kst, f"{name}_M{M}", bits, (L, *shape), M))
         forms.append((k2d, "head_M1", bits, (D, V), 1))
     return forms
+
+
+class ParentPaged:
+    """The paged entry points of a checkout from before the split decode
+    (no plan, workspace or counters; no layer count for the prefill),
+    called with the current wrappers' arguments."""
+
+    def __init__(self, lib):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.v2pe_paged_decode.argtypes = [p] * 12 + [i] * 13 + [f, p]
+        lib.v2pe_paged_prefill.argtypes = [p] * 10 + [i] * 11 + [f, p]
+        for fn in (lib.v2pe_paged_decode, lib.v2pe_paged_prefill):
+            fn.restype = ctypes.c_int
+        self.lib = lib
+
+    def v2pe_paged_decode(self, *a):
+        return self.lib.v2pe_paged_decode(*a[:26], a[-1])
+
+    def v2pe_paged_prefill(self, *a):
+        return self.lib.v2pe_paged_prefill(*a[:22], a[-1])
+
+
+PAGED_FORMS = ("decode_fresh_in_pages", "decode_32k_B1_ps128",
+               "decode_34165_B1_ps512_bf16", "decode_engine_B8_8k_T1",
+               "decode_engine_B8_8k_T5_ps512_bf16",
+               "decode_separate_T4_B3_ps128_bf16", "prefill_2048_over_32k",
+               "prefill_256_over_served_rows")
+
+
+HOST_CALLS = 400  # wrapper calls of each library in host_pair
+
+
+def parent_wrappers(parent: str):
+    """The ``ops/paged_attention.py`` of the checkout in ``parent``, loaded
+    as a module of its own: its wrappers, which reach their library through
+    ``_build.load()`` as this checkout's do."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "parent_paged_attention",
+        os.path.join(parent, "v2pe_tpu_torch", "ops", "paged_attention.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def host_pair(call_a, lib_a, call_b, lib_b):
+    """Median host time (us) of one call of ``call_a`` with ``_build.load``
+    giving library a and of ``call_b`` with it giving library b, called in
+    turns so that both see the same host."""
+    import statistics
+    import time
+
+    from v2pe_tpu_torch.ops import _build
+
+    own = _build.load
+    times = ([], [])
+    try:
+        for i in range(2 * HOST_CALLS):
+            call, lib = ((call_a, lib_a), (call_b, lib_b))[i % 2]
+            _build.load = lambda lib=lib: lib
+            if i % 64 < 2:
+                torch.cuda.synchronize()  # keep the queue short
+            t0 = time.perf_counter()
+            call()
+            times[i % 2].append(time.perf_counter() - t0)
+    finally:
+        _build.load = own
+    torch.cuda.synchronize()
+    return tuple(statistics.median(t) * 1e6 for t in times)
+
+
+def run_paged(args) -> int:
+    """The paged family: every variant against the plain version and timed
+    at the paged kernels' main forms, beside the library on the K/V
+    gathered beforehand."""
+    from v2pe_tpu_torch.ops import _build
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    names = [v for v in args.variants.split(",") if v and v != "none"]
+    if args.parent:
+        names.append("parent")
+    libs = build(names, "paged", args.parent)
+    ppa = parent_wrappers(args.parent) if args.parent else None
+    own_plan, own_load = pa.decode_plan, _build.load
+    if args.sweep:  # the random sweep of #5-#6 through each variant
+        try:
+            for vname, lib in libs.items():
+                print(f"ablate paged sweep {vname}:", flush=True)
+                _build.load = lambda lib=lib: lib
+                try:
+                    cs.phase_paged_sweep()
+                except AssertionError as e:
+                    print(f"ablate paged sweep {vname} FAILED: {e}",
+                          flush=True)
+                for _, counters in pa._DECODE_SCRATCH.values():
+                    counters.zero_()
+        finally:
+            _build.load = own_load
+        print(cs.card_line())
+        return 0
+    try:
+        for kernel, form, fn, kw in cs.paged_forms(torch.device("cuda"),
+                                                   cs.PROBE_PROMPTS):
+            if kernel == "paged_store" or not form.startswith(PAGED_FORMS):
+                continue
+            lib_ms = cs.library_ms(cs.gathered_attention(kernel, kw), 3)
+            bound = cs.paged_roof(kernel, kw)
+            print(f"ablate paged {form}: bound {bound['bound_ms']:.4f} ms by "
+                  f"{bound['bound_by']}; SDPA on the K/V gathered "
+                  f"beforehand {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f"; plan {own_plan(*plan_shape(kw))}", flush=True)
+            if kernel == "paged_decode" and {"kernel", "parent"} <= set(libs):
+                # this checkout's wrapper and library against the parent's
+                hk, hp = host_pair(
+                    lambda: pa.paged_decode_attention(**kw), libs["kernel"],
+                    lambda: ppa.paged_decode_attention(**kw),
+                    libs["parent"].lib)
+                print(f"ablate paged {form} wrapper host time, this "
+                      f"checkout's and the parent's wrapper in turns, median "
+                      f"of {HOST_CALLS} each: {hk:.1f} us against "
+                      f"{hp:.1f} us", flush=True)
+            for vname, lib in libs.items():
+                rule = PAGED_VARIANTS.get(vname, ([], None))[1]
+                if rule is not None and kernel != "paged_decode":
+                    continue
+                _build.load = lambda lib=lib: lib
+                pa.decode_plan = own_plan if rule is None else (
+                    lambda *a, rule=rule: cs.decode_resplit(
+                        own_plan(*a), rule(own_plan(*a).splits), a[2], a[3]))
+                msg, ok, _ = cs.paged_check(kernel, fn, kw)
+                ms = min(cs.time_ms(lambda: fn(**kw), args.iters)
+                         for _ in range(3))
+                print(f"ablate paged {form} {vname}: {ms:.4f} ms; {msg}"
+                      f"{'' if ok else ' FAILED'}", flush=True)
+                # a cut variant may leave the split counters raised
+                for _, counters in pa._DECODE_SCRATCH.values():
+                    counters.zero_()
+            pa.decode_plan = own_plan
+            del kw
+            torch.cuda.empty_cache()
+    finally:
+        pa.decode_plan, _build.load = own_plan, own_load
+    print(cs.card_line())
+    return 0
+
+
+def plan_shape(kw):
+    """decode_plan's arguments at a form's shapes."""
+    B, T, Hq, _ = kw["q"].shape
+    Hkv, ps = kw["k_pages"].shape[1], kw["k_pages"].shape[3]
+    return B, Hkv, kw["page_table"].shape[1], ps, T, Hq // Hkv
 
 
 def run_qmm(args) -> int:
@@ -382,9 +619,15 @@ def run_qmm(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--family", default="flash_bwd",
-                    choices=("flash_bwd", "qmm"))
+                    choices=("flash_bwd", "qmm", "paged"))
     ap.add_argument("--variants", default=None)
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--parent", default=None,
+                    help="paged family: a checkout whose paged source is "
+                    "timed as the variant 'parent'")
+    ap.add_argument("--sweep", action="store_true",
+                    help="paged family: only the random sweep of #5-#6 "
+                    "(chip_smoke.phase_paged_sweep) through each variant")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_ablate: no CUDA device", file=sys.stderr)
@@ -392,10 +635,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     if args.variants is None:
-        args.variants = ",".join(VARIANTS if args.family == "flash_bwd"
-                                 else QMM_VARIANTS)
+        args.variants = ",".join({"flash_bwd": VARIANTS, "qmm": QMM_VARIANTS,
+                                  "paged": PAGED_VARIANTS}[args.family])
     if args.family == "qmm":
         return run_qmm(args)
+    if args.family == "paged":
+        return run_paged(args)
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
 
     libs = build(args.variants.split(","))

@@ -21,7 +21,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
      session's store and decode over a 34k context at page 512, a
      2048-token chunk over a 32k history; in bf16 and int4 also the
      engine's decode of 8 rows of 8.2k tokens with 1 and with 5 fresh
-     tokens);
+     tokens; decode and prefill twice into NaN-filled outputs with equal
+     bits, beside scaled_dot_product_attention on the K/V gathered
+     beforehand), then a seeded random sweep of 32 forms each of the paged
+     decode and prefill (page sizes 8-512, head dims, pools, fresh-token
+     modes, dead entries, empty rows, split counts);
   3. serve: InternVL2-2B at full width (bf16, random weights from a seed)
      answers three chat requests through ChatModel.batch_chat, and the
      flash kernel's launch count shows the path went through it;
@@ -751,49 +755,242 @@ def paged_roof(kernel: str, kw: dict) -> dict:
                 4.0 * D * Hq * pairs, q.dtype)
 
 
+def gathered_attention(kernel: str, kw: dict):
+    """The library's yardstick for a paged form: a function that runs
+    ``scaled_dot_product_attention`` on the same K/V already gathered
+    contiguous (dequantized for a quantized pool, in the queries' dtype;
+    the fresh tokens appended where they are folded), with the mask the
+    form needs (none where every query sees every gathered key). The
+    gather is done here, once, outside any timing; nothing of the port
+    calls this."""
+    import torch.nn.functional as F
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    q, pool = kw["q"], kw["k_pages"]
+    B, T, Hq, hd = q.shape
+    ps, layer = pool.shape[3], kw["layer"]
+    table, lengths = kw["page_table"], kw["lengths"]
+    sb = kw.get("slot_base")
+    if sb is None:
+        sb = pa.default_slot_base(table, ps)
+    kv = []
+    for pages, scales in ((kw["k_pages"], kw.get("k_scales")),
+                          (kw["v_pages"], kw.get("v_scales"))):
+        x, sc = pa._gather_pages(pages, scales, table, layer, hd)
+        kv.append(x if sc is None else x * sc[..., None])
+    slot = pa._slots(sb, ps)                        # (B, K)
+    if kernel == "paged_prefill":
+        mask = ((slot >= 0) & (slot < lengths.long()[:, None]))[:, None]
+    else:
+        t = torch.arange(T, device=q.device)
+        limit = lengths.long()[:, None] + (t[None] if kw.get("fresh_in_pages")
+                                           else -1)
+        mask = ((slot[:, None] >= 0) & (slot[:, None] <= limit[:, :, None])
+                ).expand(B, T, -1)
+        if not kw.get("fresh_in_pages") and kw.get("fold_fresh", 1):
+            kv = [torch.cat([x, n.float().transpose(1, 2)], dim=2)
+                  for x, n in zip(kv, (kw["k_new"], kw["v_new"]))]
+            causal = (t[None] <= t[:, None]).expand(B, T, T)
+            mask = torch.cat([mask, causal], dim=-1)
+    if B == 1:  # keep only the keys some query sees
+        keep = mask[0].any(0)
+        kv, mask = [x[:, :, keep] for x in kv], mask[..., keep]
+    k, v = (x.to(q.dtype).contiguous() for x in kv)
+    m = None if bool(mask.all()) else mask[:, None]  # (B, 1, T, K)
+    qt = q.transpose(1, 2).contiguous()
+    scale = hd ** -0.5
+    return lambda: F.scaled_dot_product_attention(
+        qt, k, v, attn_mask=m, scale=scale, enable_gqa=Hq != k.shape[1])
+
+
+def paged_check(kernel: str, fn, kw: dict) -> tuple:
+    """Run a decode or prefill form twice into NaN-filled outputs and hold
+    it against the twin on fp32 copies of q and the fresh k/v within
+    PAGED_TOL, the two runs' bits equal: (message, ok, largest error)."""
+    with nan_empty():
+        out, lse = fn(**kw)
+        out2, lse2 = fn(**kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, out2) and torch.equal(lse, lse2))
+    up = {n: (t.float() if n in ("q", "k_new", "v_new") and t is not None
+              else t) for n, t in kw.items()}
+    want, want_lse = _twin(kernel)(**up)
+    err = (out.float() - want).abs().max().item()
+    top = want.abs().max().item()
+    rel = err / top if top > 0 else err
+    err_lse = (lse - want_lse).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and same and \
+        rel <= PAGED_TOL["out_rel"] and err_lse <= PAGED_TOL["lse"]
+    msg = (f"max|out-twin| {err:.3e} = {rel:.3e} of max|twin| (tol "
+           f"{PAGED_TOL['out_rel']:.3e}) max|lse-twin| {err_lse:.3e} (tol "
+           f"{PAGED_TOL['lse']}); repeat bitwise equal {same}")
+    return msg, ok, max(err, err_lse)
+
+
 def phase_paged_kernels(prompt_lens) -> dict:
     """Each paged kernel against its twin at every form; returns per-kernel
-    lists of form records. No library call computes these functions over a
-    page table. Main forms: the served rows' store and decode and the
-    2048-token chunk, bf16 pools; their int8 and int4 counterparts are the
-    records' ``pool`` forms."""
+    lists of form records. Decode and prefill run twice into NaN-filled
+    outputs with equal bits. No library call computes these functions over
+    a page table: their yardstick is ``scaled_dot_product_attention`` on
+    the same K/V gathered contiguous beforehand (``gathered_attention``).
+    Main forms: the served rows' store and decode and the 2048-token chunk,
+    bf16 pools; their int8 and int4 counterparts are the records' ``pool``
+    forms."""
     device = torch.device("cuda")
     records = {"paged_store": [], "paged_decode": [], "paged_prefill": []}
     for kernel, name, fn, kw in paged_forms(device, prompt_lens):
         twin = _twin(kernel)
+        lib_ms = None
         if kernel == "paged_store":
             err = _store_error(fn, twin, kw)
             ok = err <= PAGED_TOL["store"]
             msg = f"max|pool-twin| {err:.3e} (tol {PAGED_TOL['store']})"
         else:
-            out, lse = fn(**kw)
-            torch.cuda.synchronize()
-            up = {n: (t.float() if n in ("q", "k_new", "v_new")
-                      and t is not None else t) for n, t in kw.items()}
-            want, want_lse = twin(**up)
-            err = (out.float() - want).abs().max().item()
-            rel = err / want.abs().max().item()
-            err_lse = (lse - want_lse).abs().max().item()
-            ok = bool(torch.isfinite(out).all()) and \
-                rel <= PAGED_TOL["out_rel"] and err_lse <= PAGED_TOL["lse"]
-            msg = (f"max|out-twin| {err:.3e} = {rel:.3e} of max|twin| (tol "
-                   f"{PAGED_TOL['out_rel']:.3e}) max|lse-twin| {err_lse:.3e}"
-                   f" (tol {PAGED_TOL['lse']})")
-            err = max(err, err_lse)
+            msg, ok, err = paged_check(kernel, fn, kw)
+            lib_ms = library_ms(gathered_attention(kernel, kw), iters=3)
+            torch.cuda.empty_cache()
         ms = time_ms(lambda: fn(**kw), iters=3)
         plain_ms = time_ms(lambda: twin(**kw), iters=3)
         bound = paged_roof(kernel, kw)
-        log(f"kernel {name}: {msg} kernel {ms:.3f} ms, twin {plain_ms:.3f} ms"
-            f", bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}, "
-            f"library none")
+        lib = "none" if lib_ms is None else \
+            f"{lib_ms:.4f} ms (SDPA on the K/V gathered beforehand)"
+        log(f"kernel {name}: {msg} kernel {ms:.4f} ms, twin {plain_ms:.3f} "
+            f"ms, bound {bound['bound_ms']:.6f} ms by {bound['bound_by']}, "
+            f"library {lib}")
         if not ok:
             raise AssertionError(f"{kernel} disagrees with twin at {name}")
         records[kernel].append(dict(
             form=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
-            library_ms=None, main=_is_main_paged(name, "bf16"),
+            library_ms=lib_ms, main=_is_main_paged(name, "bf16"),
             pool=next((t for t in ("int8", "int4")
                        if _is_main_paged(name, t)), None)))
         del kw
+    torch.cuda.empty_cache()
+    return records
+
+
+def decode_resplit(plan, n: int, MP: int, ps: int):
+    """``plan`` (ops/paged_attention.decode_plan) with about ``n`` splits
+    of a row's MP * ps slots: whole stages of the kernel, the count then
+    what they give (n >= MP * ps / 64: one stage a split, the most)."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    V = max(MP * ps, 1)
+    span = -(-(-(-V // max(1, n))) // pa.DECODE_SLOTS) * pa.DECODE_SLOTS
+    return plan._replace(splits=-(-V // span), span=span)
+
+
+PAGED_SWEEP_FORMS = 32  # seeded random forms of each of #5 and #6
+PROBE_PROMPTS = [2167, 365, 98]  # the served requests' prompt lengths
+
+
+def _sweep_pool(L, Hkv, NP, ps, D, kind, dtype, rng, device):
+    """A random pool: values in the queries' dtype, int8 codes, or int4
+    bytes (any byte is two codes), with scales for the last two."""
+    shape = (L, Hkv, NP, ps, D if kind != "int4" else D // 2)
+    if kind == "same":
+        k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dtype) for _ in range(2))
+        return dict(k_pages=k, v_pages=v)
+    k, v = (torch.from_numpy(rng.integers(-127, 128, shape).astype(
+        np.int8)).to(device) for _ in range(2))
+    mul = 18.0 if kind == "int4" else 1.0
+    ks, vs = (torch.from_numpy((rng.uniform(0.005, 0.03, shape[:3] + (1, ps))
+                                * mul).astype(np.float32)).to(device)
+              for _ in range(2))
+    return dict(k_pages=k, v_pages=v, k_scales=ks, v_scales=vs)
+
+
+def paged_sweep_form(rng, kernel: str, device):
+    """(name, kwargs, splits) of one random form of the paged decode or
+    prefill: page size 8-512, head dim 64 or 128, 1-8 rows of ragged
+    lengths with some at 0 and some at 64 n + {0, 1, 63}, 1-4 kv heads of
+    1-4 query heads, bf16 or fp32 queries over a pool of their dtype or of
+    int8 / int4 codes, at times a dead entry inside a row's range; decode
+    with T 1-16 fresh tokens stored in the pages, folded in separately, or
+    left out (fold_fresh=0), the split count forced to 1 or to the most
+    the plan can give (one 64-slot stage a split); prefill with 1-300 chunk
+    rows."""
+    ps = int(rng.choice([8, 16, 48, 64, 128, 512]))
+    D, B = int(rng.choice([64, 128])), int(rng.integers(1, 9))
+    Hkv, G = int(rng.choice([1, 2, 4])), int(rng.integers(1, 5))
+    dtype = [torch.bfloat16, torch.float32][int(rng.integers(2))]
+    kind = ["same", "int8", "int4"][int(rng.integers(3))]
+    top = 9000 if kernel == "paged_decode" else 3000
+    lengths = []
+    for _ in range(B):
+        u = rng.random()
+        n = 0 if u < 0.15 else int(rng.integers(1, top))
+        if 0.15 <= u < 0.5:
+            n = 64 * int(rng.integers(0, top // 64)) + int(
+                rng.choice([0, 1, 63]))
+        lengths.append(n)
+    T = int(rng.integers(1, 17)) if kernel == "paged_decode" else \
+        int(rng.integers(1, 301))
+    mode = ["in_pages", "folded", "unfolded"][int(rng.integers(3))] \
+        if kernel == "paged_decode" else "chunk"
+    table, NP = _rows(lengths, ps, T if mode == "in_pages" else 1, device)
+    table = table.contiguous()
+    pool = _sweep_pool(2, Hkv, NP, ps, D, kind, dtype, rng, device)
+    x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device, dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    kw = dict(q=x(B, T, Hkv * G, D), page_table=table, lengths=lens,
+              layer=int(rng.integers(2)), **pool)
+    dead = rng.random() < 0.3 and table.shape[1] > 2
+    if dead:  # another shard owns one entry inside row 0's range
+        from v2pe_tpu_torch.ops import paged_attention as pa
+
+        sb = pa.default_slot_base(table, ps)
+        sb[0, int(rng.integers(0, table.shape[1]))] = -1
+        kw["slot_base"] = sb.contiguous()
+    splits = None
+    if kernel == "paged_decode":
+        kw.update(k_new=None, v_new=None, return_lse=True,
+                  fresh_in_pages=mode == "in_pages")
+        if mode != "in_pages":
+            kw.update(k_new=x(B, T, Hkv, D), v_new=x(B, T, Hkv, D),
+                      fold_fresh=int(mode == "folded"))
+        splits = [1, table.shape[1] * ps][int(rng.integers(2))]
+    name = (f"B{B}_ps{ps}_{Hkv * G}/{Hkv}x{D}_T{T}_{mode}_"
+            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}_{kind}_"
+            f"len{'-'.join(map(str, lengths))}{'_dead' if dead else ''}"
+            + (f"_splits{splits}" if splits else ""))
+    return name, kw, splits
+
+
+def phase_paged_sweep(device: str = "cuda") -> dict:
+    """#5 and #6 at PAGED_SWEEP_FORMS seeded random forms each
+    (paged_sweep_form), held as phase_paged_kernels holds its forms: twice
+    into NaN-filled outputs with equal bits, against the twin within
+    PAGED_TOL. One line a kernel with the count and the largest error."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.default_rng(23)
+    records = {"paged_decode": [], "paged_prefill": []}
+    plan = pa.decode_plan
+    try:
+        for kernel, fn in (("paged_decode", pa.paged_decode_attention),
+                           ("paged_prefill", pa.paged_prefill_attention)):
+            t0, worst = time.perf_counter(), (0.0, "")
+            for _ in range(PAGED_SWEEP_FORMS):
+                name, kw, splits = paged_sweep_form(rng, kernel, device)
+                if splits is not None:
+                    pa.decode_plan = lambda *a, n=splits: decode_resplit(
+                        plan(*a), n, a[2], a[3])
+                msg, ok, err = paged_check(kernel, fn, kw)
+                pa.decode_plan = plan
+                if not ok:
+                    raise AssertionError(f"{kernel} sweep {name}: {msg}")
+                worst = max(worst, (err, name))
+                records[kernel].append(dict(form=f"sweep_{name}",
+                                            max_abs_err=err, main=False))
+            log(f"kernel sweep {kernel}: {PAGED_SWEEP_FORMS} seeded random "
+                f"forms within PAGED_TOL, twice with equal bits; largest "
+                f"error {worst[0]:.3e} at {worst[1]}; "
+                f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        pa.decode_plan = plan
     torch.cuda.empty_cache()
     return records
 
@@ -2117,21 +2314,23 @@ QDOT_KERNELS = ("qdot", "qdot_stacked", "q4dot", "q4dot_stacked")
 
 @contextlib.contextmanager
 def nan_empty():
-    """While active, ``torch.empty`` fills floating tensors with NaN: an
-    output element that a kernel leaves unwritten then fails a check,
-    instead of holding what an earlier call left in the caching
-    allocator's block."""
-    empty = torch.empty
+    """While active, ``torch.empty`` and ``torch.empty_like`` fill floating
+    tensors with NaN: an output element that a kernel leaves unwritten then
+    fails a check, instead of holding what an earlier call left in the
+    caching allocator's block."""
+    empty, empty_like = torch.empty, torch.empty_like
 
-    def poisoned(*args, **kwargs):
-        t = empty(*args, **kwargs)
-        return t.fill_(float("nan")) if t.is_floating_point() else t
+    def poison(alloc):
+        def poisoned(*args, **kwargs):
+            t = alloc(*args, **kwargs)
+            return t.fill_(float("nan")) if t.is_floating_point() else t
+        return poisoned
 
-    torch.empty = poisoned
+    torch.empty, torch.empty_like = poison(empty), poison(empty_like)
     try:
         yield
     finally:
-        torch.empty = empty
+        torch.empty, torch.empty_like = empty, empty_like
 
 
 PREFILL_ROWS = 2167  # the 8-tile request's prompt
@@ -3851,6 +4050,9 @@ def main(argv=None) -> int:
         for name, more in recs.items():
             forms.setdefault(name, []).extend(more)
     lap("kernels")
+    for name, more in phase_paged_sweep().items():
+        forms[name].extend(more)
+    lap("paged sweep")
     phase_small_reference()
     phase_small_train_reference()
     phase_small_ring_reference()

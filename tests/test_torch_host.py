@@ -495,3 +495,26 @@ def test_chip_ablate_quantized_edits_apply(tmp_path, monkeypatch):
             chip_ablate.FAMILY_FILES["qmm"]), name
         for where, _, new in edits:
             assert new in (d / where).read_text(), (name, where)
+
+
+def test_chip_ablate_paged_edits_apply(tmp_path, monkeypatch):
+    """Every named edit of chip_ablate.py's paged family (variants of
+    paged_attention.cu) applies to the source as it is, its variant
+    directory holds every file the source includes, and each split rule
+    gives a split count between 1 and the page-table width."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_ablate
+    finally:
+        sys.path.remove(str(ROOT))
+    monkeypatch.setattr(chip_ablate, "OUT", str(tmp_path))
+    for name, (edits, rule) in chip_ablate.PAGED_VARIANTS.items():
+        d = pathlib.Path(chip_ablate.write_variant(name, "paged"))
+        assert sorted(f.name for f in d.iterdir()) == sorted(
+            chip_ablate.FAMILY_FILES["paged"]), name
+        for where, old, new in edits:
+            assert new in (d / where).read_text(), (name, where)
+            assert old not in (d / where).read_text(), (name, where)
+        if rule is not None:
+            for splits in (33, 4, 1):
+                assert rule(splits) >= 1, (name, splits)

@@ -204,6 +204,31 @@ def test_int4_prefill_plain_matches_pallas():
     assert np.all(got.numpy()[2] == 0)
 
 
+def test_int4_prefill_bf16_rounding_matches_pallas():
+    """bf16 queries over an int4 pool: the plain prefill converts codes
+    (exact in bf16), scales the fp32 scores and rounds the weights times
+    the v scale to bf16, as the tensor-core kernel does; against the
+    Pallas kernel in interpret mode (fp32 weights) out within 1e-2 and lse
+    within 2e-5, as in test_torch_paged.py."""
+    k, v, ks, vs = _codes(seed=17)
+    q = np.random.default_rng(18).standard_normal(
+        (3, 20, HQ, HD)).astype(np.float32)
+    want, want_lse = jpa.paged_prefill_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), *_jpool(k, v),
+        jnp.asarray(PAGE_TABLE), jnp.asarray(LENGTHS), jnp.int32(1),
+        interpret=True, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    got, got_lse = tpa.paged_prefill_attention(
+        torch.from_numpy(q).to(torch.bfloat16), *_tpool(k, v),
+        torch.from_numpy(PAGE_TABLE), torch.from_numpy(LENGTHS), 1,
+        k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=2e-5, rtol=2e-5)
+    assert np.all(got.float().numpy()[2] == 0)
+
+
 # --------------------------------------------------------------------- pool
 
 

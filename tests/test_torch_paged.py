@@ -204,6 +204,125 @@ def test_prefill_twin_matches_pallas(kv):
     assert np.all(p.torch[0][2] == 0)
 
 
+@pytest.mark.parametrize("shape,want", [
+    # (B, Hkv, MP, ps, T, G) -> (splits, slots a split, rows a block)
+    ((1, 8, 67, 512, 1, 2), (32, 1088, 2)),   # the session's 34k decode
+    ((1, 8, 257, 128, 1, 2), (33, 1024, 2)),  # one row over 32k, page 128
+    ((8, 8, 17, 512, 1, 2), (4, 2176, 2)),    # the engine's 8 rows x 8.2k
+    ((8, 8, 17, 512, 5, 2), (4, 2176, 16)),   # its verify forward, T = 5
+    ((3, 8, 18, 128, 1, 2), (9, 256, 2)),    # the served rows
+    ((3, 2, 5, 8, 16, 2), (1, 64, 16)),       # sweep: 32 rows in 2 blocks
+    ((2, 1, 3, 16, 16, 4), (1, 64, 16)),      # sweep: 64 rows in 4 blocks
+    ((64, 8, 10, 512, 1, 2), (1, 5120, 2)),   # rows enough: no split
+    ((3, 8, 0, 512, 1, 2), (1, 64, 2)),       # no entries: one empty split
+])
+def test_decode_plan_splits_a_rows_slots(shape, want):
+    """decode_plan reads shapes only: every slot of a row lies in exactly
+    one split, whole 64-slot stages a split; a block's rows cover the T * G
+    query rows; the launch fits the card's two resident blocks an SM in
+    one wave, and fills at least half of it where the slots allow."""
+    B, Hkv, MP, ps, T, G = shape
+    plan = tpa.decode_plan(*shape)
+    assert (plan.splits, plan.span, plan.rows) == want
+    V = max(MP * ps, 1)
+    assert plan.span % tpa.DECODE_SLOTS == 0
+    assert (plan.splits - 1) * plan.span < V <= plan.splits * plan.span
+    assert plan.rows * plan.row_blocks >= T * G > \
+        plan.rows * (plan.row_blocks - 1)
+    base = B * Hkv * plan.row_blocks
+    blocks = base * plan.splits
+    assert blocks <= 2 * tpa.SMS or plan.splits == 1
+    assert blocks > tpa.SMS or plan.span == tpa.DECODE_SLOTS \
+        or base > tpa.SMS
+    with pytest.raises(ValueError):
+        tpa.decode_plan(B, Hkv, MP, ps, 0, G)
+
+
+@pytest.mark.parametrize("fresh_in_pages", [False, True])
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_decode_split_merge_equals_unsplit(n, fresh_in_pages):
+    """The arithmetic of the decode kernel's meeting: the plain decode over
+    a row's entries cut into n disjoint slot_base views (contiguous runs of
+    entries, as decode_plan cuts a row's slots; dead entries and an empty
+    split among them), merged in split order with merge_partials, then the
+    separate fresh tokens folded in once, equals the unsplit result."""
+    k, v, _, _ = _pool("float32", seed=12)
+    rng = np.random.default_rng(13)
+    B, T = 3, 4
+    q, kn, vn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 for s in ((B, T, HQ, HD), (B, T, HKV, HD), (B, T, HKV, HD)))
+    pt = torch.from_numpy(PAGE_TABLE)
+    if fresh_in_pages:
+        pt = pt.clone()
+        pt[2, 0] = 13  # row 2's fresh tokens are stored in page 13
+    ln = torch.from_numpy(LENGTHS)
+    sb = tpa.default_slot_base(pt, PS)
+    sb[0, 1] = -1  # a dead entry inside row 0's range
+    pool = (torch.from_numpy(k), torch.from_numpy(v), pt, ln, 1)
+    kw = dict(fresh_in_pages=fresh_in_pages, return_lse=True)
+    want, want_lse = tpa.paged_decode_attention_torch(
+        q, kn, vn, *pool, slot_base=sb, **kw)
+    MP = pt.shape[1]
+    per = -(-MP // n)
+    out = lse = None
+    for i in range(n):
+        view = torch.full_like(sb, -1)
+        view[:, i * per:(i + 1) * per] = sb[:, i * per:(i + 1) * per]
+        o, l = tpa.paged_decode_attention_torch(
+            q, kn, vn, *pool, slot_base=view, fold_fresh=0, **kw)
+        out, lse = (o, l) if out is None else tpa.merge_partials(
+            out, lse, o, l)
+    if not fresh_in_pages:  # the fresh tokens alone, folded once
+        o, l = tpa.paged_decode_attention_torch(
+            q, kn, vn, *pool, slot_base=torch.full_like(sb, -1), **kw)
+        out, lse = tpa.merge_partials(out, lse, o, l)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), atol=2e-6,
+                               rtol=0)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), atol=2e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_prefill_bf16_rounding_matches_pallas(kv):
+    """bf16 queries: the plain prefill rounds as the tensor-core kernel
+    does (bf16 q and K/V or codes, scales on the fp32 scores, the weights
+    rounded to bf16 for the product with V). Against the Pallas kernel in
+    interpret mode, which keeps the weights in fp32: out within 1e-2 (a
+    bf16 output and the weights' rounding, 2^-9 of each, over values up to
+    ~2), lse within 2e-5 (the same fp32 scores but for the scale's place)."""
+    k, v, ks, vs = _pool(kv, seed=14)
+    q = np.random.default_rng(15).standard_normal(
+        (3, 20, HQ, HD)).astype(np.float32)
+    pool = [k, v] if kv == "int8" else [x.astype(np.float32) for x in (k, v)]
+    jscales = {} if ks is None else dict(k_scales=jnp.asarray(ks),
+                                         v_scales=jnp.asarray(vs))
+    tscales = {} if ks is None else dict(k_scales=torch.from_numpy(ks),
+                                         v_scales=torch.from_numpy(vs))
+    jpool = [_jcast(jnp.asarray(x), kv) for x in pool]
+    tpool = [_tcast(torch.from_numpy(x), kv) for x in pool]
+    want, want_lse = jpa.paged_prefill_attention(
+        jnp.asarray(q).astype(jnp.bfloat16), *jpool, jnp.asarray(PAGE_TABLE),
+        jnp.asarray(LENGTHS), jnp.int32(1), interpret=True, **jscales)
+    got, got_lse = tpa.paged_prefill_attention(
+        torch.from_numpy(q).to(torch.bfloat16), *tpool,
+        torch.from_numpy(PAGE_TABLE), torch.from_numpy(LENGTHS), 1,
+        **tscales)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=2e-5, rtol=2e-5)
+    # the weights really are rounded: the fp32 computation differs
+    fp32, _ = tpa.paged_prefill_attention_torch(
+        torch.from_numpy(q).to(torch.bfloat16).float(),
+        *[t.float() if kv == "bfloat16" else t for t in tpool],
+        torch.from_numpy(PAGE_TABLE), torch.from_numpy(LENGTHS), 1,
+        **tscales)
+    assert not torch.equal(got.float(), fp32.to(torch.bfloat16).float())
+    assert np.all(got_lse.numpy()[2] == np.float32(tpa.NEG_INF))
+
+
 def test_merge_lse_matches_jax():
     rng = np.random.default_rng(9)
     o1, o2 = (rng.standard_normal((2, 5, 4, 8)).astype(np.float32)

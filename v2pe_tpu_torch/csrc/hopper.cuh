@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the kernels of this directory:
 // shared-memory addresses, the 128-byte swizzle and wgmma's matrix
 // descriptors, mbarriers, TMA tensor loads and their host-side tensor maps,
-// the proxy fence, wgmma and mma.sync. flash_tile.cuh (flash_fwd.cu,
-// ring_fused_fwd.cu, flash_bwd.cu) and quantized_matmul.cu include it.
+// cp.async, the proxy fence, wgmma and mma.sync. flash_tile.cuh
+// (flash_fwd.cu, ring_fused_fwd.cu, flash_bwd.cu, paged_attention.cu) and
+// quantized_matmul.cu include it.
 // Everything lives in namespace tc, which the flash tile extends.
 
 #pragma once
@@ -90,6 +91,28 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; `bytes` of
+// them read, the rest zero-filled (0: nothing is read).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Make this thread's generic-proxy writes to shared memory (st.shared,
@@ -237,13 +260,13 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
 
 // Host: a 3-D tensor map (cols, rows, batches) of `type` at base, rows
 // row_bytes apart and batches batch_bytes apart, read in boxes of
-// box_cols x box_rows x 1 with the 128-byte swizzle; a box past an edge
-// reads zeros.
-inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
-                             const void* base, long long cols, long long rows,
-                             long long batches, long long row_bytes,
-                             long long batch_bytes, int box_cols,
-                             int box_rows) {
+// box_cols x box_rows x 1 with the 128-byte swizzle (or `swizzle`); a box
+// past an edge reads zeros.
+inline cudaError_t tiled_map(
+    CUtensorMap* map, CUtensorMapDataType type, const void* base,
+    long long cols, long long rows, long long batches, long long row_bytes,
+    long long batch_bytes, int box_cols, int box_rows,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -256,7 +279,7 @@ inline cudaError_t tiled_map(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
       map, type, 3, const_cast<void*>(base), dims, strides, box, step,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@
 // Replaces the Pallas TPU kernels of v2pe_tpu/ops/paged_attention.py:
 //   paged_store_kernel   <- _store_kernel   (wrapper store_fresh_token)
 //   paged_decode_kernel  <- _attn_kernel    (wrapper paged_decode_attention)
-//   paged_prefill_kernel <- _prefill_kernel (wrapper paged_prefill_attention)
+//   paged_prefill_kernel <- _prefill_kernel (wrapper paged_prefill_attention;
+//     paged_prefill_tc_kernel for bf16 queries)
 // Pool layout as in JAX: values (L, Hkv, NP, ps, D) in the queries' dtype or
 // int8, quantized pools with scales (L, Hkv, NP, 1, ps) fp32; page_table and
 // slot_base (B, MP) int32 (-1 = unallocated / dead entry), lengths (B,)
@@ -15,50 +16,86 @@
 // byte d of a slot holds dim d in its low nibble and dim d + D/2 in its high
 // nibble (the convention of quantized_matmul.cu), so one token's vector of
 // one head is D/2 whole bytes and a store never shares a byte with another
-// token. It is a mode of the same three kernels (pool type int4x2): the
-// store quantizes with qmax 7 and packs, decode and prefill unpack while
-// they stage a chunk; the scales enter exactly as in the int8 mode.
+// token. It is a mode of the same kernels (pool type int4x2): the store
+// quantizes with qmax 7 and packs, decode and prefill unpack the codes; the
+// scales enter exactly as in the int8 mode.
 //
-// Design. The TPU kernels walk a row's page table over a sequential grid
-// axis and carry (acc, m, l) in VMEM scratch. Here one thread block owns the
-// whole walk and loops over the pages itself, 64 page slots at a time. Page
-// slots are contiguous rows of D values, so each 64-slot chunk is one
-// contiguous block, read with 16-byte loads and staged as fp32 in shared
-// memory. Scores and the online softmax run in fp32; the running max is
-// clamped at -1e30/2 so masked scores underflow to exactly 0 and a row that
-// attends nothing ends with l = 0 (out 0, lse -1e30). int8 pools: the k
-// scale multiplies the score before the softmax; the v scale multiplies the
-// softmax weight after l has been summed, so l stays unscaled, as in
-// paged_attention.py:229-233.
+// Common to decode and prefill: the running max is clamped at -1e30/2 so
+// masked scores underflow to exactly 0 and a row that attends nothing ends
+// with l = 0 (out 0, lse -1e30). Quantized pools: the k scale multiplies the
+// fp32 score before the softmax; the v scale multiplies the softmax weight
+// after l has taken its sum, so l stays unscaled, as in
+// paged_attention.py:229-233. Slots of a page past the row's end are read
+// and masked; a pool holds finite values (it is allocated as zeros).
 //
 // - store: one block per (row, kv head), one thread per element of the
 //   head's D values; int8 rounds x / (amax/127) half to even (rintf) and
 //   clips to +-127, the scale 1 where amax is 0 (jnp.round semantics).
-// - decode: one block per (row, kv head) holds the T*G query rows that
-//   share the head (q row r is fresh token r / G), so every page byte is
-//   read once per head. fresh_in_pages: token t sees slots <= length + t;
-//   otherwise slots < length, then the fresh k/v are folded in as one more
-//   chunk, causal among themselves.
-// - prefill: one block per (row, q head, 64-row q tile) as in flash_fwd.cu;
-//   every chunk row sees every cached slot < length.
 //
-// What bounds them. Decode reads each cached byte once per step and does
-// 2*T*G FLOPs per byte-pair: it is bound by device memory, and with one
-// block per (row, kv head) by how few blocks are in flight at small batch
-// (8 at batch 1); a split of the pages over blocks is a later change.
-// Prefill is the flash kernel's fp32 FMA loop from shared memory, bound by
-// the CUDA cores; wgmma/TMA products are a later change. The store is a
-// few hundred bytes per row.
+// - decode (T <= 16 fresh queries, R = T * G query rows per kv head; q row r
+//   is fresh token r / G): a memory-bound split-K kernel, as FlashDecoding
+//   does. The grid is (row, kv head, split x row block): the wrapper's
+//   decode_plan (shapes only, never the lengths, which live on the device)
+//   cuts a row's slots (its page-table entries in order) into `splits`
+//   contiguous runs of `span` slots, as many as fill the card's two
+//   resident blocks an SM in one wave. A block walks its slots in stages of
+//   64 into a ring of DEC_STAGES stages in the pool's stored type (bf16,
+//   fp32, int8 or int4 bytes) by 16-byte cp.async rows, four threads a slot
+//   row, which look up its page a stage ahead (slots of dead entries and
+//   past the end zero-filled); masked slots are told by a slot index per
+//   stage. The next stages' copies overlap this stage's math; codes become
+//   floats by an exponent trick,
+//   not by the quarter-rate int-to-float conversion. Eight warps: a warp
+//   holds two query rows (q in registers, times the scale) and takes eight
+//   keys at a time, eight lanes a key with 8 or 16 dims each (shuffle
+//   reductions over those eight lanes), its own online softmax (one rescale
+//   per eight keys) and accumulator; at the end
+//   the lanes, then the warps that share rows, are merged in a fixed order.
+//   A split writes its unnormalised accumulator, m and l to an fp32
+//   workspace; the last block of a (row, kv head, row block), told by an
+//   acquire-release counter that it resets, merges the splits in split
+//   order, folds in the separate fresh tokens (causal among themselves)
+//   exactly once, and writes out and lse. Fixed orders: the same bits on
+//   every run. All arithmetic is fp32 (widening a stored value is exact):
+//   at T = 1 it does 4 operations a stored element pair, far under the CUDA
+//   cores' rate, so device memory bounds it.
+//
+// - prefill, bf16 queries: flash_tile.cuh's tensor-core tile walked over
+//   pages. One block owns 64 chunk rows of HPB q heads of one kv head (HPB = 2
+//   where G is even: two consumer warpgroups share every K/V tile, which is
+//   then loaded and converted once per kv head pair) and a producer group of
+//   PF_PRODUCER_WARPS warps (two warpgroups, which give registers to the
+//   consumers by setmaxnreg: 48 against 208). The producer walks only the live
+//   page-table entries (slot_base >= 0 and < length; page -1 reads page 0,
+//   masked) and hands 64-slot K/V tiles through a ring of PF_STAGES full/empty
+//   mbarrier pairs, in the 128-byte swizzle that the wgmma descriptors name:
+//   bf16 pools with ps % 64 == 0 by TMA boxes of the pool viewed as (D, NP*ps,
+//   L*Hkv) (a box never crosses a page); other page sizes by cp.async rows
+//   gathered through the page table; int8 / int4 pools as codes and scales
+//   (TMA boxes of the bytes as stored where ps % 64 == 0, else cp.async), then
+//   converted a tile behind by the producer group into bf16 tiles (codes are
+//   exact in bf16: the scales stay out of the tiles; the conversion, not the
+//   tensor cores, bounds these pools). The chunk sits strictly after the
+//   cache, so there is no causal mask: every tile is full but the one holding
+//   slot `length`, whose tail is masked. Consumers: S = Q K^T by wgmma
+//   m64n64k16, the scale (and the k scale) on the fp32 scores, the online
+//   softmax on the fragment, e times the v scale after l took its sum, P
+//   rounded to bf16 in registers as the A operand of O += P V with V through
+//   the transpose bit. Rounding as flash_fwd's bf16 tile (Pallas bf16all):
+//   bf16 operands, P rounded for PV, m, l and O in fp32. Bound by the tensor
+//   cores: 4 D operations a (query, slot) pair.
+// - prefill, fp32 queries: the exact CUDA-core tile of flash_tile.cuh's
+//   fp32 kernel: one block per (row, q head, 64-row tile), K/V chunks of 64
+//   slots staged as fp32 in shared memory, fp32 FMAs.
 
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "flash_tile.cuh"  // NEG_INF, BQ = BK = 64, namespace tc
 
-constexpr float NEG_INF = -1e30f;
-constexpr int BK = 64;  // page slots per chunk
+namespace {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -84,6 +121,27 @@ __device__ __forceinline__ int nibble_lo(int b) {
   return static_cast<int>(static_cast<unsigned>(b) << 28) >> 28;
 }
 __device__ __forceinline__ int nibble_hi(int b) { return b >> 4; }
+
+// The 8 codes of 8 stored bytes as floats, exactly, with no int-to-float
+// conversion (a quarter-rate instruction): each code plus a bias (128 for
+// int8, 8 for a nibble) goes into the low byte of 2^23's mantissa, and the
+// sum less 2^23 and the bias is the code. INT4: the low nibbles (dims d),
+// or with HI the high ones (dims d + D/2).
+template <bool INT4, bool HI = false>
+__device__ __forceinline__ void codes_float(float (&f)[8], uint2 raw) {
+  const uint32_t w[2] = {raw.x, raw.y};
+  constexpr float OFF = 8388608.f + (INT4 ? 8.f : 128.f);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t u =
+        INT4 ? (((HI ? w[h] >> 4 : w[h]) & 0x0F0F0F0Fu) ^ 0x08080808u)
+             : w[h] ^ 0x80808080u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[4 * h + j] =
+          __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - OFF;
+  }
+}
 
 // Pool elements per slot of D values, and the largest code.
 template <typename KV, int D>
@@ -235,172 +293,407 @@ struct DecodeParams {
   const int* page_table;
   const int* slot_base;
   const int* lengths;
-  void* out;   // (B, T, Hq, D)
-  float* lse;  // (B, Hq, T) or nullptr
+  void* out;       // (B, T, Hq, D)
+  float* lse;      // (B, Hq, T) or nullptr
+  float* ws;       // splits > 1: (B, Hkv, row blocks, splits, rows, D + 2)
+  int* counters;   // splits > 1: one per (B, Hkv, row block), zero
   int T, Hq, Hkv, NP, ps, MP, layer;
   int fresh_in_pages, fold;
+  int splits, span, rows;  // the plan: splits, slots a split (a multiple
+                           // of DEC_CK), q rows a block (2, 4, 8 or 16)
   float scale;
 };
 
-constexpr int DEC_THREADS = 256;
+constexpr int DEC_THREADS = 256;  // 8 warps
+constexpr int DEC_CK = 64;        // page slots a stage
+constexpr int DEC_STAGES = 3;     // stages in flight (2 for fp32 at D 128)
+constexpr int DEC_ROWS = 16;      // query rows a block at most: two a warp
+constexpr int DEC_TPR = DEC_THREADS / DEC_CK;  // threads that copy a slot
+static_assert(DEC_CK % 8 == 0 && DEC_TPR >= 2, "a stage of key pairs");
 
-template <int D>
-size_t decode_smem_bytes(int R) {
-  // sQ, sAcc (R x D), sK (BK x D+1), sV (BK x D), sS (R x BK+1),
-  // m/l/corr (R each), k/v scales of a chunk (BK each)
-  return sizeof(float) * (2 * R * D + BK * (2 * D + 1) + R * (BK + 1) +
-                          3 * R + 2 * BK);
-}
+template <typename KV, int D>
+struct Dec {
+  static constexpr int RB = PoolRow<KV, D>::W * sizeof(KV);  // bytes a slot
+  static constexpr int PR = RB / 16;  // 16-byte pieces a slot
+  // a stage: K slots, V slots, then the slots' global index (-1: masked)
+  // and their k and v scales
+  static constexpr int STAGE = 2 * DEC_CK * RB + 3 * DEC_CK * 4;
+  static constexpr int STAGES =
+      RB >= 512 ? (DEC_STAGES < 2 ? DEC_STAGES : 2) : DEC_STAGES;
+  static constexpr int E = D / 8;  // dims a lane holds
+  // after the walk: the warps' states, then the block's (each row: m, l,
+  // then D accumulators)
+  static constexpr int STATE = 2 * DEC_ROWS * (D + 2) * 4;
+  static constexpr int BYTES =
+      STAGES * STAGE > STATE ? STAGES * STAGE : STATE;
+};
 
-// Fold one staged chunk of nk keys into the R rows' online softmax. Key c
-// is visible to row r iff c < nk and base + c <= lim0 + (r / G) * tstep.
-template <int D>
-__device__ void decode_chunk(const float* sQ, const float* sK, const float* sV,
-                             float* sS, float* sAcc, float* sM, float* sL,
-                             float* sCorr, const float* sKs, const float* sVs,
-                             int R, int G, int nk, int base, int lim0,
-                             int tstep) {
-  constexpr int LDK = D + 1, LDS = BK + 1;
-  const int tid = threadIdx.x;
-  for (int idx = tid; idx < R * BK; idx += DEC_THREADS) {
-    const int r = idx / BK, c = idx % BK;
-    float s = NEG_INF;
-    if (c < nk && base + c <= lim0 + (r / G) * tstep) {
-      const float* qr = sQ + r * D;
-      const float* kr = sK + c * LDK;
-      float acc = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kr[d], acc);
-      s = sKs != nullptr ? acc * sKs[c] : acc;
-    }
-    sS[r * LDS + c] = s;
-  }
-  __syncthreads();
-  // one warp per row, two keys per lane
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < R; r += DEC_THREADS / 32) {
-    float* srow = sS + r * LDS;
-    float mx = fmaxf(srow[lane], srow[lane + 32]);
+// The D/8 dims of lane dl of a warp's key (chunks of 8 dims: dl + 8 i) from
+// one slot row as stored, widened to fp32 (exact).
+template <typename KV, int D>
+__device__ __forceinline__ void lane_dims(float (&x)[D / 8],
+                                          const uint8_t* row, int dl) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_prev = sM[r];
-    const float m_new = fmaxf(fmaxf(m_prev, mx), NEG_INF / 2);
-    float e0 = expf(srow[lane] - m_new), e1 = expf(srow[lane + 32] - m_new);
-    float sum = e0 + e1;
+  for (int i = 0; i < D / 64; ++i) {
+    const int c = dl + 8 * i;  // dims [8c, 8c + 8)
+    float* o = x + 8 * i;
+    if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(row + 16 * c);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (sVs != nullptr) {  // v's scale enters after l took the sum
-      if (lane < nk) e0 *= sVs[lane];
-      if (lane + 32 < nk) e1 *= sVs[lane + 32];
+      for (int j = 0; j < 8; ++j) o[j] = __bfloat162float(e[j]);
+    } else if constexpr (std::is_same<KV, float>::value) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 32 * c);
+      const float4 b = *reinterpret_cast<const float4*>(row + 32 * c + 16);
+      o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w;
+      o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
+    } else if constexpr (std::is_same<KV, int8_t>::value) {
+      codes_float<false>(*reinterpret_cast<float(*)[8]>(o),
+                         *reinterpret_cast<const uint2*>(row + 8 * c));
+    } else {  // int4: dims < D/2 in the low nibbles, the rest in the high
+      float(&oo)[8] = *reinterpret_cast<float(*)[8]>(o);
+      if (8 * c >= D / 2)
+        codes_float<true, true>(
+            oo, *reinterpret_cast<const uint2*>(row + 8 * c - D / 2));
+      else
+        codes_float<true, false>(
+            oo, *reinterpret_cast<const uint2*>(row + 8 * c));
     }
-    srow[lane] = e0;
-    srow[lane + 32] = e1;
-    if (lane == 0) {
-      const float corr = expf(m_prev - m_new);
-      sCorr[r] = corr;
-      sL[r] = sL[r] * corr + sum;
-      sM[r] = m_new;
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < R * D; idx += DEC_THREADS) {
-    const int r = idx / D, d = idx % D;
-    const float* pr = sS + r * LDS;
-    float a = sAcc[idx] * sCorr[r];
-    for (int c = 0; c < nk; ++c) a = fmaf(pr[c], sV[c * D + d], a);
-    sAcc[idx] = a;
   }
 }
 
 template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(DEC_THREADS)
+__global__ void __launch_bounds__(DEC_THREADS, 2)
     paged_decode_kernel(const DecodeParams p) {
-  constexpr int LDK = D + 1, W = PoolRow<KV, D>::W;
-  const int b = blockIdx.x, hk = blockIdx.y, tid = threadIdx.x;
+  using C = Dec<KV, D>;
+  constexpr int E = C::E;
+  // the ring on a 128-byte line: eight lanes' 16-byte reads of a slot row
+  // then span one line, not two (chip_ablate.py's dec_ring_align16 variant
+  // times the ring on a 16-byte boundary)
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int red[DEC_THREADS / 32];
+  __shared__ int last;
+  const int b = blockIdx.x, hk = blockIdx.y;
+  const int split = blockIdx.z % p.splits, rb = blockIdx.z / p.splits;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kq = lane >> 3, dl = lane & 7;  // the lane's key of four, dims
   const int G = p.Hq / p.Hkv, R = p.T * G;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sAcc = sQ + R * D;
-  float* sK = sAcc + R * D;
-  float* sV = sK + BK * LDK;
-  float* sS = sV + BK * D;
-  float* sM = sS + R * (BK + 1);
-  float* sL = sM + R;
-  float* sCorr = sL + R;
-  float* sKs = sCorr + R;
-  float* sVs = sKs + BK;
+  const int RW = p.rows / 2, KS = 8 / RW;  // warps' row pairs, key slices
+  const int rg = warp % RW, ks = warp / RW;
+  const int row0 = rb * p.rows;  // the block's first query row
+  const int nrows = min(p.rows, R - row0);
   const bool quant = p.k_scales != nullptr;
-
-  const T* q = static_cast<const T*>(p.q);
-  for (int idx = tid; idx < R * D; idx += DEC_THREADS) {
-    const int r = idx / D, d = idx % D, t = r / G, g = r % G;
-    sQ[idx] = to_float(q[((static_cast<size_t>(b) * p.T + t) * p.Hq +
-                          hk * G + g) * D + d]) * p.scale;
-    sAcc[idx] = 0.f;
-  }
-  for (int r = tid; r < R; r += DEC_THREADS) {
-    sM[r] = NEG_INF;
-    sL[r] = 0.f;
-  }
-
   const int length = p.lengths[b];
   const int page_end = length + (p.fresh_in_pages ? p.T : 0);
   // fresh_in_pages: slot <= length + t; otherwise slot <= length - 1
   const int lim0 = p.fresh_in_pages ? length : length - 1;
   const int tstep = p.fresh_in_pages ? 1 : 0;
-  const KV* kp = static_cast<const KV*>(p.k_pages);
-  const KV* vp = static_cast<const KV*>(p.v_pages);
   const size_t head = (static_cast<size_t>(p.layer) * p.Hkv + hk) * p.NP;
-  for (int j = 0; j < p.MP; ++j) {
-    const int sb = p.slot_base[static_cast<size_t>(b) * p.MP + j];
-    if (sb < 0 || sb >= page_end) continue;  // dead entry or past the end
-    const int page = max(p.page_table[static_cast<size_t>(b) * p.MP + j], 0);
-    const size_t row0 = (head + page) * p.ps;  // first slot of the page
-    for (int c0 = 0; c0 < p.ps && sb + c0 < page_end; c0 += BK) {
-      const int nk = min(BK, p.ps - c0);
-      __syncthreads();  // the previous chunk's readers are done
-      load_rows<KV, D>(sK, LDK, kp + (row0 + c0) * W, W, nk, nk, 1.f);
-      load_rows<KV, D>(sV, D, vp + (row0 + c0) * W, W, nk, nk, 1.f);
-      if (quant && tid < nk) {
-        sKs[tid] = p.k_scales[row0 + c0 + tid];
-        sVs[tid] = p.v_scales[row0 + c0 + tid];
+  const int* sbase = p.slot_base + static_cast<size_t>(b) * p.MP;
+  const int* table = p.page_table + static_cast<size_t>(b) * p.MP;
+  // The split's walk: virtual slots [v0, v1) of the row (entry j holds
+  // [j ps, j ps + ps)), cut short at the last live one.
+  const int V = p.MP * p.ps;
+  const int v0 = min(V, split * p.span), v1 = min(V, v0 + p.span);
+  int vend = v0;
+  for (int j = v0 / p.ps + tid; j * p.ps < v1; j += DEC_THREADS) {
+    const int sb = sbase[j];
+    if (sb >= 0 && sb < page_end)
+      vend = max(vend, min(v1, j * p.ps + min(p.ps, page_end - sb)));
+  }
+  vend = __reduce_max_sync(0xffffffffu, vend);
+  if (lane == 0) red[warp] = vend;
+  __syncthreads();
+  vend = v0;
+#pragma unroll
+  for (int w = 0; w < DEC_THREADS / 32; ++w) vend = max(vend, red[w]);
+  const int chunks = (vend - v0 + DEC_CK - 1) / DEC_CK;
+
+  // this warp's two query rows: q times the scale, in registers
+  float qf[2][E], acc[2][E], m[2], l[2];
+  int lim[2];
+  bool live[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int r = row0 + 2 * rg + rr, t = r / G, g = r % G;
+    live[rr] = r < R;
+    lim[rr] = lim0 + t * tstep;
+    const T* qr = static_cast<const T*>(p.q) +
+                  ((static_cast<size_t>(b) * p.T + t) * p.Hq + hk * G + g) * D;
+#pragma unroll
+    for (int i = 0; i < D / 64; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        qf[rr][8 * i + j] =
+            live[rr] ? to_float(qr[8 * (dl + 8 * i) + j]) * p.scale : 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[rr][e] = 0.f;
+    m[rr] = NEG_INF;
+    l[rr] = 0.f;
+  }
+
+  const uint8_t* kbytes = static_cast<const uint8_t*>(p.k_pages);
+  const uint8_t* vbytes = static_cast<const uint8_t*>(p.v_pages);
+  // the pool row of virtual slot v, and its global slot (-1: dead, past
+  // the end)
+  auto source = [&](int v, int& slot) -> size_t {
+    slot = -1;
+    if (v >= vend) return 0;
+    const int j = v / p.ps, o = v - j * p.ps;
+    const int sb = sbase[j];
+    if (sb < 0 || sb + o >= page_end) return 0;
+    slot = sb + o;
+    return (head + max(table[j], 0)) * p.ps + o;
+  };
+  auto stage = [&](int c) { return smem + (c % C::STAGES) * C::STAGE; };
+  auto slots = [&](uint8_t* st) {
+    return reinterpret_cast<int*>(st + 2 * DEC_CK * C::RB);
+  };
+  // DEC_TPR threads a slot row: its source is looked up once, a chunk
+  // ahead of its copies (the lookup's loads then overlap a chunk's math),
+  // then its K and V pieces (and scales) are copied
+  const int r8 = tid / DEC_TPR, sub = tid % DEC_TPR;
+  auto issue = [&](int c, size_t row, int slot) {
+    if (c < chunks) {
+      uint8_t* st = stage(c);
+      for (int k = sub; k < 2 * C::PR; k += DEC_TPR) {
+        const int kv = k / C::PR, piece = k % C::PR;
+        tc::cp_async16(
+            tc::smem_u32(st + (kv * DEC_CK + r8) * C::RB + 16 * piece),
+            (kv ? vbytes : kbytes) + row * C::RB + 16 * piece,
+            slot >= 0 ? 16 : 0);
       }
-      __syncthreads();
-      decode_chunk<D>(sQ, sK, sV, sS, sAcc, sM, sL, sCorr,
-                      quant ? sKs : nullptr, quant ? sVs : nullptr, R, G, nk,
-                      sb + c0, lim0, tstep);
+      if (sub == 0) slots(st)[r8] = slot;
+      if (quant && sub < 2)
+        tc::cp_async4(tc::smem_u32(slots(st) + DEC_CK * (1 + sub) + r8),
+                      (sub ? p.v_scales : p.k_scales) + row,
+                      slot >= 0 ? 4 : 0);
+    }
+    tc::cp_async_commit();
+  };
+
+  int slot_next = -1;
+  size_t row_next = 0;
+#pragma unroll
+  for (int c = 0; c < C::STAGES - 1; ++c) {
+    row_next = source(v0 + c * DEC_CK + r8, slot_next);
+    issue(c, row_next, slot_next);
+  }
+  row_next = source(v0 + (C::STAGES - 1) * DEC_CK + r8, slot_next);
+  for (int c = 0; c < chunks; ++c) {
+    tc::cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // chunk c has landed; chunk c - 1's readers are done
+    issue(c + C::STAGES - 1, row_next, slot_next);
+    row_next = source(v0 + (c + C::STAGES) * DEC_CK + r8, slot_next);
+    const uint8_t* st = stage(c);
+    const int* sl = slots(const_cast<uint8_t*>(st));
+    const float* sks = reinterpret_cast<const float*>(sl + DEC_CK);
+    const float* svs = sks + DEC_CK;
+    // two groups of four keys at a time: their scores, one max and one
+    // rescale, then their values
+    for (int kg = 2 * ks; kg < DEC_CK / 4; kg += 2 * KS) {
+      int kk[2];
+      float s[2][2];  // [group][row]
+      float x[E];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        kk[h] = 4 * (kg + h) + kq;
+        const int slot = sl[kk[h]];
+        lane_dims<KV, D>(x, st + kk[h] * C::RB, dl);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          float a = 0.f;
+#pragma unroll
+          for (int e = 0; e < E; ++e) a = fmaf(qf[rr][e], x[e], a);
+          a += __shfl_xor_sync(0xffffffffu, a, 1);
+          a += __shfl_xor_sync(0xffffffffu, a, 2);
+          a += __shfl_xor_sync(0xffffffffu, a, 4);
+          if (quant) a *= sks[kk[h]];
+          s[h][rr] = slot >= 0 && slot <= lim[rr] ? a : NEG_INF;
+        }
+      }
+      float corr[2], w[2][2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        corr[rr] = 1.f;
+        w[0][rr] = w[1][rr] = 0.f;
+        if (!live[rr]) continue;  // uniform over the warp
+        float mx = fmaxf(s[0][rr], s[1][rr]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float m_new = fmaxf(fmaxf(m[rr], mx), NEG_INF / 2);
+        corr[rr] = expf(m[rr] - m_new);
+        const float e0 = expf(s[0][rr] - m_new), e1 = expf(s[1][rr] - m_new);
+        l[rr] = l[rr] * corr[rr] + e0 + e1;  // this lane's keys' share
+        // v's scale after l took the sum
+        w[0][rr] = quant ? e0 * svs[kk[0]] : e0;
+        w[1][rr] = quant ? e1 * svs[kk[1]] : e1;
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lane_dims<KV, D>(x, st + (DEC_CK + kk[h]) * C::RB, dl);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          if (!live[rr]) continue;
+#pragma unroll
+          for (int i = 0; i < E; ++i)
+            acc[rr][i] = fmaf(w[h][rr], x[i],
+                              h == 0 ? acc[rr][i] * corr[rr] : acc[rr][i]);
+        }
+      }
     }
   }
-  if (p.fold) {  // the separate fresh tokens, causal among themselves
-    const size_t fresh = (static_cast<size_t>(b) * p.T * p.Hkv + hk) * D;
-    __syncthreads();
-    load_rows<T, D>(sK, LDK, static_cast<const T*>(p.k_new) + fresh,
-                    static_cast<size_t>(p.Hkv) * D, p.T, p.T, 1.f);
-    load_rows<T, D>(sV, D, static_cast<const T*>(p.v_new) + fresh,
-                    static_cast<size_t>(p.Hkv) * D, p.T, p.T, 1.f);
-    __syncthreads();
-    decode_chunk<D>(sQ, sK, sV, sS, sAcc, sM, sL, sCorr, nullptr, nullptr, R,
-                    G, p.T, 0, 0, 1);
+  tc::cp_async_wait<0>();
+  __syncthreads();  // the ring's memory now holds the states
+
+  // the warp's state: the four keys' lanes summed (in a fixed order)
+  float* wst = reinterpret_cast<float*>(smem);  // [warp][rr][2 + D]
+  float* part = wst + DEC_ROWS * (D + 2);      // the block's [row][2 + D]
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lsum = l[rr] + __shfl_xor_sync(0xffffffffu, l[rr], 8);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 16);
+    float* o = wst + (2 * warp + rr) * (D + 2);
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      float a = acc[rr][i] + __shfl_xor_sync(0xffffffffu, acc[rr][i], 8);
+      a += __shfl_xor_sync(0xffffffffu, a, 16);
+      if (kq == 0) o[2 + 8 * (dl + 8 * (i / 8)) + i % 8] = a;
+    }
+    if (lane == 0) {
+      o[0] = m[rr];
+      o[1] = lsum;
+    }
+  }
+  __syncthreads();
+  // the block's rows: the key slices of each row pair merged in order
+  for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
+    // row lr is row lr % 2 of warp lr / 2 + RW s in key slice s
+    const int lr = idx / D, d = idx % D;
+    float mx = NEG_INF;
+    for (int s = 0; s < KS; ++s)
+      mx = fmaxf(mx, wst[(2 * RW * s + lr) * (D + 2)]);
+    float a = 0.f, ls = 0.f;
+    for (int s = 0; s < KS; ++s) {
+      const float* o = wst + (2 * RW * s + lr) * (D + 2);
+      const float w = expf(o[0] - mx);
+      a = fmaf(o[2 + d], w, a);
+      ls = fmaf(o[1], w, ls);
+    }
+    part[lr * (D + 2) + 2 + d] = a;
+    if (d == 0) {
+      part[lr * (D + 2)] = mx;
+      part[lr * (D + 2) + 1] = ls;
+    }
   }
   __syncthreads();
 
+  if (p.splits > 1) {
+    // publish this split; the last block of the cell merges them in order
+    const int cell = (b * p.Hkv + hk) * (gridDim.z / p.splits) + rb;
+    const size_t span = static_cast<size_t>(p.rows) * (D + 2);
+    float* ws = p.ws + static_cast<size_t>(cell) * p.splits * span;
+    for (int i = tid; i < nrows * (D + 2); i += DEC_THREADS)
+      ws[split * span + i] = part[i];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {  // release this split's partials, acquire the others'
+      int before;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                   : "=r"(before)
+                   : "l"(p.counters + cell)
+                   : "memory");
+      last = before == p.splits - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
+      const int lr = idx / D, d = idx % D;
+      const float* src = ws + lr * (D + 2);
+      float mx = NEG_INF;
+      for (int s = 0; s < p.splits; ++s)
+        mx = fmaxf(mx, __ldcg(src + s * span));
+      float a = 0.f, ls = 0.f;
+      for (int s = 0; s < p.splits; ++s) {
+        const float ms = __ldcg(src + s * span);
+        const float lsp = __ldcg(src + s * span + 1);
+        if (lsp > 0.f) {  // an empty split adds nothing
+          const float w = expf(ms - mx);
+          a = fmaf(__ldcg(src + s * span + 2 + d), w, a);
+          ls = fmaf(lsp, w, ls);
+        }
+      }
+      part[lr * (D + 2) + 2 + d] = a;
+      if (d == 0) {
+        part[lr * (D + 2)] = mx;
+        part[lr * (D + 2) + 1] = ls;
+      }
+    }
+    __syncthreads();
+    if (tid == 0) p.counters[cell] = 0;  // ready for the next launch
+  }
+
+  // the separate fresh tokens, causal among themselves: one warp a row,
+  // lanes over D, fresh token u <= t folded in order
+  if (p.fold) {
+    constexpr int DL = D / 32;
+    const T* kn = static_cast<const T*>(p.k_new);
+    const T* vn = static_cast<const T*>(p.v_new);
+    for (int lr = warp; lr < nrows; lr += DEC_THREADS / 32) {
+      const int r = row0 + lr, t = r / G, g = r % G;
+      float* o = part + lr * (D + 2);
+      const T* qr =
+          static_cast<const T*>(p.q) +
+          ((static_cast<size_t>(b) * p.T + t) * p.Hq + hk * G + g) * D;
+      float qv[DL], a[DL];
+#pragma unroll
+      for (int i = 0; i < DL; ++i) {
+        qv[i] = to_float(qr[lane + 32 * i]) * p.scale;
+        a[i] = o[2 + lane + 32 * i];
+      }
+      float mr = o[0], lrun = o[1];
+      for (int u = 0; u <= t; ++u) {
+        const size_t f = ((static_cast<size_t>(b) * p.T + u) * p.Hkv + hk) * D;
+        float s = 0.f;
+#pragma unroll
+        for (int i = 0; i < DL; ++i)
+          s = fmaf(qv[i], to_float(kn[f + lane + 32 * i]), s);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        const float m_new = fmaxf(fmaxf(mr, s), NEG_INF / 2);
+        const float corr = expf(mr - m_new), e = expf(s - m_new);
+        lrun = lrun * corr + e;
+#pragma unroll
+        for (int i = 0; i < DL; ++i)
+          a[i] = fmaf(e, to_float(vn[f + lane + 32 * i]), a[i] * corr);
+        mr = m_new;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < DL; ++i) o[2 + lane + 32 * i] = a[i];
+      if (lane == 0) {
+        o[0] = mr;
+        o[1] = lrun;
+      }
+    }
+    __syncthreads();
+  }
+
   T* out = static_cast<T*>(p.out);
-  for (int idx = tid; idx < R * D; idx += DEC_THREADS) {
-    const int r = idx / D, d = idx % D, t = r / G, g = r % G;
-    const float l = sL[r];
+  for (int idx = tid; idx < nrows * D; idx += DEC_THREADS) {
+    const int lr = idx / D, d = idx % D, r = row0 + lr, t = r / G, g = r % G;
+    const float lsum = part[lr * (D + 2) + 1];
     store(out + ((static_cast<size_t>(b) * p.T + t) * p.Hq + hk * G + g) * D +
               d,
-          sAcc[idx] / (l > 0.f ? l : 1.f));
+          part[lr * (D + 2) + 2 + d] / (lsum > 0.f ? lsum : 1.f));
   }
-  if (p.lse != nullptr) {
-    for (int r = tid; r < R; r += DEC_THREADS) {
-      const int t = r / G, g = r % G;
-      const float l = sL[r];
-      p.lse[(static_cast<size_t>(b) * p.Hq + hk * G + g) * p.T + t] =
-          l > 0.f ? sM[r] + logf(l) : NEG_INF;
-    }
+  if (p.lse != nullptr && tid < nrows) {
+    const int r = row0 + tid, t = r / G, g = r % G;
+    const float lsum = part[tid * (D + 2) + 1];
+    p.lse[(static_cast<size_t>(b) * p.Hq + hk * G + g) * p.T + t] =
+        lsum > 0.f ? part[tid * (D + 2)] + logf(lsum) : NEG_INF;
   }
 }
 
@@ -417,11 +710,11 @@ struct PrefillParams {
   const int* lengths;
   void* out;   // (B, S, Hq, D)
   float* lse;  // (B, Hq, S)
-  int S, Hq, Hkv, NP, ps, MP, layer;
+  int S, Hq, Hkv, NP, ps, MP, layer, L;
   float scale;
 };
 
-constexpr int BQ = 64;        // chunk rows per block
+// fp32 queries: the CUDA-core tile.
 constexpr int PF_THREADS = 256;  // 16 x 16: thread (ty, tx) owns rows
                                  // ty + 16r and columns tx + 16c of a tile
 
@@ -438,8 +731,8 @@ __global__ void __launch_bounds__(PF_THREADS)
     paged_prefill_kernel(const PrefillParams p) {
   constexpr int LDQ = D + 1, LDK = D + 1, LDS = BK + 1, NC = D / 16;
   constexpr int W = PoolRow<KV, D>::W;
-  extern __shared__ float smem[];
-  float* sQ = smem;
+  extern __shared__ float fsmem[];
+  float* sQ = fsmem;
   float* sK = sQ + BQ * LDQ;
   float* sV = sK + BK * LDK;
   float* sS = sV + BK * D;
@@ -590,7 +883,469 @@ __global__ void __launch_bounds__(PF_THREADS)
   }
 }
 
+// bf16 queries: the tensor-core tile over pages.
+constexpr int PF_STAGES = 3;          // K/V tiles in flight
+constexpr int PF_PRODUCER_WARPS = 8;  // walk, gather, convert
+constexpr int PF_TMA = 1;             // bf16 pools, ps % 64 == 0: TMA boxes
+constexpr int PF_END = -1;            // a stage's count that says stop
+
+struct PrefillTcParams {
+  PrefillParams p;
+  // with tma: the pool as (D, NP*ps, L*Hkv) bf16 in 64 x 64 swizzled
+  // boxes, or as (RB, NP*ps, L*Hkv) code bytes in 64-row boxes and its
+  // scales as (NP*ps, L*Hkv) fp32 in boxes of 64
+  CUtensorMap kmap, vmap, ksmap, vsmap;
+  int tma;
+};
+
+// The block's dynamic shared memory: HPB query tiles, PF_STAGES K and V
+// tiles (64 rows of D bf16, swizzled, 1024-byte aligned), for a quantized
+// pool two tiles' codes and scales as stored, each stage's words (its count
+// of live slots or PF_END, then 64 k and 64 v scales), the walk's table of
+// pool rows, and the full/empty barrier pairs.
+template <typename KV, int D, int HPB>
+struct Pf {
+  static constexpr bool QUANT = !std::is_same<KV, __nv_bfloat16>::value;
+  static constexpr int TILE = 64 * D * 2;
+  static constexpr int RB = PoolRow<KV, D>::W * sizeof(KV);  // bytes a slot
+  static constexpr int RAW = QUANT ? 2 * 64 * RB + 2 * 64 * 4 : 0;
+  static constexpr int PT = 32 * PF_PRODUCER_WARPS;  // producer threads
+  static constexpr int THREADS = 128 * HPB + PT;
+  // above 384 threads (whole warpgroups only) the registers are moved from
+  // the producer warpgroups to the consumers: 65536 in all
+  static constexpr int PRODUCER_REGS = 48;
+  static constexpr int CONSUMER_REGS =
+      (65536 / (128 * HPB) - PT / (128 * HPB) * PRODUCER_REGS) / 8 * 8 > 240
+          ? 240
+          : (65536 / (128 * HPB) - PT / (128 * HPB) * PRODUCER_REGS) / 8 * 8;
+  static_assert(THREADS <= 384 || PT % 128 == 0, "whole warpgroups");
+  static constexpr int WORDS = 2 + 2 * 64;
+  static constexpr size_t BYTES = 1024 +
+                                  static_cast<size_t>(TILE) *
+                                      (HPB + 2 * PF_STAGES) +
+                                  2 * RAW + PF_STAGES * WORDS * 4 + 64 * 8 +
+                                  8 + (2 * PF_STAGES + 2) * 8;
+  uint8_t* base;
+  __device__ explicit Pf(uint8_t* raw) {
+    base = raw + ((1024 - (tc::smem_u32(raw) & 1023)) & 1023);
+  }
+  __device__ uint8_t* q(int g) const { return base + TILE * g; }
+  __device__ uint8_t* k(int st) const { return base + TILE * (HPB + st); }
+  __device__ uint8_t* v(int st) const {
+    return base + TILE * (HPB + PF_STAGES + st);
+  }
+  __device__ uint8_t* raw(int i) const {
+    return base + TILE * (HPB + 2 * PF_STAGES) + RAW * i;
+  }
+  __device__ int* words(int st) const {
+    return reinterpret_cast<int*>(raw(2)) + st * WORDS;
+  }
+  __device__ long long* table() const {
+    return reinterpret_cast<long long*>(words(PF_STAGES));
+  }
+  __device__ uint64_t* full() const {
+    return reinterpret_cast<uint64_t*>(table() + 64);
+  }
+  __device__ uint64_t* empty() const { return full() + PF_STAGES; }
+  __device__ uint64_t* rawbar() const { return empty() + PF_STAGES; }
+};
+
+// Move this warpgroup's registers to N (setmaxnreg: INC raises, else
+// lowers); every warp of the warpgroup executes it.
+template <bool INC, int N>
+__device__ __forceinline__ void set_max_registers() {
+  if constexpr (INC)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+  else
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the producer group's own barrier (named barrier 1)
+template <int PT>
+__device__ __forceinline__ void producer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");
+}
+
+// 8 codes (int8, or one nibble of 8 int4 bytes) as 8 bf16, exactly
+template <bool INT4, bool HI>
+__device__ __forceinline__ uint4 codes_bf16(uint2 raw) {
+  float f[8];
+  codes_float<INT4, HI>(f, raw);
+  return make_uint4(tc::pack_bf16(f[0], f[1]), tc::pack_bf16(f[2], f[3]),
+                    tc::pack_bf16(f[4], f[5]), tc::pack_bf16(f[6], f[7]));
+}
+
+template <typename KV, int D, int HPB>
+__global__ void __launch_bounds__(Pf<KV, D, HPB>::THREADS, 1)
+    paged_prefill_tc_kernel(const __grid_constant__ PrefillTcParams tp) {
+  using Sm = Pf<KV, D, HPB>;
+  using bf16 = tc::bf16;
+  constexpr int PT = Sm::PT;
+  const PrefillParams& p = tp.p;
+  extern __shared__ uint8_t smem_raw[];
+  const Sm sm(smem_raw);
+  const int q0 = blockIdx.x * 64;
+  const int G = p.Hq / p.Hkv, groups = G / HPB;
+  const int hk = blockIdx.y / groups;
+  const int h0 = hk * G + (blockIdx.y % groups) * HPB;
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int length = p.lengths[b];
+
+  // set-up: the barriers and the HPB query tiles (rows past S zero)
+  if (tid == 0) {
+    for (int st = 0; st < PF_STAGES; ++st) {
+      tc::mbar_init(sm.full() + st, 1);
+      tc::mbar_init(sm.empty() + st, 128 * HPB);
+    }
+    tc::mbar_init(sm.rawbar(), 1);
+    tc::mbar_init(sm.rawbar() + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const bf16* q = static_cast<const bf16*>(p.q) +
+                  static_cast<size_t>(b) * p.S * p.Hq * D;
+  for (int idx = tid; idx < HPB * 64 * (D / 8); idx += Sm::THREADS) {
+    const int g = idx / (64 * (D / 8)), rem = idx % (64 * (D / 8));
+    const int r = rem / (D / 8), c = rem % (D / 8), s = q0 + r;
+    const uint4 x =
+        s < p.S ? *reinterpret_cast<const uint4*>(
+                      q + (static_cast<size_t>(s) * p.Hq + h0 + g) * D + 8 * c)
+                : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(sm.q(g)) +
+                              tc::swz(r, 8 * c)) = x;
+  }
+  tc::fence_proxy_async();
+  __syncthreads();
+
+  if (tid >= 128 * HPB) {  // ------------------------------------ producer
+    // more threads than 168 registers each allow: the producer warpgroups
+    // give registers back for the consumers'
+    if constexpr (Sm::THREADS > 384)
+      set_max_registers<false, Sm::PRODUCER_REGS>();
+    const int pt = tid - 128 * HPB;
+    const int* sbase = p.slot_base + static_cast<size_t>(b) * p.MP;
+    const int* ptab = p.page_table + static_cast<size_t>(b) * p.MP;
+    const size_t head = (static_cast<size_t>(p.layer) * p.Hkv + hk) * p.NP;
+    const int batch = p.layer * p.Hkv + hk;
+    const uint8_t* kb = static_cast<const uint8_t*>(p.k_pages);
+    const uint8_t* vb = static_cast<const uint8_t*>(p.v_pages);
+    // a quantized tile's codes and scales (raw, as stored) into bf16 tiles
+    // and the stage's scale words, by the whole producer group
+    auto convert = [&](const uint8_t* raw, int st) {
+      constexpr bool INT4 = std::is_same<KV, int4x2>::value;
+      constexpr int U = INT4 ? D / 16 : D / 8;  // 8-byte units a row
+#pragma unroll 4
+      for (int idx = pt; idx < 2 * 64 * U; idx += PT) {
+        const int kv = idx / (64 * U), rem = idx % (64 * U);
+        const int r = rem / U, c = rem % U;
+        const uint2 x = *reinterpret_cast<const uint2*>(
+            raw + (kv * 64 + r) * Sm::RB + 8 * c);
+        bf16* dst = reinterpret_cast<bf16*>(kv ? sm.v(st) : sm.k(st));
+        if constexpr (INT4) {  // dims 8c.. low, D/2 + 8c.. high
+          *reinterpret_cast<uint4*>(dst + tc::swz(r, 8 * c)) =
+              codes_bf16<true, false>(x);
+          *reinterpret_cast<uint4*>(dst + tc::swz(r, D / 2 + 8 * c)) =
+              codes_bf16<true, true>(x);
+        } else {
+          *reinterpret_cast<uint4*>(dst + tc::swz(r, 8 * c)) =
+              codes_bf16<false, false>(x);
+        }
+      }
+      const float* sc = reinterpret_cast<const float*>(raw + 2 * 64 * Sm::RB);
+      for (int idx = pt; idx < 128; idx += PT)
+        reinterpret_cast<float*>(sm.words(st))[2 + idx] = sc[idx];
+    };
+    // hand tile m (nv live slots) to the consumers: its stage's count and
+    // the arrival, after every producer thread's writes
+    auto hand_over = [&](int m, int nv) {
+      tc::fence_proxy_async();
+      producer_sync<PT>();
+      if (pt == 0) {
+        sm.words(m % PF_STAGES)[0] = nv;
+        tc::mbar_arrive(sm.full() + m % PF_STAGES);
+      }
+    };
+    auto wait_stage = [&](int m) {
+      tc::mbar_wait(sm.empty() + m % PF_STAGES, ((m / PF_STAGES) & 1) ^ 1);
+    };
+    int n = 0;  // tiles handed over
+    if (tp.tma) {
+      // live tiles of 64 slots, entry by entry (a box never crosses a page)
+      int j = 0, c0 = 0, prev = 0;
+      for (;;) {
+        int nv = 0, row = 0;
+        while (j < p.MP) {
+          const int sb = sbase[j];
+          const int live = sb >= 0 && sb < length ? min(p.ps, length - sb) : 0;
+          if (c0 < live) {
+            nv = min(64, live - c0);
+            row = max(ptab[j], 0) * p.ps + c0;
+            c0 += 64;
+            break;
+          }
+          ++j;
+          c0 = 0;
+        }
+        if constexpr (!Sm::QUANT) {  // straight into the swizzled tiles
+          if (nv == 0) break;
+          if (pt == 0) {
+            const int st = n % PF_STAGES;
+            wait_stage(n);
+            sm.words(st)[0] = nv;
+            uint64_t* bar = sm.full() + st;
+            tc::mbar_arrive_tx(bar, 2 * (D / 64) * tc::BOX_BYTES);
+#pragma unroll
+            for (int x = 0; x < D / 64; ++x) {
+              tc::tma_load(tc::smem_u32(sm.k(st)) + x * tc::BOX_BYTES,
+                           &tp.kmap, bar, 64 * x, row, batch);
+              tc::tma_load(tc::smem_u32(sm.v(st)) + x * tc::BOX_BYTES,
+                           &tp.vmap, bar, 64 * x, row, batch);
+            }
+          }
+          ++n;
+        } else {  // codes and scales into raw, converted a tile behind
+          if (nv > 0 && pt == 0) {
+            uint64_t* bar = sm.rawbar() + (n & 1);
+            const uint32_t raw = tc::smem_u32(sm.raw(n & 1));
+            tc::mbar_arrive_tx(bar, 2 * 64 * Sm::RB + 2 * 64 * 4);
+            tc::tma_load(raw, &tp.kmap, bar, 0, row, batch);
+            tc::tma_load(raw + 64 * Sm::RB, &tp.vmap, bar, 0, row, batch);
+            tc::tma_load(raw + 128 * Sm::RB, &tp.ksmap, bar, row, batch, 0);
+            tc::tma_load(raw + 128 * Sm::RB + 256, &tp.vsmap, bar, row,
+                         batch, 0);
+          }
+          if (n > 0) {
+            tc::mbar_wait(sm.rawbar() + ((n - 1) & 1), ((n - 1) >> 1) & 1);
+            wait_stage(n - 1);
+            convert(sm.raw((n - 1) & 1), (n - 1) % PF_STAGES);
+            hand_over(n - 1, prev);
+          }
+          if (nv == 0) break;
+          prev = nv;
+          ++n;
+        }
+      }
+      if (pt != 0) return;
+    } else {
+      // the walk over live slots, 64 a tile, rows gathered through the
+      // page table: entry j, slot o within it
+      int j = 0, o = 0, prev = 0;
+      for (;;) {
+        int nv = 0;
+        while (nv < 64 && j < p.MP) {
+          const int sb = sbase[j];
+          const int live = sb >= 0 && sb < length ? min(p.ps, length - sb) : 0;
+          const int take = min(64 - nv, live - o);
+          if (take > 0) {
+            const long long row =
+                static_cast<long long>(head + max(ptab[j], 0)) * p.ps + o;
+            for (int r = nv + pt; r < nv + take; r += PT)
+              sm.table()[r] = row + (r - nv);
+            nv += take;
+            o += take;
+          }
+          if (take <= 0 || o >= live) {
+            ++j;
+            o = 0;
+          }
+        }
+        producer_sync<PT>();  // the table is written
+        if (nv > 0) {
+          const long long* tab = sm.table();
+          if constexpr (Sm::QUANT) {  // codes and scales as stored
+            constexpr int PR = Sm::RB / 16;
+            uint8_t* raw = sm.raw(n & 1);
+            for (int idx = pt; idx < 2 * 64 * PR; idx += PT) {
+              const int kv = idx / (64 * PR), rem = idx % (64 * PR);
+              const int r = rem / PR, piece = rem % PR;
+              const bool ok = r < nv;
+              tc::cp_async16(
+                  tc::smem_u32(raw + (kv * 64 + r) * Sm::RB + 16 * piece),
+                  (kv ? vb : kb) + (ok ? tab[r] : 0) * Sm::RB + 16 * piece,
+                  ok ? 16 : 0);
+            }
+            for (int idx = pt; idx < 128; idx += PT) {
+              const int kv = idx / 64, r = idx % 64;
+              const bool ok = r < nv;
+              tc::cp_async4(
+                  tc::smem_u32(raw + 2 * 64 * Sm::RB + 4 * idx),
+                  (kv ? p.v_scales : p.k_scales) + (ok ? tab[r] : 0),
+                  ok ? 4 : 0);
+            }
+          } else {  // bf16 rows straight into the swizzled tiles
+            const int st = n % PF_STAGES;
+            wait_stage(n);
+            for (int idx = pt; idx < 2 * 64 * (D / 8); idx += PT) {
+              const int kv = idx / (64 * (D / 8)), rem = idx % (64 * (D / 8));
+              const int r = rem / (D / 8), c = rem % (D / 8);
+              const bool ok = r < nv;
+              tc::cp_async16(
+                  tc::smem_u32(kv ? sm.v(st) : sm.k(st)) +
+                      2 * tc::swz(r, 8 * c),
+                  (kv ? vb : kb) + (ok ? tab[r] : 0) * Sm::RB + 16 * c,
+                  ok ? 16 : 0);
+            }
+          }
+        }
+        tc::cp_async_commit();
+        if (n == 0) producer_sync<PT>();  // the table is read
+        if (n > 0) {  // hand tile n - 1 over
+          tc::cp_async_wait<1>();
+          if constexpr (Sm::QUANT) {
+            producer_sync<PT>();  // every thread's copies have landed
+            wait_stage(n - 1);
+            convert(sm.raw((n - 1) & 1), (n - 1) % PF_STAGES);
+          }
+          hand_over(n - 1, prev);
+        }
+        if (nv == 0) break;
+        prev = nv;
+        ++n;
+      }
+      if (pt != 0) return;
+    }
+    // a stage that tells the consumers to stop
+    const int st = n % PF_STAGES;
+    wait_stage(n);
+    sm.words(st)[0] = PF_END;
+    tc::mbar_arrive(sm.full() + st);
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  if constexpr (Sm::THREADS > 384)
+    set_max_registers<true, Sm::CONSUMER_REGS>();
+  const int g = tid / 128, t = tid % 128, lane = t & 31;
+  const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
+  tc::Acc<D> acc;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc.o[i] = 0.f;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    acc.m[hr] = NEG_INF;
+    acc.l[hr] = 0.f;
+  }
+  const uint32_t q_addr = tc::smem_u32(sm.q(g));
+  for (int n = 0;; ++n) {
+    const int st = n % PF_STAGES;
+    tc::mbar_wait(sm.full() + st, (n / PF_STAGES) & 1);
+    const int nv = sm.words(st)[0];
+    if (nv == PF_END) break;
+    const float* ksc = reinterpret_cast<const float*>(sm.words(st)) + 2;
+    const float* vsc = ksc + 64;
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint32_t k_addr = tc::smem_u32(sm.k(st));
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * 8192 + (kk & 3) * 32;
+      tc::wgmma_ss_n64(s, tc::desc(q_addr + off, 16, 1024),
+                       tc::desc(k_addr + off, 16, 1024), kk > 0);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + cq + e;
+        const float kscale = Sm::QUANT ? ksc[col] : 1.f;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          float& x = s[4 * j + 2 * hr + e];
+          x *= p.scale;
+          if (Sm::QUANT) x *= kscale;
+          if (col >= nv) x = NEG_INF;
+        }
+      }
+
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(fmaxf(acc.m[hr], mx), NEG_INF / 2);
+      corr[hr] = expf(acc.m[hr] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ev = expf(s[4 * j + 2 * hr + e] - m_new);
+          sum += ev;  // l sums the unscaled fp32 e
+          s[4 * j + 2 * hr + e] =
+              Sm::QUANT ? ev * vsc[8 * j + cq + e] : ev;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      acc.l[hr] = acc.l[hr] * corr[hr] + sum;
+      acc.m[hr] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc.o[i] *= corr[(i >> 1) & 1];
+
+    // P in bf16 as wgmma's A fragment (keys 16 kk .. 16 kk + 15 of rows r0
+    // and r0 + 8 are the scores' registers 8 kk .. 8 kk + 7)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = tc::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+
+    const uint32_t v_addr = tc::smem_u32(sm.v(st));
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::wgmma_pv<D>(acc.o, pa[kk], tc::desc(v_addr + kk * 2048, 8192, 1024));
+    tc::wgmma_commit();
+    tc::wgmma_wait0();
+    tc::mbar_arrive(sm.empty() + st);
+  }
+
+  const int h = h0 + g;
+  bf16* out = static_cast<bf16*>(p.out);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int s = q0 + r0 + 8 * hr;
+    if (s >= p.S) continue;
+    const float l = acc.l[hr];
+    const float l_safe = l > 0.f ? l : 1.f;
+    bf16* o = out + ((static_cast<size_t>(b) * p.S + s) * p.Hq + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j + cq) =
+          __floats2bfloat162_rn(acc.o[4 * j + 2 * hr] / l_safe,
+                                acc.o[4 * j + 2 * hr + 1] / l_safe);
+    if ((lane & 3) == 0)
+      p.lse[(static_cast<size_t>(b) * p.Hq + h) * p.S + s] =
+          l > 0.f ? acc.m[hr] + logf(l_safe) : NEG_INF;
+  }
+}
+
 // --------------------------------------------------------------- launches
+
+// Raise a kernel's dynamic shared-memory limit, once per device (a launch
+// pays no attribute call after the first).
+template <auto K>
+cudaError_t allow_smem(size_t bytes) {
+  static unsigned done = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 32 && ((done >> dev) & 1u)) return cudaSuccess;
+  err = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && dev < 32) done |= 1u << dev;
+  return err;
+}
 
 template <typename T, typename KV, int D>
 cudaError_t launch_store(const StoreParams& p, int B, cudaStream_t st) {
@@ -600,25 +1355,79 @@ cudaError_t launch_store(const StoreParams& p, int B, cudaStream_t st) {
 
 template <typename T, typename KV, int D>
 cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t st) {
-  const size_t smem = decode_smem_bytes<D>(p.T * (p.Hq / p.Hkv));
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_decode_kernel<T, KV, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  using C = Dec<KV, D>;
+  const int R = p.T * (p.Hq / p.Hkv);
+  if ((p.rows != 2 && p.rows != 4 && p.rows != 8 && p.rows != DEC_ROWS) ||
+      p.splits < 1 || p.span < 1 || p.span % DEC_CK != 0 ||
+      static_cast<long long>(p.splits) * p.span <
+          static_cast<long long>(p.MP) * p.ps ||
+      (p.splits > 1 && (p.ws == nullptr || p.counters == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaError_t err = allow_smem<paged_decode_kernel<T, KV, D>>(C::BYTES);
   if (err != cudaSuccess) return err;
-  paged_decode_kernel<T, KV, D><<<dim3(B, p.Hkv), DEC_THREADS, smem, st>>>(p);
+  const int rblocks = (R + p.rows - 1) / p.rows;
+  paged_decode_kernel<T, KV, D>
+      <<<dim3(B, p.Hkv, p.splits * rblocks), DEC_THREADS, C::BYTES, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename KV, int D, int HPB>
+cudaError_t launch_prefill_tc(const PrefillParams& p, int B,
+                              cudaStream_t st) {
+  using Sm = Pf<KV, D, HPB>;
+  PrefillTcParams tp{p, {}, {}, {}, {}, 0};
+  if (PF_TMA && p.ps % 64 == 0) {
+    const long long rows = static_cast<long long>(p.NP) * p.ps;
+    const long long heads = static_cast<long long>(p.L) * p.Hkv;
+    cudaError_t err;
+    if constexpr (!Sm::QUANT) {
+      err = tc::kv_map(&tp.kmap, p.k_pages, D, rows, heads, rows * D);
+      if (err == cudaSuccess)
+        err = tc::kv_map(&tp.vmap, p.v_pages, D, rows, heads, rows * D);
+    } else {
+      // codes and scales as they are stored: no swizzle
+      const CUtensorMapDataType u8 = CU_TENSOR_MAP_DATA_TYPE_UINT8;
+      const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+      const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+      err = tc::tiled_map(&tp.kmap, u8, p.k_pages, Sm::RB, rows, heads,
+                          Sm::RB, rows * Sm::RB, Sm::RB, 64, none);
+      if (err == cudaSuccess)
+        err = tc::tiled_map(&tp.vmap, u8, p.v_pages, Sm::RB, rows, heads,
+                            Sm::RB, rows * Sm::RB, Sm::RB, 64, none);
+      if (err == cudaSuccess)
+        err = tc::tiled_map(&tp.ksmap, f32, p.k_scales, rows, heads, 1,
+                            rows * 4, heads * rows * 4, 64, 1, none);
+      if (err == cudaSuccess)
+        err = tc::tiled_map(&tp.vsmap, f32, p.v_scales, rows, heads, 1,
+                            rows * 4, heads * rows * 4, 64, 1, none);
+    }
+    if (err != cudaSuccess) return err;
+    tp.tma = 1;
+  }
+  const cudaError_t err =
+      allow_smem<paged_prefill_tc_kernel<KV, D, HPB>>(Sm::BYTES);
+  if (err != cudaSuccess) return err;
+  const int G = p.Hq / p.Hkv;
+  const dim3 grid((p.S + 63) / 64, p.Hkv * (G / HPB), B);
+  paged_prefill_tc_kernel<KV, D, HPB><<<grid, Sm::THREADS, Sm::BYTES, st>>>(tp);
   return cudaGetLastError();
 }
 
 template <typename T, typename KV, int D>
 cudaError_t launch_prefill(const PrefillParams& p, int B, cudaStream_t st) {
-  constexpr size_t smem = prefill_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<T, KV, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.S + BQ - 1) / BQ, p.Hq, B);
-  paged_prefill_kernel<T, KV, D><<<grid, PF_THREADS, smem, st>>>(p);
-  return cudaGetLastError();
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // the two q heads of a kv head in one block where G is even
+    const int hpb = (p.Hq / p.Hkv) % 2 == 0 ? 2 : 1;
+    return hpb == 2 ? launch_prefill_tc<KV, D, 2>(p, B, st)
+                    : launch_prefill_tc<KV, D, 1>(p, B, st);
+  } else {
+    constexpr size_t smem = prefill_smem_bytes<D>();
+    const cudaError_t err = allow_smem<paged_prefill_kernel<T, KV, D>>(smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.S + BQ - 1) / BQ, p.Hq, B);
+    paged_prefill_kernel<T, KV, D><<<grid, PF_THREADS, smem, st>>>(p);
+    return cudaGetLastError();
+  }
 }
 
 // Dispatch over (input dtype, pool type, head dim) to a launcher. kv_bits:
@@ -681,18 +1490,23 @@ extern "C" int v2pe_paged_store(const void* k_new, const void* v_new,
                                           static_cast<cudaStream_t>(stream)));
 }
 
+// The plan (splits, span, rows) and, for splits > 1, the workspace and
+// zeroed counters come from the wrapper (ops/paged_attention.py:
+// decode_plan).
 extern "C" int v2pe_paged_decode(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const float* k_scales, const float* v_scales,
     const int* page_table, const int* slot_base, const int* lengths,
     void* out, float* lse, int B, int T, int Hq, int Hkv, int NP, int ps,
     int D, int MP, int layer, int is_bf16, int kv_bits, int fresh_in_pages,
-    int fold, float scale, void* stream) {
+    int fold, float scale, int splits, int span, int rows, float* ws,
+    int* counters, void* stream) {
   const DecodeParams p{q,          k_new,      v_new,   k_pages, v_pages,
                        k_scales,   v_scales,   page_table, slot_base,
-                       lengths,    out,        lse,     T,       Hq,
-                       Hkv,        NP,         ps,      MP,      layer,
-                       fresh_in_pages, fold,   scale};
+                       lengths,    out,        lse,     ws,      counters,
+                       T,          Hq,         Hkv,     NP,      ps,
+                       MP,         layer,      fresh_in_pages, fold,
+                       splits,     span,       rows,    scale};
   return static_cast<int>(dispatch<Decode>(p, B, D, is_bf16, kv_bits,
                                            static_cast<cudaStream_t>(stream)));
 }
@@ -702,11 +1516,11 @@ extern "C" int v2pe_paged_prefill(
     const float* k_scales, const float* v_scales, const int* page_table,
     const int* slot_base, const int* lengths, void* out, float* lse, int B,
     int S, int Hq, int Hkv, int NP, int ps, int D, int MP, int layer,
-    int is_bf16, int kv_bits, float scale, void* stream) {
+    int is_bf16, int kv_bits, float scale, int L, void* stream) {
   const PrefillParams p{q,        k_pages,  v_pages, k_scales, v_scales,
                         page_table, slot_base, lengths, out,   lse,
                         S,        Hq,       Hkv,     NP,       ps,
-                        MP,       layer,    scale};
+                        MP,       layer,    L,       scale};
   return static_cast<int>(dispatch<Prefill>(p, B, D, is_bf16, kv_bits,
                                             static_cast<cudaStream_t>(stream)));
 }

@@ -172,20 +172,6 @@ __device__ __forceinline__ void nibbles(uint32_t w, float (&lo)[4],
   }
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // ------------------------------------------------------------ M <= 16
 
 constexpr int STRIP_THREADS = 256;   // 8 warps
@@ -242,14 +228,14 @@ __device__ void strip_run(const QdotParams& p) {
         const int cr = c / (bn / 16), cc = c % (bn / 16);
         const int r = t * bk + cr;
         const bool ok = r < rows;
-        cp_async16(tc::smem_u32(smem + (t % STAGES) * SLOT +
-                                cr * P + 16 * cc),
-                   w + static_cast<size_t>(k_begin + (ok ? r : 0)) * p.Npad +
-                       n0 + 16 * cc,
-                   ok ? 16 : 0);
+        tc::cp_async16(
+            tc::smem_u32(smem + (t % STAGES) * SLOT + cr * P + 16 * cc),
+            w + static_cast<size_t>(k_begin + (ok ? r : 0)) * p.Npad + n0 +
+                16 * cc,
+            ok ? 16 : 0);
       }
     }
-    cp_async_commit();
+    tc::cp_async_commit();
   };
   for (int t = 0; t < STAGES - 1; ++t) issue(t);
 
@@ -289,7 +275,7 @@ __device__ void strip_run(const QdotParams& p) {
   };
 
   for (int t = 0; t < steps; ++t) {
-    cp_async_wait<STAGES - 2>();
+    tc::cp_async_wait<STAGES - 2>();
     __syncthreads();
     issue(t + STAGES - 1);
 #pragma unroll
@@ -368,7 +354,7 @@ __device__ void strip_run(const QdotParams& p) {
             tc::mma_16816(acc[mb][t2], a[h][t2], b[h][mb]);
     }
   }
-  cp_async_wait<0>();
+  tc::cp_async_wait<0>();
   __syncthreads();
 
   // the row slices' sums meet in shared memory: [slice][row of x][column]

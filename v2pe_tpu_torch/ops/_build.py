@@ -24,6 +24,8 @@ import subprocess
 import time
 from typing import Optional
 
+import torch
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
                           "v2pe_tpu_torch")
@@ -31,6 +33,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _lib: Optional[ctypes.CDLL] = None
+# the current stream of a device as an address, for a launch (a CUDA build
+# of torch has the direct call, cheaper than the stream object)
+raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
 build_seconds: float = 0.0  # wall time of the last compile (0 if cached)
 
 
@@ -126,35 +132,7 @@ def load() -> ctypes.CDLL:
         ]
         lib.v2pe_flash_bwd_dkv.argtypes = bwd_in + [p, p] + bwd_dims  # dk, dv
         lib.v2pe_flash_bwd_dq.argtypes = bwd_in + [p] + bwd_dims      # dq
-        lib.v2pe_paged_store.argtypes = [
-            p, p,               # k_new, v_new
-            p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
-            p, p,               # page_table, lengths
-            i, i, i, i, i, i,   # B, Hkv, NP, ps, D, MP
-            i, i, i,            # layer, is_bf16, kv_bits (0, 8 or 4)
-            p,                  # cudaStream_t
-        ]
-        lib.v2pe_paged_decode.argtypes = [
-            p, p, p,            # q, k_new, v_new (fresh k/v may be NULL)
-            p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
-            p, p, p,            # page_table, slot_base, lengths
-            p, p,               # out, lse (may be NULL)
-            i, i, i, i, i, i,   # B, T, Hq, Hkv, NP, ps
-            i, i, i,            # D, MP, layer
-            i, i, i, i,         # is_bf16, kv_bits, fresh_in_pages, fold
-            ctypes.c_float,     # scale
-            p,                  # cudaStream_t
-        ]
-        lib.v2pe_paged_prefill.argtypes = [
-            p, p, p, p, p,      # q, k_pages, v_pages, k_scales, v_scales
-            p, p, p,            # page_table, slot_base, lengths
-            p, p,               # out, lse
-            i, i, i, i, i, i,   # B, S, Hq, Hkv, NP, ps
-            i, i, i,            # D, MP, layer
-            i, i,               # is_bf16, kv_bits
-            ctypes.c_float,     # scale
-            p,                  # cudaStream_t
-        ]
+        bind_paged(lib)
         bind_qdot(lib)
         ll = ctypes.c_longlong
         lib.v2pe_ring_fused_fwd.argtypes = [
@@ -169,9 +147,7 @@ def load() -> ctypes.CDLL:
             p,                  # cudaStream_t
         ]
         for fn in (lib.v2pe_ring_fused_fwd,
-                   lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq,
-                   lib.v2pe_paged_store, lib.v2pe_paged_decode,
-                   lib.v2pe_paged_prefill):
+                   lib.v2pe_flash_bwd_dkv, lib.v2pe_flash_bwd_dq):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -196,4 +172,44 @@ def bind_qdot(lib: ctypes.CDLL) -> None:
     lib.v2pe_q4dot_stacked.argtypes = weight + stack + q4dot_tail
     for fn in (lib.v2pe_qdot, lib.v2pe_qdot_stacked, lib.v2pe_q4dot,
                lib.v2pe_q4dot_stacked):
+        fn.restype = ctypes.c_int
+
+
+def bind_paged(lib: ctypes.CDLL) -> None:
+    """Argument types of the three paged kernels' entry points."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.v2pe_paged_store.argtypes = [
+        p, p,               # k_new, v_new
+        p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
+        p, p,               # page_table, lengths
+        i, i, i, i, i, i,   # B, Hkv, NP, ps, D, MP
+        i, i, i,            # layer, is_bf16, kv_bits (0, 8 or 4)
+        p,                  # cudaStream_t
+    ]
+    lib.v2pe_paged_decode.argtypes = [
+        p, p, p,            # q, k_new, v_new (fresh k/v may be NULL)
+        p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
+        p, p, p,            # page_table, slot_base, lengths
+        p, p,               # out, lse (may be NULL)
+        i, i, i, i, i, i,   # B, T, Hq, Hkv, NP, ps
+        i, i, i,            # D, MP, layer
+        i, i, i, i,         # is_bf16, kv_bits, fresh_in_pages, fold
+        ctypes.c_float,     # scale
+        i, i, i,            # the plan: splits, entries a split, rows a block
+        p, p,               # workspace, split counters (NULL at 1 split)
+        p,                  # cudaStream_t
+    ]
+    lib.v2pe_paged_prefill.argtypes = [
+        p, p, p, p, p,      # q, k_pages, v_pages, k_scales, v_scales
+        p, p, p,            # page_table, slot_base, lengths
+        p, p,               # out, lse
+        i, i, i, i, i, i,   # B, S, Hq, Hkv, NP, ps
+        i, i, i,            # D, MP, layer
+        i, i,               # is_bf16, kv_bits
+        ctypes.c_float,     # scale
+        i,                  # L: the pool's layers
+        p,                  # cudaStream_t
+    ]
+    for fn in (lib.v2pe_paged_store, lib.v2pe_paged_decode,
+               lib.v2pe_paged_prefill):
         fn.restype = ctypes.c_int

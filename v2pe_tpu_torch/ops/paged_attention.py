@@ -34,7 +34,8 @@ and never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -47,6 +48,69 @@ TWIN_BLOCK_Q = 512      # chunk rows per step of the prefill twin
 # Kernel launches since the last reset, by kernel: the smoke run zeroes
 # them, drives the serving path, and reads how often it went through each.
 LAUNCHES = {"paged_store": 0, "paged_decode": 0, "paged_prefill": 0}
+
+SMS = 132            # streaming multiprocessors of an H100
+DECODE_ROWS = 16     # query rows a decode block holds at most (two a warp)
+DECODE_SLOTS = 64    # page slots a stage of the decode kernel
+
+
+class DecodePlan(NamedTuple):
+    """One launch of the decode kernel (:func:`decode_plan`)."""
+    splits: int      # blocks that share a row's slots
+    span: int        # consecutive slots of the row a split owns (a
+                     # multiple of DECODE_SLOTS; the last split fewer)
+    rows: int        # query rows a block: 2, 4, 8 or 16
+    row_blocks: int  # blocks that share a (row, kv head)'s T * G query rows
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(B: int, Hkv: int, MP: int, ps: int, T: int,
+                G: int) -> DecodePlan:
+    """The decode kernel's launch from shapes alone: B rows, Hkv kv heads
+    of G query heads each, MP page-table entries of ps slots a row, T fresh
+    tokens. It never reads the lengths, which live on the device (the
+    engine's decode block reads the card once a block).
+
+    A block holds up to 16 query rows of one (row, kv head); the row's MP *
+    ps slots (its entries in order) are cut into ``splits`` runs of ``span``
+    slots, as many as fill the card's two resident blocks an SM in one wave
+    (a second, partial wave would double the time). A split over slots past
+    a row's end writes an empty partial."""
+    B, Hkv, MP, ps, T, G = (int(x) for x in (B, Hkv, MP, ps, T, G))
+    if min(B, Hkv, ps, T, G) < 1 or MP < 0:
+        raise ValueError(f"no decode launch for B={B}, Hkv={Hkv}, MP={MP}, "
+                         f"ps={ps}, T={T}, G={G}")
+    R = T * G
+    rows = 2
+    while rows < min(R, DECODE_ROWS):
+        rows *= 2
+    row_blocks = -(-R // rows)
+    base = B * Hkv * row_blocks
+    want = max(1, 2 * SMS // base)
+    V = max(MP * ps, 1)
+    span = -(-(-(-V // want)) // DECODE_SLOTS) * DECODE_SLOTS
+    splits = -(-V // span)
+    return DecodePlan(splits, span, rows, row_blocks)
+
+
+# the device's decode workspace and zeroed split counters, kept between
+# calls (device index -> (workspace, counters)); the last block of each
+# (row, kv head, row block) resets its counter
+_DECODE_SCRATCH = {}
+
+
+def _decode_scratch(device, floats: int, cells: int):
+    """The device's workspace (at least ``floats`` fp32) and counters (at
+    least ``cells``), grown when a launch needs more, never per call."""
+    ws, counters = _DECODE_SCRATCH.get(device.index, (None, None))
+    if ws is None or ws.numel() < floats:
+        ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
+                         device=device)
+    if counters is None or counters.numel() < cells:
+        counters = torch.zeros(max(cells, 4096), dtype=torch.int32,
+                               device=device)
+    _DECODE_SCRATCH[device.index] = (ws, counters)
+    return ws, counters
 
 
 def default_slot_base(page_table: torch.Tensor, page_size: int):
@@ -156,14 +220,18 @@ def _slots(slot_base, ps: int):
     return torch.where(sb[:, :, None] >= 0, slot, -1).reshape(B, MP * ps)
 
 
-def _softmax_out(s, v, vs):
+def _softmax_out(s, v, vs, rounding=None):
     """exp-normalise masked scores s (..., K) against values v (..., K, hd):
-    (unnormalised-by-l out, m, l) with v's scale folded in after l."""
+    (unnormalised-by-l out, m, l) with v's scale folded in after l; with
+    ``rounding`` (bf16) the weights are rounded to it for the product, as
+    the tensor cores take them."""
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF / 2)
     e = torch.exp(s - m)  # masked scores underflow to exactly 0
     l = e.sum(dim=-1, keepdim=True)
     if vs is not None:
         e = e * vs
+    if rounding is not None:
+        e = e.to(rounding).float()
     return torch.matmul(e, v), m, l
 
 
@@ -228,7 +296,14 @@ def paged_prefill_attention_torch(q, k_pages, v_pages, page_table, lengths,
                                   k_scales=None, v_scales=None,
                                   slot_base=None):
     """Plain twin of the prefill kernel, blocked over the chunk's queries
-    to bound the score buffer. Returns (out (B,S,Hq,hd), lse (B,Hq,S))."""
+    to bound the score buffer. Returns (out (B,S,Hq,hd), lse (B,Hq,S)).
+
+    fp32 queries: exact fp32. bf16 queries round where the kernel's tensor
+    cores do (flash_attention_fwd_torch's bf16 rounding, Pallas bf16all):
+    bf16 q and K/V (pool values, or int8 / int4 codes, which bf16 holds
+    exactly), the scale and the k scale on the fp32 scores, the softmax
+    weights times the v scale rounded to bf16 for the product with V; m, l
+    and the sums in fp32."""
     B, S, Hq, hd = q.shape
     Hkv, ps = k_pages.shape[1], k_pages.shape[3]
     G = Hq // Hkv
@@ -245,15 +320,21 @@ def paged_prefill_attention_torch(q, k_pages, v_pages, page_table, lengths,
         ks, vs = ks[:, :, None, None], vs[:, :, None, None]
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
     for s0 in range(0, S, TWIN_BLOCK_Q):
         s1 = min(s0 + TWIN_BLOCK_Q, S)
-        qb = (q[:, s0:s1].float() * scale).reshape(B, s1 - s0, Hkv, G, hd)
+        qb = q[:, s0:s1].float()
+        if not bf16:
+            qb = qb * scale
+        qb = qb.reshape(B, s1 - s0, Hkv, G, hd)
         qb = qb.permute(0, 2, 3, 1, 4)              # (B, Hkv, G, sq, hd)
         s = torch.matmul(qb, k.transpose(-1, -2))   # (B, Hkv, G, sq, K)
+        if bf16:
+            s = s * scale
         if ks is not None:
             s = s * ks
         s = torch.where(mask[:, None, None, None], s, NEG_INF)
-        o, m, l = _softmax_out(s, v, vs)
+        o, m, l = _softmax_out(s, v, vs, torch.bfloat16 if bf16 else None)
         o, lb = _finish(o, m, l)
         out[:, s0:s1] = o.permute(0, 3, 1, 2, 4).reshape(
             B, s1 - s0, Hq, hd).to(q.dtype)
@@ -388,7 +469,7 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
         _ptr(k_scales), _ptr(v_scales), _ptr(page_table), _ptr(lengths),
         B, Hkv, NP, ps, hd, page_table.shape[1], layer,
         int(k_new.dtype == torch.bfloat16), bits,
-        ctypes.c_void_p(torch.cuda.current_stream(k_new.device).cuda_stream))
+        _build.raw_stream(k_new.device.index))
     _launch("paged_store", err)
     if k_scales is not None:
         return k_pages, v_pages, k_scales, v_scales
@@ -449,6 +530,13 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
                                  "(B, T, Hkv, hd) fresh k/v in q's dtype")
     from v2pe_tpu_torch.ops import _build
 
+    MP = page_table.shape[1]
+    plan = decode_plan(B, Hkv, MP, ps, T, Hq // Hkv)
+    ws = counters = None
+    if plan.splits > 1:
+        cells = B * Hkv * plan.row_blocks
+        ws, counters = _decode_scratch(
+            q.device, cells * plan.splits * plan.rows * (hd + 2), cells)
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -456,11 +544,11 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
         _ptr(q), _ptr(k_new if fold else None), _ptr(v_new if fold else None),
         _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
         _ptr(page_table), _ptr(slot_base), _ptr(lengths), _ptr(out),
-        _ptr(lse), B, T, Hq, Hkv, k_pages.shape[2], ps, hd,
-        page_table.shape[1], layer, int(q.dtype == torch.bfloat16),
-        bits, int(fresh_in_pages), fold,
-        float(hd ** -0.5 if scale is None else scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        _ptr(lse), B, T, Hq, Hkv, k_pages.shape[2], ps, hd, MP, layer,
+        int(q.dtype == torch.bfloat16), bits, int(fresh_in_pages), fold,
+        float(hd ** -0.5 if scale is None else scale), plan.splits,
+        plan.span, plan.rows, _ptr(ws), _ptr(counters),
+        _build.raw_stream(q.device.index))
     _launch("paged_decode", err)
     return (out, lse) if return_lse else out
 
@@ -494,6 +582,6 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, lengths,
         _ptr(out), _ptr(lse), B, S, Hq, k_pages.shape[1], k_pages.shape[2],
         ps, hd, page_table.shape[1], layer, int(q.dtype == torch.bfloat16),
         bits, float(hd ** -0.5 if scale is None else scale),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        k_pages.shape[0], _build.raw_stream(q.device.index))
     _launch("paged_prefill", err)
     return out, lse

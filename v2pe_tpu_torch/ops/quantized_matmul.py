@@ -371,10 +371,6 @@ def _check(x: torch.Tensor, w: _Weight, ndim: int,
 
 
 _COUNTERS = {}  # device index -> zeroed int32 counters, one a column tile
-# the current stream of a device as an address (a CUDA build of torch has
-# the direct call)
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
-    lambda index: torch.cuda.current_stream(index).cuda_stream)
 
 
 def _counters(device, tiles: int) -> torch.Tensor:
@@ -435,7 +431,7 @@ def _launch(x: torch.Tensor, w: _Weight, li: Optional[int], out_dtype):
     args += [int(x2.dtype == torch.bfloat16),
              int(kernel_dtype == torch.bfloat16),
              plan.body, plan.mt, plan.bn, plan.splits, plan.split_rows,
-             _raw_stream(x.device.index)]
+             _build.raw_stream(x.device.index)]
     err = getattr(_build.load(), "v2pe_" + name)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
