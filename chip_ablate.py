@@ -1,7 +1,7 @@
 """Time variants of a kernel's CUDA source against each other on one CUDA
 card, in one process, so that their times compare.
 
-    python3 chip_ablate.py [--family flash_bwd|qmm|paged]
+    python3 chip_ablate.py [--family flash_bwd|qmm|paged|e2e]
                            [--variants a,b,...|none] [--iters 20]
                            [--parent DIR] [--sweep]
 
@@ -33,6 +33,21 @@ of a call of this checkout's decode wrapper and of the parent's own
 (``parent_wrappers``), called in turns.
 The decode split counters are cleared after each variant. ``--sweep``
 runs chip_smoke.py's random sweep of #5-#6 through each variant instead.
+The variant ``store_apart`` (no source edit; this checkout's library) is
+the decode step's store done apart: #5 without its store plus the
+standalone store kernel #4 (one launch a fresh token), against #5 with the
+store riding in its launch, at the decode forms (the served rows, one row
+over 32k, the session's 34k row, the engine's 8 rows, its T = 5 verify
+forward; bf16, int8 and int4 pools): both arms bit for bit equal (outputs
+and pool), their device times (#5 alone and #4 alone too), and the median
+host time of a layer's call, the wrapper pair against the single call,
+called in turns.
+
+Family ``e2e`` (with ``--parent DIR``): ``chip_smoke.py --e2e`` run on
+the parent checkout's package and on this one's, each in a process of its
+own, in turns (parent, this, this, parent): one sample each of the decode
+paths' end-to-end numbers (``chip_smoke.e2e_samples``), printed side by
+side.
 
 Family ``qmm``: variants of ``quantized_matmul.cu`` (QMM_VARIANTS: an edit
 of the source, a change of ``launch_plan``'s split of the strip body's
@@ -467,6 +482,12 @@ def run_paged(args) -> int:
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     names = [v for v in args.variants.split(",") if v and v != "none"]
+    if "store_apart" in names:
+        names.remove("store_apart")
+        run_store_apart(args.iters)
+        if not names and not args.parent:
+            print(cs.card_line())
+            return 0
     if args.parent:
         names.append("parent")
     libs = build(names, "paged", args.parent)
@@ -530,6 +551,127 @@ def run_paged(args) -> int:
             torch.cuda.empty_cache()
     finally:
         pa.decode_plan, _build.load = own_plan, own_load
+    print(cs.card_line())
+    return 0
+
+
+STORE_FORMS = ("decode_fresh_in_pages", "decode_32k_B1_ps128",
+               "decode_34165_B1_ps512", "decode_engine_B8_8k_T1",
+               "decode_engine_B8_8k_T5")
+
+
+def run_store_apart(iters: int) -> None:
+    """The variant ``store_apart``: at each decode form of STORE_FORMS, #5
+    with the store riding in its launch against #5 without it plus the
+    standalone #4 (T launches of it, the t-th at lengths + t, for a form of
+    T fresh tokens), from the same pool: outputs and pools bit for bit
+    equal; device times (best of three, in turns apart, fused, fused,
+    apart; #5 and #4 alone beside); the median host time of one call of
+    each arm, called in turns."""
+    import statistics
+    import time
+
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for kernel, form, fn, kw in cs.paged_forms(torch.device("cuda"),
+                                               cs.PROBE_PROMPTS):
+        if not form.startswith(STORE_FORMS):
+            continue
+        B, T, _, D = kw["q"].shape
+        Hkv = kw["k_pages"].shape[1]
+        if kw.get("k_new") is None:
+            kw.update(k_new=torch.randn((B, T, Hkv, D), generator=g,
+                                        device="cuda", dtype=kw["q"].dtype),
+                      v_new=torch.randn((B, T, Hkv, D), generator=g,
+                                        device="cuda", dtype=kw["q"].dtype))
+        names = [n for n in ("k_pages", "v_pages", "k_scales", "v_scales")
+                 if kw.get(n) is not None]
+        pool = {n: kw[n] for n in names}
+        tables = dict(page_table=kw["page_table"], layer=kw["layer"])
+        # the standalone store's arguments, one set a fresh token
+        each = [dict(k_new=kw["k_new"][:, t:t + 1].contiguous(),
+                     v_new=kw["v_new"][:, t:t + 1].contiguous(),
+                     lengths=(kw["lengths"] + t).contiguous())
+                for t in range(T)]
+        decode = lambda: pa.paged_decode_attention(**kw)
+
+        def store():
+            for e in each:
+                pa.store_fresh_token(**e, **pool, **tables)
+
+        def apart():
+            if kw.get("fresh_in_pages"):  # store, then attend
+                store()
+                return decode()
+            out = decode()
+            store()
+            return out
+
+        fused = lambda: pa.paged_decode_attention(**kw, store=True)
+        before = {n: t.clone() for n, t in pool.items()}
+        got = []
+        for arm in (apart, fused):
+            for n in names:
+                kw[n].copy_(before[n])
+            with cs.nan_empty():
+                out = arm()
+            torch.cuda.synchronize()
+            got.append((out, {n: kw[n].clone() for n in names}))
+        same = all(torch.equal(a, b) for a, b in zip(got[0][0], got[1][0])) \
+            and all(torch.equal(got[0][1][n], got[1][1][n]) for n in names)
+        del got, before
+        ms = {"apart": [], "fused": []}
+        for name in ("apart", "fused", "fused", "apart"):
+            arm = apart if name == "apart" else fused
+            ms[name].append(min(cs.time_ms(arm, iters) for _ in range(3)))
+        t_dec = min(cs.time_ms(decode, iters) for _ in range(3))
+        t_st = min(cs.time_ms(store, iters) for _ in range(3))
+        host = ([], [])
+        for i in range(2 * HOST_CALLS):
+            if i % 64 < 2:
+                torch.cuda.synchronize()  # keep the queue short
+            t0 = time.perf_counter()
+            (apart, fused)[i % 2]()
+            host[i % 2].append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        h_apart, h_fused = (statistics.median(h) * 1e6 for h in host)
+        fz, ap = min(ms["fused"]), min(ms["apart"])
+        print(f"ablate store_apart {form}: fused {fz:.4f} ms (runs "
+              f"{ms['fused']}), apart {ap:.4f} ms (runs {ms['apart']}): #5 "
+              f"alone {t_dec:.4f} ms + {T} x #4 {t_st:.4f} ms; the store "
+              f"adds {fz - t_dec:.4f} ms inside #5; host time a call, "
+              f"median of {HOST_CALLS} each in turns: fused {h_fused:.1f} "
+              f"us, apart {h_apart:.1f} us; outputs and pools bit for bit "
+              f"equal {same}{'' if same else ' FAILED'}", flush=True)
+        del kw, pool, each
+        torch.cuda.empty_cache()
+
+
+def run_e2e(args) -> int:
+    """The e2e family: ``chip_smoke.py --e2e`` through the parent's package
+    and this checkout's, in turns, one process each."""
+    import json
+
+    if not args.parent:
+        raise SystemExit("--family e2e needs --parent DIR")
+    runs = {"parent": [], "this": []}
+    for arm in ("parent", "this", "this", "parent"):
+        cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--e2e"]
+        if arm == "parent":
+            cmd += ["--root", args.parent]
+        done = subprocess.run(cmd, capture_output=True, text=True)
+        if done.returncode != 0:
+            print(done.stdout[-4000:], done.stderr[-4000:], flush=True)
+            raise RuntimeError(f"chip_smoke.py --e2e ({arm}) failed")
+        line = next(ln for ln in reversed(done.stdout.splitlines())
+                    if ln.startswith('{"e2e"'))
+        runs[arm].append(json.loads(line)["e2e"])
+        print(f"ablate e2e {arm}: {line}", flush=True)
+    for key in runs["this"][0]:
+        print(f"ablate e2e {key}: parent {[r[key] for r in runs['parent']]}"
+              f", this checkout {[r[key] for r in runs['this']]}",
+              flush=True)
     print(cs.card_line())
     return 0
 
@@ -619,7 +761,7 @@ def run_qmm(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--family", default="flash_bwd",
-                    choices=("flash_bwd", "qmm", "paged"))
+                    choices=("flash_bwd", "qmm", "paged", "e2e"))
     ap.add_argument("--variants", default=None)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--parent", default=None,
@@ -636,7 +778,10 @@ def main(argv=None) -> int:
     print(cs.card_line(), flush=True)
     if args.variants is None:
         args.variants = ",".join({"flash_bwd": VARIANTS, "qmm": QMM_VARIANTS,
-                                  "paged": PAGED_VARIANTS}[args.family])
+                                  "paged": [*PAGED_VARIANTS, "store_apart"],
+                                  "e2e": []}[args.family])
+    if args.family == "e2e":
+        return run_e2e(args)
     if args.family == "qmm":
         return run_qmm(args)
     if args.family == "paged":

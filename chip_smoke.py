@@ -122,6 +122,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -256,6 +257,16 @@ def require(counts: dict, names, where: str) -> None:
     missing = [n for n in names if counts[n] == 0]
     if missing:
         raise AssertionError(f"{where}: no launch of {missing} ({counts})")
+
+
+def require_riding_store(counts: dict, where: str) -> None:
+    """A path of paged decode steps: no store launch of its own, and the
+    fresh tokens' store riding in every paged decode launch."""
+    if not (counts["paged_store"] == 0 and counts["paged_decode"] > 0
+            and counts["paged_decode_store"] == counts["paged_decode"]):
+        raise AssertionError(f"{where}: expected no paged_store launch and "
+                             f"one riding store a paged_decode launch "
+                             f"({counts})")
 
 
 # ---------------------------------------------------------------- phase 1
@@ -602,11 +613,15 @@ def paged_forms(device, prompt_lens):
     128, ChatModel's), the separate-fresh decode at T=4, the session's
     store and decode of one row over a 34k context at page 512 (on one
     pool: the decode reads the stored token), and a 2048-token chunk over
-    a 32k history at page 512; each in bf16, int8 and int4. For bf16 and
-    int4 also the serving engine's forms: decode of 8 rows of about 8.2k
-    tokens at page 512 with T = 1 (a decode block's step) and with T = 5
-    fresh tokens folded in separately (a speculative verify forward); and
-    for int4 a 256-token chunk over the served rows at page 128."""
+    a 32k history at page 512; each in bf16, int8 and int4. The decode
+    step's own forms (``decode_store_*``) carry the store in the decode
+    launch: store-then-attend over the served rows and the session's row,
+    and the T=4 fold storing a prefix of each row (4, 2 and 0 tokens).
+    Also, in each pool, the serving engine's forms: decode of 8 rows of
+    about 8.2k tokens at page 512 with T = 1 (a decode block's step) and
+    with T = 5 fresh tokens folded in separately (a speculative verify
+    forward); and for int4 a 256-token chunk over the served rows at page
+    128."""
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=device).manual_seed(11)
@@ -638,6 +653,25 @@ def paged_forms(device, prompt_lens):
                            v_new=q(3, 4, LLM_HKV), page_table=table,
                            lengths=lens, layer=LLM_L - 1, return_lse=True,
                            **pool)))
+        # the store riding in the decode launch: store, then attend (a
+        # decode step), and folding T = 4 with a prefix of each row stored
+        forms.append(("paged_decode",
+                      f"decode_store_fresh_in_pages_"
+                      f"{'_'.join(map(str, served))}_ps128_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(3, 1), k_new=q(3, 1, LLM_HKV),
+                           v_new=q(3, 1, LLM_HKV), page_table=table,
+                           lengths=lens, layer=LLM_L - 1, fresh_in_pages=True,
+                           return_lse=True, store=True, **pool)))
+        forms.append(("paged_decode",
+                      f"decode_store_separate_T4_B3_ps128_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(3, 4), k_new=q(3, 4, LLM_HKV),
+                           v_new=q(3, 4, LLM_HKV), page_table=table,
+                           lengths=lens, layer=LLM_L - 1, return_lse=True,
+                           store=True, store_n=torch.tensor(
+                               [4, 2, 0], dtype=torch.int32, device=device),
+                           **pool)))
         n32 = 32767
         table, NP = _rows([n32], 128, 1, device)
         pool = _pool(LLM_L, NP, 128, tag, g, device)
@@ -663,6 +697,12 @@ def paged_forms(device, prompt_lens):
                       dict(q=q(1, 1), k_new=None, v_new=None,
                            page_table=table, lengths=lens, layer=LLM_L - 1,
                            fresh_in_pages=True, return_lse=True, **pool)))
+        forms.append(("paged_decode", f"decode_store_{n}_B1_ps512_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(1, 1), k_new=q(1, 1, LLM_HKV),
+                           v_new=q(1, 1, LLM_HKV), page_table=table,
+                           lengths=lens, layer=LLM_L - 1, fresh_in_pages=True,
+                           return_lse=True, store=True, **pool)))
         table, NP = _rows([32768], 512, 2048, device)
         pool = _pool(LLM_L, NP, 512, tag, g, device)
         forms.append(("paged_prefill", f"prefill_2048_over_32k_ps512_{tag}",
@@ -671,8 +711,6 @@ def paged_forms(device, prompt_lens):
                            lengths=torch.tensor([32768], dtype=torch.int32,
                                                 device=device),
                            layer=LLM_L - 1, **pool)))
-        if tag == "int8":
-            continue
         if tag == "int4":
             table, NP = _rows(served, 128, 256, device)
             forms.append(("paged_prefill",
@@ -731,8 +769,9 @@ def paged_roof(kernel: str, kw: dict) -> dict:
     """Bound of a paged kernel at one form. The store reads the fresh k/v
     and writes one slot per row and kv head (and its scale); decode and
     prefill read every cached slot they attend to once (values, and scales
-    of an int8 pool), the queries and the fresh k/v, write out and lse, and
-    run two products per (query, slot) pair and query head."""
+    of an int8 pool), the queries and the fresh k/v, write out and lse (and
+    a riding store's slots), and run two products per (query, slot) pair
+    and query head."""
     pool = kw["k_pages"]
     Hkv, D = pool.shape[1], LLM_HD
     quant = kw.get("k_scales") is not None
@@ -747,6 +786,9 @@ def paged_roof(kernel: str, kw: dict) -> dict:
     B, T, Hq, _ = q.shape
     slots = int(lengths.sum()) + (B * T if kw.get("fresh_in_pages") else 0)
     out = q.numel() * q.element_size() + B * Hq * T * 4  # out and lse
+    if kw.get("store"):  # a riding store writes its tokens' slots
+        n = kw.get("store_n")
+        out += (B * T if n is None else int(n.sum())) * slot
     # causal among the fresh tokens: T (T + 1) / 2 more pairs where they are
     # folded in separately
     pairs = T * int(lengths.sum()) + (
@@ -827,6 +869,49 @@ def paged_check(kernel: str, fn, kw: dict) -> tuple:
     return msg, ok, max(err, err_lse)
 
 
+def paged_store_check(fn, kw: dict) -> tuple:
+    """A decode form whose launch also stores (``store=True``): run twice
+    from the same pool into NaN-filled outputs, with equal bits (outputs
+    and pool); the pool it leaves exactly equal to the one the twin leaves
+    on CPU copies of the same inputs (fp32 q and fresh k/v, which widen
+    exactly), out and lse within PAGED_TOL of the twin's: (message, ok,
+    largest error)."""
+    names = [n for n in ("k_pages", "v_pages", "k_scales", "v_scales")
+             if kw.get(n) is not None]
+    ref = {n: (t.float() if n in ("q", "k_new", "v_new") else t).to(
+        "cpu", copy=True) if torch.is_tensor(t) else t
+        for n, t in kw.items()}
+    before = {n: kw[n].clone() for n in names}
+    with nan_empty():
+        out, lse = fn(**kw)
+        after = {n: kw[n].clone() for n in names}
+        for n in names:
+            kw[n].copy_(before[n])
+        out2, lse2 = fn(**kw)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(out, out2) and torch.equal(lse, lse2)) and all(
+        torch.equal(kw[n], after[n]) for n in names)
+    del before
+    want, want_lse = _twin("paged_decode")(**ref)
+    layer = kw["layer"]
+    pool_equal = all(torch.equal(after[n].cpu(), ref[n]) for n in names)
+    pool_err = max((after[n][layer].cpu().float() - ref[n][layer].float())
+                   .abs().max().item() for n in names)
+    err = (out.cpu().float() - want).abs().max().item()
+    top = want.abs().max().item()
+    rel = err / top if top > 0 else err
+    err_lse = (lse.cpu() - want_lse).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and same and pool_equal and \
+        pool_err <= PAGED_TOL["store"] and rel <= PAGED_TOL["out_rel"] \
+        and err_lse <= PAGED_TOL["lse"]
+    msg = (f"max|pool-twin| {pool_err:.3e} (tol {PAGED_TOL['store']}), "
+           f"pool equal {pool_equal}; max|out-twin| {err:.3e} = {rel:.3e} "
+           f"of max|twin| (tol {PAGED_TOL['out_rel']:.3e}) max|lse-twin| "
+           f"{err_lse:.3e} (tol {PAGED_TOL['lse']}); repeat bitwise equal "
+           f"(out, lse, pool) {same}")
+    return msg, ok, max(pool_err, err, err_lse)
+
+
 def phase_paged_kernels(prompt_lens) -> dict:
     """Each paged kernel against its twin at every form; returns per-kernel
     lists of form records. Decode and prefill run twice into NaN-filled
@@ -846,7 +931,9 @@ def phase_paged_kernels(prompt_lens) -> dict:
             ok = err <= PAGED_TOL["store"]
             msg = f"max|pool-twin| {err:.3e} (tol {PAGED_TOL['store']})"
         else:
-            msg, ok, err = paged_check(kernel, fn, kw)
+            check = paged_store_check if kw.get("store") else \
+                lambda fn, kw: paged_check(kernel, fn, kw)
+            msg, ok, err = check(fn, kw)
             lib_ms = library_ms(gathered_attention(kernel, kw), iters=3)
             torch.cuda.empty_cache()
         ms = time_ms(lambda: fn(**kw), iters=3)
@@ -901,7 +988,7 @@ def _sweep_pool(L, Hkv, NP, ps, D, kind, dtype, rng, device):
     return dict(k_pages=k, v_pages=v, k_scales=ks, v_scales=vs)
 
 
-def paged_sweep_form(rng, kernel: str, device):
+def paged_sweep_form(rng, kernel: str, device, srng=None):
     """(name, kwargs, splits) of one random form of the paged decode or
     prefill: page size 8-512, head dim 64 or 128, 1-8 rows of ragged
     lengths with some at 0 and some at 64 n + {0, 1, 63}, 1-4 kv heads of
@@ -910,7 +997,13 @@ def paged_sweep_form(rng, kernel: str, device):
     with T 1-16 fresh tokens stored in the pages, folded in separately, or
     left out (fold_fresh=0), the split count forced to 1 or to the most
     the plan can give (one 64-slot stage a split); prefill with 1-300 chunk
-    rows."""
+    rows. ``srng`` (its own generator, so the forms' shapes and data do
+    not depend on it) makes about half of the decode forms (three in four
+    of those that may: folding, or T = 1 in the pages) store their
+    fresh tokens in the launch: at T = 1 with the token in the pages, or
+    folding, all T or a random prefix of each row (store_n), where at
+    times (T <= page size) the tables have no room left, so the longest
+    row stores into its last entry, over slots the launch reads."""
     ps = int(rng.choice([8, 16, 48, 64, 128, 512]))
     D, B = int(rng.choice([64, 128])), int(rng.integers(1, 9))
     Hkv, G = int(rng.choice([1, 2, 4])), int(rng.integers(1, 5))
@@ -929,7 +1022,12 @@ def paged_sweep_form(rng, kernel: str, device):
         int(rng.integers(1, 301))
     mode = ["in_pages", "folded", "unfolded"][int(rng.integers(3))] \
         if kernel == "paged_decode" else "chunk"
-    table, NP = _rows(lengths, ps, T if mode == "in_pages" else 1, device)
+    store = srng is not None and kernel == "paged_decode" and \
+        srng.random() < 0.75 and (mode != "in_pages" or T == 1)
+    extra = T if mode == "in_pages" else 1
+    if store and mode != "in_pages":
+        extra = 0 if T <= ps and srng.random() < 0.5 else T
+    table, NP = _rows(lengths, ps, extra, device)
     table = table.contiguous()
     pool = _sweep_pool(2, Hkv, NP, ps, D, kind, dtype, rng, device)
     x = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(
@@ -952,6 +1050,16 @@ def paged_sweep_form(rng, kernel: str, device):
             kw.update(k_new=x(B, T, Hkv, D), v_new=x(B, T, Hkv, D),
                       fold_fresh=int(mode == "folded"))
         splits = [1, table.shape[1] * ps][int(rng.integers(2))]
+    if store:
+        if mode == "in_pages":
+            x = lambda *shape: torch.from_numpy(srng.standard_normal(
+                shape).astype(np.float32)).to(device, dtype)
+            kw.update(k_new=x(B, T, Hkv, D), v_new=x(B, T, Hkv, D))
+        kw["store"] = True
+        if srng.random() < 0.5:
+            kw["store_n"] = torch.from_numpy(srng.integers(
+                0, T + 1, B).astype(np.int32)).to(device)
+        mode += f"_store{'_full' if extra == 0 else ''}"
     name = (f"B{B}_ps{ps}_{Hkv * G}/{Hkv}x{D}_T{T}_{mode}_"
             f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}_{kind}_"
             f"len{'-'.join(map(str, lengths))}{'_dead' if dead else ''}"
@@ -963,30 +1071,37 @@ def phase_paged_sweep(device: str = "cuda") -> dict:
     """#5 and #6 at PAGED_SWEEP_FORMS seeded random forms each
     (paged_sweep_form), held as phase_paged_kernels holds its forms: twice
     into NaN-filled outputs with equal bits, against the twin within
-    PAGED_TOL. One line a kernel with the count and the largest error."""
+    PAGED_TOL (about half of #5's forms also store, their pools exactly
+    equal to the twin's). One line a kernel with the count and the largest
+    error."""
     from v2pe_tpu_torch.ops import paged_attention as pa
 
-    rng = np.random.default_rng(23)
+    rng, srng = np.random.default_rng(23), np.random.default_rng(29)
     records = {"paged_decode": [], "paged_prefill": []}
     plan = pa.decode_plan
     try:
         for kernel, fn in (("paged_decode", pa.paged_decode_attention),
                            ("paged_prefill", pa.paged_prefill_attention)):
-            t0, worst = time.perf_counter(), (0.0, "")
+            t0, worst, stored = time.perf_counter(), (0.0, ""), 0
             for _ in range(PAGED_SWEEP_FORMS):
-                name, kw, splits = paged_sweep_form(rng, kernel, device)
+                name, kw, splits = paged_sweep_form(rng, kernel, device,
+                                                    srng)
                 if splits is not None:
                     pa.decode_plan = lambda *a, n=splits: decode_resplit(
                         plan(*a), n, a[2], a[3])
-                msg, ok, err = paged_check(kernel, fn, kw)
+                msg, ok, err = paged_store_check(fn, kw) \
+                    if kw.get("store") else paged_check(kernel, fn, kw)
                 pa.decode_plan = plan
                 if not ok:
                     raise AssertionError(f"{kernel} sweep {name}: {msg}")
                 worst = max(worst, (err, name))
+                stored += bool(kw.get("store"))
                 records[kernel].append(dict(form=f"sweep_{name}",
                                             max_abs_err=err, main=False))
             log(f"kernel sweep {kernel}: {PAGED_SWEEP_FORMS} seeded random "
-                f"forms within PAGED_TOL, twice with equal bits; largest "
+                f"forms" + (f" ({stored} storing their fresh tokens, pools "
+                            f"equal to the twin's)" if stored else "")
+                + f" within PAGED_TOL, twice with equal bits; largest "
                 f"error {worst[0]:.3e} at {worst[1]}; "
                 f"{time.perf_counter() - t0:.1f} s")
     finally:
@@ -1374,8 +1489,8 @@ def phase_paged_serve(model, cfg, tok, served: dict) -> dict:
     counts = read_launches()
     log(f"paged serve: 3 requests in {time.perf_counter() - t0:.3f}s, "
         f"launches {counts}; answers {[len(a) for a in answers]} chars")
-    require(counts, ("flash_fwd", "paged_store", "paged_decode"),
-            "paged serve")
+    require(counts, ("flash_fwd",), "paged serve")
+    require_riding_store(counts, "paged serve")
 
     tiles, _ = REQUESTS[0]
     ids, pos, pix = served["ids"], served["pos"], served["pixels"]
@@ -1443,8 +1558,8 @@ def phase_session(model, cfg, tok) -> dict:
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms, {len(reply)} chars; "
             f"launches {counts}")
         if i:
-            require(counts, ("paged_prefill", "paged_decode", "paged_store"),
-                    f"session turn {i + 1}")
+            require(counts, ("paged_prefill",), f"session turn {i + 1}")
+            require_riding_store(counts, f"session turn {i + 1}")
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         if i == 1:
             ids, pos, _ = chat.encode_chat(q, [8], history)
@@ -1462,6 +1577,25 @@ def phase_session(model, cfg, tok) -> dict:
                             f"bf16 weights, {kv or 'bf16'} pool")
         total = {k: total[k] + long[k] for k in total}
     return total
+
+
+def session_decode(sess, cfg):
+    """The decode rate of a ChatSession at its context: a turn of 33 new
+    tokens less a turn of one, steps counted from the decode kernel's
+    launches. Returns (steps, seconds of the 33-token turn, of the 1-token
+    turn, the launch counts of the 33-token turn)."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+
+    t0 = time.perf_counter()
+    sess.send(None, "Go on.", GenerationConfig(max_new_tokens=1))
+    t_one = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    sess.send(None, "Go on again.", GenerationConfig(max_new_tokens=33))
+    counts = read_launches()
+    t_many = time.perf_counter() - t0
+    return (counts["paged_decode"] // cfg.llm.num_hidden_layers, t_many,
+            t_one, counts)
 
 
 def long_session(chat, cfg, kv_dtype, tag: str) -> dict:
@@ -1494,22 +1628,12 @@ def long_session(chat, cfg, kv_dtype, tag: str) -> dict:
         f"{history}-token history: {turn * 1e3:.1f} ms to the first token "
         f"(history prefill {fill * 1e3:.1f} ms); launches {counts}")
     require(counts, ("paged_prefill",), f"2k-over-32k turn ({tag})")
-    # decode rate at that context: a turn of 33 new tokens less a turn of
-    # one, steps counted from the decode kernel's launches
-    t0 = time.perf_counter()
-    long_sess.send(None, "Go on.", one)
-    t_one = time.perf_counter() - t0
-    reset_launches()
-    t0 = time.perf_counter()
-    long_sess.send(None, "Go on again.", GenerationConfig(max_new_tokens=33))
-    decode = read_launches()
-    t_many = time.perf_counter() - t0
-    steps = decode["paged_decode"] // cfg.llm.num_hidden_layers
+    steps, t_many, t_one, decode = session_decode(long_sess, cfg)
     log(f"session ({tag}): decode over a {long_sess.consumed}-token context: "
         f"{steps} steps in {(t_many - t_one) * 1e3:.1f} ms = "
         f"{steps / (t_many - t_one):.1f} tok/s (a {t_many * 1e3:.1f} ms turn "
         f"less a 1-token turn of {t_one * 1e3:.1f} ms)")
-    require(decode, ("paged_store", "paged_decode"), f"34k decode ({tag})")
+    require_riding_store(decode, f"34k decode ({tag})")
     return {k: counts[k] + decode[k] for k in counts}
 
 
@@ -1575,7 +1699,7 @@ def phase_worker(model, cfg, tok) -> dict:
     if not ok:
         raise AssertionError(f"worker texts {native!r} / {sse!r} != chat "
                              f"{want!r}")
-    require(counts, ("paged_store", "paged_decode"), "worker")
+    require_riding_store(counts, "worker")
     return counts
 
 
@@ -1795,11 +1919,12 @@ def phase_engine(chat, cfg) -> dict:
         f"{len(blocks)} blocks of {ENGINE_BLOCK} steps: {step_ms:.2f} ms a "
         f"step at {ENGINE_ROWS} rows = "
         f"{ENGINE_ROWS / step_ms * 1e3:.1f} tok/s in decode; a block "
-        f"launches {blocks[0][2]['paged_store']} stores and "
-        f"{blocks[0][2]['paged_decode']} decodes and reads the card "
-        f"{sorted({b[1] for b in blocks})} time(s)")
-    require(first, ("flash_fwd", "paged_prefill", "paged_store",
-                    "paged_decode"), "engine admissions")
+        f"launches {blocks[0][2]['paged_store']} stores of their own and "
+        f"{blocks[0][2]['paged_decode']} decodes, "
+        f"{blocks[0][2]['paged_decode_store']} of them storing, and reads "
+        f"the card {sorted({b[1] for b in blocks})} time(s)")
+    require(first, ("flash_fwd", "paged_prefill"), "engine admissions")
+    require_riding_store(first, "engine admissions")
     if generated != ENGINE_ROWS * ENGINE_NEW or \
             not all(r.finished.is_set() for r in reqs):
         raise AssertionError(f"engine generated {generated} tokens")
@@ -1807,8 +1932,8 @@ def phase_engine(chat, cfg) -> dict:
         raise AssertionError(f"a decode block synchronised "
                              f"{[b[1] for b in blocks]} times, not once")
     for b in blocks:
-        if not b[2]["paged_store"] == b[2]["paged_decode"] == \
-                L * ENGINE_BLOCK:
+        if not (b[2]["paged_store"] == 0 and b[2]["paged_decode_store"]
+                == b[2]["paged_decode"] == L * ENGINE_BLOCK):
             raise AssertionError(f"block launches {b[2]}")
     counts = dict(first)
     for b in blocks:
@@ -1885,8 +2010,8 @@ def phase_engine_chat(model, cfg, tok, served: dict) -> list:
     ids, pos, pix = served["ids"], served["pos"], served["pixels"]
     paths = []
     bf16, counts, _ = _engine_chats(chat, cfg, "bf16 pool")
-    require(counts, ("flash_fwd", "paged_prefill", "paged_store",
-                     "paged_decode"), "engine chat")
+    require(counts, ("flash_fwd", "paged_prefill"), "engine chat")
+    require_riding_store(counts, "engine chat")
     paths.append(counts)
     alone = first_logits(chat, cfg, ids, pos, pix, [], "paged", steps=0)[0]
     d = _rel(bf16[0].first_logits.float(), alone)
@@ -1904,8 +2029,9 @@ def phase_engine_chat(model, cfg, tok, served: dict) -> list:
     for kv in ("int8", "int4"):
         pools[kv], counts, stats = _engine_chats(chat, cfg, f"{kv} pool",
                                                  kv_dtype=kv)
-        require(counts, ("flash_fwd", "paged_prefill", "paged_store",
-                         "paged_decode"), f"engine chat ({kv} pool)")
+        require(counts, ("flash_fwd", "paged_prefill"),
+                f"engine chat ({kv} pool)")
+        require_riding_store(counts, f"engine chat ({kv} pool)")
         paths.append(counts)
         held[kv] = stats["pool_bytes"]
     if 2 * held["int4"] != held["int8"]:
@@ -1928,8 +2054,9 @@ def phase_engine_chat(model, cfg, tok, served: dict) -> list:
         chat, cfg, "bf16 pool, speculative_k 4",
         generation_config=GenerationConfig(speculative_k=4,
                                            speculative_ngram=3))
-    require(counts, ("flash_fwd", "paged_prefill", "paged_decode"),
+    require(counts, ("flash_fwd", "paged_prefill"),
             "engine chat (speculative)")
+    require_riding_store(counts, "engine chat (speculative)")
     paths.append(counts)
     log(f"engine chat: speculative_k 4 vs plain, equal tokens "
         f"{_token_share(spec, bf16)}; {stats.get('spec_accepted', 0)} tokens "
@@ -1970,7 +2097,7 @@ def phase_engine_chat(model, cfg, tok, served: dict) -> list:
         f"the first {agree} equal to chat()'s {len(want)}; launches {counts}")
     if not (chunks and all(c["error_code"] == 0 for c in chunks) and got):
         raise AssertionError(f"worker over the engine: {chunks[-3:]}")
-    require(counts, ("paged_store", "paged_decode"), "worker over the engine")
+    require_riding_store(counts, "worker over the engine")
     paths.append(counts)
     return paths
 
@@ -1984,6 +2111,113 @@ def phase_w4kv4(quantized, cfg, tok) -> dict:
                      kv_dtype="int4")
     counts = long_session(chat, cfg, "int4", "w4kv4: int4 weights, int4 pool")
     require(counts, ("q4dot", "q4dot_stacked"), "w4kv4 session")
+    return counts
+
+
+def phase_spec_reads(chat, cfg) -> dict:
+    """Reads of the card on the speculative paths at full width, now that
+    a verify forward's K+1 fresh tokens are stored by its decode launches:
+    a speculative engine block of 8 verify iterations over 2 rows, and
+    ``speculative_decode_from_logits`` under ``generate``, each counted
+    with ``count_syncs``. Beside it is printed the count of the same path
+    with the store done apart, as chunked prefill still does it
+    (``paged_kv.token_slots`` once and ``scatter_layers`` a layer, each of
+    which reads a mask back): this count plus, a verify forward, the reads
+    of one ``token_slots`` call and of L ``scatter_layers`` calls, measured
+    here on a scratch pool. Returns the launch counts of the engine's
+    blocks."""
+    from v2pe_tpu_torch.infer import paged_kv, speculative
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    L, V = cfg.llm.num_hidden_layers, cfg.llm.vocab_size
+    rng = np.random.default_rng(31)
+    # a prompt that repeats itself, so that prompt-lookup drafts are taken
+    # (ids below the tokenizer's special ones)
+    prompt = np.tile(rng.integers(10, 90000, 48), 16)
+    gc = GenerationConfig(max_new_tokens=96, speculative_k=4,
+                          speculative_ngram=3, eos_token_ids=(V - 1,))
+    eng = InferenceEngine(chat, max_rows=2, max_len=2048, page_size=128,
+                          chunk_size=512, decode_block=8,
+                          generation_config=gc, prefix_caching=False,
+                          spec_min_accept=0.0)
+    for _ in range(2):
+        eng.submit(prompt, np.arange(len(prompt), dtype=np.float64),
+                   max_new_tokens=96)
+    eng.step()  # both admissions and the first block
+    blocks, counts = [], None
+    while any(r is not None for r in eng._row_req):
+        reset_launches()
+        _, syncs = count_syncs(eng.step)
+        c = read_launches()
+        blocks.append(syncs)
+        counts = c if counts is None else {k: counts[k] + c[k] for k in c}
+    forwards = eng.stats.get("spec_forwards", 0)
+    # the reads a verify forward of the store done apart, on a scratch pool
+    # of 2 rows
+    K1, dev = gc.speculative_k + 1, eng.cache.lengths.device
+    scratch = paged_kv.allocate_rows(
+        paged_kv.PagedKVCache.zeros(cfg.llm, 2, 4, 128, 2,
+                                    dtype=torch.bfloat16, device=dev),
+        torch.full((2,), K1, dtype=torch.int32, device=dev))
+    valid = torch.ones((2, K1), dtype=torch.bool, device=dev)
+    slots, slot_reads = count_syncs(
+        lambda: paged_kv.token_slots(scratch, K1, valid))
+    kv = torch.zeros((1, 2, K1, cfg.llm.num_key_value_heads,
+                      cfg.llm.head_dim), dtype=torch.bfloat16, device=dev)
+    _, scatter_reads = count_syncs(lambda: paged_kv.scatter_layers(
+        scratch, slice(0, 1), kv, kv, slots))
+    per_forward = slot_reads + L * scatter_reads
+    del scratch
+    log(f"speculative reads (engine): {len(blocks)} blocks of "
+        f"{eng.decode_block} verify forwards after the admissions read the "
+        f"card {blocks} time(s); stored apart "
+        f"{[b + eng.decode_block * per_forward for b in blocks]} "
+        f"({per_forward} a verify forward: token_slots {slot_reads}, "
+        f"scatter_layers {scatter_reads} a layer, bf16 pool); "
+        f"{eng.stats.get('spec_accepted', 0)} tokens from {forwards} verify "
+        f"forwards; launches {counts}")
+    if not blocks or any(b != 1 for b in blocks):
+        raise AssertionError(f"a speculative block read the card {blocks} "
+                             f"times, not once")
+    require_riding_store(counts, "speculative engine blocks")
+    if counts["paged_decode"] != L * eng.decode_block * len(blocks):
+        raise AssertionError(f"speculative blocks launched {counts}")
+
+    own, seen = speculative.speculative_decode_from_logits, {}
+
+    def counted(*a, **kw):
+        reset_launches()
+        res, seen["reads"] = count_syncs(lambda: own(*a, **kw))
+        seen["launches"] = read_launches()
+        return res
+
+    speculative.speculative_decode_from_logits = counted
+    try:
+        w = next(chat.model.parameters())
+        dev = w.device
+        out, steps, lens = generate(
+            chat.model, cfg, gc, torch.as_tensor(prompt[None], device=dev),
+            torch.tensor([len(prompt)], device=dev),
+            torch.arange(len(prompt), dtype=torch.float32,
+                         device=dev)[None],
+            torch.zeros((1, 3, cfg.vision.image_size, cfg.vision.image_size),
+                        dtype=w.dtype, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            chat.img_context_token_id, cache_mode="paged", page_size=128)
+    finally:
+        speculative.speculative_decode_from_logits = own
+    log(f"speculative reads (speculative_decode_from_logits): {steps} "
+        f"verify forwards, {int(lens[0])} tokens, read the card "
+        f"{seen['reads']} time(s) (the loop's test {steps + 1} times and "
+        f"the stop ids' copy to the card); stored apart "
+        f"{seen['reads'] + steps * per_forward}; launches "
+        f"{seen['launches']}")
+    if seen["reads"] > steps + 2:
+        raise AssertionError(f"speculative decode read the card "
+                             f"{seen['reads']} times in {steps} verify "
+                             f"forwards")
+    require_riding_store(seen["launches"], "speculative decode")
     return counts
 
 
@@ -2692,9 +2926,9 @@ def phase_quant_serve(model, cfg, tok, served: dict) -> list:
             raise AssertionError(f"quantized serve ({tag}): expected "
                                  f"{5 * L} stacked launches and 1 head "
                                  f"launch a forward")
-        require(counts, ("flash_fwd",) + (
-            ("paged_store", "paged_decode") if mode == "paged" else ()),
-            f"quantized serve ({tag})")
+        require(counts, ("flash_fwd",), f"quantized serve ({tag})")
+        if mode == "paged":
+            require_riding_store(counts, f"quantized serve ({tag})")
         ttft, total, rate, tokens = time_request(
             chat, cfg, ids, pos, pix, served["gc"], cache_mode=mode,
             kv_dtype=kv)
@@ -3955,6 +4189,107 @@ def probe_flash(device: str = "cuda") -> None:
 # ------------------------------------------------------------------- main
 
 
+SPEC_CONTEXT = 32768  # prompt tokens of e2e_samples' speculative decode
+
+
+def e2e_samples(chat, cfg) -> dict:
+    """``--e2e``: a few samples each of the decode paths' end-to-end
+    numbers, through whichever checkout's package is first on the path
+    (``--root``), so that two checkouts compare in one call
+    (``chip_ablate.py --family e2e``): the 34k session's decode rate (bf16
+    pool, page 512; 3 samples), an engine decode step at 8 rows (the bench
+    recipe's 8 x 8192 tokens; 2 blocks of 64 steps on the host clock) and
+    the kernels a step of an 8-step block (torch.profiler's kernel events),
+    and ``speculative_decode_from_logits`` after a 32,768-token prompt that
+    repeats a 64-token pattern (K = 4, 64 new tokens; a warm run, then 2
+    samples): its rate, verify forwards and reads of the card
+    (``count_syncs``). Uses only entry points that checkouts from before
+    the store rode in the decode launch have too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2pe_tpu_torch.infer import speculative
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.infer.session import ChatSession
+
+    res = {}
+    rng = np.random.default_rng(12)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    sess = ChatSession(chat, max_len=LONG_HISTORY + 2 * LONG_TURN,
+                       page_size=512)
+    sess.send(None, "".join(rng.choice(letters, LONG_HISTORY)),
+              GenerationConfig(max_new_tokens=1))
+    res["session_34k_decode_tok_s"] = []
+    for _ in range(3):
+        steps, t_many, t_one, _ = session_decode(sess, cfg)
+        res["session_34k_decode_tok_s"].append(steps / (t_many - t_one))
+    del sess
+    torch.cuda.empty_cache()
+
+    eng = engine_recipe(chat, cfg)
+    _engine_submit(eng, cfg, np.random.default_rng(0), ENGINE_ROWS,
+                   ENGINE_NEW)
+    eng.step()  # the admissions and a first block
+    res["engine_step_ms_8rows"] = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        res["engine_step_ms_8rows"].append(
+            (time.perf_counter() - t0) * 1e3 / ENGINE_BLOCK)
+    eng.decode_block = 8
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    res["engine_kernels_a_step"] = sum(
+        e.count for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 8
+    del eng, prof
+    torch.cuda.empty_cache()
+
+    V = cfg.llm.vocab_size
+    prompt = np.tile(np.random.default_rng(31).integers(10, 90000, 64),
+                     SPEC_CONTEXT // 64)
+    gc = GenerationConfig(max_new_tokens=64, speculative_k=4,
+                          speculative_ngram=3, eos_token_ids=(V - 1,))
+    own, seen = speculative.speculative_decode_from_logits, {}
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, seen["reads"] = count_syncs(lambda: own(*a, **kw))
+        torch.cuda.synchronize()
+        seen["seconds"] = time.perf_counter() - t0
+        return out
+
+    w = next(chat.model.parameters())
+    dev = w.device
+    speculative.speculative_decode_from_logits = timed
+    rates = []
+    try:
+        for _ in range(3):  # a warm run, then the samples
+            _, steps, lens = generate(
+                chat.model, cfg, gc,
+                torch.as_tensor(prompt[None], device=dev),
+                torch.tensor([len(prompt)], device=dev),
+                torch.arange(len(prompt), dtype=torch.float32,
+                             device=dev)[None],
+                torch.zeros((1, 3, cfg.vision.image_size,
+                             cfg.vision.image_size), dtype=w.dtype,
+                            device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                chat.img_context_token_id, cache_mode="paged",
+                page_size=128)
+            rates.append(int(lens[0]) / seen["seconds"])
+    finally:
+        speculative.speculative_decode_from_logits = own
+    res.update(spec_decode_32k_tok_s=rates[1:],
+               spec_tokens=int(lens[0]), spec_verify_forwards=int(steps),
+               spec_reads=seen["reads"])
+    return res
+
+
 def kernel_record(name: str, recs: list, launches: int) -> dict:
     """One kernel's entry of the JSON line: the launches of the driven
     paths; the largest error over all forms; time, plain time, bound and
@@ -3988,6 +4323,13 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-train", action="store_true",
                     help="only profile one full-width train step with "
                     "torch.profiler; no result line")
+    ap.add_argument("--e2e", action="store_true",
+                    help="only one sample each of the decode paths' end-to-"
+                    "end numbers (e2e_samples), as a JSON line; no result "
+                    "line")
+    ap.add_argument("--root", default=None,
+                    help="with --e2e: the checkout whose v2pe_tpu_torch is "
+                    "driven (default: this one)")
     ap.add_argument("--probe", action="store_true",
                     help="only check and time the flash tiles (the "
                     "backward #2-#3, the forward #1, #11) at a few forms; "
@@ -3996,6 +4338,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.root:  # before anything of the package is imported
+        sys.path.insert(0, os.path.abspath(args.root))
     seconds, mark = {}, [time.perf_counter()]
 
     def lap(name: str) -> None:
@@ -4026,6 +4370,10 @@ def main(argv=None) -> int:
         f"init in {time.perf_counter() - t0:.2f}s")
     tok = CodePointTokenizer()
     chat = ChatModel(model, cfg, tok)
+    if args.e2e:
+        log(json.dumps({"e2e": e2e_samples(chat, cfg)}))
+        log(card_line())
+        return 0
     if args.profile or args.profile_train:
         if args.profile:
             profile_generate(chat, cfg)
@@ -4074,6 +4422,7 @@ def main(argv=None) -> int:
     # the continuous-batching engine
     paths.append(phase_engine(chat, cfg))
     paths += phase_engine_chat(model, cfg, tok, served)
+    paths.append(phase_spec_reads(chat, cfg))
     phase_beam(chat, cfg)
     del chat
     lap("engine")
@@ -4087,8 +4436,17 @@ def main(argv=None) -> int:
     lap("train")
     log(f"seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in "
         f"all")
-    log(json.dumps({"kernels": [kernel_record(name, recs, launches[name])
-                                for name, recs in forms.items()]}))
+    records = [kernel_record(name, recs, launches[name])
+               for name, recs in forms.items()]
+    for rec in records:
+        if rec["name"] == "paged_store":
+            # on the main path the store runs inside paged_decode's
+            # launches (paged_decode_store); its own launches stay apart
+            riding = sum(c["paged_decode_store"] for c in paths)
+            rec.update(launches=rec["launches"] + riding,
+                       standalone_launches=rec["launches"],
+                       riding_launches=riding, rides_in="paged_decode")
+    log(json.dumps({"kernels": records}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,9 +28,16 @@
 // paged_attention.py:229-233. Slots of a page past the row's end are read
 // and masked; a pool holds finite values (it is allocated as zeros).
 //
-// - store: one block per (row, kv head), one thread per element of the
-//   head's D values; int8 rounds x / (amax/127) half to even (rintf) and
-//   clips to +-127, the scale 1 where amax is 0 (jnp.round semantics).
+// - store (store_vec): one warp per fresh vector (a token's k or v of one
+//   kv head); int8 rounds x / (amax/127) half to even (rintf) and clips to
+//   +-127, the scale 1 where amax is 0 (jnp.round semantics). Two launches
+//   run it: paged_store_kernel (store_fresh_token, a launch of its own) and
+//   the decode kernel with `store` set, which writes its row's fresh tokens
+//   itself, so a decode step launches no store. At T = 1 with the fresh
+//   token in the pages the one block whose split covers the target slot
+//   stores it before its copies read it; in the fold mode (T <= 16) the
+//   last block of a (row, kv head) to finish reading stores the first
+//   store_n tokens.
 //
 // - decode (T <= 16 fresh queries, R = T * G query rows per kv head; q row r
 //   is fresh token r / G): a memory-bound split-K kernel, as FlashDecoding
@@ -214,70 +221,73 @@ struct StoreParams {
   int Hkv, NP, ps, MP, layer;
 };
 
-// max over the block of two values (blockDim.x a multiple of 32, <= 1024)
-__device__ float2 block_max2(float a, float b, float* red) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, off));
-    b = fmaxf(b, __shfl_xor_sync(0xffffffffu, b, off));
-  }
-  const int warp = threadIdx.x / 32, nw = blockDim.x / 32;
-  if (threadIdx.x % 32 == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-  }
-  __syncthreads();
-  float2 r = make_float2(red[0], red[32]);
-  for (int w = 1; w < nw; ++w) {
-    r.x = fmaxf(r.x, red[w]);
-    r.y = fmaxf(r.y, red[32 + w]);
-  }
-  return r;
+// The pool row (head's first page row + page) * ps + offset of the token
+// at position pos of a row: entry min(pos / ps, MP - 1) of its page table
+// (a row past its MP * ps slots writes into its last entry), offset pos %
+// ps; -1 where that entry is unallocated (no write).
+__device__ __forceinline__ long long fresh_slot(const int* table, int pos,
+                                                int ps, int MP, size_t head) {
+  const int page = table[min(pos / ps, MP - 1)];
+  return page < 0 ? -1
+                  : static_cast<long long>((head + page) * ps + pos % ps);
 }
 
+// One fresh vector (a token's k or v of one kv head: D values in src) into
+// pool row `slot` by one warp; lane l holds dims l + 32 i. Quantized pools
+// (scales != nullptr): the warp's amax, the scale amax / QMAX by an IEEE
+// division (1 where amax is 0), x / scale rounded half to even (rintf) and
+// clipped to +-QMAX, as quantize_kv and jnp do. An int4 byte d holds dim d
+// and dim d + D/2, both of lane d % 32, so the pack needs no exchange.
 template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(D) paged_store_kernel(const StoreParams p) {
+__device__ __forceinline__ void store_vec(const T* src, void* pages,
+                                          float* scales, size_t slot,
+                                          int lane) {
+  constexpr int N = D / 32;
   constexpr int W = PoolRow<KV, D>::W;
   constexpr float QMAX = PoolRow<KV, D>::QMAX;
-  __shared__ float red[64];
-  const int b = blockIdx.x, h = blockIdx.y, d = threadIdx.x;
-  const int len = p.lengths[b];
-  const int page = p.page_table[static_cast<size_t>(b) * p.MP +
-                                min(len / p.ps, p.MP - 1)];
-  if (page < 0) return;  // unallocated: no write (uniform over the block)
-  const size_t slot =
-      ((static_cast<size_t>(p.layer) * p.Hkv + h) * p.NP + page) * p.ps +
-      len % p.ps;
-  const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D + d;
-  float xk = to_float(static_cast<const T*>(p.k_new)[src]);
-  float xv = to_float(static_cast<const T*>(p.v_new)[src]);
-  if (p.k_scales != nullptr) {
-    const float2 amax = block_max2(fabsf(xk), fabsf(xv), red);
-    const float sk = amax.x > 0.f ? amax.x / QMAX : 1.f;
-    const float sv = amax.y > 0.f ? amax.y / QMAX : 1.f;
-    xk = fminf(fmaxf(rintf(xk / sk), -QMAX), QMAX);
-    xv = fminf(fmaxf(rintf(xv / sv), -QMAX), QMAX);
-    if (d == 0) {
-      p.k_scales[slot] = sk;
-      p.v_scales[slot] = sv;
-    }
+  float x[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = to_float(src[lane + 32 * i]);
+  if (scales != nullptr) {
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i) amax = fmaxf(amax, fabsf(x[i]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    const float s = amax > 0.f ? amax / QMAX : 1.f;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      x[i] = fminf(fmaxf(rintf(x[i] / s), -QMAX), QMAX);
+    if (lane == 0) scales[slot] = s;
   }
   if constexpr (std::is_same<KV, int4x2>::value) {
-    // thread d < D/2 packs its code with that of thread d + D/2
-    __shared__ int code[2][D];
-    code[0][d] = static_cast<int>(xk);
-    code[1][d] = static_cast<int>(xv);
-    __syncthreads();
-    if (d < W) {
-      int8_t* kp = static_cast<int8_t*>(p.k_pages) + slot * W + d;
-      int8_t* vp = static_cast<int8_t*>(p.v_pages) + slot * W + d;
-      *kp = static_cast<int8_t>((code[0][d] & 0xF) | (code[0][d + W] << 4));
-      *vp = static_cast<int8_t>((code[1][d] & 0xF) | (code[1][d + W] << 4));
-    }
+    int8_t* dst = static_cast<int8_t*>(pages) + slot * W;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      dst[lane + 32 * i] = static_cast<int8_t>(
+          (static_cast<int>(x[i]) & 0xF) | (static_cast<int>(x[i + N / 2]) << 4));
   } else {
-    store(static_cast<KV*>(p.k_pages) + slot * W + d, xk);
-    store(static_cast<KV*>(p.v_pages) + slot * W + d, xv);
+    KV* dst = static_cast<KV*>(pages) + slot * W;
+#pragma unroll
+    for (int i = 0; i < N; ++i) store(dst + lane + 32 * i, x[i]);
   }
+}
+
+// Standalone: one block per (row, kv head), warp 0 the k vector, warp 1
+// the v vector.
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(64) paged_store_kernel(const StoreParams p) {
+  const int b = blockIdx.x, h = blockIdx.y;
+  const int kv = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long slot = fresh_slot(
+      p.page_table + static_cast<size_t>(b) * p.MP, p.lengths[b], p.ps, p.MP,
+      (static_cast<size_t>(p.layer) * p.Hkv + h) * p.NP);
+  if (slot < 0) return;
+  const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D;
+  store_vec<T, KV, D>(static_cast<const T*>(kv ? p.v_new : p.k_new) + src,
+                      kv ? p.v_pages : p.k_pages,
+                      kv ? p.v_scales : p.k_scales, slot, lane);
 }
 
 // ----------------------------------------------------------------- decode
@@ -285,7 +295,7 @@ __global__ void __launch_bounds__(D) paged_store_kernel(const StoreParams p) {
 struct DecodeParams {
   const void* q;      // (B, T, Hq, D)
   const void* k_new;  // (B, T, Hkv, D) when the fresh tokens are folded
-  const void* v_new;
+  const void* v_new;  // or stored
   const void* k_pages;
   const void* v_pages;
   const float* k_scales;
@@ -296,9 +306,13 @@ struct DecodeParams {
   void* out;       // (B, T, Hq, D)
   float* lse;      // (B, Hq, T) or nullptr
   float* ws;       // splits > 1: (B, Hkv, row blocks, splits, rows, D + 2)
-  int* counters;   // splits > 1: one per (B, Hkv, row block), zero
+  int* counters;   // splits > 1: one per (B, Hkv, row block), zero; then,
+                   // for a store in the fold mode over more than one block
+                   // a (row, kv head), one per (B, Hkv), zero
+  const int* store_n;  // (B,): fresh tokens a row stores, a prefix of the
+                       // T; nullptr: all T
   int T, Hq, Hkv, NP, ps, MP, layer;
-  int fresh_in_pages, fold;
+  int fresh_in_pages, fold, store;
   int splits, span, rows;  // the plan: splits, slots a split (a multiple
                            // of DEC_CK), q rows a block (2, 4, 8 or 16)
   float scale;
@@ -372,7 +386,7 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
   // times the ring on a 16-byte boundary)
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int red[DEC_THREADS / 32];
-  __shared__ int last;
+  __shared__ int last, store_last;
   const int b = blockIdx.x, hk = blockIdx.y;
   const int split = blockIdx.z % p.splits, rb = blockIdx.z / p.splits;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -408,6 +422,34 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
 #pragma unroll
   for (int w = 0; w < DEC_THREADS / 32; ++w) vend = max(vend, red[w]);
   const int chunks = (vend - v0 + DEC_CK - 1) / DEC_CK;
+  // the fresh tokens this row stores (uniform over the row's blocks)
+  const int n_store = !p.store             ? 0
+                      : p.store_n == nullptr ? p.T
+                                             : min(max(p.store_n[b], 0), p.T);
+  // fresh token t's k (kv 0) or v into pool row `slot` by this warp (the
+  // launch writes the pool only here)
+  auto put = [&](int t, int kv, size_t slot) {
+    store_vec<T, KV, D>(
+        static_cast<const T*>(kv ? p.v_new : p.k_new) +
+            ((static_cast<size_t>(b) * p.T + t) * p.Hkv + hk) * D,
+        const_cast<void*>(kv ? p.v_pages : p.k_pages),
+        const_cast<float*>(kv ? p.v_scales : p.k_scales), slot, lane);
+  };
+  if (p.fresh_in_pages && n_store > 0 && p.MP > 0) {
+    // Store, then attend (T = 1, one row block: the launch's checks). The
+    // target's virtual slot lies in exactly one split's [v0, v1): that
+    // block alone writes it, warp 0 the k and warp 1 the v, before any of
+    // its copies; its stages then read the stored codes and scales, as a
+    // read of the pool after a store launch would. No other block of the
+    // launch reads or writes that slot.
+    const int j = min(length / p.ps, p.MP - 1);
+    const int vt = j * p.ps + length % p.ps;
+    if (vt >= v0 && vt < v1 && table[j] >= 0) {
+      if (warp < 2) put(0, warp, (head + table[j]) * p.ps + length % p.ps);
+      __threadfence_block();
+      __syncthreads();  // the stored slot before the block's copies
+    }
+  }
 
   // this warp's two query rows: q times the scale, in registers
   float qf[2][E], acc[2][E], m[2], l[2];
@@ -546,6 +588,38 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
   }
   tc::cp_async_wait<0>();
   __syncthreads();  // the ring's memory now holds the states
+
+  if (!p.fresh_in_pages && n_store > 0) {
+    // Attend the fresh tokens unquantized (folded below), and write them:
+    // slots length .. length + n_store - 1, which this launch reads only
+    // where a row runs past its MP * ps slots and its store lands on an
+    // earlier slot of its last entry. So the last block of the (row, kv
+    // head) to finish its walk writes them, after every other block of it
+    // has read its slots (an acquire-release counter, which it resets);
+    // one warp a vector.
+    if (gridDim.z > 1) {
+      if (tid == 0) {
+        int* c = p.counters + gridDim.x * p.Hkv * (gridDim.z / p.splits) +
+                 b * p.Hkv + hk;
+        int before;
+        asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+                     : "=r"(before)
+                     : "l"(c)
+                     : "memory");
+        store_last = before == static_cast<int>(gridDim.z) - 1;
+        if (store_last) *c = 0;  // ready for the next launch
+      }
+      __syncthreads();
+    }
+    if (gridDim.z == 1 || store_last) {
+      for (int u = warp; u < 2 * n_store; u += DEC_THREADS / 32) {
+        const int t = u >> 1, kv = u & 1;
+        const long long slot =
+            fresh_slot(table, length + t, p.ps, p.MP, head);
+        if (slot >= 0) put(t, kv, slot);
+      }
+    }
+  }
 
   // the warp's state: the four keys' lanes summed (in a fixed order)
   float* wst = reinterpret_cast<float*>(smem);  // [warp][rr][2 + D]
@@ -1349,7 +1423,7 @@ cudaError_t allow_smem(size_t bytes) {
 
 template <typename T, typename KV, int D>
 cudaError_t launch_store(const StoreParams& p, int B, cudaStream_t st) {
-  paged_store_kernel<T, KV, D><<<dim3(B, p.Hkv), D, 0, st>>>(p);
+  paged_store_kernel<T, KV, D><<<dim3(B, p.Hkv), 64, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -1357,15 +1431,23 @@ template <typename T, typename KV, int D>
 cudaError_t launch_decode(const DecodeParams& p, int B, cudaStream_t st) {
   using C = Dec<KV, D>;
   const int R = p.T * (p.Hq / p.Hkv);
+  const int rblocks = (R + p.rows - 1) / p.rows;
   if ((p.rows != 2 && p.rows != 4 && p.rows != 8 && p.rows != DEC_ROWS) ||
       p.splits < 1 || p.span < 1 || p.span % DEC_CK != 0 ||
       static_cast<long long>(p.splits) * p.span <
           static_cast<long long>(p.MP) * p.ps ||
       (p.splits > 1 && (p.ws == nullptr || p.counters == nullptr)))
     return cudaErrorInvalidValue;
+  // a store: the fresh k/v; store-then-attend at T = 1 in one row block; a
+  // fold-mode store over more than one block a (row, kv head) meets on the
+  // counters
+  if (p.store &&
+      (p.k_new == nullptr || p.v_new == nullptr ||
+       (p.fresh_in_pages && (p.T != 1 || rblocks != 1)) ||
+       (!p.fresh_in_pages && p.splits * rblocks > 1 && p.counters == nullptr)))
+    return cudaErrorInvalidValue;
   const cudaError_t err = allow_smem<paged_decode_kernel<T, KV, D>>(C::BYTES);
   if (err != cudaSuccess) return err;
-  const int rblocks = (R + p.rows - 1) / p.rows;
   paged_decode_kernel<T, KV, D>
       <<<dim3(B, p.Hkv, p.splits * rblocks), DEC_THREADS, C::BYTES, st>>>(p);
   return cudaGetLastError();
@@ -1492,7 +1574,8 @@ extern "C" int v2pe_paged_store(const void* k_new, const void* v_new,
 
 // The plan (splits, span, rows) and, for splits > 1, the workspace and
 // zeroed counters come from the wrapper (ops/paged_attention.py:
-// decode_plan).
+// decode_plan). store: write the fresh k/v of the first store_n[b] (all T
+// where store_n is NULL) tokens of each row into the pool, in this launch.
 extern "C" int v2pe_paged_decode(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const float* k_scales, const float* v_scales,
@@ -1500,13 +1583,14 @@ extern "C" int v2pe_paged_decode(
     void* out, float* lse, int B, int T, int Hq, int Hkv, int NP, int ps,
     int D, int MP, int layer, int is_bf16, int kv_bits, int fresh_in_pages,
     int fold, float scale, int splits, int span, int rows, float* ws,
-    int* counters, void* stream) {
+    int* counters, int store, const int* store_n, void* stream) {
   const DecodeParams p{q,          k_new,      v_new,   k_pages, v_pages,
                        k_scales,   v_scales,   page_table, slot_base,
                        lengths,    out,        lse,     ws,      counters,
-                       T,          Hq,         Hkv,     NP,      ps,
-                       MP,         layer,      fresh_in_pages, fold,
-                       splits,     span,       rows,    scale};
+                       store_n,    T,          Hq,      Hkv,     NP,
+                       ps,         MP,         layer,   fresh_in_pages,
+                       fold,       store,      splits,  span,    rows,
+                       scale};
   return static_cast<int>(dispatch<Decode>(p, B, D, is_bf16, kv_bits,
                                            static_cast<cudaStream_t>(stream)));
 }

@@ -82,15 +82,17 @@ class PagedStep(NamedTuple):
     """What one layer's attention needs of a paged cache: the cache (its
     lengths exclude this step's tokens), the layer index, each page-table
     entry's first slot (``default_slot_base``, made once per forward),
-    where this step's tokens go (``paged_kv.token_slots``; None for one
-    token per row, which the store kernel places), and whether a
-    multi-token chunk also attends over the cached pages (chunked
-    prefill)."""
+    where this step's tokens go (``paged_kv.token_slots``, for more than
+    16 tokens a row; the decode kernel places 16 or fewer itself), how many
+    of a row's 2-16 tokens it stores (``store_n``: the valid prefix of a
+    right-padded step; None for all), and whether a multi-token chunk also
+    attends over the cached pages (chunked prefill)."""
 
     cache: paged_kv.PagedKVCache
     layer: int
     slot_base: torch.Tensor
     slots: Optional[tuple]
+    store_n: Optional[torch.Tensor]
     attend_cache: bool
 
 
@@ -286,13 +288,13 @@ def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
     scales = dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
     read = dict(scales, slot_base=paged.slot_base)
     S = q.shape[1]
-    if S == 1:  # store, then attend with the fresh slot in the pages
-        pa.store_fresh_token(k, v, *pool, *tables, **scales)
-        return pa.paged_decode_attention(q, None, None, *pool, *tables,
-                                         fresh_in_pages=True, **read)
     if S <= 16:
-        out = pa.paged_decode_attention(q, k, v, *pool, *tables, **read)
-    elif paged.attend_cache:
+        # one launch: at S == 1 store, then attend with the fresh slot in
+        # the pages; else attend the fresh tokens folded in, then store them
+        return pa.paged_decode_attention(
+            q, k, v, *pool, *tables, fresh_in_pages=S == 1, store=True,
+            store_n=paged.store_n, **read)
+    if paged.attend_cache:
         out1, lse1 = flash_attention_with_lse(
             q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             causal=True)
@@ -448,14 +450,19 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
     rope_pack = (scaled_pos, float(theta)) \
         if isinstance(theta, (int, float)) else None
 
-    slots = slot_base = None
+    slots = slot_base = store_n = None
     if paged_cache is not None:
         slot_base = pa.default_slot_base(paged_cache.page_table,
                                          paged_cache.page_size)
-        if S > 1:
-            slots = paged_kv.token_slots(
-                paged_cache, S,
-                None if segment_ids is None else segment_ids != 0)
+        valid = None if segment_ids is None else segment_ids != 0
+        if S > 16:
+            slots = paged_kv.token_slots(paged_cache, S, valid)
+        elif S > 1 and valid is not None:
+            # the segment ids of a paged step of 2-16 tokens mark
+            # right-padding only (a row's valid tokens are a prefix), so a
+            # count on the device says which tokens the decode kernel
+            # stores, and nothing is read back
+            store_n = valid.sum(1, dtype=torch.int32)
     if kv_cache is None and paged_cache is None:
         x = _train_layers(model.layers, cfg, x, cos, sin, remat,
                           segment_ids=segment_ids, positions=positions,
@@ -465,7 +472,8 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
             kv_layer = None if kv_cache is None else (kv_cache.k[li],
                                                      kv_cache.v[li])
             paged = None if paged_cache is None else PagedStep(
-                paged_cache, li, slot_base, slots, paged_attend_cache)
+                paged_cache, li, slot_base, slots, store_n,
+                paged_attend_cache)
             x = layer_forward(layer, cfg, x, cos, sin,
                               segment_ids=segment_ids, positions=positions,
                               kv_cache_layer=kv_layer, cache_length=base,

@@ -197,6 +197,7 @@ def bind_paged(lib: ctypes.CDLL) -> None:
         ctypes.c_float,     # scale
         i, i, i,            # the plan: splits, entries a split, rows a block
         p, p,               # workspace, split counters (NULL at 1 split)
+        i, p,               # store, store_n (NULL: all T tokens)
         p,                  # cudaStream_t
     ]
     lib.v2pe_paged_prefill.argtypes = [

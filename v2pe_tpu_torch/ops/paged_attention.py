@@ -15,7 +15,12 @@ functions tell an int4 pool from an int8 one by that last dim.
 * :func:`paged_decode_attention` attends T <= 16 fresh queries per row over
   the row's pages: either with the fresh tokens already stored
   (``fresh_in_pages``, fresh token t sees slots <= lengths + t) or with the
-  fresh k/v folded in separately (slots < lengths plus fresh u <= t).
+  fresh k/v folded in separately (slots < lengths plus fresh u <= t). With
+  ``store`` it also writes the fresh k/v into the pool in the same launch,
+  by :func:`store_fresh_token`'s rule: at T = 1 before it attends with the
+  token in the pages, or, folding, the first ``store_n`` tokens of each row
+  after the attention (``paged_kv.write_all_layers``' write). A decode step
+  then launches no store of its own.
 * :func:`paged_prefill_attention` attends a chunk over the cached slots
   (< lengths) only and returns (out, lse) for :func:`merge_lse` with the
   chunk's own causal attention.
@@ -47,7 +52,10 @@ TWIN_BLOCK_Q = 512      # chunk rows per step of the prefill twin
 
 # Kernel launches since the last reset, by kernel: the smoke run zeroes
 # them, drives the serving path, and reads how often it went through each.
-LAUNCHES = {"paged_store": 0, "paged_decode": 0, "paged_prefill": 0}
+# "paged_decode_store" counts the decode launches that also stored their
+# fresh tokens (the store riding in the decode kernel).
+LAUNCHES = {"paged_store": 0, "paged_decode": 0, "paged_decode_store": 0,
+            "paged_prefill": 0}
 
 SMS = 132            # streaming multiprocessors of an H100
 DECODE_ROWS = 16     # query rows a decode block holds at most (two a warp)
@@ -170,16 +178,23 @@ def pool_bits(k_pages: torch.Tensor, k_scales, hd: int) -> int:
 
 def store_fresh_token_torch(k_new, v_new, k_pages, v_pages, page_table,
                             lengths, layer: int, *, k_scales=None,
-                            v_scales=None):
-    """Plain twin of the store kernel; writes the pool in place."""
+                            v_scales=None, store_n=None):
+    """Plain twin of the store: each row's (B, T, Hkv, hd) fresh k/v, the
+    first ``store_n`` (B,) of them (all T where None), at positions lengths
+    + t: entry min(pos // ps, MP - 1) of the page table, offset pos % ps, no
+    write where that entry is -1. Writes the pool in place."""
+    B, T = k_new.shape[:2]
     ps = k_pages.shape[3]
     MP = page_table.shape[1]
-    slot = torch.clamp(lengths.long() // ps, max=MP - 1)
-    page = torch.gather(page_table.long(), 1, slot[:, None])[:, 0]
-    off = lengths.long() % ps
+    t = torch.arange(T, device=lengths.device)[None]
+    pos = lengths.long()[:, None] + t                # (B, T)
+    page = torch.gather(page_table.long(), 1,
+                        torch.clamp(pos // ps, max=MP - 1))
     ok = page >= 0  # an unallocated page takes no write
-    page, off = page[ok], off[ok]
-    kn, vn = k_new[ok, 0], v_new[ok, 0]           # (n, Hkv, hd)
+    if store_n is not None:
+        ok &= t < store_n.long()[:, None]
+    page, off = page[ok], (pos % ps)[ok]
+    kn, vn = k_new[ok], v_new[ok]                 # (n, Hkv, hd)
     if k_scales is not None:
         bits = pool_bits(k_pages, k_scales, k_new.shape[-1])
         kn, ks = quantize_kv(kn, bits)
@@ -247,9 +262,29 @@ def paged_decode_attention_torch(q, k_new, v_new, k_pages, v_pages,
                                  fresh_in_pages: bool = False,
                                  slot_base=None, fold_fresh: int = 1,
                                  return_lse: bool = False, k_scales=None,
-                                 v_scales=None):
+                                 v_scales=None, store: bool = False,
+                                 store_n=None):
     """Plain twin of the decode kernel: one exact fp32 softmax per query
-    over the gathered pages (and the fresh tokens)."""
+    over the gathered pages (and the fresh tokens). ``store``: the store
+    twin before it (``fresh_in_pages``) or after it (folding)."""
+    pool = (k_pages, v_pages, page_table, lengths, layer)
+    scales = dict(k_scales=k_scales, v_scales=v_scales)
+    if store and fresh_in_pages:
+        store_fresh_token_torch(k_new, v_new, *pool, store_n=store_n,
+                                **scales)
+    res = _decode_torch(q, k_new, v_new, *pool, scale=scale,
+                        fresh_in_pages=fresh_in_pages, slot_base=slot_base,
+                        fold_fresh=fold_fresh, return_lse=return_lse,
+                        **scales)
+    if store and not fresh_in_pages:
+        store_fresh_token_torch(k_new, v_new, *pool, store_n=store_n,
+                                **scales)
+    return res
+
+
+def _decode_torch(q, k_new, v_new, k_pages, v_pages, page_table, lengths,
+                  layer: int, *, scale, fresh_in_pages, slot_base, fold_fresh,
+                  return_lse, k_scales, v_scales):
     B, T, Hq, hd = q.shape
     Hkv, ps = k_pages.shape[1], k_pages.shape[3]
     G = Hq // Hkv
@@ -476,6 +511,25 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
     return k_pages, v_pages
 
 
+def _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages):
+    """A decode launch's store: contiguous (B, T, Hkv, hd) fresh k/v in q's
+    dtype on its device (T = 1 to store, then attend), ``store_n`` None or
+    contiguous (B,) int32 there."""
+    B, T, _, hd = q.shape
+    want = (B, T, k_pages.shape[1], hd)
+    for t in (k_new, v_new):
+        if t is None or t.shape != want or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"a store needs contiguous {want} fresh k/v "
+                             f"in q's dtype")
+    if fresh_in_pages and T != 1:
+        raise ValueError(f"store-then-attend takes one fresh token, got {T}")
+    if store_n is not None:
+        _check_index(B, q.device, store_n)
+        if store_n.ndim != 1:
+            raise ValueError("store_n must be (B,)")
+
+
 def _check_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
                      lengths, slot_base, layer):
     if q.dtype not in DTYPES or not q.is_contiguous():
@@ -500,18 +554,28 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
                            scale: Optional[float] = None,
                            fresh_in_pages: bool = False, slot_base=None,
                            fold_fresh: int = 1, return_lse: bool = False,
-                           k_scales=None, v_scales=None):
+                           k_scales=None, v_scales=None, store: bool = False,
+                           store_n=None):
     """(B, T, Hq, hd) attention of T <= 16 fresh queries (rope applied)
     over their row's pages, plus the fresh tokens themselves (causal), and
     with ``return_lse`` a (B, Hq, T) fp32 lse. ``lengths`` excludes the
     fresh tokens. ``fold_fresh=0`` leaves the separate fresh tokens out (a
-    sequence-sharding gate; one card always folds them)."""
+    sequence-sharding gate; one card always folds them).
+
+    ``store``: the launch also writes the (B, T, Hkv, hd) fresh k/v into
+    the pool in place, as :func:`store_fresh_token` does (quantized and
+    packed for an int8 / int4 pool). With ``fresh_in_pages`` (T = 1) it
+    stores first and attends the token as stored; folding, it attends the
+    fresh tokens unquantized and stores the first ``store_n`` (B,) int32 of
+    each row (all T where None) at lengths + t."""
+    if store:
+        _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages)
     if _route(q, "paged_decode"):
         return paged_decode_attention_torch(
             q, k_new, v_new, k_pages, v_pages, page_table, lengths, layer,
             scale=scale, fresh_in_pages=fresh_in_pages, slot_base=slot_base,
             fold_fresh=fold_fresh, return_lse=return_lse, k_scales=k_scales,
-            v_scales=v_scales)
+            v_scales=v_scales, store=store, store_n=store_n)
     B, T, Hq, hd = q.shape
     ps = k_pages.shape[3]
     if slot_base is None:
@@ -532,24 +596,35 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
 
     MP = page_table.shape[1]
     plan = decode_plan(B, Hkv, MP, ps, T, Hq // Hkv)
+    if store and fresh_in_pages and plan.row_blocks != 1:
+        raise ValueError(f"store-then-attend takes at most {DECODE_ROWS} "
+                         f"query heads a kv head, got {Hq // Hkv}")
     ws = counters = None
-    if plan.splits > 1:
+    # a folding store over more than one block a (row, kv head) meets on
+    # one more counter each, after the splits' counters
+    meet = store and not fresh_in_pages and plan.splits * plan.row_blocks > 1
+    if plan.splits > 1 or meet:
         cells = B * Hkv * plan.row_blocks
         ws, counters = _decode_scratch(
-            q.device, cells * plan.splits * plan.rows * (hd + 2), cells)
+            q.device, cells * plan.splits * plan.rows * (hd + 2),
+            cells + (B * Hkv if meet else 0))
     out = torch.empty_like(q)
     lse = torch.empty((B, Hq, T), dtype=torch.float32, device=q.device) \
         if return_lse else None
+    fresh = fold or store
     err = _build.load().v2pe_paged_decode(
-        _ptr(q), _ptr(k_new if fold else None), _ptr(v_new if fold else None),
+        _ptr(q), _ptr(k_new if fresh else None),
+        _ptr(v_new if fresh else None),
         _ptr(k_pages), _ptr(v_pages), _ptr(k_scales), _ptr(v_scales),
         _ptr(page_table), _ptr(slot_base), _ptr(lengths), _ptr(out),
         _ptr(lse), B, T, Hq, Hkv, k_pages.shape[2], ps, hd, MP, layer,
         int(q.dtype == torch.bfloat16), bits, int(fresh_in_pages), fold,
         float(hd ** -0.5 if scale is None else scale), plan.splits,
-        plan.span, plan.rows, _ptr(ws), _ptr(counters),
-        _build.raw_stream(q.device.index))
+        plan.span, plan.rows, _ptr(ws), _ptr(counters), int(store),
+        _ptr(store_n), _build.raw_stream(q.device.index))
     _launch("paged_decode", err)
+    if store:
+        LAUNCHES["paged_decode_store"] += 1
     return (out, lse) if return_lse else out
 
 
