@@ -110,6 +110,20 @@ against the scan ring's, and both against the unsharded run's).
 Phase 14, after the other training phases: two steps of ``make_train_step``
 under ``MeshConfig(seq=4)`` with the fused ring on 8192 tokens + 8 tiles,
 held against an unsharded step on the same weights.
+Phase 15, checkpoint and eval, after the engine phases (before the long
+eval and the training phases, which change the weights): the model exported
+through ``models/export.py`` as a bf16 HF safetensors directory in a
+temporary directory and loaded back onto the card by the port's own reader
+(every tensor and the 8-tile request's first logits equal bit for bit;
+seconds and GB/s of each); then ``evalkit.cli.main`` on that directory, the
+MM-NIAH route over 8 made-up text-only needle items of 1k-16k tokens with 32
+new tokens, three times: dense (#1), ``--engine-rows 4`` (#1, #6, #5 with
+its riding store) and ``--weights-dtype int8`` (#1, #7, #8), each with its
+items/s, response tok/s, score and launches an item. Where the engine's
+response differs from the dense one, the dense path's logits at the first
+differing token, teacher-forced on the common prefix, must put the engine's
+token within LOGIT_TOL of the best: bf16 chunked prefill and paged decode
+are other sums than the dense route's, so near ties may go either way.
 Then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
@@ -2234,6 +2248,236 @@ def phase_beam(chat, cfg) -> None:
         f"{time.perf_counter() - t0:.3f}s; answer {len(answer)} chars")
     if not isinstance(answer, str):
         raise AssertionError("beam search returned no text")
+
+
+# ----------------------------------------------------- checkpoint and eval
+
+EVAL_CONTEXTS = [1000, 2000, 3000, 4000, 6000, 8000, 12000, 16000]
+EVAL_DEPTHS = [0.1, 0.9, 0.5, 0.3, 0.7, 0.2, 0.6, 0.95]
+EVAL_ROWS = 4         # --engine-rows of the engine route
+EVAL_MAX_LEN = 17408  # --engine-max-len: the longest prompt and its answer
+EVAL_TASK = "retrieval-text-test"
+
+
+def needle_items(seed: int = 0) -> list:
+    """Made-up text-only MM-NIAH retrieval items, one a context length of
+    ``EVAL_CONTEXTS`` (characters, one token each under CodePointTokenizer):
+    a haystack of random words with a magic number at a depth."""
+    rng = np.random.default_rng(seed)
+    words = ["grass", "river", "stone", "cloud", "paper", "light", "table",
+             "green", "quiet", "north", "seven", "apple"]
+    items = []
+    for i, (n, depth) in enumerate(zip(EVAL_CONTEXTS, EVAL_DEPTHS)):
+        number = int(rng.integers(1000, 10000))
+        needle = f" The special magic number is {number}. "
+        hay = " ".join(rng.choice(words, size=n // 5))[:n - len(needle)]
+        at = int(len(hay) * depth)
+        context = hay[:at] + needle + hay[at:]
+        items.append({
+            "id": i, "context": context, "images_list": [],
+            "question": "\nWhat is the special magic number in the text? "
+                        "Answer with the number only.",
+            "answer": str(number),
+            "meta": {"context_length": len(context), "placed_depth": depth}})
+    return items
+
+
+class RecordingTokenizer(CodePointTokenizer):
+    """A CodePointTokenizer that keeps the ids of each text it decodes: the
+    eval CLI writes text, and a route's tokens are read back from it. A
+    surrogate code point, which UTF-8 cannot write, decodes as U+FFFD."""
+
+    def __init__(self):
+        self.ids_of = {}
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        text = "".join("\ufffd" if 0xD800 <= ord(c) < 0xE000 else c
+                       for c in super().decode(ids, skip_special_tokens))
+        self.ids_of[text.strip()] = [int(i) for i in ids]
+        return text
+
+
+def divergence_gap(chat, cfg, question: str, a: list, b: list,
+                   stop: int) -> tuple:
+    """Where greedy token lists ``a`` (the dense route's) and ``b`` first
+    differ, the dense path's logits teacher-forced on their common prefix:
+    (position, max logit - logit of b's token, max |logit|). A list that
+    ends first ends with ``stop``."""
+    p = next(i for i in range(max(len(a), len(b)) + 1)
+             if i >= len(a) or i >= len(b) or a[i] != b[i])
+    theirs = b[p] if p < len(b) else stop
+    ids, pos, _ = chat.encode_chat(question, [])
+    row = first_logits(chat, cfg, ids, pos, np.zeros((1, 3, 448, 448),
+                                                     np.float32),
+                       a[:p], "dense", steps=p)[p]
+    return p, (row.max() - row[theirs]).item(), row.abs().max().item()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def run_eval_route(argv: list, tok) -> tuple:
+    """``evalkit.cli.main(argv, tokenizer=tok)`` with the launch counts
+    zeroed just before it: (counts, seconds of its answering loop, the
+    printed scores)."""
+    import io
+    import logging
+
+    from v2pe_tpu_torch.evalkit import cli as eval_cli
+    from v2pe_tpu_torch.evalkit import runner
+
+    spent, run_shard = [], runner.run_shard
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = run_shard(*args, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return n
+
+    torch.cuda.synchronize()
+    reset_launches()
+    runner.run_shard = timed
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            eval_cli.main(argv, tokenizer=tok)
+    finally:
+        runner.run_shard = run_shard
+        logging.getLogger().setLevel(logging.WARNING)  # main() set INFO
+    counts = read_launches()
+    torch.cuda.empty_cache()
+    return counts, spent[0], json.loads(printed.getvalue())
+
+
+def phase_checkpoint_eval(model, cfg, tok, device: str = "cuda") -> list:
+    """The full-width model exported as an HF safetensors directory (bf16,
+    ``cfg.to_json()`` as config.json), loaded back onto the card (every
+    tensor and the 8-tile request's first logits equal bit for bit), then
+    the eval CLI's MM-NIAH route over made-up needle items of 1k-16k
+    tokens, three times: dense, ``--engine-rows``, ``--weights-dtype int8``.
+    Returns each route's launch counts."""
+    import shutil
+    import tempfile
+
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.models.export import (export_torch_state_dict,
+                                              save_safetensors)
+    from v2pe_tpu_torch.models.params import load_safetensors_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="v2pe_eval_")
+    try:
+        ckpt = os.path.join(tmp, "ckpt")
+        os.makedirs(ckpt)
+        path = os.path.join(ckpt, "model.safetensors")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = export_torch_state_dict(model, cfg)
+        save_safetensors(sd, path, "bfloat16")
+        with open(os.path.join(ckpt, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        t_export = time.perf_counter() - t0
+        n_tensors, size = len(sd), os.path.getsize(path)
+        del sd
+        t0 = time.perf_counter()
+        loaded = load_safetensors_checkpoint(ckpt, cfg, device=device)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        src, back = model.state_dict(), loaded.state_dict()
+        differ = sorted(k for k in set(src) | set(back) if k not in back
+                        or k not in src or not same_bits(src[k], back[k]))
+        n, q = REQUESTS[0]
+        chat = ChatModel(model, cfg, tok)
+        ids, pos, _ = chat.encode_chat(q, [n])
+        pixels = _tiles(n, 0)
+        want = first_logits(chat, cfg, ids, pos, pixels, [], "dense", steps=0)
+        got = first_logits(ChatModel(loaded, cfg, tok), cfg, ids, pos, pixels,
+                           [], "dense", steps=0)
+        del loaded, back, chat
+        torch.cuda.empty_cache()
+        log(f"checkpoint: exported {n_tensors} tensors, {size / 1e9:.3f} GB "
+            f"bf16, in {t_export:.2f}s = {size / 1e9 / t_export:.2f} GB/s; "
+            f"loaded onto the card in {t_load:.2f}s = "
+            f"{size / 1e9 / t_load:.2f} GB/s; tensors equal bit for bit "
+            f"{len(src) - len(differ)}/{len(src)}; the 8-tile request's "
+            f"first logits equal bit for bit {same_bits(want, got)} "
+            f"({card_line()})")
+        if differ or not same_bits(want, got):
+            raise AssertionError(f"the reloaded checkpoint differs: "
+                                 f"{differ[:4]}")
+
+        items = needle_items()
+        data = os.path.join(tmp, "niah.jsonl")
+        with open(data, "w") as f:
+            for it in items:
+                f.write(json.dumps(it) + "\n")
+        routes = {
+            "dense": [],
+            "engine": ["--engine-rows", str(EVAL_ROWS),
+                       "--engine-max-len", str(EVAL_MAX_LEN)],
+            "int8": ["--weights-dtype", "int8"]}
+        need = {"dense": ("flash_fwd",),
+                "engine": ("flash_fwd", "paged_prefill"),
+                "int8": ("flash_fwd", "qdot", "qdot_stacked")}
+        answers, tokens, paths = {}, {}, []
+        for name, extra in routes.items():
+            out = os.path.join(tmp, name)
+            rec = RecordingTokenizer()
+            counts, secs, scores = run_eval_route(
+                ["--benchmark", "mm_niah", "--checkpoint", ckpt,
+                 "--config-preset", "internvl2_2b", "--tokenizer",
+                 "code-point", "--data", data, "--outputs-dir", out,
+                 "--task", EVAL_TASK, "--max-new-tokens", str(MAX_NEW),
+                 "--platform", device, *extra], rec)
+            with open(os.path.join(out, f"model_{EVAL_TASK}.jsonl")) as f:
+                recs = {r["id"]: r["response"] for r in map(json.loads, f)}
+            answers[name] = recs
+            tokens[name] = {i: rec.ids_of[r] for i, r in recs.items()}
+            generated = sum(len(tok(r)["input_ids"]) - 1
+                            for r in recs.values())
+            per_item = {k: round(v / len(items), 1) for k, v in
+                        counts.items() if v}
+            log(f"eval ({name}): {len(recs)}/{len(items)} items answered in "
+                f"{secs:.3f}s = {len(recs) / secs:.3f} items/s, "
+                f"{generated} response tokens = {generated / secs:.1f} "
+                f"tok/s; MM-NIAH weighted accuracy "
+                f"{scores['weighted_avg_acc']}; launches an item {per_item} "
+                f"({card_line()})")
+            if len(recs) != len(items):
+                raise AssertionError(f"eval ({name}): {len(recs)} of "
+                                     f"{len(items)} items answered")
+            require(counts, need[name], f"eval ({name})")
+            if name == "engine":
+                require_riding_store(counts, "eval (engine)")
+            paths.append(counts)
+        # bf16 through 24 layers: the engine's chunked prefill and paged
+        # decode are not the dense route's sums, so a greedy choice may go
+        # the other way where the dense route's two best logits lie within
+        # the distance of two bf16 paths (LOGIT_TOL), and only there
+        same = [i for i in answers["dense"]
+                if answers["engine"][i] == answers["dense"][i]]
+        same8 = [i for i in answers["dense"]
+                 if answers["int8"][i] == answers["dense"][i]]
+        chat = ChatModel(model, cfg, tok)
+        stop = chat.conv_template.stop_token_ids[0]
+        gaps = {i: divergence_gap(chat, cfg, items[i]["context"]
+                                  + items[i]["question"], tokens["dense"][i],
+                                  tokens["engine"][i], stop)
+                for i in answers["dense"] if i not in same}
+        log(f"eval: engine responses equal to dense {len(same)}/{len(items)}"
+            f" (the others first differ at token, dense logit gap to the "
+            f"engine's token, max |logit|: {gaps}; limit {LOGIT_TOL} of max "
+            f"|logit|), int8 {len(same8)}/{len(items)}")
+        far = {i: g for i, g in gaps.items() if g[1] > LOGIT_TOL * g[2]}
+        if far:
+            raise AssertionError(f"eval: the engine route chose a token "
+                                 f"beyond a near tie of the dense route's: "
+                                 f"{far}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return paths
 
 
 # ------------------------------------------------ phase 2c: flash backward
@@ -4426,6 +4670,9 @@ def main(argv=None) -> int:
     phase_beam(chat, cfg)
     del chat
     lap("engine")
+    # the checkpoint written and read back, then the eval CLI's routes
+    paths += phase_checkpoint_eval(model, cfg, tok)
+    lap("checkpoint and eval")
     # sequence parallelism: the long teacher-forced eval over the ring
     paths.append(phase_ring_eval(model, cfg))
     lap("ring eval")

@@ -88,12 +88,37 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
             "v2pe_tpu_torch.parallel.ring_fused",
             "v2pe_tpu_torch.parallel.ulysses",
             "v2pe_tpu_torch.parallel.shard_attn", "v2pe_tpu_torch.evalkit",
-            "v2pe_tpu_torch.evalkit.mm_niah_long"} <= set(names)
+            "v2pe_tpu_torch.evalkit.mm_niah_long",
+            "v2pe_tpu_torch.evalkit.cli", "v2pe_tpu_torch.data.validate",
+            "v2pe_tpu_torch.models.safetensors_io",
+            "v2pe_tpu_torch.models.export",
+            "v2pe_tpu_torch.tools.export_hf",
+            *(f"v2pe_tpu_torch.evalkit.{m}" for m in EVALKIT_COPIES
+              if m != "__init__")} <= set(names)
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_IMPORT, "chip_smoke", *names],
         capture_output=True, text=True, cwd=str(ROOT))
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout) == len(names) + 1
+
+
+EVALKIT_COPIES = ("__init__", "runner", "metrics", "report", "general", "vqa",
+                  "vqa_driver", "longvqa", "longvqa_driver", "milebench",
+                  "milebench_adapter", "mm_niah", "mmbench", "mmmu", "pope",
+                  "seed", "scienceqa", "video", "gpt_judge")
+
+
+@pytest.mark.parametrize("path", [f"evalkit/{m}.py" for m in EVALKIT_COPIES]
+                         + ["data/validate.py"])
+def test_host_copy_is_its_original_with_imports_retargeted(path):
+    """The eval harness and the dataset validator are host Python: the
+    port's file is the JAX package's, word for word, with ``v2pe_tpu``
+    replaced by ``v2pe_tpu_torch``."""
+    import re
+
+    original = (ROOT / "v2pe_tpu" / path).read_text()
+    want = re.sub(r"\bv2pe_tpu\b", "v2pe_tpu_torch", original)
+    assert (ROOT / "v2pe_tpu_torch" / path).read_text() == want
 
 
 def test_no_port_source_names_the_jax_package_outside_docstrings():

@@ -586,8 +586,7 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
                 ["--mesh_tensor", "2"], ["--mesh_pipe", "2"],
                 ["--mesh_seq", "2", "--pipe_microbatches", "2"],
                 ["--use_llm_lora", "4"],
-                ["--compress_seq"], ["--offload_optimizer"],
-                ["--llm_arch", "qwen2"], ["--model_name_or_path", "ckpt"]):
+                ["--compress_seq"], ["--offload_optimizer"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + bad)
 

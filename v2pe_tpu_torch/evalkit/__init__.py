@@ -1,1 +1,3 @@
-"""Evaluation harness of the port: the MM-NIAH-long teacher-forced eval."""
+from v2pe_tpu_torch.evalkit import metrics, runner
+
+__all__ = ["metrics", "runner"]

@@ -3,9 +3,10 @@ training on one device.
 
 Flags that need a module the port does not have yet raise
 ``NotImplementedError``: a mesh axis other than ``seq`` above 1, LoRA,
-``--compress_seq``, ``--model_name_or_path`` (the safetensors converter), a
-decoder family other than internlm2, ``--offload_optimizer`` and a
-multi-host launcher. ``--mesh_seq N --ring_mode scan|fused`` shards the
+``--compress_seq``, ``--offload_optimizer`` and a multi-host launcher.
+``--model_name_or_path`` starts from an HF safetensors checkpoint
+(``models/params.py:load_safetensors_checkpoint``); ``--llm_arch`` picks the
+decoder family. ``--mesh_seq N --ring_mode scan|fused`` shards the
 sequence over ring attention with all ``N`` shards on the one device.
 
 Example (a toy dataset and tokenizer, see the README):
@@ -172,9 +173,6 @@ def _unported(args) -> list:
         (args.pipe_microbatches, "--pipe_microbatches"),
         (args.use_backbone_lora or args.use_llm_lora, "LoRA"),
         (args.compress_seq, "--compress_seq"),
-        (args.model_name_or_path, "--model_name_or_path"),
-        (args.llm_arch not in (None, "internlm2"), f"--llm_arch "
-                                                   f"{args.llm_arch}"),
         (args.offload_optimizer, "--offload_optimizer"),
         (args.launcher not in ("auto", "none"), f"--launcher "
                                                 f"{args.launcher}"),
@@ -199,7 +197,8 @@ def main(argv=None):
     from v2pe_tpu_torch.data.constants import IMG_CONTEXT_TOKEN, SPECIAL_TOKENS
     from v2pe_tpu_torch.data.datasets import build_datasets
     from v2pe_tpu_torch.data.packing import PackedSampleIterator
-    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.models.params import (init_vlm_params,
+                                              load_safetensors_checkpoint)
     from v2pe_tpu_torch.train.metrics import build_metrics_hook
     from v2pe_tpu_torch.train.optimizer import TrainConfig
     from v2pe_tpu_torch.train.trainer import RunConfig, train
@@ -217,9 +216,13 @@ def main(argv=None):
         force_image_size=args.force_image_size,
         vision=dataclasses.replace(cfg.vision,
                                    drop_path_rate=args.drop_path_rate))
-    if cfg.llm.arch != "internlm2":
-        raise NotImplementedError(f"not ported: the {cfg.llm.arch} decoder "
-                                  f"of --model_preset {args.model_preset}")
+    if args.llm_arch and args.llm_arch != cfg.llm.arch:
+        cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(
+                cfg.llm, arch=args.llm_arch,
+                qkv_bias=args.llm_arch == "qwen2",
+                bias=cfg.llm.bias if args.llm_arch == "internlm2"
+                else False))
 
     tokenizer = AutoTokenizer.from_pretrained(args.tokenizer,
                                               trust_remote_code=True)
@@ -227,9 +230,13 @@ def main(argv=None):
     ctx_id = tokenizer.convert_tokens_to_ids(IMG_CONTEXT_TOKEN)
 
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    model = init_vlm_params(
-        cfg, torch.Generator(device=device).manual_seed(args.seed),
-        device=device, dtype=dtype)
+    if args.model_name_or_path:
+        model = load_safetensors_checkpoint(args.model_name_or_path, cfg,
+                                            dtype, device=device)
+    else:
+        model = init_vlm_params(
+            cfg, torch.Generator(device=device).manual_seed(args.seed),
+            device=device, dtype=dtype)
 
     dsets = build_datasets(
         args.meta_path, tokenizer, template_name=args.conv_style,
