@@ -124,6 +124,23 @@ response differs from the dense one, the dense path's logits at the first
 differing token, teacher-forced on the common prefix, must put the engine's
 token within LOGIT_TOL of the best: bf16 chunked prefill and paged decode
 are other sums than the dense route's, so near ties may go either way.
+LoRA, compress-seq, seq-cls and utils: phase 2 also holds #1-#3 at the
+compress-seq decoder's two forms (the interaction over 4 x 100 summary
+tokens, bf16 and fp32; the within-chunk attention over the packed 8192
+tokens, segment sample x 4 + chunk + 1), and a small fp32 LoRA step, a
+compress-seq step with each fuse method and the seq-cls head run on the
+card against the CPU. Phase 16, after the long eval: InternVL2-2B's LoRA
+adapters (ranks 16 / 8) train 3 steps through trainer.train (launches as
+phase 9; the base bit for bit unchanged; an adapters-only asynchronous
+checkpoint); one more LoRA step inside utils.profile_trace (the trace
+names the flash kernels), StepTimer, nan_guard and assert_finite on an
+injected inf; ChatModel(lora=fresh adapters) answers the three requests
+as the base model did, ChatModel(lora=the trained adapters) and
+export_torch_state_dict(lora=) equal the merged model train returned, bit
+for bit. Phases 17-19, after phase 14: three compress-seq train steps with
+each fuse method on the bench recipe's batch (4 chunks; launches 96 /
+72 / 72 a step), one 8192-token fuse-only forward (24 launches) and the
+seq-cls head on 4 right-padded rows of up to 2048 tokens (24 launches).
 Then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
@@ -353,6 +370,39 @@ def kernel_forms(device, prompt_lens, packed: dict):
             arange(2, S)), dict(causal=True, scale=128 ** -0.5,
                                 rope_q=ids.contiguous(),
                                 rope_k=ids.contiguous(), rope_theta=1e6)))
+    return forms + compress_forms(randn, packed, device)
+
+
+COMPRESS_CHUNKS = 4  # --chunk_num of the compress-seq forms and phases
+
+
+def compress_forms(randn, packed: dict, device):
+    """(name, args, kwargs) of the compress-seq decoder's two attentions
+    (``models/compress_seq.py``), its rotary applied outside the kernel:
+    the interaction over the 4 chunks' 4 x 100 summary tokens (one
+    segment, causal; 400 rows, a ragged tail for 64-row tiles) in bf16
+    and on fp32 copies, and the within-chunk attention over the packed
+    8192 tokens (three samples and a padded tail) cut into 4 chunks:
+    segment ``sample * 4 + chunk + 1``, 0 kept for the padding."""
+    n_sum = COMPRESS_CHUNKS * 100
+    ar = torch.arange(n_sum, dtype=torch.int32, device=device)[None]
+    ones = torch.ones(1, n_sum, dtype=torch.int32, device=device)
+    q, k, v = randn(1, n_sum, 16, 128), randn(1, n_sum, 8, 128), \
+        randn(1, n_sum, 8, 128)
+    kw = dict(causal=True, scale=128 ** -0.5)
+    forms = [(f"interaction_{n_sum}_bf16", (q, k, v, ones, ones, ar, ar), kw),
+             (f"interaction_{n_sum}_fp32", (q.float(), k.float(), v.float(),
+                                            ones, ones, ar, ar), kw)]
+    seg = packed["segment_ids"].to(device).clone()
+    S = seg.shape[1]
+    seg[:, S - 200:] = 0
+    chunk = torch.arange(S, device=device)[None] // (S // COMPRESS_CHUNKS)
+    seg = torch.where(seg == 0, 0, seg * COMPRESS_CHUNKS + chunk + 1).to(
+        torch.int32)
+    ar = torch.arange(S, dtype=torch.int32, device=device)[None]
+    forms.append((f"compress_chunks_{S}_4x3seg_pad_bf16", (
+        randn(1, S, 16, 128), randn(1, S, 8, 128), randn(1, S, 8, 128),
+        seg, seg, ar, ar), kw))
     return forms
 
 
@@ -473,7 +523,7 @@ def phase_kernels(prompt_lens, packed: dict) -> list:
         pairs = attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"])
         bound = attention_roof(q, k, v, pairs, 2, out, lse)
         lib = None
-        if name.startswith(("vit_tiles", "dense_prefill")):
+        if name.startswith(("vit_tiles", "dense_prefill", "interaction")):
             lib = library_ms(lambda: sdpa(q, k, v, kw["causal"], kw["scale"]))
         log(f"kernel {name}: {text} kernel {ms:.3f} ms "
             f"({useful_tflops(q, pairs, ms):.1f} TFLOP/s useful), twin "
@@ -1239,7 +1289,7 @@ def phase_serve(chat, cfg) -> dict:
         f"{ttft * 1e3:.1f} ms, {len(tokens)} tokens in {total * 1e3:.1f} ms,"
         f" decode {rate:.1f} tok/s")
     return dict(counts=counts, ids=ids, pos=pos, pixels=pixels[0],
-                gc=full, tokens=tokens)
+                gc=full, tokens=tokens, answers=answers)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -2535,23 +2585,30 @@ def bwd_forms(device, packed: dict):
         arange(2, S)), dict(causal=True, scale=128 ** -0.5,
                             rope_q=ids.contiguous(), rope_k=ids.contiguous(),
                             rope_theta=1e6)))
-    return forms
+    return forms + compress_forms(randn, packed, device)
 
 
 def device_ms_by_kernel(fn, names) -> dict:
     """Device time of one call of ``fn`` per kernel whose name contains
     each of ``names`` (torch.profiler's kernel events), in ms; raises when
-    a name matched no time, so that no record shows 0 ms."""
+    a name matched no time, so that no record shows 0 ms. A trace that
+    came back without any kernel event (the profiler, at times, hands
+    back the runtime calls alone) is taken again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ev = prof.key_averages()
-    ms = {n: sum(e.self_device_time_total for e in ev if n in e.key) / 1e3
-          for n in names}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        ms = {n: sum(e.self_device_time_total for e in ev if n in e.key)
+              / 1e3 for n in names}
+        if any(e.self_device_time_total > 0 for e in ev):
+            break
+        log(f"    the profiler saw no kernel (attempt {attempt + 1}): "
+            f"{sorted({e.key for e in ev})}")
     if not all(t > 0 for t in ms.values()):
         raise AssertionError(f"no device time for a kernel: {ms} among "
                              f"{sorted({e.key for e in ev})}")
@@ -2651,7 +2708,8 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
             "flash_bwd_dq": attention_roof(q, k, v, pairs, 3, do, lse, di,
                                            got[0])}
         lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"]) \
-            if name.startswith("vit_tiles") and device == "cuda" else None
+            if name.startswith(("vit_tiles", "interaction")) \
+            and device == "cuda" else None
         if name.startswith("llm_packed") and device == "cuda":
             # a yardstick only: the library cannot mask segments, so it
             # runs the whole row as one causal sequence (more pairs)
@@ -3357,6 +3415,20 @@ def train_config():
                        total_steps=TRAIN_STEPS, use_8bit_optimizer=True)
 
 
+def _step_hook(steps: list, marks: dict):
+    """A trainer metrics hook that keeps each step's metrics and the
+    launches since the previous step."""
+    def hook(step, metrics):
+        counts = read_launches()
+        prev = marks.get("counts", {k: 0 for k in counts})
+        steps.append(dict(metrics, launches={
+            k: counts[k] - prev[k] for k in counts}))
+        marks["counts"] = counts
+        marks["t"] = time.perf_counter()
+
+    return hook
+
+
 def phase_train(model, cfg) -> dict:
     """Four steps of InternVL2-2B through trainer.train on 8192 packed
     tokens and 8 tiles (remat 'full', int8 Adam, lr 1e-5, warmup 1), then
@@ -3370,15 +3442,7 @@ def phase_train(model, cfg) -> dict:
     from v2pe_tpu_torch.train.trainer import RunConfig, train
 
     steps, marks = [], {}
-
-    def hook(step, metrics):
-        counts = read_launches()
-        prev = marks.get("counts", {k: 0 for k in counts})
-        steps.append(dict(metrics, launches={
-            k: counts[k] - prev[k] for k in counts}))
-        marks["counts"] = counts
-        marks["t"] = time.perf_counter()
-
+    hook = _step_hook(steps, marks)
     model.train()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3452,14 +3516,11 @@ def bench_recipe(model, cfg):
                               for k, v in batch.items()}
 
 
-def phase_bench_recipe(model, cfg) -> dict:
-    """Three steps of the bench recipe (make_train_step called directly,
-    the first step bench.py's compile step): per-step loss, grad_norm,
-    time and launches, and the median rate of steps 2-3."""
-    step, state, batch = bench_recipe(model, cfg)
+def timed_steps(where: str, step, model, state, batch) -> list:
+    """BENCH_STEPS calls of a train step on one batch: per step its loss,
+    grad norm, host ms (to the read of the loss) and launches, each
+    logged."""
     steps = []
-    model.train()
-    reset_launches()
     for i in range(BENCH_STEPS):
         before = read_launches()
         t0 = time.perf_counter()
@@ -3469,9 +3530,20 @@ def phase_bench_recipe(model, cfg) -> dict:
         after = read_launches()
         steps.append(dict(loss=loss, grad_norm=gnorm, ms=ms, launches={
             k: after[k] - before[k] for k in after}))
-        log(f"bench recipe step {i + 1}: loss {loss:.4f} grad_norm "
+        log(f"{where} step {i + 1}: loss {loss:.4f} grad_norm "
             f"{gnorm:.4f} {ms:.1f} ms {TRAIN_TOKENS / ms * 1e3:.0f} tok/s; "
             f"launches {steps[-1]['launches']}")
+    return steps
+
+
+def phase_bench_recipe(model, cfg) -> dict:
+    """Three steps of the bench recipe (make_train_step called directly,
+    the first step bench.py's compile step): per-step loss, grad_norm,
+    time and launches, and the median rate of steps 2-3."""
+    step, state, batch = bench_recipe(model, cfg)
+    model.train()
+    reset_launches()
+    steps = timed_steps("bench recipe", step, model, state, batch)
     counts = read_launches()
     model.eval()
     ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
@@ -4222,6 +4294,530 @@ def phase_ring_train(model, cfg) -> dict:
 # ---------------------------------------------------------------- profile
 
 
+# ------------------------- phases 16-19: LoRA, compress-seq, seq-cls, utils
+
+
+LORA_LLM_R, LORA_VIT_R = 16, 8  # --use_llm_lora, --use_backbone_lora
+LORA_STEPS = 3
+SEQ_CLS_LENGTHS = (2048, 1500, 777, 2040)  # right-padded to 2048
+SEQ_CLS_PAD = 2
+
+
+def small_slice_cfg(**kw):
+    """The 2-layer fp32 model of the small train reference."""
+    from v2pe_tpu_torch import config
+
+    return config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+        rope_pos_id_stride=2, **kw)
+
+
+def _step_result(res: dict, devices, what: str, lr: float) -> None:
+    """Card against CPU for one small step: ``res[dev]`` = (loss, grad norm,
+    gradients, updated tensors). Limits as in the small train reference:
+    loss, grad norm and gradients within 1e-4 of their range, updated
+    tensors within 1e-4 of their range plus 1% of one step."""
+    (l_c, g_c, d_c, p_c), (l_g, g_g, d_g, p_g) = (res[d] for d in devices)
+    d_loss, d_gn = abs(l_g - l_c) / abs(l_c), abs(g_g - g_c) / abs(g_c)
+    d_grad = _max_rel(d_g, d_c)
+    d_par = max(((p_g[n] - p_c[n]).abs().max() / (
+        1e-4 * p_c[n].abs().max() + 1e-2 * lr)).item() for n in p_c)
+    log(f"reference: {what}, card vs CPU: loss {l_g:.6f} vs {l_c:.6f} (rel "
+        f"{d_loss:.2e}), grad_norm {g_g:.6f} vs {g_c:.6f} (rel {d_gn:.2e}), "
+        f"{len(d_c)} gradients max|d|/range {d_grad:.2e} (tol 1e-4); "
+        f"{len(p_c)} updated tensors max|d| at {d_par:.2f} of the tolerance")
+    if max(d_loss, d_gn, d_grad) > 1e-4 or d_par > 1.0:
+        raise AssertionError(f"card and CPU disagree: {what}")
+
+
+def phase_small_slice_reference(devices=("cpu", "cuda")) -> None:
+    """The 2-layer fp32 model on the card (the kernels) against the CPU
+    (the plain versions): one LoRA train step (adapters of both towers, B
+    drawn nonzero), one compress-seq train step with each fuse method
+    (4 chunks of the 300-token packed row, LayerScale 0.1), and the
+    sequence-classification head's pooled logits, loss and gradients. A
+    step is make_train_step's update with its gradients kept: one forward
+    and backward, then the optimizer."""
+    import copy
+
+    from v2pe_tpu_torch.models.compress_seq import init_compress_params
+    from v2pe_tpu_torch.models.lora import build_lora, lora_view
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.models.sequence_classification import (
+        init_seq_cls_params, seq_cls_forward)
+    from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
+    from v2pe_tpu_torch.train.train_step import loss_fn
+
+    cfg = small_slice_cfg()
+    tc = TrainConfig(learning_rate=1e-5, warmup_steps=0, total_steps=10,
+                     use_8bit_optimizer=True)
+    base = init_vlm_params(cfg, torch.Generator().manual_seed(21))
+    lora0 = build_lora(torch.Generator().manual_seed(3), base, backbone_r=4,
+                       llm_r=8)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(4)
+        for ad in lora0.targets().values():
+            ad.B.copy_(torch.randn(ad.B.shape, generator=g) * 0.02)
+
+    def grads_of(module):
+        return {n: p.grad.cpu() for n, p in module.named_parameters()
+                if p.grad is not None}
+
+    def step(trained, forward_model, cfg_, dev):
+        """make_train_step's update, with the gradients kept: (loss, grad
+        norm, gradients, updated tensors) on the CPU."""
+        loss = loss_fn(forward_model, cfg_, small_train_batch(cfg_, dev), 999,
+                       remat="full")
+        loss.backward()
+        grads = grads_of(trained)
+        opt = build_optimizer(tc, trained, cfg_)
+        gnorm = opt.step({n: p.grad for n, p in trained.named_parameters()},
+                         opt.init())
+        return (loss.item(), gnorm.item(), grads, {
+            n: p.detach().cpu() for n, p in trained.named_parameters()})
+
+    res = {}
+    for dev in devices:
+        model, lora = copy.deepcopy(base).to(dev), copy.deepcopy(lora0).to(dev)
+        res[dev] = step(lora, lora_view(model, lora), cfg, dev)
+    _step_result(res, devices, "small LoRA train step fp32 (int8 Adam)",
+                 tc.learning_rate)
+
+    for fuse in ("add", "cross-attn"):
+        cfg_c = dataclasses.replace(cfg, compress_seq=True, fuse_method=fuse,
+                                    chunk_num=COMPRESS_CHUNKS)
+        res = {}
+        for dev in devices:
+            model = copy.deepcopy(base).to(dev)
+            model.compress = init_compress_params(model.llm, 0.1, cfg.llm,
+                                                  fuse)
+            res[dev] = step(model, model, cfg_c, dev)
+        _step_result(res, devices, f"small compress-seq train step fp32 "
+                     f"({fuse}, int8 Adam)", tc.learning_rate)
+
+    cls0 = init_seq_cls_params(torch.Generator().manual_seed(5), cfg.llm, 3)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(3, 1000, (4, 64))
+    for b, n in enumerate((64, 50, 17, 63)):
+        ids[b, n:] = SEQ_CLS_PAD
+    out = {}
+    for dev in devices:
+        cls = copy.deepcopy(cls0).to(dev)
+        t = torch.as_tensor(ids, device=dev)
+        pooled, loss = seq_cls_forward(
+            cls, cfg.llm, input_ids=t, pad_token_id=SEQ_CLS_PAD,
+            segment_ids=(t != SEQ_CLS_PAD).int(),
+            labels=torch.tensor([0, 2, 1, 1], device=dev))
+        loss.backward()
+        out[dev] = (pooled.detach().cpu(), loss.item(), grads_of(cls))
+    (p_c, l_c, d_c), (p_g, l_g, d_g) = (out[d] for d in devices)
+    d_p = _rel(p_g, p_c)
+    d_l = abs(l_g - l_c) / abs(l_c)
+    d_grad = _max_rel(d_g, d_c)
+    log(f"reference: small seq-cls fp32, card vs CPU: pooled logits "
+        f"max|d|/range {d_p:.2e}, loss rel {d_l:.2e}, {len(d_c)} gradients "
+        f"max|d|/range {d_grad:.2e} (tol 1e-4)")
+    if max(d_p, d_l, d_grad) > 1e-4:
+        raise AssertionError("card and CPU disagree: seq-cls")
+
+
+def phase_lora_train(model, cfg, device: str = "cuda") -> tuple:
+    """Three steps of InternVL2-2B LoRA training through trainer.train
+    (use_llm_lora=16, use_backbone_lora=8) on 8192 packed tokens and 8
+    tiles (remat 'full', int8 Adam, lr 1e-5, warmup 1), then its
+    asynchronous checkpoint: per-step loss, grad norm, rate and launches
+    (96 / 48 / 48, as phase 9: the adapters change the weights, not the
+    attention), the checkpoint's size against the base's, peak memory; the
+    base weights bit for bit unchanged, every A and B moved, alpha 2r.
+    Returns (launch counts, the merged model train returned, the adapters
+    read back from the checkpoint, the base's state before)."""
+    import tempfile
+
+    from v2pe_tpu_torch.core import checkpoint as ckpt
+    from v2pe_tpu_torch.models.lora import build_lora, lora_from_state_dict
+    from v2pe_tpu_torch.train.trainer import RunConfig, train
+
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    steps, marks = [], {}
+    tc = dataclasses.replace(train_config(), total_steps=LORA_STEPS)
+    model.train()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(output_dir=tmp, max_steps=LORA_STEPS,
+                        save_steps=LORA_STEPS, log_steps=1,
+                        max_packed_tokens=TRAIN_TOKENS, max_tiles=TRAIN_TILES)
+        reset_launches()
+        merged, _, _ = train(cfg, model, train_packer(cfg), run, tc,
+                             img_context_token_id=92546, remat="full",
+                             resume=False, metrics_hook=_step_hook(steps,
+                                                                   marks),
+                             use_llm_lora=LORA_LLM_R,
+                             use_backbone_lora=LORA_VIT_R)
+        counts = read_launches()
+        save_s = time.perf_counter() - marks["t"]
+        path = ckpt.latest_checkpoint(tmp)
+        size = sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+        sd = torch.load(os.path.join(path, "params.pt"), map_location=device)
+        moments = torch.load(os.path.join(path, "opt_state.pt"))["moments"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    model.eval()
+    merged.eval()
+    base_bytes = sum(v.numel() * v.element_size() for v in before.values())
+    for i, m in enumerate(steps):
+        ms = TRAIN_TOKENS / m["tokens_per_sec"] * 1e3
+        log(f"lora train step {i + 1}: loss {m['loss']:.4f} grad_norm "
+            f"{m['grad_norm']:.4f} {ms:.1f} ms {m['tokens_per_sec']:.0f} "
+            f"tok/s; launches {m['launches']}")
+    rates = sorted(m["tokens_per_sec"] for m in steps[1:])
+    med = rates[len(rates) // 2]
+    lora = lora_from_state_dict(sd, device=device)
+    n_adapter = sum(p.numel() for p in lora.parameters())
+    log(f"lora train: {LORA_STEPS} steps of {TRAIN_TOKENS} tokens x "
+        f"{TRAIN_TILES} tiles, ranks llm {LORA_LLM_R} / vit {LORA_VIT_R} "
+        f"({len(lora.targets())} adapters, {n_adapter / 1e6:.2f}M trained "
+        f"values; remat full, int8 Adam): median of steps 2-{LORA_STEPS} "
+        f"{med:.0f} tok/s = {TRAIN_TOKENS / med * 1e3:.1f} ms a step; peak "
+        f"{peak:.2f} GiB allocated; async save + commit {save_s:.2f}s, "
+        f"{size / 2 ** 20:.2f} MiB (adapters and their optimizer state) "
+        f"against the base's {base_bytes / 2 ** 30:.2f} GiB ({card_line()})")
+    check_train_steps(cfg, steps, LORA_STEPS, "lora train")
+    after = model.state_dict()
+    differ = [k for k in before if not same_bits(before[k], after[k])]
+    start = build_lora(torch.Generator(device).manual_seed(run.seed ^ 0x10BA),
+                       model, backbone_r=LORA_VIT_R, llm_r=LORA_LLM_R)
+    s0 = start.state_dict()
+    still = [k for k in s0 if not k.endswith(".alpha")
+             and torch.equal(s0[k], sd[k])]
+    alphas = {k: float(v) for k, v in sd.items() if k.endswith(".alpha")}
+    bad_alpha = [k for k, a in alphas.items()
+                 if a != 2.0 * (LORA_VIT_R if k.startswith("vision")
+                                else LORA_LLM_R)]
+    keys = set(moments)
+    log(f"lora train: base tensors changed {len(differ)}/{len(before)}; "
+        f"adapter tensors unmoved {len(still)}/{2 * len(lora.targets())}; "
+        f"alpha off 2r {len(bad_alpha)}; checkpoint tensors "
+        f"{len(sd)} (A, B, alpha), optimizer leaves {sorted(keys)[:2]}...")
+    if differ or still or bad_alpha or not all(
+            k.endswith(("/a", "/b")) for k in keys):
+        raise AssertionError(f"lora train: base changed {differ[:3]}, "
+                             f"unmoved {still[:3]}, alpha {bad_alpha[:3]}")
+    return counts, merged, lora, before
+
+
+def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
+    """``utils/``: two LoRA steps of a copy of the trained adapters
+    (make_train_step on the bench recipe's batch) timed by StepTimer, the
+    second inside profile_trace, whose Chrome trace must name the flash
+    forward and both backward kernels; nan_guard silent on the loss and
+    logging an injected inf once; assert_finite passing the adapters and
+    raising on the inf."""
+    import copy
+    import logging
+    import tempfile
+
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+    from v2pe_tpu_torch.utils import diagnostics
+    from v2pe_tpu_torch.utils.profiling import (StepTimer, profile_trace,
+                                                step_marker)
+
+    ad = copy.deepcopy(lora)
+    opt = build_optimizer(train_config(), ad, cfg)
+    state = opt.init()
+    step = make_train_step(cfg, opt, img_context_token_id=IMG_CONTEXT_ID,
+                           remat="full", lora=True)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in make_synthetic_batch(
+        cfg, 1, TRAIN_TOKENS, tiles_per_row=TRAIN_TILES, stride=64).items()}
+    timer = StepTimer()
+    timer.tick()
+    model.train()
+    loss, _ = step(ad, state, batch, model)
+    torch.cuda.synchronize()
+    first = timer.tick(TRAIN_TOKENS)
+    for attempt in range(3):  # as device_ms_by_kernel: a trace that came
+        # back without kernel events is taken again, at most twice
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_trace(tmp):
+                with step_marker("lora_step"):
+                    loss, _ = step(ad, state, batch, model)
+            second = timer.tick(TRAIN_TOKENS)
+            (trace,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+            trace_mb = os.path.getsize(trace) / 2 ** 20
+            with open(trace) as f:
+                names = {e.get("name", "")
+                         for e in json.load(f)["traceEvents"]}
+        found = {k: any(k in n for n in names) for k in
+                 ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "lora_step")}
+        if all(found.values()):
+            break
+        log(f"    the trace named {found} (attempt {attempt + 1})")
+    model.eval()
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    logger = logging.getLogger(diagnostics.__name__)
+    handler = Keep(level=logging.ERROR)
+    logger.addHandler(handler)
+    try:
+        diagnostics.nan_guard(loss, "loss")
+        quiet = not records
+        bad = ad.targets()["llm.layers.0.wqkv"].B.detach().clone()
+        bad[0, 0] = float("inf")
+        diagnostics.nan_guard(bad, "injected")
+    finally:
+        logger.removeHandler(handler)
+    diagnostics.assert_finite(ad, "adapters")
+    try:
+        diagnostics.assert_finite({"adapters": ad, "bad": [bad]}, "tree")
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    log(f"utils: StepTimer {first['step_time_last'] * 1e3:.1f} ms then "
+        f"{second['step_time_last'] * 1e3:.1f} ms profiled "
+        f"({second['tokens_per_sec']:.0f} tok/s over the window); "
+        f"profile_trace wrote {trace_mb:.1f} MiB naming {found}; nan_guard "
+        f"quiet on a finite loss {quiet}, on the inf {records}; "
+        f"assert_finite: {raised}")
+    if not (all(found.values()) and quiet and len(records) == 1
+            and "injected" in records[0] and raised
+            and "tree:bad/[0]" in raised and first and second):
+        raise AssertionError("utils checks failed")
+
+
+def phase_lora_serve(model, cfg, tok, served: dict, merged, lora,
+                     before: dict, device: str = "cuda") -> list:
+    """ChatModel(base, lora=fresh adapters with B = 0) answers phase 3's
+    requests with the base model's answers (the merge of a zero delta is
+    exact); ChatModel(base, lora=the trained adapters) gives the 8-tile
+    request's first logits of the merged model train returned, bit for
+    bit; export_torch_state_dict(base, lora=...) equals the merged model's
+    export tensor for tensor; the base model is unchanged afterwards.
+    Returns the launch counts of the fresh-adapter requests."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.models.export import export_torch_state_dict
+    from v2pe_tpu_torch.models.lora import build_lora
+
+    fresh = build_lora(torch.Generator(device).manual_seed(1), model,
+                       backbone_r=LORA_VIT_R, llm_r=LORA_LLM_R)
+    gc = GenerationConfig(max_new_tokens=MAX_NEW)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    answers = ChatModel(model, cfg, tok, lora=fresh).batch_chat(
+        _request_pixels(), [q for _, q in REQUESTS], gc)
+    counts = read_launches()
+    wall = time.perf_counter() - t0
+    require(counts, ("flash_fwd",), "lora serve")
+    equal = answers == served["answers"]
+    n, q = REQUESTS[0]
+    chat = ChatModel(model, cfg, tok, lora=lora)
+    ids, pos, _ = chat.encode_chat(q, [n])
+    pixels = _tiles(n, 0)
+    got = first_logits(chat, cfg, ids, pos, pixels, [], "dense", steps=0)
+    want = first_logits(ChatModel(merged, cfg, tok), cfg, ids, pos, pixels,
+                        [], "dense", steps=0)
+    plain = first_logits(ChatModel(model, cfg, tok), cfg, ids, pos, pixels,
+                         [], "dense", steps=0)
+    del chat
+    a = export_torch_state_dict(model, cfg, lora=lora)
+    b = export_torch_state_dict(merged, cfg)
+    differ = sorted(k for k in b if k not in a or not same_bits(a[k], b[k]))
+    del a, b
+    after = model.state_dict()
+    changed = [k for k in before if not same_bits(before[k], after[k])]
+    log(f"lora serve: 3 requests with fresh adapters (B = 0) in {wall:.3f}s,"
+        f" flash launches {counts['flash_fwd']}, answers equal to the base "
+        f"model's {equal}; trained adapters: first logits equal to train's "
+        f"merged model bit for bit {same_bits(got, want)} (max|d| from the "
+        f"base's {(got - plain).abs().max().item():.3e}); export with lora= "
+        f"against the merged model's: {len(differ)} tensors differ; base "
+        f"tensors changed {len(changed)}")
+    if not (equal and same_bits(got, want) and not differ and not changed):
+        raise AssertionError("lora serve checks failed")
+    return [counts]
+
+
+def check_compress_steps(cfg, steps: list, where: str) -> None:
+    """Finite losses and grad norms; launches a step: the ViT's forward
+    twice a layer (remat) and the decoder's twice a layer (the interaction
+    and the within-chunk attention, no remat), the backward kernels once a
+    ViT layer and twice a decoder layer."""
+    Lv, Ll = cfg.vision.num_hidden_layers, cfg.llm.num_hidden_layers
+    want = {"flash_fwd": 2 * Lv + 2 * Ll, "flash_bwd_dkv": Lv + 2 * Ll,
+            "flash_bwd_dq": Lv + 2 * Ll}
+    ok = all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+             and all(m["launches"][k] == v for k, v in want.items())
+             for m in steps)
+    if not ok:
+        raise AssertionError(f"{where}: expected finite losses and {want} "
+                             f"launches a step")
+
+
+def phase_compress_train(model, cfg) -> list:
+    """For each fuse method ('add', 'cross-attn'): the compress-seq module
+    built from the decoder (``init_compress_params``), then three steps of
+    make_train_step on the bench recipe's batch (8192 tokens, 8 tiles,
+    chunk_num 4: four chunks of 2048 tokens, 400 summary tokens) through
+    ``internvl_chat.forward``'s compress route: loss, grad norm, time,
+    launches a step (check_compress_steps), peak memory, and
+    ``compress.layer_scale`` moved. The module is removed afterwards."""
+    from v2pe_tpu_torch.models.compress_seq import init_compress_params
+
+    paths = []
+    for fuse in ("add", "cross-attn"):
+        cfg_c = dataclasses.replace(cfg, compress_seq=True, fuse_method=fuse,
+                                    chunk_num=COMPRESS_CHUNKS)
+        model.compress = init_compress_params(model.llm, cfg=cfg.llm,
+                                              fuse_method=fuse)
+        ls0 = model.compress.layer_scale.detach().clone()
+        step, state, batch = bench_recipe(model, cfg_c)
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = timed_steps(f"compress train ({fuse})", step, model, state,
+                            batch)
+        paths.append(read_launches())
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model.eval()
+        moved = not torch.equal(model.compress.layer_scale, ls0)
+        ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
+        log(f"compress train ({fuse}): {TRAIN_TOKENS} tokens x {TRAIN_TILES} "
+            f"tiles in {COMPRESS_CHUNKS} chunks (ViT remat full, decoder not "
+            f"rematerialized, int8 Adam): median of steps 2-{BENCH_STEPS} "
+            f"{ms:.1f} ms = {TRAIN_TOKENS / ms * 1e3:.0f} tok/s; peak "
+            f"{peak:.2f} GiB allocated; layer_scale moved {moved} "
+            f"({card_line()})")
+        check_compress_steps(cfg, steps, f"compress train ({fuse})")
+        if not moved:
+            raise AssertionError(f"compress train ({fuse}): layer_scale did "
+                                 f"not move")
+        del model.compress, step, state, batch
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_compress_fuse_only(model, cfg, device: str = "cuda") -> dict:
+    """One 8192-token forward of compress_fuse_only_forward in 4 chunks
+    (cross-attn fuse over compress2 summaries of the earlier chunks):
+    finite fp32 logits of the full vocabulary, and one flash launch a
+    decoder layer (the chunk loop's fuse is plain torch)."""
+    from v2pe_tpu_torch.models.compress_seq import (compress_fuse_only_forward,
+                                                    init_compress_params)
+
+    compress = init_compress_params(model.llm, cfg=cfg.llm,
+                                    fuse_method="cross-attn")
+    g = torch.Generator(device).manual_seed(7)
+    ids = torch.randint(3, 20000, (1, TRAIN_TOKENS), generator=g,
+                        device=device)
+    pos = torch.arange(TRAIN_TOKENS, dtype=torch.float32,
+                       device=device)[None]
+    with torch.inference_mode():
+        embeds = model.llm.tok_embeddings(ids)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = compress_fuse_only_forward(model.llm, compress, cfg.llm,
+                                            embeds, pos, COMPRESS_CHUNKS)
+        counts = read_launches()
+        secs = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+    del logits, compress
+    torch.cuda.empty_cache()
+    want = cfg.llm.num_hidden_layers
+    log(f"compress fuse-only: {TRAIN_TOKENS} tokens in {COMPRESS_CHUNKS} "
+        f"chunks in {secs * 1e3:.1f} ms, logits {shape} finite {finite}; "
+        f"flash launches {counts['flash_fwd']} (one a layer, the chunk "
+        f"loop's fuse none: {want})")
+    if not finite or counts["flash_fwd"] != want:
+        raise AssertionError("compress fuse-only checks failed")
+    return counts
+
+
+def phase_seq_cls(model, cfg, device: str = "cuda") -> dict:
+    """The sequence-classification head on the decoder's layers (shared,
+    with a seeded bf16 ``score`` of 3 labels): 4 right-padded rows of up to
+    2048 tokens in one forward, one flash launch a layer; pooled logits
+    finite, equal to the full logits at the pooled index; the pooled index
+    equal to pool_last_token's on the host; each of the three losses
+    finite."""
+    from torch import nn
+
+    from v2pe_tpu_torch.models.internlm2 import llm_forward
+    from v2pe_tpu_torch.models.sequence_classification import (
+        InternLM2ForSequenceClassification, pool_last_token, seq_cls_forward)
+
+    cls = InternLM2ForSequenceClassification.__new__(
+        InternLM2ForSequenceClassification)
+    nn.Module.__init__(cls)
+    cls.tok_embeddings, cls.layers = model.llm.tok_embeddings, \
+        model.llm.layers
+    cls.norm = model.llm.norm
+    g = torch.Generator(device).manual_seed(8)
+    cls.score = nn.Linear(cfg.llm.hidden_size, 3, bias=False, device=device,
+                          dtype=model.llm.norm.dtype)
+    with torch.no_grad():
+        cls.score.weight.normal_(0.0, 0.02, generator=g)
+    S = max(SEQ_CLS_LENGTHS)
+    rng = np.random.default_rng(9)
+    ids = rng.integers(3, 20000, (len(SEQ_CLS_LENGTHS), S))
+    for b, n in enumerate(SEQ_CLS_LENGTHS):
+        ids[b, n:] = SEQ_CLS_PAD
+    t = torch.as_tensor(ids, device=device)
+    seg = (t != SEQ_CLS_PAD).int()
+    kw = dict(input_ids=t, pad_token_id=SEQ_CLS_PAD, segment_ids=seg)
+    B = len(SEQ_CLS_LENGTHS)
+    labels = {"single_label_classification": torch.tensor(
+        [0, 2, 1, 1], device=device),
+        "multi_label_classification": torch.tensor(
+            rng.integers(0, 2, (B, 3)), dtype=torch.float32, device=device),
+        "regression": torch.tensor(rng.standard_normal((B, 3)),
+                                   dtype=torch.float32, device=device)}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        pooled, _ = seq_cls_forward(cls, cfg.llm, **kw)
+        counts = read_launches()
+        ms = (time.perf_counter() - t0) * 1e3
+        losses = {pt: float(seq_cls_forward(cls, cfg.llm, labels=lb,
+                                            problem_type=pt, **kw)[1])
+                  for pt, lb in labels.items()}
+        hidden, _ = llm_forward(cls, cfg.llm, input_ids=t, segment_ids=seg,
+                                return_hidden=True)
+        full = hidden.float() @ cls.score.weight.float().t()
+        ar = torch.arange(S)[None, :, None].expand(B, S, 1)
+        host = pool_last_token(ar, torch.as_tensor(ids), SEQ_CLS_PAD)[:, 0]
+        card = pool_last_token(ar.to(device), t, SEQ_CLS_PAD)[:, 0].cpu()
+        at = full[torch.arange(B), host.to(device)]
+    log(f"seq-cls: {B} rows of {list(SEQ_CLS_LENGTHS)} tokens padded to {S} "
+        f"in {ms:.1f} ms, flash launches {counts['flash_fwd']}; pooled index"
+        f" {card.tolist()} (host {host.tolist()}); pooled logits finite "
+        f"{bool(torch.isfinite(pooled).all())}, equal to the full logits "
+        f"there {same_bits(pooled, at)}; losses {losses}")
+    if not (torch.equal(host, card)
+            and host.tolist() == [n - 1 for n in SEQ_CLS_LENGTHS] and bool(torch.isfinite(pooled).all()) and same_bits(pooled, at)
+            and all(np.isfinite(v) for v in losses.values())
+            and counts["flash_fwd"] == cfg.llm.num_hidden_layers):
+        raise AssertionError("seq-cls checks failed")
+    return counts
+
+
 def profile_generate(chat, cfg) -> None:
     """``--profile``: the 8-tile request through generate (bf16 weights:
     dense, paged bf16, paged int8 pool; int8 weights: dense and paged int8
@@ -4650,6 +5246,7 @@ def main(argv=None) -> int:
     phase_small_ring_reference()
     phase_small_quant_reference()
     phase_small_engine_reference()
+    phase_small_slice_reference()
     lap("references")
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
@@ -4676,11 +5273,24 @@ def main(argv=None) -> int:
     # sequence parallelism: the long teacher-forced eval over the ring
     paths.append(phase_ring_eval(model, cfg))
     lap("ring eval")
+    # LoRA: the adapters train over the frozen weights, which stay as they
+    # are, then serve and export merged
+    counts, merged, lora, before = phase_lora_train(model, cfg)
+    paths.append(counts)
+    phase_lora_utils(model, cfg, lora)
+    paths += phase_lora_serve(model, cfg, tok, served, merged, lora, before)
+    del merged, lora, before
+    torch.cuda.empty_cache()
+    lap("lora")
     # last: the training paths update the weights
     paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg),
               phase_ring_train(model, cfg)]
-    launches = {k: sum(c[k] for c in paths) for k in forms}
     lap("train")
+    paths += phase_compress_train(model, cfg)
+    paths.append(phase_compress_fuse_only(model, cfg))
+    paths.append(phase_seq_cls(model, cfg))
+    launches = {k: sum(c[k] for c in paths) for k in forms}
+    lap("compress and seq-cls")
     log(f"seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in "
         f"all")
     records = [kernel_record(name, recs, launches[name])

@@ -155,10 +155,18 @@ def test_unported_options_raise():
     _, model = _models(cfg, seed=0)
     for kw in (dict(cache_mode="paged", kv_dtype="fp8"),
                dict(cache_mode="ring"), dict(cache_mode="chunked"),
-               dict(weights_dtype="fp8"), dict(weights_dtype="bfloat16"),
-               dict(lora={})):
+               dict(weights_dtype="fp8"), dict(weights_dtype="bfloat16")):
         with pytest.raises(NotImplementedError):
             ChatModel(model, port_config(cfg), tok, **kw)
+    # LoRA is ported: fresh adapters (B = 0) merge to the same weights
+    from v2pe_tpu_torch.models.lora import build_lora
+
+    fresh = build_lora(torch.Generator().manual_seed(0), model, backbone_r=2,
+                       llm_r=4)
+    gc2 = GenerationConfig(max_new_tokens=3)
+    assert ChatModel(model, port_config(cfg), tok, lora=fresh).chat(
+        None, "hi", gc2) == ChatModel(model, port_config(cfg), tok).chat(
+        None, "hi", gc2)
     for wd in ("int8", "int4"):  # ported: they quantize at construction
         assert ChatModel(model, port_config(cfg), tok, weights_dtype=wd).chat(
             None, "hi", GenerationConfig(max_new_tokens=2)) is not None

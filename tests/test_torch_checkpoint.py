@@ -323,8 +323,17 @@ def test_quantized_decoder_dequantizes_on_export():
                      weights_dtype="int4").model
     with pytest.raises(NotImplementedError, match="int4"):
         export_torch_state_dict(int4, pc)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        export_torch_state_dict(model, pc, lora={})
+    # LoRA is ported: fresh adapters (B = 0) export the same tensors
+    from v2pe_tpu_torch.models.lora import build_lora
+
+    dense = from_jax_params(tree, pc)
+    fresh = build_lora(torch.Generator().manual_seed(0), dense, backbone_r=2,
+                       llm_r=2)
+    plain = export_torch_state_dict(dense, pc)
+    merged = export_torch_state_dict(dense, pc, lora=fresh)
+    assert merged.keys() == plain.keys()
+    for k in plain:
+        assert torch.equal(merged[k], plain[k]), k
 
 
 # ------------------------------------------------------------ the tools
@@ -361,10 +370,23 @@ def test_export_tool_equals_a_direct_export(tmp_path, capsys):
                                        device="cpu")
     _assert_same_bits(back.state_dict(), model.state_dict())
     assert f32.endswith("model.safetensors")
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        export_hf.main(["--checkpoint", str(tmp_path / "run"), "--out",
-                        str(tmp_path / "x"), "--lora-base", "b",
-                        "--platform", "cpu"])
+    # LoRA is ported: an adapter checkpoint merged into the run's step
+    from v2pe_tpu_torch.models.lora import build_lora
+
+    lora = build_lora(torch.Generator().manual_seed(1), model, llm_r=2)
+    with torch.no_grad():
+        for ad in lora.targets().values():
+            ad.B.normal_(0.0, 0.05, generator=torch.Generator().manual_seed(2))
+    ckpt.save_checkpoint(str(tmp_path / "adapters"), 1, lora, {}, cfg=pc)
+    merged = export_hf.main(["--checkpoint", str(tmp_path / "adapters"),
+                             "--out", str(tmp_path / "x"), "--lora-base",
+                             str(tmp_path / "run" / "step_00000003"),
+                             "--platform", "cpu"])
+    save_safetensors(export_torch_state_dict(model, pc, lora=lora),
+                     str(tmp_path / "direct_lora.safetensors"))
+    assert open(merged, "rb").read() == \
+        open(tmp_path / "direct_lora.safetensors", "rb").read() != \
+        open(out, "rb").read()
 
 
 def test_export_tool_without_platform_needs_a_cuda_device(tmp_path,

@@ -93,6 +93,10 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
             "v2pe_tpu_torch.models.safetensors_io",
             "v2pe_tpu_torch.models.export",
             "v2pe_tpu_torch.tools.export_hf",
+            "v2pe_tpu_torch.models.lora", "v2pe_tpu_torch.models.compress_seq",
+            "v2pe_tpu_torch.models.sequence_classification",
+            "v2pe_tpu_torch.utils", "v2pe_tpu_torch.utils.diagnostics",
+            "v2pe_tpu_torch.utils.profiling",
             *(f"v2pe_tpu_torch.evalkit.{m}" for m in EVALKIT_COPIES
               if m != "__init__")} <= set(names)
     proc = subprocess.run(

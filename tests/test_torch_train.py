@@ -438,10 +438,19 @@ def test_unported_options_raise():
 
     for kw in (dict(mesh=MeshConfig(fsdp=2)), dict(mesh=MeshConfig(data=2)),
                dict(mesh=MeshConfig(seq=2, tensor=2)),
-               dict(mesh=MeshConfig(pipe=2)), dict(lora=True),
+               dict(mesh=MeshConfig(pipe=2)),
                dict(pipe_microbatches=2), dict(offload_optimizer=True)):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(port_config(cfg), opt, **kw)
+    # LoRA is ported: the step takes the adapters, then the base model
+    from v2pe_tpu_torch.models.lora import build_lora
+
+    lora = build_lora(torch.Generator().manual_seed(0), model, llm_r=2)
+    lora_opt = topt.build_optimizer(topt.TrainConfig(), lora,
+                                    port_config(cfg))
+    step = tstep.make_train_step(port_config(cfg), lora_opt, lora=True)
+    loss, _ = step(lora, lora_opt.init(), _torch_batch(_batch()), model)
+    assert np.isfinite(float(loss))
     # the seq axis is ported, in both ring modes; an unknown mode is refused
     for mode in ("scan", "fused"):
         tstep.make_train_step(port_config(cfg), opt, mesh=MeshConfig(seq=2),
@@ -585,10 +594,15 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
     for bad in (["--mesh_fsdp", "2"], ["--mesh_data", "2"],
                 ["--mesh_tensor", "2"], ["--mesh_pipe", "2"],
                 ["--mesh_seq", "2", "--pipe_microbatches", "2"],
-                ["--use_llm_lora", "4"],
-                ["--compress_seq"], ["--offload_optimizer"]):
+                ["--mesh_seq", "2", "--compress_seq"],
+                ["--offload_optimizer"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + bad)
+    # LoRA and compress-seq are ported: each trains a step
+    for i, more in enumerate((["--use_llm_lora", "4"], ["--compress_seq"])):
+        _, _, step = cli.main(argv + more + [
+            "--max_steps", "1", "--output_dir", str(tmp_path / f"o{i}")])
+        assert step == 1 and ckpt.list_checkpoints(str(tmp_path / f"o{i}"))
 
 
 def test_cli_without_platform_needs_a_cuda_device(tmp_path, monkeypatch):

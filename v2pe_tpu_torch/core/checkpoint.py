@@ -2,7 +2,8 @@
 torch state dicts in place of orbax.
 
 The layout is JAX's: ``<dir>/step_%08d/`` holds ``params.pt`` (the model's
-state dict), ``opt_state.pt`` (the optimizer state), ``data_state_p0.pkl``
+state dict; for a LoRA run the adapters' alone, ``models/lora.py``),
+``opt_state.pt`` (the optimizer state), ``data_state_p0.pkl``
 (the packed-data iterator state), ``config.json``, and ``meta.json``, the
 commit marker, written last. :func:`list_checkpoints` lists only committed
 steps; ``save_total_limit`` keeps the newest ones. One process.

@@ -34,7 +34,10 @@ class ChatModel:
     or ``"int4"`` quantizes the LLM's matmul weights and the vocab head
     once, here (``ops/quantized_matmul.py``): everything that takes this ChatModel
     (chat, generate, ``ChatSession``, ``ModelWorker``) then decodes against
-    the quantized weights; the ViT and the projector stay as they are."""
+    the quantized weights; the ViT and the projector stay as they are.
+    ``lora``: the adapters of a LoRA run (a ``models/lora.py:LoRA``; from
+    an adapter checkpoint, ``lora_from_state_dict``), merged into the
+    weights once, here, before ``weights_dtype`` quantizes them."""
 
     def __init__(self, model, cfg: VLMConfig, tokenizer,
                  cache_mode: str = "dense", page_size: int = 128,
@@ -45,8 +48,10 @@ class ChatModel:
             raise NotImplementedError(f"kv_dtype={kv_dtype!r}")
         if weights_dtype not in (None, "int8", "int4"):
             raise NotImplementedError(f"weights_dtype={weights_dtype!r}")
-        if lora is not None:
-            raise NotImplementedError("LoRA merge is not ported yet")
+        if lora is not None:  # the caller's model is left as it was
+            from v2pe_tpu_torch.models.lora import merge_lora
+
+            model = merge_lora(model, lora)
         if weights_dtype is not None:
             model = with_llm(model, quantize_llm_params(
                 model.llm, bits=8 if weights_dtype == "int8" else 4))

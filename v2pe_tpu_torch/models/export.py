@@ -65,9 +65,15 @@ def export_torch_state_dict(model, cfg: VLMConfig,
     ``model``: tensors on the model's device in the model's dtype (views of
     its parameters where only the name changes); a quantized decoder's
     weights dequantized in fp32. Round-trips through
-    ``convert_torch_state_dict``."""
+    ``convert_torch_state_dict``.
+
+    ``lora``: the adapters of a LoRA run (``models/lora.py``), merged into
+    the weights first (peft's merge_and_unload at save time); ``model`` is
+    left as it was."""
     if lora is not None:
-        raise NotImplementedError("LoRA merge is not ported yet")
+        from v2pe_tpu_torch.models.lora import merge_lora
+
+        model = merge_lora(model, lora)
     vc, lc = cfg.vision, cfg.llm
     sd = {k: v for k, v in model.state_dict().items()
           if not k.startswith("llm.")}

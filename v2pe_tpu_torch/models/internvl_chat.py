@@ -48,6 +48,8 @@ def with_llm(model: InternVLChatModel, llm: nn.Module) -> InternVLChatModel:
     out = InternVLChatModel.__new__(InternVLChatModel)
     nn.Module.__init__(out)
     out.vision, out.llm, out.mlp1 = model.vision, llm, model.mlp1
+    if getattr(model, "compress", None) is not None:
+        out.compress = model.compress
     out.train(model.training)
     return out
 
@@ -152,9 +154,14 @@ def forward(model: InternVLChatModel, cfg: VLMConfig, *,
     -100 = ignore) it returns the chunked weighted CE and no logits (the
     training path); otherwise fp32 (B, S, V) logits, and the shifted CE of
     ``labels`` when they are given. ``remat`` is the decoder's remat mode;
-    the ViT checkpoints per layer whenever it is set."""
-    if targets is not None and cfg.compress_seq:
-        raise NotImplementedError("compress-seq training is not ported")
+    the ViT checkpoints per layer whenever it is set.
+
+    Training with ``cfg.compress_seq`` on a model that carries
+    ``compress`` (``models/compress_seq.py``) runs the decoder as
+    ``compress_llm_forward`` in ``cfg.chunk_num`` chunks with
+    ``cfg.fuse_method``: the packing segments combine with the chunks, the
+    token positions are not used and, as in the JAX package, the decoder
+    is not rematerialized."""
     embeds = model.llm.tok_embeddings(input_ids)
     vit = extract_feature(model, cfg, pixel_values, remat=bool(remat),
                           drop_path_generator=drop_path_generator)
@@ -163,10 +170,20 @@ def forward(model: InternVLChatModel, cfg: VLMConfig, *,
     else:
         embeds = scatter_image_embeds(embeds, input_ids, vit, image_flags,
                                       img_context_token_id)
-    out, _ = internlm2.llm_forward(
-        model.llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
-        segment_ids=segment_ids, positions=token_positions, remat=remat,
-        return_hidden=targets is not None)
+    compress = getattr(model, "compress", None)
+    if targets is not None and cfg.compress_seq and compress is not None:
+        from v2pe_tpu_torch.models.compress_seq import compress_llm_forward
+
+        out = compress_llm_forward(
+            model.llm, compress, cfg.llm, embeds, rope_pos_ids,
+            cfg.chunk_num, segment_ids=segment_ids,
+            fuse_method=cfg.fuse_method, return_hidden=True)
+    else:
+        out, _ = internlm2.llm_forward(
+            model.llm, cfg.llm, inputs_embeds=embeds,
+            rope_pos_ids=rope_pos_ids, segment_ids=segment_ids,
+            positions=token_positions, remat=remat,
+            return_hidden=targets is not None)
     if targets is not None:
         loss = chunked_cross_entropy(out, model.llm.output.weight, targets,
                                      loss_weight, loss_weight_sum)

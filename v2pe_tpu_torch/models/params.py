@@ -32,23 +32,31 @@ from v2pe_tpu_torch.ops.quantized_matmul import QUANT_WEIGHT_NAMES
 
 
 def _meta_model(cfg: VLMConfig, weight_bits: Optional[int] = None,
-                group_size: int = 128) -> InternVLChatModel:
+                group_size: int = 128,
+                compress: bool = False) -> InternVLChatModel:
     """The model's structure without storage; with ``weight_bits`` 8 or 4,
-    the decoder is a ``QuantizedInternLM2``."""
+    the decoder is a ``QuantizedInternLM2``; with ``compress``, the model
+    carries the compress-seq parameters (``models/compress_seq.py``) for
+    ``cfg.fuse_method``."""
     with torch.device("meta"):
         model = InternVLChatModel(cfg)
         if weight_bits is not None:
             model.llm = QuantizedInternLM2.empty(cfg.llm, weight_bits,
                                                  group_size)
+        if compress:
+            from v2pe_tpu_torch.models.compress_seq import Compress
+
+            model.compress = Compress(cfg.llm, cfg.fuse_method)
     return model
 
 
 def _empty_model(cfg: VLMConfig, device, dtype,
                  weight_bits: Optional[int] = None,
-                 group_size: int = 128) -> InternVLChatModel:
+                 group_size: int = 128,
+                 compress: bool = False) -> InternVLChatModel:
     # built on the meta device: no time spent on initializers whose values
     # are overwritten next
-    model = _meta_model(cfg, weight_bits, group_size)
+    model = _meta_model(cfg, weight_bits, group_size, compress)
     return model.to_empty(device=device or "cpu").to(dtype).eval()
 
 
@@ -86,8 +94,8 @@ class JaxLeaf(NamedTuple):
     transposed: bool
 
 
-def jax_leaf_map(cfg: VLMConfig, weight_bits: Optional[int] = None
-                 ) -> Dict[str, JaxLeaf]:
+def jax_leaf_map(cfg: VLMConfig, weight_bits: Optional[int] = None,
+                 compress: Optional[bool] = None) -> Dict[str, JaxLeaf]:
     """Port parameter name -> its JAX leaf, for every parameter of the
     port's model. Linear weights map to ``<name>_kernel``, their biases to
     ``<name>_bias``, an embedding table to the module's name; ``layers.<i>``
@@ -95,8 +103,15 @@ def jax_leaf_map(cfg: VLMConfig, weight_bits: Optional[int] = None
     decoder is quantized, and the map also names its buffers:
     ``llm.stacks.<name>.<q|p|scale>`` is the whole stacked child of the
     quantized leaf ``llm/layers/<name>_kernel``, ``llm.output.<...>`` of
-    ``llm/output_kernel``."""
-    model = _meta_model(cfg, weight_bits)
+    ``llm/output_kernel``. With ``compress`` (default:
+    ``cfg.compress_seq``) the map also holds the compress-seq parameters:
+    ``compress.layer_scale`` is ``compress/layer_scale``,
+    ``compress.interaction.<i>.wqkv.weight`` index i of
+    ``compress/interaction/wqkv_kernel``, ``compress.fuse.<i>.wq.weight``
+    of ``compress/fuse/wq_kernel``."""
+    if compress is None:
+        compress = cfg.compress_seq
+    model = _meta_model(cfg, weight_bits, compress=compress)
     modules = dict(model.named_modules())
     out = {}
     if weight_bits is not None:
@@ -112,6 +127,9 @@ def jax_leaf_map(cfg: VLMConfig, weight_bits: Optional[int] = None
         if "layers" in parts:
             at = parts.index("layers")
             layer = int(parts.pop(at + 1))
+        elif parts[0] == "compress" and len(parts) > 2 \
+                and parts[2].isdigit():
+            layer = int(parts.pop(2))
         owner = modules[name.rsplit(".", 1)[0]]
         transposed = False
         if isinstance(owner, nn.Linear):
@@ -131,7 +149,7 @@ def _jax_state_dict(tree: dict, cfg: VLMConfig,
     layouts."""
     out = {}
     for name, (path, layer, transposed) in jax_leaf_map(
-            cfg, weight_bits).items():
+            cfg, weight_bits, compress="compress" in tree).items():
         a = tree
         for key in path:  # a dict's key, or a quantized leaf's child
             a = a[key] if isinstance(a, dict) else getattr(a, key)
@@ -147,7 +165,8 @@ def from_jax_params(tree: dict, cfg: VLMConfig, device=None,
     """Build the port's model from the JAX parameter tree (leaves as numpy
     arrays or anything ``np.asarray`` takes), in ``dtype`` (float32 by
     default). A tree with a quantized ``llm`` gives a quantized decoder
-    with the same codes and scales."""
+    with the same codes and scales; a tree with ``compress`` (the JAX
+    ``init_compress_params``) gives the model its ``compress`` module."""
     head = tree["llm"]["output_kernel"]
     bits = 8 if hasattr(head, "q") else 4 if hasattr(head, "p") else None
     group_size = getattr(head, "group_size", 128)
@@ -159,7 +178,7 @@ def from_jax_params(tree: dict, cfg: VLMConfig, device=None,
 
     sd = {k: tensor(v) for k, v in _jax_state_dict(tree, cfg, bits).items()}
     model = _empty_model(cfg, device, dtype or torch.float32, bits,
-                         group_size)
+                         group_size, compress="compress" in tree)
     model.load_state_dict(sd, strict=True)
     if bits is not None:
         pairs = [(model.llm.output, head)] + [
@@ -386,9 +405,11 @@ def model_from_state_dict(sd: dict, cfg: VLMConfig, device="cuda",
                           dtype: Optional[torch.dtype] = None
                           ) -> InternVLChatModel:
     """The dense model of ``cfg`` holding ``sd`` (the port's names), each
-    tensor copied once onto ``device`` in ``dtype`` (default: its own)."""
+    tensor copied once onto ``device`` in ``dtype`` (default: its own);
+    with the compress-seq module when ``sd`` holds ``compress.*``."""
     device = _device(device)
-    model = _meta_model(cfg)
+    model = _meta_model(cfg, compress=any(k.startswith("compress.")
+                                          for k in sd))
     model.load_state_dict(
         {k: v.to(device=device, dtype=dtype or v.dtype, copy=True)
          for k, v in sd.items()}, strict=True, assign=True)

@@ -56,6 +56,23 @@ def rope_transpose(g: torch.Tensor, rope: torch.Tensor,
     return (gf * cos - _rotate_half(gf) * sin).to(g.dtype)
 
 
+def rope_2d_cos_sin(h: int, w: int, head_dim: int, base: float = 100.0):
+    """2-D image rotary over an h x w grid: even channels carry the x-axis
+    frequencies theta[0::2] (over the h rows), odd channels the y-axis
+    frequencies theta[1::2] (over the w columns), each in the half-duplicated
+    layout. The image-rotary ablation of the reference (base 100); no path
+    of the port uses it. Returns cos, sin of shape (h, w, head_dim)
+    float32."""
+    theta = rope_inv_freq(head_dim, base)
+    fx = torch.arange(h, dtype=torch.float32)[:, None] * theta[0::2]
+    fy = torch.arange(w, dtype=torch.float32)[:, None] * theta[1::2]
+    fx, fy = torch.cat([fx, fx], dim=-1), torch.cat([fy, fy], dim=-1)
+    freqs = torch.zeros((h, w, head_dim), dtype=torch.float32)
+    freqs[..., 0::2] = fx[:, None, :].expand(h, w, head_dim // 2)
+    freqs[..., 1::2] = fy[None, :, :].expand(h, w, head_dim // 2)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
 def scale_positions(pos_ids: torch.Tensor, head_dim: int, base: float, *,
                     mode: str = "v2pe", scaling_factor: float = 1.0,
                     max_position_embeddings: int = 32768,

@@ -6,7 +6,11 @@ Reads a step directory that ``core/checkpoint.py`` wrote (``params.pt``,
 step), converts the model to the InternVLChatModel key layout
 (``models/export.py``) and writes ``model.safetensors``. ``--hf-template``
 (the original HF checkpoint directory) copies its config, tokenizer and
-remote-code files next to the weights.
+remote-code files next to the weights. With ``--lora-base``, the checkpoint
+is an adapter checkpoint of a LoRA run (``train/cli.py --use_llm_lora`` /
+``--use_backbone_lora``): the adapters are merged into the base weights it
+names (a port step directory with ``params.pt``, or an HF safetensors
+directory) before the export.
 
     python -m v2pe_tpu_torch.tools.export_hf --checkpoint out/step_00020000 \
         --config-preset internvl2_2b --out export_dir \
@@ -33,8 +37,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="original HF checkpoint dir; its non-weight files "
                         "are copied into --out")
     p.add_argument("--lora-base", default=None,
-                   help="merge a LoRA adapter checkpoint into these base "
-                        "weights (not ported yet: raises)")
+                   help="when --checkpoint is a LoRA ADAPTER checkpoint, "
+                        "the base weights to merge into: a step dir "
+                        "(params.pt) or an HF safetensors dir")
     p.add_argument("--platform", default="cuda",
                    choices=["cpu", "cuda", "gpu"],
                    help="the device the checkpoint is loaded onto: the CUDA "
@@ -45,9 +50,6 @@ def build_argparser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     args = build_argparser().parse_args(argv)
-    if args.lora_base:
-        raise NotImplementedError("--lora-base: LoRA merge is not ported "
-                                  "yet")
 
     import torch
 
@@ -55,7 +57,9 @@ def main(argv=None) -> str:
     from v2pe_tpu_torch.core.checkpoint import latest_checkpoint
     from v2pe_tpu_torch.models.export import (export_torch_state_dict,
                                               save_safetensors)
-    from v2pe_tpu_torch.models.params import model_from_state_dict
+    from v2pe_tpu_torch.models.lora import lora_from_state_dict
+    from v2pe_tpu_torch.models.params import (load_safetensors_checkpoint,
+                                              model_from_state_dict)
 
     device = {"gpu": "cuda"}.get(args.platform, args.platform)
     if device == "cuda" and not torch.cuda.is_available():
@@ -73,9 +77,19 @@ def main(argv=None) -> str:
             cfg = cfg_lib.VLMConfig.from_json(f.read())
     else:
         cfg = getattr(cfg_lib, args.config_preset)()
-    model = model_from_state_dict(
-        torch.load(os.path.join(ckpt, "params.pt"), map_location="cpu"),
-        cfg, device)
+    sd = torch.load(os.path.join(ckpt, "params.pt"), map_location="cpu")
+    lora = None
+    if args.lora_base:
+        lora, base = lora_from_state_dict(sd, device), args.lora_base
+        if os.path.isfile(os.path.join(base, "params.pt")):
+            model = model_from_state_dict(
+                torch.load(os.path.join(base, "params.pt"),
+                           map_location="cpu"), cfg, device)
+        else:
+            model = load_safetensors_checkpoint(base, cfg, torch.float32,
+                                                device=device)
+    else:
+        model = model_from_state_dict(sd, cfg, device)
 
     os.makedirs(args.out, exist_ok=True)
     if args.hf_template:
@@ -85,7 +99,7 @@ def main(argv=None) -> str:
             src = os.path.join(args.hf_template, name)
             if os.path.isfile(src):
                 shutil.copy2(src, os.path.join(args.out, name))
-    sd = export_torch_state_dict(model, cfg)
+    sd = export_torch_state_dict(model, cfg, lora=lora)
     out_file = os.path.join(args.out, "model.safetensors")
     save_safetensors(sd, out_file, args.dtype)
     print(f"wrote {out_file} ({len(sd)} tensors, {args.dtype})")

@@ -2,8 +2,13 @@
 training on one device.
 
 Flags that need a module the port does not have yet raise
-``NotImplementedError``: a mesh axis other than ``seq`` above 1, LoRA,
-``--compress_seq``, ``--offload_optimizer`` and a multi-host launcher.
+``NotImplementedError``: a mesh axis other than ``seq`` above 1,
+``--compress_seq`` with ``--mesh_seq`` above 1, ``--offload_optimizer`` and
+a multi-host launcher. ``--use_llm_lora R`` / ``--use_backbone_lora R``
+train LoRA adapters over the frozen model (checkpoints hold the adapters;
+``tools/export_hf.py --lora-base`` exports merged weights);
+``--compress_seq --fuse_method add|cross-attn --chunk_num N`` trains the
+compress-seq decoder (``models/compress_seq.py``).
 ``--model_name_or_path`` starts from an HF safetensors checkpoint
 (``models/params.py:load_safetensors_checkpoint``); ``--llm_arch`` picks the
 decoder family. ``--mesh_seq N --ring_mode scan|fused`` shards the
@@ -171,8 +176,8 @@ def _unported(args) -> list:
     checks = [
         (any(v > 1 for v in mesh.values()), f"mesh axes {mesh}"),
         (args.pipe_microbatches, "--pipe_microbatches"),
-        (args.use_backbone_lora or args.use_llm_lora, "LoRA"),
-        (args.compress_seq, "--compress_seq"),
+        (args.compress_seq and args.mesh_seq > 1,
+         "--compress_seq with --mesh_seq > 1 (ROADMAP Queue 1 item 6)"),
         (args.offload_optimizer, "--offload_optimizer"),
         (args.launcher not in ("auto", "none"), f"--launcher "
                                                 f"{args.launcher}"),
@@ -214,6 +219,9 @@ def main(argv=None):
         max_dynamic_patch=args.max_dynamic_patch,
         min_dynamic_patch=args.min_dynamic_patch,
         force_image_size=args.force_image_size,
+        compress_seq=args.compress_seq, fuse_method=args.fuse_method,
+        compress_method=args.compress_method,
+        chunk_num=args.chunk_num if args.compress_seq else cfg.chunk_num,
         vision=dataclasses.replace(cfg.vision,
                                    drop_path_rate=args.drop_path_rate))
     if args.llm_arch and args.llm_arch != cfg.llm.arch:
@@ -237,6 +245,11 @@ def main(argv=None):
         model = init_vlm_params(
             cfg, torch.Generator(device=device).manual_seed(args.seed),
             device=device, dtype=dtype)
+    if args.compress_seq:
+        from v2pe_tpu_torch.models.compress_seq import init_compress_params
+
+        model.compress = init_compress_params(
+            model.llm, cfg=cfg.llm, fuse_method=args.fuse_method)
 
     dsets = build_datasets(
         args.meta_path, tokenizer, template_name=args.conv_style,
@@ -273,7 +286,9 @@ def main(argv=None):
                  resume=not args.no_resume,
                  pixel_dtype=np.float32, metrics_hook=hook,
                  remat=False if args.no_remat else args.remat_policy,
-                 async_save=not args.sync_save)
+                 async_save=not args.sync_save,
+                 use_backbone_lora=args.use_backbone_lora,
+                 use_llm_lora=args.use_llm_lora)
 
 
 if __name__ == "__main__":

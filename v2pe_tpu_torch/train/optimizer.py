@@ -18,6 +18,14 @@ its order, per step:
 updates every k-th call, as ``optax.MultiSteps``. Not ``torch.optim.AdamW``:
 its step order and schedule counting differ.
 
+The optimizer takes the model it trains, or the adapters of a LoRA run
+(``models/lora.py``): every mask and scale is decided on the JAX leaf a
+tensor belongs to, its path and its stacked ndim (``jax_leaf_map``, or
+``lora_leaf_map`` for adapters, whose paths end in ``/a`` and ``/b``), as
+the JAX chain decides it on the parameter or the adapter tree. So the
+freeze flags also zero the adapters of a frozen tower, as in the JAX
+package.
+
 Dtypes: the Adam moments are kept in the parameters' dtype (optax's
 ``mu_dtype=None``); the arithmetic runs in fp32 and the update is added to
 the parameter in fp32, then cast back (``optax.apply_updates``).
@@ -34,6 +42,7 @@ import torch
 from torch import nn
 
 from v2pe_tpu_torch.core.config import VLMConfig
+from v2pe_tpu_torch.models.lora import LoRA, lora_leaf_map
 from v2pe_tpu_torch.models.params import JaxLeaf, jax_leaf_map
 from v2pe_tpu_torch.train import adam8bit
 
@@ -85,19 +94,31 @@ def _no_decay(path: str, ndim: int) -> bool:
         "bias" in path or path.startswith("compress/layer_scale")
 
 
+def leaf_map(model: nn.Module, cfg: VLMConfig) -> Dict[str, JaxLeaf]:
+    """The JAX leaves of what ``model`` trains: the parameters of the
+    port's model, or the tensors of a LoRA adapter set."""
+    if isinstance(model, LoRA):
+        return lora_leaf_map(model)
+    return jax_leaf_map(cfg, compress=getattr(model, "compress", None)
+                        is not None)
+
+
 def decay_mask(model: nn.Module, cfg: VLMConfig) -> Dict[str, bool]:
     """Parameter name -> whether weight decay applies (decided on the JAX
     leaf: its path and its stacked ndim)."""
-    leaves = jax_leaf_map(cfg)
+    leaves = leaf_map(model, cfg)
     return {n: not _no_decay(_path_str(leaves[n]), _jax_ndim(p, leaves[n]))
             for n, p in model.named_parameters()}
 
 
-def lr_scale_tree(cfg: VLMConfig, tc: TrainConfig) -> Dict[str, float]:
+def lr_scale_tree(cfg: VLMConfig, tc: TrainConfig,
+                  leaves: Optional[Dict[str, JaxLeaf]] = None
+                  ) -> Dict[str, float]:
     """Parameter name -> lr multiplier; layer i of a stack of L gets
-    ``rate ** (L - 1 - i)`` on top (later layers a higher lr)."""
+    ``rate ** (L - 1 - i)`` on top (later layers a higher lr). ``leaves``:
+    the tensors' JAX leaves (default: the model's parameters)."""
     out = {}
-    for n, leaf in jax_leaf_map(cfg).items():
+    for n, leaf in (leaves or jax_leaf_map(cfg)).items():
         p = _path_str(leaf)
         scale = np.float32(1.0)
         if p.startswith("vision/"):
@@ -118,12 +139,15 @@ def lr_scale_tree(cfg: VLMConfig, tc: TrainConfig) -> Dict[str, float]:
     return out
 
 
-def freeze_mask_tree(cfg: VLMConfig, tc: TrainConfig) -> Dict[str, float]:
+def freeze_mask_tree(cfg: VLMConfig, tc: TrainConfig,
+                     leaves: Optional[Dict[str, JaxLeaf]] = None
+                     ) -> Dict[str, float]:
     """Parameter name -> 1.0 (trains) or 0.0 (frozen), with the unfreeze
     carve-outs: the lm head under freeze_llm, and the last |n| ViT layers
-    (``unfreeze_vit_layers`` = -n) under freeze_backbone."""
+    (``unfreeze_vit_layers`` = -n) under freeze_backbone. ``leaves`` as in
+    :func:`lr_scale_tree`."""
     out = {}
-    for n, leaf in jax_leaf_map(cfg).items():
+    for n, leaf in (leaves or jax_leaf_map(cfg)).items():
         p = _path_str(leaf)
         trainable = 1.0
         if tc.freeze_backbone and p.startswith("vision/"):
@@ -181,7 +205,8 @@ def _jax_layout(t: torch.Tensor, transposed: bool) -> torch.Tensor:
 
 
 class Optimizer:
-    """The chain of ``build_optimizer`` over one model's parameters.
+    """The chain of ``build_optimizer`` over one model's parameters (or
+    one LoRA adapter set's).
 
     ``init()`` gives the state (a dict of tensors and ints that
     ``torch.save`` takes); ``step(grads, state)`` applies one update to the
@@ -195,12 +220,12 @@ class Optimizer:
                 "ported")
         self.tc = tc
         self.params = dict(model.named_parameters())
+        leaves = leaf_map(model, cfg)
         self.decay = decay_mask(model, cfg)
-        self.scales = lr_scale_tree(cfg, tc)
-        self.freeze = freeze_mask_tree(cfg, tc) \
+        self.scales = lr_scale_tree(cfg, tc, leaves)
+        self.freeze = freeze_mask_tree(cfg, tc, leaves) \
             if _any_freeze(tc) else None
         self.schedule = lr_schedule(tc)
-        leaves = jax_leaf_map(cfg)
         self.leaves = leaves
         # int8 Adam: the parameters of each JAX leaf in stack order, and the
         # runs of them quantized together (one per layer when every layer

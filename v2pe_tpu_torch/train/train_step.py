@@ -11,9 +11,14 @@ Batch contract (tensors on the model's device; ``data/packing.py`` and
 ``mesh`` is a ``MeshConfig``: its ``seq`` axis shards the sequence over
 ring attention with every shard on the model's card (``ring_mode`` 'scan'
 or 'fused'; the batch then arrives zigzag-permuted, as
-``collate_rows(seq_shards=n)`` makes it). Any other axis above 1, LoRA,
+``collate_rows(seq_shards=n)`` makes it). Any other axis above 1,
 pipeline microbatches and the offloaded optimizer raise
 ``NotImplementedError``.
+
+``lora=True`` trains LoRA adapters (``models/lora.py``) over a frozen base
+model, as the JAX step does: the forward runs on the merged weights of
+``lora_view(base, adapters)`` and the gradients reach the adapters only;
+the optimizer is built over the adapters.
 """
 
 from __future__ import annotations
@@ -53,9 +58,12 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
                     lora: bool = False, offload_optimizer: bool = False):
     """Returns ``step(model, opt_state, batch, drop_path_generator=None) ->
     (loss, grad_norm)``: the model's parameters and ``opt_state`` are
-    updated in place; grad_norm is the global norm of the raw gradients."""
-    for flag, what in ((lora, "LoRA"),
-                       (pipe_microbatches, "pipeline microbatches"),
+    updated in place; grad_norm is the global norm of the raw gradients.
+
+    With ``lora=True`` the step is ``step(adapters, opt_state, batch, base,
+    drop_path_generator=None)``: the adapters (a ``LoRA``) and
+    ``opt_state`` are updated in place, the base model is only read."""
+    for flag, what in ((pipe_microbatches, "pipeline microbatches"),
                        (offload_optimizer, "the offloaded optimizer")):
         if flag:
             raise NotImplementedError(f"{what} is not ported")
@@ -64,13 +72,13 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
         mesh, ring_mode=ring_mode)
 
-    def step(model, opt_state, batch, drop_path_generator=None):
-        params = dict(model.named_parameters())
+    def update(trained, forward_model, opt_state, batch, gen):
+        params = dict(trained.named_parameters())
         for p in params.values():
             p.grad = None
         with pctx.use_sharding(ctx):
-            loss = loss_fn(model, cfg, batch, img_context_token_id, remat,
-                           drop_path_generator)
+            loss = loss_fn(forward_model, cfg, batch, img_context_token_id,
+                           remat, gen)
             loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
@@ -79,4 +87,24 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
             p.grad = None
         return loss.detach(), gnorm
 
-    return step
+    if not lora:
+        def step(model, opt_state, batch, drop_path_generator=None):
+            return update(model, model, opt_state, batch,
+                          drop_path_generator)
+
+        return step
+    from v2pe_tpu_torch.models.lora import lora_view
+
+    views = {}
+
+    def lora_step(adapters, opt_state, batch, base,
+                  drop_path_generator=None):
+        key = (id(base), id(adapters))
+        if key not in views:  # the view aliases base's storage: built once
+            views.clear()
+            views[key] = (lora_view(base, adapters), base, adapters)
+        view = views[key][0]
+        view.train(base.training)
+        return update(adapters, view, opt_state, batch, drop_path_generator)
+
+    return lora_step

@@ -105,30 +105,42 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
 
     ``mesh_cfg.seq`` shards the sequence over ring attention on that one
     device (the batches are collated zigzag-permuted); any other mesh axis
-    above 1, LoRA and the offloaded optimizer raise
-    ``NotImplementedError``."""
+    above 1 and the offloaded optimizer raise ``NotImplementedError``.
+
+    With ``use_backbone_lora`` / ``use_llm_lora`` > 0 (the ranks) the model
+    stays frozen and only rank-r adapters train (``models/lora.py``,
+    drawn from a generator seeded ``run.seed ^ 0x10BA``): checkpoints hold
+    the adapters and their optimizer state only, resume restores the
+    adapters, and the model returned is a new merged model (base +
+    adapters, export-ready); the model passed in is left as it was."""
     mesh = mesh_cfg if mesh_cfg and mesh_cfg.num_devices > 1 else None
     seq_shards = mesh_cfg.seq if mesh_cfg else 1
-    if use_backbone_lora or use_llm_lora:
-        raise NotImplementedError("LoRA training is not ported")
     if offload_optimizer:
         tc = dataclasses.replace(tc, use_8bit_optimizer=True,
                                  offload_optimizer=True)
     device = next(model.parameters()).device
-    optimizer = build_optimizer(tc, model, cfg)
+    lora_mode = bool(use_backbone_lora or use_llm_lora)
+    trainable = model
+    if lora_mode:
+        from v2pe_tpu_torch.models.lora import build_lora
+
+        trainable = build_lora(
+            torch.Generator(device=device).manual_seed(run.seed ^ 0x10BA),
+            model, backbone_r=use_backbone_lora, llm_r=use_llm_lora)
+    optimizer = build_optimizer(tc, trainable, cfg)
     opt_state = optimizer.init()
     step_fn = make_train_step(cfg, optimizer, mesh, img_context_token_id,
                               remat=remat,
                               pipe_microbatches=pipe_microbatches,
-                              ring_mode=ring_mode,
+                              ring_mode=ring_mode, lora=lora_mode,
                               offload_optimizer=offload_optimizer)
 
     start_step = 0
     if resume:
         last = ckpt_lib.latest_checkpoint(run.output_dir)
         if last is not None:
-            model, opt_state, start_step, data_state = \
-                ckpt_lib.restore_checkpoint(last, model, opt_state)
+            trainable, opt_state, start_step, data_state = \
+                ckpt_lib.restore_checkpoint(last, trainable, opt_state)
             if data_state is not None:
                 packer.load_state_dict(data_state)
             logger.info("resumed from %s at step %d", last, start_step)
@@ -162,7 +174,11 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
             batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
                      for k, v in batch.items()}
             gen = _dp_generator(run.seed, step, device) if use_dp else None
-            loss, gnorm = step_fn(model, opt_state, batch, gen)
+            if lora_mode:
+                loss, gnorm = step_fn(trainable, opt_state, batch, model,
+                                      gen)
+            else:
+                loss, gnorm = step_fn(model, opt_state, batch, gen)
             tokens_since += run.rows_per_batch * run.max_packed_tokens
 
             if (step + 1) % run.log_steps == 0:
@@ -182,7 +198,7 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
             if (step + 1) % run.save_steps == 0 or step + 1 == run.max_steps:
                 save = saver.save if saver is not None \
                     else ckpt_lib.save_checkpoint
-                path = save(run.output_dir, step + 1, model, opt_state,
+                path = save(run.output_dir, step + 1, trainable, opt_state,
                             data_state=consumed_state,
                             save_total_limit=run.save_total_limit, cfg=cfg)
                 logger.info("saved %s", path)
@@ -190,4 +206,8 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
         prefetch.stop()
         if saver is not None:
             saver.close()
+    if lora_mode:
+        from v2pe_tpu_torch.models.lora import merge_lora
+
+        model = merge_lora(model, trainable)
     return model, opt_state, run.max_steps
