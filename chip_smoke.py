@@ -141,6 +141,17 @@ for bit. Phases 17-19, after phase 14: three compress-seq train steps with
 each fuse method on the bench recipe's batch (4 chunks; launches 96 /
 72 / 72 a step), one 8192-token fuse-only forward (24 launches) and the
 seq-cls head on 4 right-padded rows of up to 2048 tokens (24 launches).
+Training across processes: phase 2 also holds #1-#3 at the shapes one rank
+of a mesh gives them, outputs allocated full of NaN: under tensor = 2 the
+ViT's 8 x 64 heads and the LLM's 8/4 x 128 heads on the packed 8192
+tokens, under seq = 2 the rectangles the scan ring cuts from the zigzag
+shards of that row. Phase 20, between the trainer's steps and the bench
+recipe's: the mesh's training path as a world of 1 over NCCL (the process
+group through ``parallel/bootstrap.py`` on a file store, a copy of the
+model placed by ``parallel/mesh.py:shard_model`` under FSDP2, three steps
+of ``make_train_step(mesh=MeshConfig())`` on the bench recipe's batch);
+the bench recipe then takes its three steps from the same weights in one
+process, and the losses and grad norms must agree within RING_TRAIN_TOL.
 Then the card line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
@@ -2592,8 +2603,9 @@ def device_ms_by_kernel(fn, names) -> dict:
     """Device time of one call of ``fn`` per kernel whose name contains
     each of ``names`` (torch.profiler's kernel events), in ms; raises when
     a name matched no time, so that no record shows 0 ms. A trace that
-    came back without any kernel event (the profiler, at times, hands
-    back the runtime calls alone) is taken again, at most twice."""
+    came back without an event of each named kernel (the profiler, at
+    times, hands back the runtime calls alone, or drops one kernel's
+    event) is taken again, at most twice."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2605,10 +2617,10 @@ def device_ms_by_kernel(fn, names) -> dict:
         ev = prof.key_averages()
         ms = {n: sum(e.self_device_time_total for e in ev if n in e.key)
               / 1e3 for n in names}
-        if any(e.self_device_time_total > 0 for e in ev):
+        if all(t > 0 for t in ms.values()):
             break
-        log(f"    the profiler saw no kernel (attempt {attempt + 1}): "
-            f"{sorted({e.key for e in ev})}")
+        log(f"    the profiler saw no event of a kernel (attempt "
+            f"{attempt + 1}): {ms} among {sorted({e.key for e in ev})}")
     if not all(t > 0 for t in ms.values()):
         raise AssertionError(f"no device time for a kernel: {ms} among "
                              f"{sorted({e.key for e in ev})}")
@@ -2736,6 +2748,120 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
                                    plain_ms=plain_ms, **bounds[n],
                                    library_ms=lib,
                                    main=name.startswith("vit_tiles")))
+        del got, full
+    torch.cuda.empty_cache()
+    return records
+
+
+def rank_forms(device, packed: dict):
+    """(name, args, kwargs) of the flash kernels at the shapes one rank of
+    a training mesh gives them (``parallel/mesh.py``, ``parallel/ring.py``):
+    under tensor = 2 the ViT's 8 of 16 heads on 8 tiles and the LLM's 8/4
+    of 16/8 heads on the packed 8192 tokens (q rotated in the kernel, as a
+    rank's decoder calls it); under seq = 2 across ranks the rectangles the
+    scan ring cuts from the zigzag shards of that row, each rank's
+    (queries, chunk) pair with work (q and k rotated before the ring)."""
+    from v2pe_tpu_torch.parallel import ring
+    from v2pe_tpu_torch.train.synth import zigzag_permutation
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(device=device,
+                                                    dtype=torch.bfloat16)
+
+    def arange(B, S):
+        return torch.arange(S, dtype=torch.int32,
+                            device=device).expand(B, S).contiguous()
+
+    ones = torch.ones(8, 1025, dtype=torch.int32, device=device)
+    forms = [("rank_tensor2_vit_8x1025_8x64_bf16", (
+        randn(8, 1025, 8, 64), randn(8, 1025, 8, 64), randn(8, 1025, 8, 64),
+        ones, ones, arange(8, 1025), arange(8, 1025)),
+        dict(causal=False, scale=64 ** -0.5))]
+    seg = packed["segment_ids"].to(device).clone()
+    S = seg.shape[1]
+    seg[:, S - 200:] = 0
+    forms.append((f"rank_tensor2_llm_packed_{S}_8_4x128_qrope_bf16", (
+        randn(1, S, 8, 128), randn(1, S, 4, 128), randn(1, S, 4, 128), seg,
+        seg, arange(1, S), arange(1, S)),
+        dict(causal=True, scale=128 ** -0.5,
+             rope_q=packed["rope_pos_ids"].to(device), rope_theta=1e6)))
+    perm = torch.as_tensor(zigzag_permutation(S, 2), device=device)
+    seg_z = seg[:, perm].contiguous()
+    pos_z = perm.to(torch.int32)[None].contiguous()
+    q, k, v = randn(1, S, 16, 128), randn(1, S, 8, 128), randn(1, S, 8, 128)
+    table = ring.branch_table(ring.RingStatics(True, 1.0), 2, seg_z, seg_z,
+                              pos_z, pos_z).tolist()
+    half = S // 2
+    for r, c in itertools.product(range(2), range(2)):
+        rect = ring._rectangle(table[r][c], r, c, half)
+        if rect is None:
+            continue
+        qr, kr = rect
+        forms.append((
+            f"rank_seq2_zigzag_{S}_r{r}_chunk{c}_q{qr.stop - qr.start}_"
+            f"k{kr.stop - kr.start}_bf16",
+            tuple(t[:, rows].contiguous() for t, rows in (
+                (q, qr), (k, kr), (v, kr), (seg_z, qr), (seg_z, kr),
+                (pos_z, qr), (pos_z, kr))),
+            dict(causal=True, scale=128 ** -0.5)))
+    return forms
+
+
+def phase_rank_forms(packed: dict, device: str = "cuda") -> dict:
+    """#1-#3 against their plain versions at the per-rank forms
+    (``rank_forms``), the kernels' outputs allocated full of NaN
+    (``nan_empty``): the forward's out and lse at TOL, the backward's
+    gradients at BWD_TOL / BWD_SAME_TOL; each with its device time, the
+    plain version's and the bound. Returns per-kernel form records (none
+    is a kernel's main form)."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+
+    records = {"flash_fwd": [], **{n: [] for n in BWD_KERNELS}}
+    for name, args, kw in rank_forms(torch.device(device), packed):
+        with nan_empty():
+            out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+            do = torch.randn(out.shape, generator=torch.Generator(
+            ).manual_seed(4)).to(out)
+            full = (*args, out, lse, do)
+            got = flash_bwd.flash_attention_bwd(*full, **kw)
+            torch.cuda.synchronize()
+        text, err = check_flash(name, args, kw, out, lse)
+        btext, ok, berr, brel = check_bwd(full, kw, got)
+        if not ok:
+            raise AssertionError(f"flash backward disagrees with twin at "
+                                 f"{name}: {btext}")
+        q, k, v, seg_q, seg_k, pos_q, pos_k = args
+        pairs = attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"])
+        ms = time_ms(lambda: flash_fwd.flash_attention_fwd(*args, **kw))
+        plain_ms = time_ms(
+            lambda: flash_fwd.flash_attention_fwd_torch(*args, **kw))
+        bound = attention_roof(q, k, v, pairs, 2, out, lse)
+        split = device_ms_by_kernel(
+            lambda: flash_bwd.flash_attention_bwd(*full, **kw),
+            [n + "_kernel" for n in BWD_KERNELS])
+        bplain = time_ms(
+            lambda: flash_bwd.flash_attention_bwd_torch(*full, **kw), iters=3)
+        bounds = {
+            "flash_bwd_dkv": attention_roof(q, k, v, pairs, 4, do, lse, lse,
+                                            got[1], got[2]),
+            "flash_bwd_dq": attention_roof(q, k, v, pairs, 3, do, lse, lse,
+                                           got[0])}
+        log(f"kernel {name}: {text}; bwd {btext}; fwd {ms:.3f} ms (twin "
+            f"{plain_ms:.3f}, bound {bound['bound_ms']:.4f} by "
+            f"{bound['bound_by']}), dkv {split['flash_bwd_dkv_kernel']:.3f} "
+            f"+ dq {split['flash_bwd_dq_kernel']:.3f} ms on the device (twin "
+            f"{bplain:.3f}, bound {bounds['flash_bwd_dkv']['bound_ms']:.4f} "
+            f"+ {bounds['flash_bwd_dq']['bound_ms']:.4f}); outputs into NaN")
+        records["flash_fwd"].append(dict(
+            form=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
+            library_ms=None, main=False))
+        for n in BWD_KERNELS:
+            records[n].append(dict(form=name, max_abs_err=berr,
+                                   max_rel_err=brel, ms=split[n + "_kernel"],
+                                   plain_ms=bplain, **bounds[n],
+                                   library_ms=None, main=False))
         del got, full
     torch.cuda.empty_cache()
     return records
@@ -3536,10 +3662,12 @@ def timed_steps(where: str, step, model, state, batch) -> list:
     return steps
 
 
-def phase_bench_recipe(model, cfg) -> dict:
+def phase_bench_recipe(model, cfg, against=None) -> dict:
     """Three steps of the bench recipe (make_train_step called directly,
     the first step bench.py's compile step): per-step loss, grad_norm,
-    time and launches, and the median rate of steps 2-3."""
+    time and launches, and the median rate of steps 2-3. ``against``: the
+    steps of ``phase_dist_train`` from the same weights, whose losses and
+    grad norms must match these within RING_TRAIN_TOL."""
     step, state, batch = bench_recipe(model, cfg)
     model.train()
     reset_launches()
@@ -3552,7 +3680,85 @@ def phase_bench_recipe(model, cfg) -> dict:
         f"(remat full, int8 Adam): median of steps 2-{BENCH_STEPS} "
         f"{ms:.1f} ms = {TRAIN_TOKENS / ms * 1e3:.0f} tok/s")
     check_train_steps(cfg, steps, BENCH_STEPS, "bench recipe")
+    if against is not None:
+        rel = [(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+                abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+               for a, b in zip(against, steps)]
+        log(f"dist train against the bench recipe, step by step: loss rel "
+            f"{[f'{r[0]:.2e}' for r in rel]} (tol "
+            f"{RING_TRAIN_TOL['loss']}), grad_norm rel "
+            f"{[f'{r[1]:.2e}' for r in rel]} (tol "
+            f"{RING_TRAIN_TOL['grad_norm']})")
+        if len(rel) != BENCH_STEPS or any(
+                r[0] > RING_TRAIN_TOL["loss"]
+                or r[1] > RING_TRAIN_TOL["grad_norm"] for r in rel):
+            raise AssertionError("the world-1 mesh's steps disagree with the "
+                                 "single-process steps")
     return counts
+
+
+def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
+    """The training path of a mesh of processes, as a world of 1 over NCCL:
+    the process group through ``parallel/bootstrap.py`` (a file store in a
+    temporary directory), a copy of the model placed on the 1-wide mesh
+    (``shard_model``: FSDP2 per decoder and ViT layer, DTensor parameters),
+    and BENCH_STEPS steps of ``make_train_step(mesh=MeshConfig())`` on the
+    bench recipe's batch (``make_global_batch``; the global CE denominator,
+    the reduce-scatter and the optimizer on the shards). Returns (launches,
+    steps); ``phase_bench_recipe`` then takes the same steps from the same
+    weights in one process and holds the two against each other."""
+    import copy
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.parallel import bootstrap
+    from v2pe_tpu_torch.parallel.context import ShardingContext
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        env = bootstrap.initialize_distributed(
+            device=device, init_method=f"file://{tmp}/store")
+        try:
+            import torch.distributed as dist
+
+            backend, world = dist.get_backend(), dist.get_world_size()
+            ctx = ShardingContext.from_mesh(config.MeshConfig())
+            placed = shard_model(copy.deepcopy(model), cfg, ctx)
+            n_dt = sum(isinstance(p, DTensor) for p in placed.parameters())
+            opt = build_optimizer(train_config(), placed, cfg)
+            step = make_train_step(cfg, opt, config.MeshConfig(),
+                                   img_context_token_id=IMG_CONTEXT_ID,
+                                   remat="full")
+            batch = bootstrap.make_global_batch(make_synthetic_batch(
+                cfg, 1, TRAIN_TOKENS, tiles_per_row=TRAIN_TILES, stride=64),
+                ctx, torch.device(device))
+            state = opt.init()
+            setup_s = time.perf_counter() - t0
+            placed.train()
+            reset_launches()
+            steps = timed_steps("dist train (world 1, NCCL, FSDP2)", step,
+                                placed, state, batch)
+            counts = read_launches()
+        finally:
+            bootstrap.shutdown()
+    del placed, opt, state, step
+    torch.cuda.empty_cache()
+    ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
+    log(f"dist train: launcher {env.launcher}, backend {backend}, world "
+        f"{world}, mesh (data, fsdp, seq, tensor) = (1, 1, 1, 1); {n_dt} "
+        f"DTensor parameters under FSDP2; set-up {setup_s:.1f} s; median of "
+        f"steps 2-{BENCH_STEPS} {ms:.1f} ms = "
+        f"{TRAIN_TOKENS / ms * 1e3:.0f} tok/s")
+    check_train_steps(cfg, steps, BENCH_STEPS, "dist train")
+    if n_dt != sum(1 for _ in model.parameters()):
+        raise AssertionError("dist train: not every parameter is a DTensor")
+    return counts, steps
 
 
 def profile_train(model, cfg) -> None:
@@ -5234,7 +5440,7 @@ def main(argv=None) -> int:
     for recs in (phase_bwd_sweep(), phase_paged_kernels(prompt_lens),
                  phase_quant_kernels(cfg), phase_quant_sweep(),
                  phase_ring_kernel(),
-                 phase_ring_bwd()):
+                 phase_ring_bwd(), phase_rank_forms(batch)):
         for name, more in recs.items():
             forms.setdefault(name, []).extend(more)
     lap("kernels")
@@ -5283,9 +5489,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     lap("lora")
     # last: the training paths update the weights
-    paths += [phase_train(model, cfg), phase_bench_recipe(model, cfg),
-              phase_ring_train(model, cfg)]
+    paths.append(phase_train(model, cfg))
     lap("train")
+    # the mesh's training path as a world of 1, on a copy of the weights the
+    # bench recipe then starts from
+    dist_counts, dist_steps = phase_dist_train(model, cfg)
+    paths += [dist_counts, phase_bench_recipe(model, cfg, dist_steps),
+              phase_ring_train(model, cfg)]
+    lap("dist train, bench recipe, ring train")
     paths += phase_compress_train(model, cfg)
     paths.append(phase_compress_fuse_only(model, cfg))
     paths.append(phase_seq_cls(model, cfg))

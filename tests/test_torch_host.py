@@ -87,7 +87,9 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
             "v2pe_tpu_torch.parallel.context", "v2pe_tpu_torch.parallel.ring",
             "v2pe_tpu_torch.parallel.ring_fused",
             "v2pe_tpu_torch.parallel.ulysses",
-            "v2pe_tpu_torch.parallel.shard_attn", "v2pe_tpu_torch.evalkit",
+            "v2pe_tpu_torch.parallel.shard_attn",
+            "v2pe_tpu_torch.parallel.bootstrap", "v2pe_tpu_torch.parallel.mesh",
+            "v2pe_tpu_torch.evalkit",
             "v2pe_tpu_torch.evalkit.mm_niah_long",
             "v2pe_tpu_torch.evalkit.cli", "v2pe_tpu_torch.data.validate",
             "v2pe_tpu_torch.models.safetensors_io",

@@ -229,7 +229,7 @@ def cross_attention_fuse(fuse: FuseLayer, cfg: LLMConfig, x_q: torch.Tensor,
 
 def _no_sharding(what: str) -> None:
     ctx = parallel_context.current()
-    if ctx is not None and ctx.seq_shards > 1:
+    if ctx is not None and (ctx.seq_shards > 1 or ctx.size("seq") > 1):
         raise NotImplementedError(
             f"{what} with a sharded sequence (--mesh_seq > 1) is not ported "
             f"(ROADMAP Queue 1 item 6)")

@@ -26,6 +26,9 @@ from torch import nn
 from v2pe_tpu_torch.core.config import VisionConfig
 from v2pe_tpu_torch.ops.attention import flash_attention
 from v2pe_tpu_torch.ops.norms import layer_norm, rms_norm
+from v2pe_tpu_torch.parallel import context as parallel_context
+from v2pe_tpu_torch.parallel.mesh import (column_input, is_split, row_linear,
+                                          tensor_sum)
 
 
 def _cubic_kernel(t: torch.Tensor, a: float = -0.75) -> torch.Tensor:
@@ -114,6 +117,11 @@ class VisionLayer(nn.Module):
         self.fc1 = nn.Linear(D, I)
         self.fc2 = nn.Linear(I, D)
 
+    def forward(self, cfg: VisionConfig, x, keep=None, masks=None):
+        """:func:`layer_forward` through the module's call, so that the
+        hooks of a sharded layer (FSDP2) run around it."""
+        return layer_forward(self, cfg, x, keep, masks)
+
 
 def _norm(cfg: VisionConfig, x, w, b):
     if cfg.norm_type == "rms_norm":
@@ -121,23 +129,41 @@ def _norm(cfg: VisionConfig, x, w, b):
     return layer_norm(x, w, b, cfg.layer_norm_eps)
 
 
+def _split_rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+                    width: int) -> torch.Tensor:
+    """``rms_norm`` over a dimension of ``width`` whose slices lie on the
+    tensor ranks: the mean of squares is summed across them."""
+    xf = x.float()
+    var = tensor_sum((xf * xf).sum(dim=-1, keepdim=True)) / width
+    return weight * (xf * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 def _attention(p: VisionLayer, cfg: VisionConfig, x: torch.Tensor):
     B, N, D = x.shape
-    H, hd = cfg.num_attention_heads, cfg.head_dim
-    qkv = p.qkv(x).reshape(B, N, 3, H, hd)
+    hd = cfg.head_dim
+    # under a tensor axis the layer holds whole heads of each of q, k and v
+    # and the matching columns of proj (parallel/mesh.py)
+    split = is_split(p.proj, D)
+    H = p.proj.in_features // hd
+    qkv = p.qkv(column_input(x, split)).reshape(B, N, 3, H, hd)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if cfg.qk_normalization:
         # RMSNorm over the flattened (H * hd) dim, not per head
-        q = rms_norm(q.reshape(B, N, D), p.q_norm,
-                     cfg.layer_norm_eps).reshape(B, N, H, hd)
-        k = rms_norm(k.reshape(B, N, D), p.k_norm,
-                     cfg.layer_norm_eps).reshape(B, N, H, hd)
-    out = flash_attention(q, k, v, causal=False)
-    return p.proj(out.reshape(B, N, D))
+        def norm(t, w):
+            t = t.reshape(B, N, H * hd)
+            t = _split_rms_norm(t, w, cfg.layer_norm_eps, D) if split \
+                else rms_norm(t, w, cfg.layer_norm_eps)
+            return t.reshape(B, N, H, hd)
+
+        q, k = norm(q, p.q_norm), norm(k, p.k_norm)
+    out = flash_attention(q, k, v, causal=False).reshape(B, N, H * hd)
+    return row_linear(out, p.proj, split)
 
 
-def _mlp(p: VisionLayer, x: torch.Tensor) -> torch.Tensor:
-    return p.fc2(F.gelu(p.fc1(x), approximate="none"))
+def _mlp(p: VisionLayer, cfg: VisionConfig, x: torch.Tensor) -> torch.Tensor:
+    split = is_split(p.fc2, cfg.intermediate_size)
+    h = F.gelu(p.fc1(column_input(x, split)), approximate="none")
+    return row_linear(h, p.fc2, split)
 
 
 def drop_path(x: torch.Tensor, keep: torch.Tensor,
@@ -174,7 +200,7 @@ def layer_forward(p: VisionLayer, cfg: VisionConfig, x: torch.Tensor,
         branch = drop_path(branch, keep, masks[0])
     x = x + branch
     h = _norm(cfg, x, p.norm2, getattr(p, "norm2_bias", None))
-    branch = _mlp(p, h) * p.ls2
+    branch = _mlp(p, cfg, h) * p.ls2
     if masks is not None:
         branch = drop_path(branch, keep, masks[1])
     return x + branch
@@ -207,14 +233,22 @@ def vision_forward(model: InternVisionModel, cfg: VisionConfig,
             raise ValueError(f"select_layer {select_layer} out of range")
     keep = masks = None
     if drop_path_generator is not None and cfg.drop_path_rate > 0.0:
-        keep, masks = drop_path_masks(cfg, num_layers, x.shape[0],
+        # the masks of the global batch, as JAX draws them from one key:
+        # under a mesh this rank's tiles are the rows of its (data, fsdp)
+        # coordinate, and every coordinate holds as many
+        ctx = parallel_context.current()
+        at, count = (0, 1) if ctx is None else (ctx.dp_index, ctx.dp_size)
+        T = x.shape[0]
+        keep, masks = drop_path_masks(cfg, num_layers, T * count,
                                       drop_path_generator, x.device)
+        masks = masks[:, :, at * T:(at + 1) * T]
     remat = remat and torch.is_grad_enabled()
     for i, layer in enumerate(model.layers[:num_layers]):
         dp = () if masks is None else (keep[i], masks[i])
+        # the module's call: a sharded layer's hooks run around it
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
-                layer_forward, layer, cfg, x, *dp, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(layer, cfg, x, *dp,
+                                                  use_reentrant=False)
         else:
-            x = layer_forward(layer, cfg, x, *dp)
+            x = layer(cfg, x, *dp)
     return x

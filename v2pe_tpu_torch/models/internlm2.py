@@ -58,6 +58,8 @@ from v2pe_tpu_torch.ops.quantized_matmul import (QUANT_WEIGHT_NAMES,
                                                  quantized_dot_stacked)
 from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      scale_positions)
+from v2pe_tpu_torch.parallel.mesh import (column_input, is_split,
+                                          row_linear, row_output)
 
 
 @dataclasses.dataclass
@@ -111,6 +113,11 @@ class LLMLayer(nn.Module):
         self.w3 = nn.Linear(D, I, bias=False)
         self.w2 = nn.Linear(I, D, bias=False)
 
+    def forward(self, cfg: LLMConfig, x, cos, sin, **kw):
+        """:func:`layer_forward` through the module's call, so that the
+        hooks of a sharded layer (FSDP2) run around it."""
+        return layer_forward(self, cfg, x, cos, sin, **kw)
+
 
 class InternLM2Model(nn.Module):
     def __init__(self, cfg: LLMConfig):
@@ -135,6 +142,8 @@ class QuantizedLLMLayer(nn.Module):
         self.ffn_norm = ffn_norm
         self.wqkv_bias = wqkv_bias
         self.wo_bias = wo_bias
+
+    forward = LLMLayer.forward
 
 
 class QuantizedInternLM2(nn.Module):
@@ -200,13 +209,15 @@ def _dot(x: torch.Tensor, w, bias: Optional[torch.Tensor] = None):
     return y if bias is None else y + bias
 
 
-def split_wqkv(qkv: torch.Tensor, cfg: LLMConfig):
+def split_wqkv(qkv: torch.Tensor, cfg: LLMConfig, kv_heads=None):
     """(B, S, Hkv*(2+G)*hd) -> q (B,S,Hq,hd), k/v (B,S,Hkv,hd): per kv head,
-    G query slots, then k, then v."""
+    G query slots, then k, then v. ``kv_heads``: the KV heads present (a
+    tensor rank's share; default all)."""
     B, S, _ = qkv.shape
     G = cfg.num_key_value_groups
-    qkv = qkv.reshape(B, S, cfg.num_key_value_heads, 2 + G, cfg.head_dim)
-    q = qkv[:, :, :, :G].reshape(B, S, cfg.num_attention_heads, cfg.head_dim)
+    Hkv = kv_heads or cfg.num_key_value_heads
+    qkv = qkv.reshape(B, S, Hkv, 2 + G, cfg.head_dim)
+    q = qkv[:, :, :, :G].reshape(B, S, Hkv * G, cfg.head_dim)
     return q, qkv[:, :, :, -2], qkv[:, :, :, -1]
 
 
@@ -239,7 +250,14 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
     B, S, _ = x.shape
     fused_rope = rope_pack is not None and kv_cache_layer is None \
         and paged is None
-    q, k, v = split_wqkv(_dot(x, p.wqkv, getattr(p, "wqkv_bias", None)), cfg)
+    # under a tensor axis the layer holds whole KV groups of wqkv's rows and
+    # the matching columns of wo (parallel/mesh.py)
+    hd = cfg.head_dim
+    split = is_split(p.wo, cfg.num_attention_heads * hd)
+    kv_heads = p.wo.in_features // (cfg.num_key_value_groups * hd) \
+        if split else None
+    q, k, v = split_wqkv(_dot(column_input(x, split), p.wqkv,
+                              getattr(p, "wqkv_bias", None)), cfg, kv_heads)
     if not fused_rope:
         q = apply_rotary(q, cos, sin)
     k = apply_rotary(k, cos, sin)
@@ -276,8 +294,10 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
             q_positions=positions, kv_positions=positions, causal=True,
             rope_positions=(rope_pack[0], None, rope_pack[1])
             if fused_rope else None)
-    return _dot(out.reshape(B, S, cfg.num_attention_heads * cfg.head_dim),
-                p.wo, getattr(p, "wo_bias", None))
+    out = out.reshape(B, S, -1)
+    if split:
+        return row_linear(out, p.wo, True)
+    return _dot(out, p.wo, getattr(p, "wo_bias", None))
 
 
 def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
@@ -340,13 +360,18 @@ def _two_part_decode_attention(q, k_new, v_new, k_buf, v_buf,
     return out.reshape(B, S, Hq, hd).to(q.dtype)
 
 
-def mlp_forward(p: LLMLayer, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: w2(silu(w1 x) * w3 x)."""
-    return _dot(F.silu(_dot(x, p.w1)) * _dot(x, p.w3), p.w2)
+def mlp_forward(p: LLMLayer, x: torch.Tensor,
+                split: bool = False) -> torch.Tensor:
+    """SwiGLU: w2(silu(w1 x) * w3 x). ``split``: the layer holds a tensor
+    rank's share of the FFN width."""
+    x = column_input(x, split)
+    return row_output(_dot(F.silu(_dot(x, p.w1)) * _dot(x, p.w3), p.w2),
+                      split)
 
 
 def _mlp_block(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp_forward(p, rms_norm(x, p.ffn_norm, cfg.rms_norm_eps))
+    return x + mlp_forward(p, rms_norm(x, p.ffn_norm, cfg.rms_norm_eps),
+                           is_split(p.w2, cfg.intermediate_size))
 
 
 def _checkpoint(fn, *args):
@@ -378,9 +403,8 @@ def _train_layers(layers, cfg: LLMConfig, x, cos, sin, remat, **kw):
     if not torch.is_grad_enabled():
         mode = "none"  # nothing to rematerialize without a backward
 
-    def run_layer(layer, x):
-        return layer_forward(layer, cfg, x, cos, sin,
-                             mlp_remat=mode == "attn_saved", **kw)
+    def run_layer(layer, x):  # the module's call: a sharded layer's hooks
+        return layer(cfg, x, cos, sin, mlp_remat=mode == "attn_saved", **kw)
 
     def run_block(x, *block):
         for layer in block:

@@ -19,6 +19,7 @@ from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.intern_vit import InternVisionModel, vision_forward
 from v2pe_tpu_torch.ops.norms import layer_norm
 from v2pe_tpu_torch.parallel import context as parallel_context
+from v2pe_tpu_torch.parallel.mesh import column_input, is_split, row_linear
 
 
 class Projector(nn.Module):
@@ -39,6 +40,11 @@ class InternVLChatModel(nn.Module):
         self.llm = internlm2.InternLM2Model(cfg.llm)
         vit_hidden = cfg.vision.hidden_size * int(1 / cfg.downsample_ratio) ** 2
         self.mlp1 = Projector(vit_hidden, cfg.llm.hidden_size)
+
+    def forward(self, cfg: VLMConfig, **kw) -> "VLMOutput":
+        """The module function :func:`forward` through the module's call,
+        so that the hooks of a sharded model (FSDP2) run around it."""
+        return forward(self, cfg, **kw)
 
 
 def with_llm(model: InternVLChatModel, llm: nn.Module) -> InternVLChatModel:
@@ -84,7 +90,10 @@ def extract_feature(model: InternVLChatModel, cfg: VLMConfig,
 
     p = model.mlp1
     h = layer_norm(vit, p.ln_weight, p.ln_bias, 1e-5)
-    h = p.fc2(F.gelu(p.fc1(h), approximate="none"))
+    # under a tensor axis fc1 holds a slice of its outputs, fc2 of its inputs
+    split = is_split(p.fc2, cfg.llm.hidden_size)
+    h = row_linear(F.gelu(p.fc1(column_input(h, split)), approximate="none"),
+                   p.fc2, split)
 
     if cfg.img_emb_down_sample_ratio is not None:
         # adaptive 1-D average pool along tokens: bucket i covers

@@ -60,13 +60,27 @@ def _empty_model(cfg: VLMConfig, device, dtype,
     return model.to_empty(device=device or "cpu").to(dtype).eval()
 
 
+def _placed(model: InternVLChatModel, cfg: VLMConfig, mesh):
+    """``model`` placed on ``mesh`` (a ``ShardingContext`` whose mesh spans
+    processes): each rank keeps its shard of the whole weights it was
+    given (``parallel/mesh.py:shard_model``); None leaves it whole."""
+    if mesh is None:
+        return model
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+
+    return shard_model(model, cfg, mesh)
+
+
 @torch.no_grad()
 def init_vlm_params(cfg: VLMConfig, generator: torch.Generator,
-                    device=None, dtype=torch.float32) -> InternVLChatModel:
+                    device=None, dtype=torch.float32,
+                    mesh=None) -> InternVLChatModel:
     """A model with the JAX init's shapes and scales: linear and embedding
     weights N(0, 0.02), class and position embeddings N(0, 1), biases 0,
     norm weights 1, LayerScale ``initializer_factor``. Draws come from
-    ``generator``, which must live on ``device``."""
+    ``generator``, which must live on ``device``. With ``mesh`` (a
+    ``ShardingContext``) each rank draws the whole weights from its own
+    generator (seed them alike) and keeps its shard."""
     model = _empty_model(cfg, device, dtype)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
@@ -80,7 +94,7 @@ def init_vlm_params(cfg: VLMConfig, generator: torch.Generator,
             p.normal_(0.0, 0.02, generator=generator)
         else:  # RMSNorm / LayerNorm weights
             p.fill_(1.0)
-    return model
+    return _placed(model, cfg, mesh)
 
 
 class JaxLeaf(NamedTuple):
@@ -161,12 +175,15 @@ def _jax_state_dict(tree: dict, cfg: VLMConfig,
 
 @torch.no_grad()
 def from_jax_params(tree: dict, cfg: VLMConfig, device=None,
-                    dtype: Optional[torch.dtype] = None) -> InternVLChatModel:
+                    dtype: Optional[torch.dtype] = None,
+                    mesh=None) -> InternVLChatModel:
     """Build the port's model from the JAX parameter tree (leaves as numpy
     arrays or anything ``np.asarray`` takes), in ``dtype`` (float32 by
     default). A tree with a quantized ``llm`` gives a quantized decoder
     with the same codes and scales; a tree with ``compress`` (the JAX
-    ``init_compress_params``) gives the model its ``compress`` module."""
+    ``init_compress_params``) gives the model its ``compress`` module.
+    With ``mesh`` (a ``ShardingContext``) each rank keeps its shard of the
+    tree's weights (every rank passes the same tree)."""
     head = tree["llm"]["output_kernel"]
     bits = 8 if hasattr(head, "q") else 4 if hasattr(head, "p") else None
     group_size = getattr(head, "group_size", 128)
@@ -190,7 +207,7 @@ def from_jax_params(tree: dict, cfg: VLMConfig, device=None,
                     raise ValueError(
                         f"{attr}: the tree has {getattr(theirs, attr)}, the "
                         f"port's layout {getattr(ours, attr)}")
-    return model
+    return _placed(model, cfg, mesh)
 
 
 # --------------------------------------------------------------------------

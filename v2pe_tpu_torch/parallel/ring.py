@@ -2,13 +2,23 @@
 ``v2pe_tpu/parallel/ring.py``.
 
 Each of the ``n`` ranks of the ring holds one contiguous shard of the
-sequence: rank ``r``'s rows are ``[r * S/n, (r + 1) * S/n)`` of the global
-``(B, S, H, D)`` tensors, which all live on one card. At hop ``s`` rank
-``r`` attends the K/V chunk of rank ``r - s``; the JAX package rotates the
-chunks with a collective-permute, here the rotation is that index shift.
+sequence. At hop ``s`` rank ``r`` attends the K/V chunk of rank ``r - s``.
 Each (hop, rank) pair is one call of the flash forward
 (``ops/flash_fwd.py``) on the live sub-rectangle, merged into the rank's
-online-softmax state through the logsumexp contract.
+online-softmax state through the logsumexp contract. Two transports:
+
+* every shard on one card (:func:`ring_flash_attention`): rank ``r``'s rows
+  are ``[r * S/n, (r + 1) * S/n)`` of the global ``(B, S, H, D)`` tensors,
+  and the rotation is an index shift;
+* one rank a process (:func:`dist_ring_flash_attention`), over a
+  ``torch.distributed`` group: each rank holds its shard alone, and each
+  hop sends ``(k, v, seg, pos)`` to the next rank by
+  ``batch_isend_irecv``, the port of JAX's ``jax.lax.ppermute``; the
+  backward sends the chunk's ``(dk, dv)`` accumulators round the ring the
+  same way, so they arrive home after the last hop. The ranks all-gather
+  their few segment/position statistics once a call, so each rank picks
+  the rectangles the one-card ring picks, and every sum runs in the same
+  order.
 
 Causality is positional: every token carries its **global** index, so any
 host-side shard layout works. :func:`zigzag_shard` is the zigzag
@@ -104,6 +114,27 @@ def _use_halves(statics: RingStatics, shard_len: int) -> bool:
     return shard_len % 2 == 0 and half % 8 == 0 and half >= statics.block_q
 
 
+def _branches(statics: RingStatics, parts: int, q_any, q_max, k_any,
+              k_min):
+    """:func:`branch_table` from the per-(shard, part) statistics."""
+    # w[r, q part, c, k part]
+    w = q_any[:, :, None, None] & k_any[None, None]
+    if statics.causal:
+        w = w & (q_max[:, :, None, None] >= k_min[None, None])
+    if parts == 1:
+        return w[:, 0, :, 0].long()
+    w_ll, w_lh, w_hl, w_hh = w[:, 0, :, 0], w[:, 0, :, 1], w[:, 1, :, 0], \
+        w[:, 1, :, 1]
+    any_w = w_ll | w_hh | w_hl | w_lh
+    fits2 = ~(w_lh | w_hh)          # q_full x k_lo covers {ll, hl}
+    fits3 = ~(w_ll | w_lh)          # q_hi x k_full covers {hl, hh}
+    fits4 = w_hl & ~(w_ll | w_lh | w_hh)
+    branch = torch.where(fits3, 3, 1)
+    branch = torch.where(fits2, 2, branch)
+    branch = torch.where(fits4, 4, branch)
+    return torch.where(any_w, branch, 0)
+
+
 def branch_table(statics: RingStatics, n: int, seg_q, seg_k, pos_q, pos_k):
     """(n, n) int64 on the inputs' device: entry [r, c] is the minimal
     rectangle of work of rank r's queries against rank c's K/V chunk,
@@ -125,22 +156,7 @@ def branch_table(statics: RingStatics, n: int, seg_q, seg_k, pos_q, pos_k):
     parts = 2 if _use_halves(statics, seg_q.shape[1] // n) else 1
     q_any, q_max, _ = _part_stats(seg_q, pos_q, n, parts)
     k_any, _, k_min = _part_stats(seg_k, pos_k, n, parts)
-    # w[r, q part, c, k part]
-    w = q_any[:, :, None, None] & k_any[None, None]
-    if statics.causal:
-        w = w & (q_max[:, :, None, None] >= k_min[None, None])
-    if parts == 1:
-        return w[:, 0, :, 0].long()
-    w_ll, w_lh, w_hl, w_hh = w[:, 0, :, 0], w[:, 0, :, 1], w[:, 1, :, 0], \
-        w[:, 1, :, 1]
-    any_w = w_ll | w_hh | w_hl | w_lh
-    fits2 = ~(w_lh | w_hh)          # q_full x k_lo covers {ll, hl}
-    fits3 = ~(w_ll | w_lh)          # q_hi x k_full covers {hl, hh}
-    fits4 = w_hl & ~(w_ll | w_lh | w_hh)
-    branch = torch.where(fits3, 3, 1)
-    branch = torch.where(fits2, 2, branch)
-    branch = torch.where(fits4, 4, branch)
-    return torch.where(any_w, branch, 0)
+    return _branches(statics, parts, q_any, q_max, k_any, k_min)
 
 
 def ring_schedule(statics: RingStatics, n: int, seg_q, seg_k, pos_q,
@@ -287,3 +303,154 @@ def ring_attention(q, k, v, *, seq_shards: int, q_segment_ids,
     return ring_flash_attention(
         seq_shards, statics, q, k, v, _i32(q_segment_ids),
         _i32(kv_segment_ids), _i32(q_positions), _i32(kv_positions))
+
+
+# --------------------------------------------------------------------------
+# The ring across processes
+# --------------------------------------------------------------------------
+
+
+def dist_ring_schedule(statics: RingStatics, group, seg_q, seg_k, pos_q,
+                       pos_k) -> list:
+    """:func:`ring_schedule` of a ring whose ranks each hold their own shard:
+    each rank's (shard, part) statistics are all-gathered over ``group``
+    (a few numbers a rank), then every rank builds the same table."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    parts = 2 if _use_halves(statics, seg_q.shape[1]) else 1
+    q_any, q_max, _ = _part_stats(seg_q, pos_q, 1, parts)
+    k_any, _, k_min = _part_stats(seg_k, pos_k, 1, parts)
+    mine = torch.stack([q_any.long(), q_max.long(), k_any.long(),
+                        k_min.long()])                      # (4, 1, parts)
+    every = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(every, mine, group=group)
+    st = torch.cat(every, dim=1)                           # (4, n, parts)
+    return _branches(statics, parts, st[0] != 0, st[1], st[2] != 0,
+                     st[3]).tolist()
+
+
+def _send_on(tensors, group, tag: int = 0):
+    """Start sending each tensor to the next rank of the ring and receiving
+    the previous rank's; returns (the receive buffers, the requests).
+    ``tag`` tells the chunks (0) from the backward's accumulators (1)."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    recv = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, group, tag)
+           for t in tensors]
+    ops += [dist.P2POp(dist.irecv, t, prv, group, tag) for t in recv]
+    return recv, dist.batch_isend_irecv(ops)
+
+
+def _wait(reqs) -> None:
+    for req in reqs:
+        req.wait()
+
+
+def _dist_ring_fwd(group, statics: RingStatics, q, k, v, seg_q, seg_k,
+                   pos_q, pos_k, schedule: list):
+    """n hops over the group; this rank's queries against the chunk the
+    hop brings, merged by lse. The next chunk is on its way while a hop
+    computes."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    _check_ring(1, q, k)
+    B, S, Hq, D = q.shape
+    out = torch.zeros((B, S, Hq, D), dtype=torch.float32, device=q.device)
+    lse = torch.full((B, Hq, S), NEG_INF, dtype=torch.float32,
+                     device=q.device)
+    chunk = (k, v, seg_k, pos_k)
+    for s in range(n):
+        c = (r - s) % n  # hop s brings the chunk of rank r - s
+        if s < n - 1:
+            nxt, reqs = _send_on(chunk, group)
+        rect = _rectangle(schedule[r][c], 0, 0, S)
+        if rect is not None:
+            qr, kr = rect
+            kc, vc, sk, pk = chunk
+            o_i, lse_i = flash_attention_fwd(
+                _rows(q, qr), _rows(kc, kr), _rows(vc, kr), _rows(seg_q, qr),
+                _rows(sk, kr), _rows(pos_q, qr), _rows(pk, kr),
+                causal=statics.causal, scale=statics.scale)
+            out[:, qr], lse[:, :, qr] = merge_partials(
+                out[:, qr], lse[:, :, qr], o_i, lse_i)
+        if s < n - 1:
+            _wait(reqs)
+            chunk = tuple(nxt)
+    return out.to(q.dtype), lse
+
+
+def _dist_ring_bwd(group, statics: RingStatics, res, do, schedule: list):
+    """The second pass: the chunks go round again with their fp32 (dk, dv)
+    accumulators; the hop that holds a chunk adds its share, and after the
+    last hop each accumulator is back on its chunk's rank."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse = res
+    S = q.shape[1]
+    do = do.to(q.dtype)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    chunk = (k, v, seg_k, pos_k)
+    for s in range(n):
+        c = (r - s) % n
+        if s < n - 1:
+            nxt, reqs = _send_on(chunk, group)
+        rect = _rectangle(schedule[r][c], 0, 0, S)
+        if rect is not None:
+            qr, kr = rect
+            kc, vc, sk, pk = chunk
+            dq_i, dk_i, dv_i = flash_attention_bwd(
+                _rows(q, qr), _rows(kc, kr), _rows(vc, kr), _rows(seg_q, qr),
+                _rows(sk, kr), _rows(pos_q, qr), _rows(pk, kr),
+                _rows(out, qr), _rows(lse, qr, axis=2), _rows(do, qr),
+                causal=statics.causal, scale=statics.scale)
+            dq[:, qr] += dq_i
+            dk[:, kr] += dk_i
+            dv[:, kr] += dv_i
+        (dk, dv), acc_reqs = _send_on((dk, dv), group, tag=1)
+        _wait(acc_reqs)
+        if s < n - 1:
+            _wait(reqs)
+            chunk = tuple(nxt)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _DistRingFlash(torch.autograd.Function):
+    """The ring across processes; its backward is the second pass."""
+
+    @staticmethod
+    def forward(ctx, group, statics, q, k, v, seg_q, seg_k, pos_q, pos_k):
+        schedule = dist_ring_schedule(statics, group, seg_q, seg_k, pos_q,
+                                      pos_k)
+        out, lse = _dist_ring_fwd(group, statics, q, k, v, seg_q, seg_k,
+                                  pos_q, pos_k, schedule)
+        ctx.save_for_backward(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse)
+        ctx.ring = (group, statics, schedule)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        group, statics, schedule = ctx.ring
+        return (None, None) + _dist_ring_bwd(group, statics,
+                                             ctx.saved_tensors, do,
+                                             schedule) + (None,) * 4
+
+
+def dist_ring_flash_attention(group, statics: RingStatics, q, k, v, seg_q,
+                              seg_k, pos_q, pos_k) -> torch.Tensor:
+    """Differentiable ring attention over the ranks of ``group``, each
+    holding its own shard: q (B, S/n, Hq, D), k/v (B, S/n, Hkv, D), ids
+    (B, S/n) int32 with GLOBAL positions (the zigzag shard of
+    ``collate_rows(seq_shards=n)``, say)."""
+    return _DistRingFlash.apply(group, statics, q.contiguous(),
+                                k.contiguous(), v.contiguous(),
+                                seg_q.contiguous(), seg_k.contiguous(),
+                                pos_q.contiguous(), pos_k.contiguous())

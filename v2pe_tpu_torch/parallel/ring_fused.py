@@ -18,7 +18,9 @@ operand, built on the device; in bf16 its TMA loads of k and v go through a
 tensor map of each chunk, encoded on the host from the same addresses (so
 at most 8 ranks in bf16). With every shard on one card the addresses point
 into the global k, v, segment-id and position tensors; what a ring over
-several cards changes is which addresses are written.
+several cards changes is which addresses are written. Across processes the
+context refuses the fused mode (``parallel/context.py``; ROADMAP Queue 2,
+"#11 across cards"): the scan ring runs there.
 
 The backward is the scan ring's second pass (the lse contract is the same),
 so ``fused_ring_attention`` is a drop-in forward upgrade of

@@ -1,23 +1,36 @@
 """Training CLI (port of ``v2pe_tpu/train/cli.py``): the same flags,
-training on one device.
+training on one device or on a mesh of processes, one a card.
+
+The bootstrap runs first (``parallel/bootstrap.py``): under a launcher
+(``V2PE_NUM_PROCESSES`` / ``V2PE_PROCESS_ID`` / ``V2PE_COORDINATOR``,
+SLURM, OpenMPI or torchrun) each process joins the process group, NCCL on
+``--platform cuda`` and gloo on ``--platform cpu``, and the
+``--mesh_data/fsdp/seq/tensor`` axes must multiply to the world size. Each
+rank packs the data of its (data, fsdp) coordinate. In one process without
+a launcher only ``--mesh_seq`` may exceed 1 (all its shards on the one
+device).
 
 Flags that need a module the port does not have yet raise
-``NotImplementedError``: a mesh axis other than ``seq`` above 1,
-``--compress_seq`` with ``--mesh_seq`` above 1, ``--offload_optimizer`` and
-a multi-host launcher. ``--use_llm_lora R`` / ``--use_backbone_lora R``
+``NotImplementedError``: ``--mesh_pipe`` and ``--pipe_microbatches``,
+``--compress_seq`` with any mesh axis above 1, LoRA under a launcher,
+``--use_8bit_optimizer`` with ``--mesh_fsdp`` or ``--mesh_tensor`` above 1,
+``--ring_mode fused`` with ``--mesh_seq`` across processes, and
+``--offload_optimizer``. ``--use_llm_lora R`` / ``--use_backbone_lora R``
 train LoRA adapters over the frozen model (checkpoints hold the adapters;
 ``tools/export_hf.py --lora-base`` exports merged weights);
 ``--compress_seq --fuse_method add|cross-attn --chunk_num N`` trains the
 compress-seq decoder (``models/compress_seq.py``).
 ``--model_name_or_path`` starts from an HF safetensors checkpoint
 (``models/params.py:load_safetensors_checkpoint``); ``--llm_arch`` picks the
-decoder family. ``--mesh_seq N --ring_mode scan|fused`` shards the
-sequence over ring attention with all ``N`` shards on the one device.
+decoder family.
 
 Example (a toy dataset and tokenizer, see the README):
   python -m v2pe_tpu_torch.train.cli --model_preset debug_tiny \
       --tokenizer tok/ --meta_path ds/meta.json --output_dir out \
       --max_steps 4 --save_steps 2 --max_packed_tokens 1024 --max_tiles 8
+Two processes on the CPU over gloo:
+  torchrun --nproc_per_node 2 -m v2pe_tpu_torch.train.cli --platform cpu \
+      --mesh_fsdp 2 ... (the same flags)
 """
 
 from __future__ import annotations
@@ -73,8 +86,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "raises when there is none) or, only when asked "
                         "for, the CPU")
     p.add_argument("--launcher", default="auto",
-                   choices=["auto", "env", "slurm", "mpi", "tpu", "none"],
-                   help="multi-host bootstrap detection "
+                   choices=["auto", "env", "slurm", "mpi", "torchrun",
+                            "none"],
+                   help="multi-process bootstrap detection "
                         "(dist_utils.py:32-104 analogue); 'auto' inspects "
                         "env vars, 'none' forces single-process")
     p.add_argument("--coordinator_port", type=int, default=8476)
@@ -170,17 +184,23 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list:
-    """The flags given that need a module the port lacks."""
+    """The flags given that need a module the port lacks (ROADMAP Queue 1
+    item 6)."""
     mesh = {a: getattr(args, f"mesh_{a}") for a in
-            ("data", "fsdp", "tensor", "pipe")}
+            ("data", "fsdp", "seq", "tensor")}
+    sharded = args.mesh_fsdp > 1 or args.mesh_tensor > 1
     checks = [
-        (any(v > 1 for v in mesh.values()), f"mesh axes {mesh}"),
+        (args.mesh_pipe > 1, "--mesh_pipe (parallel/pipeline.py)"),
         (args.pipe_microbatches, "--pipe_microbatches"),
-        (args.compress_seq and args.mesh_seq > 1,
-         "--compress_seq with --mesh_seq > 1 (ROADMAP Queue 1 item 6)"),
+        (args.compress_seq and any(v > 1 for v in mesh.values()),
+         f"--compress_seq with mesh axes {mesh}"),
+        ((args.use_llm_lora or args.use_backbone_lora) and
+         any(v > 1 for k, v in mesh.items() if k != "seq"),
+         "LoRA on a mesh of processes"),
+        (args.use_8bit_optimizer and sharded,
+         "--use_8bit_optimizer with --mesh_fsdp or --mesh_tensor > 1 "
+         "(int8 Adam over sharded leaves)"),
         (args.offload_optimizer, "--offload_optimizer"),
-        (args.launcher not in ("auto", "none"), f"--launcher "
-                                                f"{args.launcher}"),
     ]
     return [what for flag, what in checks if flag]
 
@@ -190,7 +210,8 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     missing = _unported(args)
     if missing:
-        raise NotImplementedError(f"not ported: {', '.join(missing)}")
+        raise NotImplementedError(f"not ported: {', '.join(missing)} "
+                                  "(ROADMAP Queue 1 item 6)")
 
     import dataclasses
 
@@ -204,6 +225,8 @@ def main(argv=None):
     from v2pe_tpu_torch.data.packing import PackedSampleIterator
     from v2pe_tpu_torch.models.params import (init_vlm_params,
                                               load_safetensors_checkpoint)
+    from v2pe_tpu_torch.parallel.bootstrap import initialize_distributed
+    from v2pe_tpu_torch.parallel.context import ShardingContext
     from v2pe_tpu_torch.train.metrics import build_metrics_hook
     from v2pe_tpu_torch.train.optimizer import TrainConfig
     from v2pe_tpu_torch.train.trainer import RunConfig, train
@@ -212,6 +235,14 @@ def main(argv=None):
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--platform cuda: no CUDA device is available; "
                            "pass --platform cpu to train on the CPU")
+    # the bootstrap comes before any use of the device
+    initialize_distributed(args.launcher, args.coordinator_port, device)
+    if device == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh_cfg = cfg_lib.MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
+                                  seq=args.mesh_seq,
+                                  tensor=args.mesh_tensor)
+    ctx = ShardingContext.from_mesh(mesh_cfg, ring_mode=args.ring_mode)
     cfg = getattr(cfg_lib, args.model_preset)()
     cfg = dataclasses.replace(
         cfg, rope_pos_id_version=args.rope_pos_id_version,
@@ -258,7 +289,10 @@ def main(argv=None):
         max_dynamic_patch=args.max_dynamic_patch,
         min_dynamic_patch=args.min_dynamic_patch,
         rope_pos_id_version=args.rope_pos_id_version,
-        rope_pos_id_stride=args.rope_pos_id_stride, seed=args.seed)
+        rope_pos_id_stride=args.rope_pos_id_stride, seed=args.seed,
+        # each (data, fsdp) coordinate packs distinct data; the ranks of
+        # one seq / tensor line share it
+        data_rank=ctx.dp_index, data_world_size=ctx.dp_size)
     packer = PackedSampleIterator(
         dsets, max_tokens=args.max_packed_tokens,
         max_tiles_per_row=args.max_tiles, seed=args.seed,
@@ -279,8 +313,10 @@ def main(argv=None):
         freeze_llm=args.freeze_llm, freeze_backbone=args.freeze_backbone,
         freeze_mlp=args.freeze_mlp, unfreeze_lm_head=args.unfreeze_lm_head,
         unfreeze_vit_layers=args.unfreeze_vit_layers)
-    hook = build_metrics_hook(args.output_dir, args.report_to)
-    mesh_cfg = cfg_lib.MeshConfig(seq=args.mesh_seq)
+    hook = build_metrics_hook(args.output_dir, args.report_to) \
+        if not torch.distributed.is_initialized() \
+        or torch.distributed.get_rank() == 0 else None
+    # train() places the model on the mesh (parallel/mesh.py:shard_model)
     return train(cfg, model, packer, run, tc, mesh_cfg=mesh_cfg,
                  img_context_token_id=ctx_id, ring_mode=args.ring_mode,
                  resume=not args.no_resume,

@@ -29,6 +29,14 @@ package.
 Dtypes: the Adam moments are kept in the parameters' dtype (optax's
 ``mu_dtype=None``); the arithmetic runs in fp32 and the update is added to
 the parameter in fp32, then cast back (``optax.apply_updates``).
+
+On a mesh (a model placed by ``parallel/mesh.py:shard_model``) the
+parameters are FSDP2 DTensors: the chain runs on each rank's local shards,
+its moments are shards alike, and the global gradient norm sums each
+shard's squares over ``fsdp`` and ``tensor``, a parameter whole on every
+tensor rank counted once. Every mask and scale is elementwise, so the
+update equals the single-device one. int8 Adam needs whole leaves in JAX's
+flattened layout, so it refuses ``fsdp`` or ``tensor`` above 1.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from torch import nn
 from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.models.lora import LoRA, lora_leaf_map
 from v2pe_tpu_torch.models.params import JaxLeaf, jax_leaf_map
+from v2pe_tpu_torch.parallel.mesh import local, placement_of
 from v2pe_tpu_torch.train import adam8bit
 
 
@@ -220,6 +229,16 @@ class Optimizer:
                 "ported")
         self.tc = tc
         self.params = dict(model.named_parameters())
+        self.placement = placement_of(model)
+        ctx = self.placement.ctx if self.placement else None
+        if tc.use_8bit_optimizer and ctx is not None and \
+                (ctx.size("fsdp") > 1 or ctx.size("tensor") > 1):
+            raise NotImplementedError(
+                "int8 Adam over sharded leaves (--use_8bit_optimizer with "
+                "--mesh_fsdp or --mesh_tensor above 1): its 256-value blocks "
+                "run over each leaf flattened in JAX's layout, which a shard "
+                "of a torch (out, in) weight is not a run of (ROADMAP Queue "
+                "1 item 6)")
         leaves = leaf_map(model, cfg)
         self.decay = decay_mask(model, cfg)
         self.scales = lr_scale_tree(cfg, tc, leaves)
@@ -237,36 +256,47 @@ class Optimizer:
                        for k, v in groups.items()}
 
     def _segments(self, names):
-        sizes = [self.params[n].numel() for n in names]
+        sizes = [self._local(n).numel() for n in names]
         if all(s % adam8bit.BLOCK == 0 for s in sizes):
             return [[n] for n in names]
         return [list(names)]
 
+    def _local(self, n: str) -> torch.Tensor:
+        """This rank's shard of parameter ``n`` (the parameter itself off a
+        mesh): fetched each time, FSDP2 may re-pad it at its first
+        forward."""
+        return local(self.params[n])
+
+    def _total(self, per_param: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The sum of per-parameter partial sums over the whole model."""
+        if self.placement is not None:
+            return self.placement.sum_of_shards(per_param)
+        return sum(per_param.values())
+
     def init(self) -> dict:
         state = {"count": 0, "lr_count": 0}
+        zeros = {n: torch.zeros_like(self._local(n)) for n in self.params}
         if self.tc.use_8bit_optimizer:
             state["moments"] = {
-                k: adam8bit.zeros(sum(self.params[n].numel() for n in names),
+                k: adam8bit.zeros(sum(self._local(n).numel() for n in names),
                                   self.params[names[0]].device)
                 for k, names in self.groups.items()}
         else:
-            state["mu"] = {n: torch.zeros_like(p)
-                           for n, p in self.params.items()}
-            state["nu"] = {n: torch.zeros_like(p)
-                           for n, p in self.params.items()}
+            state["mu"] = zeros
+            state["nu"] = {n: torch.zeros_like(z) for n, z in zeros.items()}
         if self.tc.grad_accum_steps > 1:
             state["mini_step"] = 0
-            state["acc"] = {n: torch.zeros_like(p)
-                            for n, p in self.params.items()}
+            state["acc"] = {n: torch.zeros_like(z) for n, z in zeros.items()}
         return state
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor],
              state: dict) -> torch.Tensor:
         """One call of the chain; returns the global norm of ``grads`` (a
-        0-dim fp32 tensor on their device, not synced)."""
+        0-dim fp32 tensor on their device, not synced). On a mesh
+        ``grads`` are each rank's shards, reduced over every axis."""
         sq = _sums_of_squares(grads, self.params)
-        norm = torch.sqrt(sum(sq.values()))
+        norm = torch.sqrt(self._total(sq))
         k = self.tc.grad_accum_steps
         if k <= 1:
             self._update(grads, state, sq)
@@ -293,8 +323,8 @@ class Optimizer:
 
         # the clip's norm is over the masked gradients; a mask is 0 or 1,
         # so a leaf's masked sum of squares is its sum times its mask
-        norm = torch.sqrt(sum(s * mask[n] if n in mask else s
-                              for n, s in sq.items()))
+        norm = torch.sqrt(self._total({n: s * mask[n] if n in mask else s
+                                       for n, s in sq.items()}))
         keep = norm < tc.max_grad_norm
         state["count"] += 1
         bc1 = _bias_correction(tc.beta1, state["count"])
@@ -307,7 +337,7 @@ class Optimizer:
             return torch.where(keep, g, g / norm * tc.max_grad_norm)
 
         def finish(n, u):
-            p = self.params[n]
+            p = self._local(n)
             if self.decay[n]:
                 u = u + tc.weight_decay * p.float()
             u = u * self.scales[n] * -lr
@@ -316,7 +346,7 @@ class Optimizer:
             p.copy_(p.float() + u)
 
         if not tc.use_8bit_optimizer:
-            for n, p in self.params.items():
+            for n in self.params:
                 g = prepared(n)
                 mu, nu = state["mu"][n], state["nu"][n]
                 mu.copy_((1 - tc.beta1) * g + tc.beta1 * mu.float())
@@ -337,7 +367,7 @@ class Optimizer:
                 offset += flat.numel()
                 at = 0
                 for n, t in zip(seg, tr):
-                    p = self.params[n]
+                    p = self._local(n)
                     shape = _jax_layout(p, t).shape
                     u = out[at:at + p.numel()].reshape(shape)
                     at += p.numel()

@@ -1,5 +1,6 @@
-"""The training step (port of ``v2pe_tpu/train/train_step.py``) on one
-device: loss, backward, optimizer update in place.
+"""The training step (port of ``v2pe_tpu/train/train_step.py``): loss,
+backward, optimizer update in place, on one device or on every rank of a
+mesh.
 
 Batch contract (tensors on the model's device; ``data/packing.py`` and
 ``train/synth.py`` make it in numpy):
@@ -8,12 +9,20 @@ Batch contract (tensors on the model's device; ``data/packing.py`` and
   loss_weight (B,S) f32 | pixel_values (T,3,sz,sz) | image_flags (T,) i32
   vit_gather_idx (B,S) i32 (-1 = text token)
 
-``mesh`` is a ``MeshConfig``: its ``seq`` axis shards the sequence over
-ring attention with every shard on the model's card (``ring_mode`` 'scan'
-or 'fused'; the batch then arrives zigzag-permuted, as
-``collate_rows(seq_shards=n)`` makes it). Any other axis above 1,
-pipeline microbatches and the offloaded optimizer raise
-``NotImplementedError``.
+``mesh`` is a ``MeshConfig``. In a process without a process group only
+its ``seq`` axis may exceed 1: the sequence is sharded over ring attention
+with every shard on the model's card (``ring_mode`` 'scan' or 'fused'; the
+batch then arrives zigzag-permuted, as ``collate_rows(seq_shards=n)`` makes
+it). Under a process group the mesh covers the world, one rank a card
+(``parallel/context.py:from_mesh``); the model must be placed on it
+(``init_vlm_params(..., mesh=ctx)``, ``parallel/mesh.py``) and every rank
+passes its own batch (``parallel/bootstrap.py:make_global_batch``). The
+step then takes the CE's denominator as the GLOBAL weight sum (all-reduced
+over data, fsdp and seq; JAX's denominator is global under GSPMD), so the
+loss is a sum of the ranks' shares: FSDP2 reduce-scatters the gradients as
+sums over ``fsdp``, the step sums them over ``data`` and ``seq``, and the
+loss it returns is the global one. Pipeline microbatches and the offloaded
+optimizer raise ``NotImplementedError``.
 
 ``lora=True`` trains LoRA adapters (``models/lora.py``) over a frozen base
 model, as the JAX step does: the forward runs on the merged weights of
@@ -29,18 +38,20 @@ import torch
 from torch import nn
 
 from v2pe_tpu_torch.core.config import VLMConfig
-from v2pe_tpu_torch.models import internvl_chat
 from v2pe_tpu_torch.parallel import context as pctx
+from v2pe_tpu_torch.parallel.mesh import local, placement_of
 from v2pe_tpu_torch.train.optimizer import Optimizer
 
 
 def loss_fn(model: nn.Module, cfg: VLMConfig, batch: dict,
             img_context_token_id: int, remat=True,
-            drop_path_generator: Optional[torch.Generator] = None):
+            drop_path_generator: Optional[torch.Generator] = None,
+            loss_weight_sum: Optional[torch.Tensor] = None):
     """The weighted CE of one packed batch (the denominator is the batch's
-    own weight sum)."""
-    return internvl_chat.forward(
-        model, cfg, input_ids=batch["input_ids"],
+    own weight sum, or ``loss_weight_sum``). The model is called as a
+    module, so that a sharded model's hooks run."""
+    return model(
+        cfg, input_ids=batch["input_ids"],
         pixel_values=batch["pixel_values"],
         image_flags=batch["image_flags"],
         rope_pos_ids=batch["rope_pos_ids"],
@@ -49,7 +60,15 @@ def loss_fn(model: nn.Module, cfg: VLMConfig, batch: dict,
         token_positions=batch["token_positions"],
         vit_gather_idx=batch.get("vit_gather_idx"),
         targets=batch["targets"], loss_weight=batch["loss_weight"],
-        remat=remat, drop_path_generator=drop_path_generator).loss
+        loss_weight_sum=loss_weight_sum, remat=remat,
+        drop_path_generator=drop_path_generator).loss
+
+
+def global_weight_sum(ctx, batch: dict) -> torch.Tensor:
+    """The CE's denominator over every rank's tokens: the weight of the
+    valid targets, summed over data, fsdp and seq."""
+    w = batch["loss_weight"].float() * (batch["targets"] != -100)
+    return ctx.all_reduce(w.sum(), ("data", "fsdp", "seq"))
 
 
 def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
@@ -71,21 +90,38 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     # backward recomputes the fused forward like any other op
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
         mesh, ring_mode=ring_mode)
+    if lora and ctx is not None and ctx.mesh is not None:
+        raise NotImplementedError("LoRA under a process group is not ported "
+                                  "(ROADMAP Queue 1 item 6)")
 
     def update(trained, forward_model, opt_state, batch, gen):
         params = dict(trained.named_parameters())
+        placement = placement_of(trained)
+        if (ctx is not None and ctx.mesh is not None) != \
+                (placement is not None) or (placement is not None and
+                                            placement.ctx.mesh is not
+                                            ctx.mesh):
+            raise ValueError("the model must be placed on the step's mesh "
+                             "(init_vlm_params / from_jax_params with "
+                             "mesh=ShardingContext.from_mesh(...))")
         for p in params.values():
             p.grad = None
         with pctx.use_sharding(ctx):
+            wsum = None if placement is None else \
+                global_weight_sum(ctx, batch)
             loss = loss_fn(forward_model, cfg, batch, img_context_token_id,
-                           remat, gen)
+                           remat, gen, wsum)
             loss.backward()
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
+        grads = {n: local(p.grad) if p.grad is not None
+                 else torch.zeros_like(local(p)) for n, p in params.items()}
+        loss = loss.detach()
+        if placement is not None:
+            placement.reduce_grads(grads)
+            loss = ctx.all_reduce(loss.clone(), ("data", "fsdp", "seq"))
         gnorm = optimizer.step(grads, opt_state)
         for p in params.values():
             p.grad = None
-        return loss.detach(), gnorm
+        return loss, gnorm
 
     if not lora:
         def step(model, opt_state, batch, drop_path_generator=None):

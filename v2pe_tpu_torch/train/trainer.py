@@ -1,8 +1,13 @@
 """Training loop (port of ``v2pe_tpu/train/trainer.py``) on one device
-(the ``seq`` mesh axis, ring attention, runs with all its shards there):
-host-side packing in a background thread, the train step, asynchronous
-checkpoints and resume with the data-iterator state of the last CONSUMED
-batch."""
+or on every rank of a mesh: host-side packing in a background thread, the
+train step, asynchronous checkpoints and resume with the data-iterator
+state of the last CONSUMED batch.
+
+Under a process group each rank packs the rows of its (data, fsdp)
+coordinate (the caller shards the datasets by that coordinate, as the CLI
+does), so the ranks of one ``seq`` or ``tensor`` line see the same batch;
+each keeps its ``seq`` shard of the tokens (``make_global_batch``). Only
+rank 0 logs and reports metrics."""
 
 from __future__ import annotations
 
@@ -15,11 +20,15 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from v2pe_tpu_torch.core.config import MeshConfig, VLMConfig
 from v2pe_tpu_torch.data.packing import PackedSampleIterator, collate_rows
 from v2pe_tpu_torch.core import checkpoint as ckpt_lib
+from v2pe_tpu_torch.parallel import context as pctx
+from v2pe_tpu_torch.parallel.bootstrap import make_global_batch
+from v2pe_tpu_torch.parallel.mesh import placement_of, shard_model
 from v2pe_tpu_torch.train.optimizer import (TrainConfig, build_optimizer,
                                             lr_schedule)
 from v2pe_tpu_torch.train.train_step import make_train_step
@@ -103,9 +112,13 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     """Run the training loop on the model's device; returns (model,
     opt_state, step). The model is trained in place.
 
-    ``mesh_cfg.seq`` shards the sequence over ring attention on that one
-    device (the batches are collated zigzag-permuted); any other mesh axis
-    above 1 and the offloaded optimizer raise ``NotImplementedError``.
+    ``mesh_cfg.seq`` shards the sequence over ring attention (the batches
+    are collated zigzag-permuted): on that one device in a process without
+    a process group, where any other mesh axis above 1 raises
+    ``NotImplementedError``; across ranks under one. Under a process group
+    the model is placed on the mesh here unless it is already
+    (``parallel/mesh.py:shard_model``). The offloaded optimizer raises
+    ``NotImplementedError``.
 
     With ``use_backbone_lora`` / ``use_llm_lora`` > 0 (the ranks) the model
     stays frozen and only rank-r adapters train (``models/lora.py``,
@@ -113,8 +126,16 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     the adapters and their optimizer state only, resume restores the
     adapters, and the model returned is a new merged model (base +
     adapters, export-ready); the model passed in is left as it was."""
-    mesh = mesh_cfg if mesh_cfg and mesh_cfg.num_devices > 1 else None
+    grouped = dist.is_initialized()
+    mesh = mesh_cfg if mesh_cfg and (mesh_cfg.num_devices > 1 or grouped) \
+        else None
     seq_shards = mesh_cfg.seq if mesh_cfg else 1
+    ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
+        mesh, ring_mode=ring_mode)
+    if ctx is not None and ctx.mesh is not None and \
+            placement_of(model) is None:
+        shard_model(model, cfg, ctx)
+    lead = not grouped or dist.get_rank() == 0  # logs and reports
     if offload_optimizer:
         tc = dataclasses.replace(tc, use_8bit_optimizer=True,
                                  offload_optimizer=True)
@@ -143,7 +164,8 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
                 ckpt_lib.restore_checkpoint(last, trainable, opt_state)
             if data_state is not None:
                 packer.load_state_dict(data_state)
-            logger.info("resumed from %s at step %d", last, start_step)
+            if lead:
+                logger.info("resumed from %s at step %d", last, start_step)
 
     row_iter = iter(packer)
 
@@ -171,17 +193,17 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     try:
         for step in range(start_step, run.max_steps):
             batch, consumed_state = prefetch.next()
-            batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
-                     for k, v in batch.items()}
+            batch = make_global_batch(batch, ctx, device)
             gen = _dp_generator(run.seed, step, device) if use_dp else None
             if lora_mode:
                 loss, gnorm = step_fn(trainable, opt_state, batch, model,
                                       gen)
             else:
                 loss, gnorm = step_fn(model, opt_state, batch, gen)
-            tokens_since += run.rows_per_batch * run.max_packed_tokens
+            tokens_since += run.rows_per_batch * run.max_packed_tokens * (
+                1 if ctx is None else ctx.dp_size)
 
-            if (step + 1) % run.log_steps == 0:
+            if (step + 1) % run.log_steps == 0 and lead:
                 loss, gnorm = float(loss), float(gnorm)
                 dt = time.time() - t_last
                 tps = tokens_since / max(dt, 1e-9)
@@ -201,7 +223,8 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
                 path = save(run.output_dir, step + 1, trainable, opt_state,
                             data_state=consumed_state,
                             save_total_limit=run.save_total_limit, cfg=cfg)
-                logger.info("saved %s", path)
+                if lead:
+                    logger.info("saved %s", path)
     finally:
         prefetch.stop()
         if saver is not None:
