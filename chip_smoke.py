@@ -644,6 +644,7 @@ PAGED_TOL = {  # kernel against twin (twin in fp32)
     "store": 0.0,
 }
 LLM_L, LLM_HKV, LLM_HQ, LLM_HD = 24, 8, 16, 128  # InternVL2-2B's decoder
+NEG_INF_LSE = -1e30  # the lse of a query that attends nothing
 SESSION_CONTEXT = 34165  # tokens in the pool where the session decodes
 ENGINE_CONTEXT = 8192     # tokens of an engine row's prompt
 
@@ -679,6 +680,86 @@ def _rows(lengths, ps, extra, device):
         table[b, :need] = torch.arange(nxt, nxt + need)
         nxt += need
     return table.to(device), nxt
+
+
+POOL_SHARDS = 4  # the sequence shards of the sharded serving forms
+
+
+def _shard_rows(lengths, ps, extra, n, device):
+    """Page tables of rows holding ``lengths`` (+ extra) tokens over a pool
+    of ``n`` sequence shards, placed by ``paged_kv.allocate_rows`` (table
+    slot s on shard s % n) in a pool of as many pages as the rows take, a
+    shard's share plus its null page; (table, global pages)."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.infer import paged_kv as pk
+
+    need = [-(-(m + extra) // ps) for m in lengths]
+    NP = n * (max(sum(-(-(k - d) // n) for k in need) for d in range(n)) + 1)
+    tiny = config.LLMConfig(hidden_size=2, num_hidden_layers=1,
+                            num_attention_heads=1, num_key_value_heads=1)
+    cache = pk.PagedKVCache.zeros(tiny, len(lengths), NP, ps, max(need),
+                                  dtype=torch.float32, n_shards=n,
+                                  device=device)
+    cache = pk.allocate_rows(cache, torch.tensor(lengths, device=device)
+                             + extra)
+    return cache.page_table, NP
+
+
+def shard_forms(tag: str, q, g, device):
+    """The sharded serving path's forms of the paged kernels (one card
+    holding POOL_SHARDS shards of the pool): the engine's 8 rows of 8.2k to
+    11.8k tokens, whose fresh pages fall on every shard, and a retired row
+    (every entry dead) at page 512, each
+    shard's launch over its compacted table (``shard_views``): the store
+    standalone and riding in the T = 1 decode with ``fresh_pages`` (-1 for
+    the rows whose fresh page another shard holds), the T = 5 verify step
+    with the fresh tokens folded on shard 0 and left out on another, and a
+    2048-token chunk over row 0's 8k history on a compacted table with dead
+    entries. The stores write a 2-layer pool of the same pages (a store's
+    check copies the pool to the CPU); the reads run on the 24 layers."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    n, forms = POOL_SHARDS, []
+    rows = [ENGINE_CONTEXT + 517 * b for b in range(8)] + [0]
+    table, NP = _shard_rows(rows, 512, 8, n, device)
+    table[-1] = -1                                   # the retired row
+    lens = torch.tensor(rows, dtype=torch.int32, device=device)
+    views = pa.shard_views(table, lens, n, NP, 512, fresh=True)
+    B = len(rows)
+    small = _pool(2, NP, 512, tag, g, device)
+    for d in (1, 2):  # each holds the fresh pages of two rows
+        v = views[d]
+        forms.append(("paged_store", f"store_shard{d}of{n}_engine_B{B}_"
+                      f"ps512_{tag}", pa.store_fresh_token,
+                      dict(k_new=q(B, 1, LLM_HKV), v_new=q(B, 1, LLM_HKV),
+                           page_table=v.page_table, lengths=lens, layer=1,
+                           fresh_pages=v.fresh_pages, **small)))
+    v = views[1]
+    forms.append(("paged_decode", f"decode_store_shard1of{n}_engine_B{B}_"
+                  f"T1_ps512_{tag}", pa.paged_decode_attention,
+                  dict(q=q(B, 1), k_new=q(B, 1, LLM_HKV),
+                       v_new=q(B, 1, LLM_HKV), page_table=v.page_table,
+                       slot_base=v.slot_base, lengths=lens, layer=1,
+                       fresh_in_pages=True, return_lse=True, store=True,
+                       fresh_pages=v.fresh_pages, **small)))
+    pool = _pool(LLM_L, NP, 512, tag, g, device)
+    for d in (0, 3):
+        v = views[d]
+        forms.append(("paged_decode", f"decode_shard{d}of{n}_engine_B{B}_T5"
+                      f"_fold{int(d == 0)}_ps512_{tag}",
+                      pa.paged_decode_attention,
+                      dict(q=q(B, 5), k_new=q(B, 5, LLM_HKV),
+                           v_new=q(B, 5, LLM_HKV), page_table=v.page_table,
+                           slot_base=v.slot_base, lengths=lens,
+                           layer=LLM_L - 1, fold_fresh=int(d == 0),
+                           return_lse=True, **pool)))
+    v = views[2]
+    forms.append(("paged_prefill", f"prefill_shard2of{n}_2048_over_8k_"
+                  f"ps512_{tag}", pa.paged_prefill_attention,
+                  dict(q=q(1, 2048), page_table=v.page_table[:1],
+                       slot_base=v.slot_base[:1], lengths=lens[:1],
+                       layer=LLM_L - 1, **pool)))
+    return forms
 
 
 def paged_forms(device, prompt_lens):
@@ -811,6 +892,8 @@ def paged_forms(device, prompt_lens):
                            v_new=q(8, 5, LLM_HKV), page_table=table,
                            lengths=lens, layer=LLM_L - 1, return_lse=True,
                            **pool)))
+        del pool
+        forms += shard_forms(tag, q, g, device)
     return forms
 
 
@@ -847,27 +930,42 @@ def paged_roof(kernel: str, kw: dict) -> dict:
     of an int8 pool), the queries and the fresh k/v, write out and lse (and
     a riding store's slots), and run two products per (query, slot) pair
     and query head."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
     pool = kw["k_pages"]
-    Hkv, D = pool.shape[1], LLM_HD
+    Hkv, ps, D = pool.shape[1], pool.shape[3], LLM_HD
     quant = kw.get("k_scales") is not None
     # a slot's k and v: its stored bytes (D/2 for int4) and its scales
     slot = 2 * Hkv * (pool.shape[4] * pool.element_size()
                       + (4 if quant else 0))
     fresh = nbytes(kw.get("k_new"), kw.get("v_new"))
     lengths = kw["lengths"]
+    # a sequence shard's store writes only the rows whose page it holds
+    fp = kw.get("fresh_pages")
+    stored = lengths.numel() if fp is None else int((fp >= 0).sum())
     if kernel == "paged_store":
-        return roof(fresh + lengths.numel() * slot + nbytes(lengths), 0)
+        return roof(fresh * stored // lengths.numel() + stored * slot
+                    + nbytes(lengths, fp), 0)
     q = kw["q"]
     B, T, Hq, _ = q.shape
-    slots = int(lengths.sum()) + (B * T if kw.get("fresh_in_pages") else 0)
+    # the slots this table holds below each row's end (a shard's compacted
+    # table: its share), and the fresh slots among them
+    sb = kw.get("slot_base")
+    at = pa._slots(pa.default_slot_base(kw["page_table"], ps)
+                   if sb is None else sb, ps).long()
+    end = lengths.long()[:, None]
+    past = int(((at >= 0) & (at < end)).sum())
+    slots = past + (int(((at >= end) & (at < end + T)).sum())
+                    if kw.get("fresh_in_pages") else 0)
     out = q.numel() * q.element_size() + B * Hq * T * 4  # out and lse
     if kw.get("store"):  # a riding store writes its tokens' slots
         n = kw.get("store_n")
-        out += (B * T if n is None else int(n.sum())) * slot
+        out += (stored * T if n is None else int(n.sum())) * slot
     # causal among the fresh tokens: T (T + 1) / 2 more pairs where they are
-    # folded in separately
-    pairs = T * int(lengths.sum()) + (
-        B * T * (T + 1) // 2 if kernel == "paged_decode" else 0)
+    # folded in separately (on shard 0 alone)
+    folds = kernel == "paged_decode" and (kw.get("fresh_in_pages")
+                                          or kw.get("fold_fresh", 1))
+    pairs = T * past + (B * T * (T + 1) // 2 if folds else 0)
     return roof(slots * slot + fresh + nbytes(q, lengths) + out,
                 4.0 * D * Hq * pairs, q.dtype)
 
@@ -1009,6 +1107,12 @@ def phase_paged_kernels(prompt_lens) -> dict:
             check = paged_store_check if kw.get("store") else \
                 lambda fn, kw: paged_check(kernel, fn, kw)
             msg, ok, err = check(fn, kw)
+            if "_fold0_" in name:  # the retired row: every entry dead
+                out, lse = fn(**kw)
+                dead = not out[-1].any() and bool(
+                    (lse[-1] == NEG_INF_LSE).all())
+                msg += f"; the retired row out 0, lse -1e30 {dead}"
+                ok = ok and dead
             lib_ms = library_ms(gathered_attention(kernel, kw), iters=3)
             torch.cuda.empty_cache()
         ms = time_ms(lambda: fn(**kw), iters=3)
@@ -1380,11 +1484,21 @@ def phase_packed(chat, cfg, batch: dict) -> None:
         raise AssertionError("packed forward logits malformed")
 
 
-def _small_paged(model, cfg, dev: str):
+def _sharded(n: int):
+    """The context of a pool split into ``n`` sequence shards on this card
+    (``ShardingContext(seq_shards=n)``); none for one shard."""
+    from v2pe_tpu_torch.parallel.context import ShardingContext, use_sharding
+
+    return use_sharding(ShardingContext(seq_shards=n)) if n > 1 \
+        else contextlib.nullcontext()
+
+
+def _small_paged(model, cfg, dev: str, shards: int = 1):
     """The small model's paged path on one device: greedy tokens of a
     ragged paged generate, and the fp32 logits of two chunked prefills (the
     second over the first's pages), a 6-token step (separate-fresh fold)
-    and four decode steps (store, then attend)."""
+    and four decode steps (store, then attend); over a pool of ``shards``
+    sequence shards."""
     from v2pe_tpu_torch.infer import paged_kv as pk
     from v2pe_tpu_torch.infer.chunked_prefill import chunked_prefill
     from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
@@ -1395,15 +1509,17 @@ def _small_paged(model, cfg, dev: str):
     ids = rng.integers(3, 990, (2, 40))
     ids[1, 29:] = 0
     pos = np.broadcast_to(np.arange(40, dtype=np.float32), (2, 40)).copy()
-    tokens, _, lens = generate(
-        m, cfg, GenerationConfig(max_new_tokens=8), torch.as_tensor(ids),
-        torch.tensor([40, 29]), torch.as_tensor(pos),
-        torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32), 999,
-        cache_mode="paged", page_size=16)
+    with _sharded(shards):
+        tokens, _, lens = generate(
+            m, cfg, GenerationConfig(max_new_tokens=8), torch.as_tensor(ids),
+            torch.tensor([40, 29]), torch.as_tensor(pos),
+            torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32),
+            999, cache_mode="paged", page_size=16)
     seq = torch.as_tensor(rng.integers(3, 990, (1, 74)), device=dev)
     lc = cfg.llm
-    cache = pk.PagedKVCache.zeros(lc, 1, 12, 16, 10, dtype=torch.float32,
-                                  device=dev)
+    cache = pk.PagedKVCache.zeros(
+        lc, 1, 12 if shards == 1 else shards * (-(-10 // shards) + 1), 16,
+        10, dtype=torch.float32, device=dev, n_shards=shards)
     logits = []
     with torch.inference_mode():
         for a, b in ((0, 40), (40, 64)):
@@ -1475,6 +1591,61 @@ def phase_small_reference() -> None:
         f"{err:.3e} over {lg_cpu.shape[0]} positions (tol 1e-4)")
     if not same or err > 1e-4:
         raise AssertionError("card and CPU paged paths disagree")
+
+
+def phase_small_shard_reference() -> None:
+    """The small fp32 model's paged path and its engine over a pool of
+    POOL_SHARDS sequence shards on the card (each shard's kernel launches
+    merged by logsumexp) against the same on the CPU (the twins): greedy
+    tokens identical, logits to 1e-4; then held against the unsharded
+    run."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.params import init_vlm_params
+
+    cfg = config.VLMConfig(
+        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
+                                   num_hidden_layers=2, num_attention_heads=2,
+                                   image_size=112, patch_size=14),
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+                             intermediate_size=512, num_hidden_layers=2,
+                             num_attention_heads=4, num_key_value_heads=2),
+        rope_pos_id_stride=2)
+    model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
+    n = POOL_SHARDS
+    (tok_cpu, lg_cpu), (tok_gpu, lg_gpu), (tok_one, lg_one) = (
+        _small_paged(model, cfg, dev, shards=k)
+        for dev, k in (("cpu", n), ("cuda", n), ("cuda", 1)))
+    err = (lg_cpu - lg_gpu).abs().max().item()
+    same = torch.equal(tok_cpu, tok_gpu)
+    apart = (lg_gpu - lg_one).abs().max().item()
+    log(f"reference: small paged path fp32 over {n} sequence shards (page "
+        f"16), card vs CPU tokens {tok_gpu.shape[1]} x 2 identical {same}, "
+        f"max|dlogit| {err:.3e} over {lg_cpu.shape[0]} positions (tol "
+        f"1e-4); against one shard on the card: tokens identical "
+        f"{torch.equal(tok_gpu, tok_one)}, max|dlogit| {apart:.3e} (tol "
+        f"1e-4)")
+    if not same or err > 1e-4 or apart > 1e-4 or \
+            not torch.equal(tok_gpu, tok_one):
+        raise AssertionError("sharded small paged path disagrees")
+    tok = CodePointTokenizer()
+    runs = {}
+    for dev, k in (("cpu", n), ("cuda", n), ("cuda", 1)):
+        with _sharded(k):
+            runs[dev, k] = _small_engine(model, cfg, tok, dev)
+    (t_cpu, s_cpu, l_cpu, alone), (t_gpu, s_gpu, l_gpu, _), \
+        (t_one, s_one, _, _) = runs.values()
+    err = (l_cpu - l_gpu).abs().max().item()
+    ok = t_gpu == t_cpu == alone == t_one and s_gpu == s_cpu \
+        and err <= 1e-4
+    log(f"reference: small engine fp32 over {n} sequence shards: card "
+        f"tokens equal to the CPU's {t_gpu == t_cpu}, to isolated sharded "
+        f"generate {t_gpu == alone}, to one shard's {t_gpu == t_one}; stats "
+        f"{s_gpu} equal {s_gpu == s_cpu} (one shard's {s_one}: a pool of "
+        f"other pages evicts other prefixes); first-token max|dlogit| "
+        f"{err:.3e} (tol 1e-4)")
+    if not ok:
+        raise AssertionError(f"sharded small engine: card {t_gpu} {s_gpu}, "
+                             f"CPU {t_cpu} {s_cpu}, one shard {t_one}")
 
 
 # ----------------------------------------------------- phase 6: paged serve
@@ -2296,6 +2467,174 @@ def phase_spec_reads(chat, cfg) -> dict:
     return counts
 
 
+SHARD_ROWS, SHARD_NEW = 4, 64            # the sharded engine's rows
+SHARD_LONG, SHARD_LONG_NEW = 32768, 32   # the long prompt's tokens
+
+
+def shard_engine(chat, cfg, n: int, rows: int, context: int, new: int):
+    """``rows`` requests of ``context`` random tokens and ``new`` new each
+    through an engine built over ``n`` sequence shards (page 512, chunks of
+    2048, blocks of 64 steps, every row's pages reserved): (requests,
+    launches, seconds, the pool)."""
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    V = cfg.llm.vocab_size
+    max_len = context + new + 16
+    with _sharded(n):
+        eng = InferenceEngine(
+            chat, max_rows=rows, max_len=max_len, page_size=512,
+            pool_tokens=rows * -(-max_len // 512) * 512, chunk_size=2048,
+            decode_block=64, prefix_caching=False,
+            generation_config=GenerationConfig(max_new_tokens=new,
+                                               eos_token_ids=(V - 1,)))
+        rng = np.random.default_rng(41)
+        reqs = [eng.submit(rng.integers(10, V - 2, context),
+                           np.arange(context, dtype=np.float64),
+                           max_new_tokens=new) for _ in range(rows)]
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        counts = read_launches()
+        dt = time.perf_counter() - t0
+    if eng.cache.n_shards != n or eng.allocator.n_shards != n:
+        raise AssertionError(f"engine pool of {eng.cache.n_shards} shards")
+    return reqs, counts, dt, eng.cache
+
+
+def _generated(chat, cfg, served, n: int, **kw):
+    """The 8-tile request's greedy tokens through paged generate over ``n``
+    sequence shards, and the launches of that run."""
+    from v2pe_tpu_torch.infer.generate import generate
+
+    pix = served["pixels"]
+    args = (torch.as_tensor(served["ids"][None]),
+            torch.tensor([len(served["ids"])]),
+            torch.as_tensor(served["pos"][None]), torch.as_tensor(pix),
+            torch.ones(len(pix), dtype=torch.int32),
+            chat.img_context_token_id)
+    with _sharded(n):
+        reset_launches()
+        out, _, lens = generate(chat.model, cfg, served["gc"], *args,
+                                cache_mode="paged", page_size=128, **kw)
+        counts = read_launches()
+    return out[0, :int(lens[0])].cpu(), counts
+
+
+def _shared(a, b) -> str:
+    """Equal greedy tokens of two streams, position by position."""
+    return f"{sum(int(x == y) for x, y in zip(a, b))}/{max(len(a), len(b))}"
+
+
+def phase_seq_shards(model, cfg, tok, served: dict) -> list:
+    """Serving over a pool split into POOL_SHARDS sequence shards on this
+    card (``ShardingContext(seq_shards=4)``: each shard's pages behind its
+    own compacted table, one #5 / #6 launch a shard and layer, merged by
+    logsumexp; the store riding in each shard's decode launch with
+    ``fresh_pages``), each path against the unsharded run of the same
+    requests in this process: batch_chat of the three served requests (each
+    answer's greedy tokens against one shard's) and the 8-tile request's
+    logits (prefill and 4 decode steps) and greedy
+    tokens; the engine on 4 rows of 8192-token prompts and 64 new tokens;
+    one 32,768-token prompt through the engine's chunked prefill and 32
+    decode steps; int8 weights over an int8 pool (w8kv8). Logits within
+    LOGIT_TOL (bf16: other sums); equal tokens printed, not required.
+    Returns the sharded paths' launches."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+
+    n, paths = POOL_SHARDS, []
+    L = cfg.llm.num_hidden_layers
+    chat = ChatModel(model, cfg, tok, cache_mode="paged")
+    pixels = _request_pixels()
+    decode, ids = chat._decode, {}
+    dt, launches = {}, {}
+    for k in (1, n):
+        # each answer's greedy tokens, as chat() detokenizes them
+        ids[k] = []
+        chat._decode = lambda t, m, got=ids[k]: \
+            got.append([int(x) for x in t[:m]]) or decode(t, m)
+        with _sharded(k):
+            reset_launches()
+            t0 = time.perf_counter()
+            chat.batch_chat(pixels, [q for _, q in REQUESTS],
+                            GenerationConfig(max_new_tokens=MAX_NEW))
+            launches[k] = read_launches()
+        dt[k] = time.perf_counter() - t0
+    del chat._decode
+    counts = launches[n]
+    log(f"seq shards ({n}, batch_chat): 3 requests in {dt[n]:.3f}s (one "
+        f"shard {dt[1]:.3f}s); greedy tokens equal to one shard's "
+        f"{[_shared(a, b) for a, b in zip(ids[n], ids[1])]}; launches "
+        f"{counts} against one shard's {launches[1]}")
+    require(counts, ("flash_fwd", "paged_decode"), "seq shards batch_chat")
+    require_riding_store(counts, "seq shards batch_chat")
+    paths.append(counts)
+
+    ids, pos, pix = served["ids"], served["pos"], served["pixels"]
+    for name, m, kv in (("bf16", chat, None), ("w8kv8", None, "int8")):
+        if m is None:
+            m = ChatModel(model, cfg, tok, cache_mode="paged", kv_dtype=kv,
+                          weights_dtype="int8")
+        logits, toks, counts = {}, {}, {}
+        for k in (1, n):
+            with _sharded(k):
+                logits[k] = first_logits(m, cfg, ids, pos, pix,
+                                         served["tokens"], "paged",
+                                         kv_dtype=kv)
+            toks[k], counts[k] = _generated(m, cfg, served, k, kv_dtype=kv)
+        rel = _rel(logits[n], logits[1])
+        log(f"seq shards ({n}, {name}): the 8-tile request's logits "
+            f"(prefill + {DECODE_STEPS} steps) against one shard: "
+            f"max|dlogit|/max|logit| {rel:.3e} (tol {LOGIT_TOL}); greedy "
+            f"tokens equal {_shared(toks[n], toks[1])}; launches {counts[n]}"
+            f" against one shard's {counts[1]}")
+        if rel > LOGIT_TOL:
+            raise AssertionError(f"seq shards ({name}): logits apart")
+        require_riding_store(counts[n], f"seq shards ({name})")
+        if name == "w8kv8":
+            require(counts[n], ("qdot", "qdot_stacked"), "seq shards w8kv8")
+        # a decode step launches #5 once a shard and layer
+        if counts[n]["paged_decode"] != n * L * (len(toks[n]) - 1) or \
+                counts[1]["paged_decode"] != L * (len(toks[1]) - 1):
+            raise AssertionError(f"seq shards ({name}): {counts[n]} "
+                                 f"against {counts[1]}")
+        paths.append(counts[n])
+        del m
+    torch.cuda.empty_cache()
+
+    for label, rows, context, new in (
+            ("engine", SHARD_ROWS, ENGINE_CONTEXT, SHARD_NEW),
+            ("engine, long prompt", 1, SHARD_LONG, SHARD_LONG_NEW)):
+        runs = {k: shard_engine(chat, cfg, k, rows, context, new)
+                for k in (1, n)}
+        (reqs1, c1, dt1, pool1), (reqs, counts, dt, pool) = runs.values()
+        rel = max(_rel(a.first_logits.float(), b.first_logits.float())
+                  for a, b in zip(reqs, reqs1))
+        gen = sum(len(r.tokens) for r in reqs)
+        log(f"seq shards ({n}, {label}): {rows} x {context} tokens, {gen} "
+            f"generated in {dt:.3f}s ({(rows * context + gen) / dt:.1f} "
+            f"tok/s; one shard {dt1:.3f}s); pool {tuple(pool.k_pages.shape)}"
+            f" over {pool.n_shards} shards against {tuple(pool1.k_pages.shape)}"
+            f"; first-token logits against one shard max|dlogit|/max|logit| "
+            f"{rel:.3e} (tol {LOGIT_TOL}); greedy tokens equal "
+            f"{_shared(sum((r.tokens for r in reqs), []), sum((r.tokens for r in reqs1), []))}"
+            f"; launches {counts} against {c1}")
+        if rel > LOGIT_TOL or gen != rows * new:
+            raise AssertionError(f"seq shards ({label}): {rel} {gen}")
+        require(counts, ("flash_fwd", "paged_prefill", "paged_decode"),
+                f"seq shards ({label})")
+        require_riding_store(counts, f"seq shards ({label})")
+        if counts["paged_decode"] % (n * L) or \
+                c1["paged_decode"] % L:
+            raise AssertionError(f"seq shards ({label}): {counts}")
+        paths.append(counts)
+        del runs, pool, pool1
+        torch.cuda.empty_cache()
+    return paths
+
+
 def phase_beam(chat, cfg) -> None:
     """One text request with 3 beams at full width (a dense 3-row cache)."""
     from v2pe_tpu_torch.infer.generate import GenerationConfig
@@ -2599,32 +2938,22 @@ def bwd_forms(device, packed: dict):
     return forms + compress_forms(randn, packed, device)
 
 
-def device_ms_by_kernel(fn, names) -> dict:
-    """Device time of one call of ``fn`` per kernel whose name contains
-    each of ``names`` (torch.profiler's kernel events), in ms; raises when
-    a name matched no time, so that no record shows 0 ms. A trace that
-    came back without an event of each named kernel (the profiler, at
-    times, hands back the runtime calls alone, or drops one kernel's
-    event) is taken again, at most twice."""
-    from torch.profiler import ProfilerActivity, profile
+def bwd_kernel_ms(full, kw) -> dict:
+    """Device time of each backward kernel alone on ``full`` = (q, k, v,
+    ids..., out, lse, do), in ms (``time_ms``: CUDA events around calls
+    queued behind a spin): the launches the wrapper makes, on q and k
+    rotated as it rotates them. Timed one kernel at a time, since one
+    wrapper call launches both."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
 
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = prof.key_averages()
-        ms = {n: sum(e.self_device_time_total for e in ev if n in e.key)
-              / 1e3 for n in names}
-        if all(t > 0 for t in ms.values()):
-            break
-        log(f"    the profiler saw no event of a kernel (attempt "
-            f"{attempt + 1}): {ms} among {sorted({e.key for e in ev})}")
-    if not all(t > 0 for t in ms.values()):
-        raise AssertionError(f"no device time for a kernel: {ms} among "
-                             f"{sorted({e.key for e in ev})}")
-    return ms
+    full, kw = list(full), dict(kw)
+    theta = kw.pop("rope_theta", 0.0)
+    rope_q, rope_k = kw.pop("rope_q", None), kw.pop("rope_k", None)
+    if theta:
+        full[0], full[1] = flash_fwd._apply_rope(full[0], full[1], rope_q,
+                                                 rope_k, theta)
+    *_, launches = flash_bwd._bwd_launches(*full, **kw)
+    return {name: time_ms(launch, iters=3) for name, launch in launches}
 
 
 def _grad_rel(a, b) -> float:
@@ -2706,9 +3035,7 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
         text, ok, err, rel = check_bwd(full, kw, got)
         ms = time_ms(lambda: flash_bwd.flash_attention_bwd(*full, **kw),
                      iters=3)
-        split = device_ms_by_kernel(
-            lambda: flash_bwd.flash_attention_bwd(*full, **kw),
-            [n + "_kernel" for n in BWD_KERNELS])
+        split = bwd_kernel_ms(full, kw)
         plain_ms = time_ms(
             lambda: flash_bwd.flash_attention_bwd_torch(*full, **kw), iters=3)
         q, k, v, seg_q, seg_k, pos_q, pos_k = args
@@ -2730,8 +3057,8 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
                 f"same shapes as one causal sequence: "
                 f"{'none' if one is None else f'{one:.3f} ms'}")
         log(f"kernel bwd {name}: {text}; dkv "
-            f"{split['flash_bwd_dkv_kernel']:.3f} ms + dq "
-            f"{split['flash_bwd_dq_kernel']:.3f} ms on the device, wrapper "
+            f"{split['flash_bwd_dkv']:.3f} ms + dq "
+            f"{split['flash_bwd_dq']:.3f} ms on the device, wrapper "
             f"{ms:.3f} ms, twin {plain_ms:.3f} ms; bound dkv "
             f"{bounds['flash_bwd_dkv']['bound_ms']:.4f} ms + dq "
             f"{bounds['flash_bwd_dq']['bound_ms']:.4f} ms by "
@@ -2744,7 +3071,7 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
         for n in BWD_KERNELS:
             records[n].append(dict(form=name, max_abs_err=err,
                                    max_rel_err=rel,
-                                   ms=split[n + "_kernel"],
+                                   ms=split[n],
                                    plain_ms=plain_ms, **bounds[n],
                                    library_ms=lib,
                                    main=name.startswith("vit_tiles")))
@@ -2838,9 +3165,7 @@ def phase_rank_forms(packed: dict, device: str = "cuda") -> dict:
         plain_ms = time_ms(
             lambda: flash_fwd.flash_attention_fwd_torch(*args, **kw))
         bound = attention_roof(q, k, v, pairs, 2, out, lse)
-        split = device_ms_by_kernel(
-            lambda: flash_bwd.flash_attention_bwd(*full, **kw),
-            [n + "_kernel" for n in BWD_KERNELS])
+        split = bwd_kernel_ms(full, kw)
         bplain = time_ms(
             lambda: flash_bwd.flash_attention_bwd_torch(*full, **kw), iters=3)
         bounds = {
@@ -2850,8 +3175,8 @@ def phase_rank_forms(packed: dict, device: str = "cuda") -> dict:
                                            got[0])}
         log(f"kernel {name}: {text}; bwd {btext}; fwd {ms:.3f} ms (twin "
             f"{plain_ms:.3f}, bound {bound['bound_ms']:.4f} by "
-            f"{bound['bound_by']}), dkv {split['flash_bwd_dkv_kernel']:.3f} "
-            f"+ dq {split['flash_bwd_dq_kernel']:.3f} ms on the device (twin "
+            f"{bound['bound_by']}), dkv {split['flash_bwd_dkv']:.3f} "
+            f"+ dq {split['flash_bwd_dq']:.3f} ms on the device (twin "
             f"{bplain:.3f}, bound {bounds['flash_bwd_dkv']['bound_ms']:.4f} "
             f"+ {bounds['flash_bwd_dq']['bound_ms']:.4f}); outputs into NaN")
         records["flash_fwd"].append(dict(
@@ -2859,7 +3184,7 @@ def phase_rank_forms(packed: dict, device: str = "cuda") -> dict:
             library_ms=None, main=False))
         for n in BWD_KERNELS:
             records[n].append(dict(form=name, max_abs_err=berr,
-                                   max_rel_err=brel, ms=split[n + "_kernel"],
+                                   max_rel_err=brel, ms=split[n],
                                    plain_ms=bplain, **bounds[n],
                                    library_ms=None, main=False))
         del got, full
@@ -3745,9 +4070,11 @@ def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
             steps = timed_steps("dist train (world 1, NCCL, FSDP2)", step,
                                 placed, state, batch)
             counts = read_launches()
+            del placed, opt, state, step
+            torch.cuda.empty_cache()
+            serve_counts = dist_serve(model, cfg, ctx)
         finally:
             bootstrap.shutdown()
-    del placed, opt, state, step
     torch.cuda.empty_cache()
     ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
     log(f"dist train: launcher {env.launcher}, backend {backend}, world "
@@ -3758,7 +4085,54 @@ def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
     check_train_steps(cfg, steps, BENCH_STEPS, "dist train")
     if n_dt != sum(1 for _ in model.parameters()):
         raise AssertionError("dist train: not every parameter is a DTensor")
-    return counts, steps
+    return counts, steps, serve_counts
+
+
+def dist_serve(model, cfg, ctx) -> dict:
+    """Serving on a mesh of processes, as the world of 1 of phase 20's
+    process group: a copy of the model placed by ``shard_model`` (FSDP2 per
+    layer, DTensor parameters; the root's gathered once by the placement,
+    ``serving=True``, each layer's by its hooks at its call), paged generate of a 2048-token
+    prompt and 16 new tokens under the mesh's context, against the same on
+    the unplaced model. One pool shard and one tensor rank: the pool's
+    merge and the tensor all-reduces are not called, so this holds the
+    placement and the hooks, not the collectives. Returns the launches."""
+    import copy
+
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.parallel.context import use_sharding
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+
+    S = 2048
+    rng = np.random.default_rng(43)
+    args = (torch.as_tensor(rng.integers(10, cfg.llm.vocab_size - 2,
+                                         (1, S))), torch.tensor([S]),
+            torch.arange(S, dtype=torch.float32)[None],
+            torch.zeros(1, 3, 448, 448), torch.zeros(1, dtype=torch.int32),
+            -1)
+    gc = dict(max_new_tokens=16)
+    ref, _, _ = generate(model, cfg, GenerationConfig(**gc), *args,
+                         cache_mode="paged", page_size=512)
+    placed = shard_model(copy.deepcopy(model).eval(), cfg, ctx,
+                         serving=True)
+    with use_sharding(ctx):
+        reset_launches()
+        t0 = time.perf_counter()
+        got, _, lens = generate(placed, cfg, GenerationConfig(**gc), *args,
+                                cache_mode="paged", page_size=512)
+        counts = read_launches()
+    dt = time.perf_counter() - t0
+    del placed
+    torch.cuda.empty_cache()
+    log(f"dist serve (world 1, NCCL, FSDP2): paged generate of {S} tokens "
+        f"and {int(lens[0])} new in {dt:.3f}s through shard_model's "
+        f"placement; greedy tokens equal to the unplaced model's "
+        f"{_shared(got[0].tolist(), ref[0].tolist())}; launches {counts}")
+    if not torch.equal(got, ref):
+        raise AssertionError(f"dist serve: {got} against {ref}")
+    require(counts, ("flash_fwd", "paged_decode"), "dist serve")
+    require_riding_store(counts, "dist serve")
+    return counts
 
 
 def profile_train(model, cfg) -> None:
@@ -4749,8 +5123,8 @@ def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
     loss, _ = step(ad, state, batch, model)
     torch.cuda.synchronize()
     first = timer.tick(TRAIN_TOKENS)
-    for attempt in range(3):  # as device_ms_by_kernel: a trace that came
-        # back without kernel events is taken again, at most twice
+    for attempt in range(3):  # the profiler, at times, hands back the
+        # runtime calls alone: such a trace is taken again, at most twice
         with tempfile.TemporaryDirectory() as tmp:
             with profile_trace(tmp):
                 with step_marker("lora_step"):
@@ -5453,6 +5827,7 @@ def main(argv=None) -> int:
     phase_small_quant_reference()
     phase_small_engine_reference()
     phase_small_slice_reference()
+    phase_small_shard_reference()
     lap("references")
     served = phase_serve(chat, cfg)
     phase_stream(chat, cfg, served)
@@ -5473,6 +5848,9 @@ def main(argv=None) -> int:
     phase_beam(chat, cfg)
     del chat
     lap("engine")
+    # the serving paths over a pool split into sequence shards on this card
+    paths += phase_seq_shards(model, cfg, tok, served)
+    lap("seq shards")
     # the checkpoint written and read back, then the eval CLI's routes
     paths += phase_checkpoint_eval(model, cfg, tok)
     lap("checkpoint and eval")
@@ -5493,8 +5871,9 @@ def main(argv=None) -> int:
     lap("train")
     # the mesh's training path as a world of 1, on a copy of the weights the
     # bench recipe then starts from
-    dist_counts, dist_steps = phase_dist_train(model, cfg)
-    paths += [dist_counts, phase_bench_recipe(model, cfg, dist_steps),
+    dist_counts, dist_steps, serve_counts = phase_dist_train(model, cfg)
+    paths += [dist_counts, serve_counts,
+              phase_bench_recipe(model, cfg, dist_steps),
               phase_ring_train(model, cfg)]
     lap("dist train, bench recipe, ring train")
     paths += phase_compress_train(model, cfg)

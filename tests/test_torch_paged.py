@@ -407,9 +407,14 @@ def test_allocate_and_write_match_jax(kv):
 
 def test_pool_refuses_what_is_not_ported():
     cfg = _cfg_llm()
+    # sequence-sharded pools are ported: per-shard heads, each past its
+    # shard's null page; pages that do not split over the shards raise
     for kw in (dict(n_shards=2), dict(n_shards=4, kv_dtype="int4")):
-        with pytest.raises(NotImplementedError):
-            tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4, **kw)
+        pool = tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4, **kw)
+        n = kw["n_shards"]
+        assert pool.next_page.tolist() == [d * (8 // n) + 1 for d in range(n)]
+        with pytest.raises(ValueError):
+            tpk.PagedKVCache.zeros(port_config(cfg), 1, 9, 4, 4, **kw)
     # an int4 pool is ported: packed bytes, half the int8 pool's
     assert tpk.PagedKVCache.zeros(port_config(cfg), 1, 8, 4, 4,
                                   kv_dtype="int4").k_pages.shape[-1] == HD // 2

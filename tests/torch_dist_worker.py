@@ -18,6 +18,7 @@ import pickle
 import sys
 import traceback
 
+import numpy as np
 import torch
 
 torch.set_num_threads(1)
@@ -275,10 +276,121 @@ def _compress(spec, cfg, world):
     shard_model(model, cfg, _ctx({"fsdp": world}))
 
 
+# ---------------------------------------------------------------- serving
+
+
+def _served(spec, task, ctx):
+    """The spec's fp32 model, its decoder quantized first when the task says
+    (``bits``, ``group_size``), placed on ``ctx`` by ``shard_model``."""
+    from v2pe_tpu_torch.models.params import from_jax_params
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+
+    cfg = _cfg(spec)
+    model = from_jax_params(spec["tree"], cfg)
+    if task.get("bits"):
+        from v2pe_tpu_torch.models.internvl_chat import with_llm
+        from v2pe_tpu_torch.ops.quantized_matmul import quantize_llm_params
+
+        model = with_llm(model, quantize_llm_params(
+            model.llm, task["bits"], task.get("group_size", 128)))
+    return cfg, shard_model(model, cfg, ctx, serving=True)
+
+
+def _paged_steps(model, cfg, ids):
+    """The paged serving path step by step on (B, S) ids at positions
+    0..S-1: a 20-token prefill into empty pages, an 18-token chunk over the
+    history, a 5-token verify step across a page boundary (pages of 8),
+    then single-token decode steps; the fp32 logits of each step, and the
+    shape of this rank's pool."""
+    from v2pe_tpu_torch.infer import paged_kv as pk
+    from v2pe_tpu_torch.infer.chunked_prefill import chunked_prefill
+    from v2pe_tpu_torch.infer.generate import paged_prefill_cache
+    from v2pe_tpu_torch.models.internlm2 import llm_forward, local_kv_heads
+
+    llm, lc = model.llm, cfg.llm
+    ids = torch.from_numpy(ids)
+    B, S = ids.shape
+    cache = paged_prefill_cache(lc, B, 64, 8, None, torch.float32, "cpu",
+                                kv_heads=local_kv_heads(llm, lc))
+    pos = torch.arange(S, dtype=torch.float32).expand(B, S)
+    out, at = [], 0
+    for n in (20, 18, 5) + (1,) * (S - 43):
+        sl = slice(at, at + n)
+        if n == 18:
+            logits, cache = chunked_prefill(llm, lc, cache,
+                                            input_ids=ids[:, sl],
+                                            rope_pos_ids=pos[:, sl])
+        else:
+            step = torch.full((B,), n, dtype=torch.int32)
+            cache = pk.allocate_rows(cache, step)
+            logits, cache = llm_forward(llm, lc, input_ids=ids[:, sl],
+                                        rope_pos_ids=pos[:, sl],
+                                        paged_cache=cache)
+            cache = pk.advance_lengths(cache, step)
+        out.append(logits.numpy())
+        at += n
+    return {"logits": out, "pool": tuple(cache.k_pages.shape),
+            "shards": cache.n_shards}
+
+
+def _chat(spec, model, cfg):
+    from transformers import PreTrainedTokenizerFast
+
+    from v2pe_tpu_torch.infer.chat import ChatModel
+
+    tok = PreTrainedTokenizerFast.from_pretrained(spec["tokenizer"])
+    return ChatModel(model, cfg, tok, cache_mode="paged", page_size=4)
+
+
+def task_serve(spec, task):
+    """Serving under a mesh: each check of ``task["checks"]`` on the spec's
+    model placed on it, every rank's results gathered in rank order (the
+    ranks must agree: each ran the same scheduler on the same requests)."""
+    import torch.distributed as dist
+
+    from v2pe_tpu_torch.infer.generate import GenerationConfig, generate
+    from v2pe_tpu_torch.parallel.context import use_sharding
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    ctx = _ctx(task["mesh"])
+    cfg, model = _served(spec, task, ctx)
+    out = {}
+    with use_sharding(ctx), torch.no_grad():
+        for check in task["checks"]:
+            if check == "layers":
+                out[check] = _paged_steps(model, cfg, spec["ids"])
+            elif check in ("paged", "dense", "speculative"):
+                gc = GenerationConfig(max_new_tokens=6, speculative_k=3
+                                      if check == "speculative" else 0)
+                toks, _, lens = generate(
+                    model, cfg, gc,
+                    *[torch.from_numpy(x) for x in spec["gen_batch"]],
+                    spec["img_context_id"], page_size=4,
+                    cache_mode="dense" if check == "dense" else "paged")
+                out[check] = (toks.numpy(), lens.numpy())
+            elif check == "engine":
+                eng = InferenceEngine(
+                    _chat(spec, model, cfg), max_rows=2, max_len=64,
+                    page_size=4, chunk_size=16, decode_block=4,
+                    generation_config=GenerationConfig(
+                        max_new_tokens=6, eos_token_ids=(1,)))
+                reqs = [eng.submit(p, np.arange(len(p), dtype=np.float32),
+                                   max_new_tokens=6)
+                        for p in spec["prompts"]]
+                eng.run_until_idle()
+                out[check] = {"tokens": [r.tokens for r in reqs],
+                              "pool": tuple(eng.cache.k_pages.shape),
+                              "shards": eng.cache.n_shards,
+                              "stats": dict(eng.stats)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
 TASKS = {"train": task_train, "resume": task_resume,
          "ulysses": task_ulysses, "ring": task_ring,
          "drop_path": task_drop_path,
-         "refusals": task_refusals}
+         "refusals": task_refusals, "serve": task_serve}
 
 
 def main(path: str) -> int:

@@ -98,7 +98,8 @@ def port_paged_cache(jcache):
     def plain(x):
         return None if x is None else torch.from_numpy(np.array(x))
 
-    assert jcache.n_shards == 1
+    # a sequence-sharded pool crosses over whole (its next_page holds one
+    # head a shard): one card holds every shard
     return tpk.PagedKVCache(
         k_pages=pages(jcache.k_pages), v_pages=pages(jcache.v_pages),
         page_table=plain(jcache.page_table), lengths=plain(jcache.lengths),

@@ -37,7 +37,9 @@
 //   token in the pages the one block whose split covers the target slot
 //   stores it before its copies read it; in the fold mode (T <= 16) the
 //   last block of a (row, kv head) to finish reading stores the first
-//   store_n tokens.
+//   store_n tokens. A sequence shard's T = 1 store (fresh_pages, the Pallas
+//   store's override) takes each row's page from fresh_pages, -1 where
+//   another shard holds it: nothing is written for that row.
 //
 // - decode (T <= 16 fresh queries, R = T * G query rows per kv head; q row r
 //   is fresh token r / G): a memory-bound split-K kernel, as FlashDecoding
@@ -218,6 +220,8 @@ struct StoreParams {
   float* v_scales;
   const int* page_table;
   const int* lengths;
+  const int* fresh_pages;  // (B,) the fresh token's page, -1: none (a
+                           // sequence shard's); nullptr: from page_table
   int Hkv, NP, ps, MP, layer;
 };
 
@@ -275,14 +279,24 @@ __device__ __forceinline__ void store_vec(const T* src, void* pages,
 }
 
 // Standalone: one block per (row, kv head), warp 0 the k vector, warp 1
-// the v vector.
+// the v vector. With fresh_pages the row's page is fresh_pages[b] (-1: no
+// write), as the Pallas kernel's override is.
 template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(64) paged_store_kernel(const StoreParams p) {
   const int b = blockIdx.x, h = blockIdx.y;
   const int kv = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long slot = fresh_slot(
-      p.page_table + static_cast<size_t>(b) * p.MP, p.lengths[b], p.ps, p.MP,
-      (static_cast<size_t>(p.layer) * p.Hkv + h) * p.NP);
+  const size_t head = (static_cast<size_t>(p.layer) * p.Hkv + h) * p.NP;
+  const int length = p.lengths[b];
+  long long slot;
+  if (p.fresh_pages == nullptr) {
+    slot = fresh_slot(p.page_table + static_cast<size_t>(b) * p.MP, length,
+                      p.ps, p.MP, head);
+  } else {
+    const int page = p.fresh_pages[b];
+    slot = page < 0 ? -1
+                    : static_cast<long long>((head + page) * p.ps +
+                                             length % p.ps);
+  }
   if (slot < 0) return;
   const size_t src = (static_cast<size_t>(b) * p.Hkv + h) * D;
   store_vec<T, KV, D>(static_cast<const T*>(kv ? p.v_new : p.k_new) + src,
@@ -311,6 +325,9 @@ struct DecodeParams {
                    // a (row, kv head), one per (B, Hkv), zero
   const int* store_n;  // (B,): fresh tokens a row stores, a prefix of the
                        // T; nullptr: all T
+  const int* fresh_pages;  // (B,): store-then-attend's page (-1: none),
+                           // found among the row's entries; nullptr: the
+                           // entry min(length / ps, MP - 1)
   int T, Hq, Hkv, NP, ps, MP, layer;
   int fresh_in_pages, fold, store;
   int splits, span, rows;  // the plan: splits, slots a split (a multiple
@@ -386,7 +403,7 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
   // times the ring on a 16-byte boundary)
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ int red[DEC_THREADS / 32];
-  __shared__ int last, store_last;
+  __shared__ int last, store_last, fresh_entry;
   const int b = blockIdx.x, hk = blockIdx.y;
   const int split = blockIdx.z % p.splits, rb = blockIdx.z / p.splits;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -441,11 +458,23 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
     // block alone writes it, warp 0 the k and warp 1 the v, before any of
     // its copies; its stages then read the stored codes and scales, as a
     // read of the pool after a store launch would. No other block of the
-    // launch reads or writes that slot.
-    const int j = min(length / p.ps, p.MP - 1);
+    // launch reads or writes that slot. With fresh_pages (a sequence
+    // shard's compacted table) the target is the entry holding the row's
+    // fresh page; a row whose page another shard holds stores nothing.
+    int j = min(length / p.ps, p.MP - 1);
+    int page = table[j];
+    if (p.fresh_pages != nullptr) {
+      page = p.fresh_pages[b];
+      if (tid == 0) fresh_entry = -1;
+      __syncthreads();
+      for (int e = tid; e < p.MP && page >= 0; e += DEC_THREADS)
+        if (table[e] == page) atomicMax(&fresh_entry, e);
+      __syncthreads();
+      j = fresh_entry;
+    }
     const int vt = j * p.ps + length % p.ps;
-    if (vt >= v0 && vt < v1 && table[j] >= 0) {
-      if (warp < 2) put(0, warp, (head + table[j]) * p.ps + length % p.ps);
+    if (j >= 0 && page >= 0 && vt >= v0 && vt < v1) {
+      if (warp < 2) put(0, warp, (head + page) * p.ps + length % p.ps);
       __threadfence_block();
       __syncthreads();  // the stored slot before the block's copies
     }
@@ -1562,12 +1591,13 @@ struct Prefill {
 extern "C" int v2pe_paged_store(const void* k_new, const void* v_new,
                                 void* k_pages, void* v_pages, float* k_scales,
                                 float* v_scales, const int* page_table,
-                                const int* lengths, int B, int Hkv, int NP,
-                                int ps, int D, int MP, int layer, int is_bf16,
-                                int kv_bits, void* stream) {
+                                const int* lengths, const int* fresh_pages,
+                                int B, int Hkv, int NP, int ps, int D, int MP,
+                                int layer, int is_bf16, int kv_bits,
+                                void* stream) {
   const StoreParams p{k_new,      v_new,   k_pages, v_pages, k_scales,
-                      v_scales,   page_table, lengths, Hkv,  NP,
-                      ps,         MP,      layer};
+                      v_scales,   page_table, lengths, fresh_pages, Hkv,
+                      NP,         ps,      MP,      layer};
   return static_cast<int>(dispatch<Store>(p, B, D, is_bf16, kv_bits,
                                           static_cast<cudaStream_t>(stream)));
 }
@@ -1575,7 +1605,8 @@ extern "C" int v2pe_paged_store(const void* k_new, const void* v_new,
 // The plan (splits, span, rows) and, for splits > 1, the workspace and
 // zeroed counters come from the wrapper (ops/paged_attention.py:
 // decode_plan). store: write the fresh k/v of the first store_n[b] (all T
-// where store_n is NULL) tokens of each row into the pool, in this launch.
+// where store_n is NULL) tokens of each row into the pool, in this launch;
+// fresh_pages (T = 1 store-then-attend only): each row's page, -1 for none.
 extern "C" int v2pe_paged_decode(
     const void* q, const void* k_new, const void* v_new, const void* k_pages,
     const void* v_pages, const float* k_scales, const float* v_scales,
@@ -1583,11 +1614,12 @@ extern "C" int v2pe_paged_decode(
     void* out, float* lse, int B, int T, int Hq, int Hkv, int NP, int ps,
     int D, int MP, int layer, int is_bf16, int kv_bits, int fresh_in_pages,
     int fold, float scale, int splits, int span, int rows, float* ws,
-    int* counters, int store, const int* store_n, void* stream) {
+    int* counters, int store, const int* store_n, const int* fresh_pages,
+    void* stream) {
   const DecodeParams p{q,          k_new,      v_new,   k_pages, v_pages,
                        k_scales,   v_scales,   page_table, slot_base,
                        lengths,    out,        lse,     ws,      counters,
-                       store_n,    T,          Hq,      Hkv,     NP,
+                       store_n,    fresh_pages, T,      Hq,      Hkv,  NP,
                        ps,         MP,         layer,   fresh_in_pages,
                        fold,       store,      splits,  span,    rows,
                        scale};

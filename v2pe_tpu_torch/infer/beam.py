@@ -30,11 +30,12 @@ import torch
 from v2pe_tpu_torch.infer.generate import prompt_embeds
 from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.internlm2 import KVCache
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 NEG = -1e9
 
 
-@torch.inference_mode()
+@serving_mode
 def beam_generate(model, cfg, gc, input_ids: torch.Tensor,
                   prompt_lengths: torch.Tensor, rope_pos_ids: torch.Tensor,
                   pixel_values: torch.Tensor, image_flags: torch.Tensor,
@@ -66,7 +67,8 @@ def beam_generate(model, cfg, gc, input_ids: torch.Tensor,
     seg = (torch.arange(S, device=dev)[None] < prompt_lengths[:, None]
            ).to(torch.int32)
     slot = torch.arange(max_len, device=dev)[None]
-    cache = KVCache.zeros(cfg.llm, B, max_len, dtype=embeds.dtype, device=dev)
+    cache = KVCache.zeros(cfg.llm, B, max_len, dtype=embeds.dtype, device=dev,
+                          kv_heads=internlm2.local_kv_heads(llm, cfg.llm))
     hidden, cache = internlm2.llm_forward(
         llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
         segment_ids=seg, kv_cache=cache,

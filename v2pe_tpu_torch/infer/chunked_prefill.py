@@ -23,9 +23,10 @@ import torch
 
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.models import internlm2
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
-@torch.inference_mode()
+@serving_mode
 def chunked_prefill(llm, cfg, cache: pk.PagedKVCache,
                     input_ids: Optional[torch.Tensor] = None,
                     rope_pos_ids: Optional[torch.Tensor] = None,

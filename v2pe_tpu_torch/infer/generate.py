@@ -21,6 +21,7 @@ from v2pe_tpu_torch.core.config import VLMConfig
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.models import internlm2, internvl_chat
 from v2pe_tpu_torch.models.internlm2 import KVCache
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +98,19 @@ def prompt_embeds(model, cfg: VLMConfig, input_ids: torch.Tensor,
 
 
 def paged_prefill_cache(lcfg, batch: int, max_len: int, page_size: int,
-                        kv_dtype, dtype, device) -> pk.PagedKVCache:
-    """An empty pool for ``batch`` rows of up to ``max_len`` tokens: each
-    row's worst case plus the reserved null page."""
+                        kv_dtype, dtype, device,
+                        kv_heads: Optional[int] = None) -> pk.PagedKVCache:
+    """An empty pool for ``batch`` rows of up to ``max_len`` tokens, laid
+    out as the current ``ShardingContext`` says (``paged_kv.pool_shards``):
+    per shard, each row's worst round-robin share plus the shard's null
+    page, as JAX sizes it; ``kv_heads``: the heads held (a tensor rank's).
+    A pool that under a sharded context had one shard would drop pages."""
+    n, shard = pk.pool_shards()
     MP = -(-max_len // page_size)
-    return pk.PagedKVCache.zeros(lcfg, batch, batch * MP + 1, page_size, MP,
-                                 dtype=dtype, kv_dtype=kv_dtype,
-                                 device=device)
+    return pk.PagedKVCache.zeros(lcfg, batch, n * (batch * -(-MP // n) + 1),
+                                 page_size, MP, dtype=dtype,
+                                 kv_dtype=kv_dtype, device=device,
+                                 n_shards=n, shard=shard, kv_heads=kv_heads)
 
 
 def _decode_step(llm, lcfg, gc, cache, tok, pos, generator, kv_valid=None):
@@ -124,7 +131,7 @@ def _decode_step(llm, lcfg, gc, cache, tok, pos, generator, kv_valid=None):
     return _sample(logits[:, -1], gc, generator).to(torch.int32), cache
 
 
-@torch.inference_mode()
+@serving_mode
 def generate(model, cfg: VLMConfig, gc: GenerationConfig,
              input_ids: torch.Tensor,       # (B, S) int, right-padded
              prompt_lengths: torch.Tensor,  # (B,) true prompt lengths
@@ -140,6 +147,7 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
     its stop token; later slots of a finished row are 0."""
     _check_supported(gc, cache_mode, kv_dtype)
     llm = model.llm
+    heads = internlm2.local_kv_heads(llm, cfg.llm)
     device = llm.tok_embeddings.weight.device
     input_ids = input_ids.to(device)
     prompt_lengths = prompt_lengths.to(device)
@@ -164,7 +172,7 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
 
     if cache_mode == "paged":
         cache = paged_prefill_cache(cfg.llm, B, max_len, page_size, kv_dtype,
-                                    embeds.dtype, device)
+                                    embeds.dtype, device, kv_heads=heads)
         lengths = prompt_lengths.to(torch.int32)
         cache = pk.allocate_rows(cache, lengths)
         hidden, cache = internlm2.llm_forward(
@@ -174,7 +182,7 @@ def generate(model, cfg: VLMConfig, gc: GenerationConfig,
         kv_valid_fn = None
     else:
         cache = KVCache.zeros(cfg.llm, B, max_len, dtype=embeds.dtype,
-                              device=device)
+                              device=device, kv_heads=heads)
         hidden, cache = internlm2.llm_forward(
             llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
             segment_ids=seg, kv_cache=cache, kv_valid=kv_valid_at(0),

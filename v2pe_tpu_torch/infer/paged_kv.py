@@ -7,6 +7,16 @@ of shape (..., page_size, hd/2): ``ops/paged_attention.pack_int4``) carries
 fp32 scales per (layer, head, token) in (L, Hkv, n_pages, 1, page_size).
 Page 0 is the reserved null page: the allocator never hands it out.
 
+Sequence sharding (``n_shards > 1``, JAX's pool over the ``seq`` axis):
+shard d owns the global pages [d NP/n, (d+1) NP/n), its local page 0 is its
+null page, and :func:`allocate_rows` places a row's page at table slot s
+on shard s % n, so a row's pages spread evenly. On one card the pool holds
+every shard (``shard`` None); across processes each rank's pool holds only
+its shard's NP/n pages (``shard`` = its ``seq`` coordinate), and the writes
+below touch only the slots it owns. The page table and the lengths are
+global, the same on every rank. Under a ``tensor`` axis the pool holds a
+rank's kv heads (``kv_heads``).
+
 The port mutates the pool in place (the JAX package donates it to each jit
 call instead): every write below indexes into the pool tensors and returns
 the same tensors. Allocation and lengths stay tensors on the pool's device,
@@ -31,12 +41,15 @@ class PagedKVCache:
 
     k_pages/v_pages: (L, Hkv, n_pages, page_size, hd), or hd/2 packed bytes
         for an int4 pool
-    page_table: (B, max_pages_per_row) int32, physical page id or -1
+    page_table: (B, max_pages_per_row) int32, global page id or -1
     lengths: (B,) int32, tokens written per row
-    next_page: (1,) int32, the bump allocator's head (starts at page 1)
+    next_page: (n_shards,) int32, the shards' bump heads (shard d starts
+        at its local page 1, global d NP/n + 1)
     k_scales/v_scales: (L, Hkv, n_pages, 1, page_size) fp32, quantized
         pools only
     kv_bits: 8 or 4, the width of a quantized pool's codes
+    shard: None when the pool holds every page; across processes, the
+        shard whose NP/n pages it holds
     """
 
     k_pages: torch.Tensor
@@ -47,10 +60,26 @@ class PagedKVCache:
     k_scales: Optional[torch.Tensor] = None
     v_scales: Optional[torch.Tensor] = None
     kv_bits: int = 8
+    shard: Optional[int] = None
 
     @property
     def page_size(self) -> int:
         return self.k_pages.shape[3]
+
+    @property
+    def n_shards(self) -> int:
+        return self.next_page.shape[0]
+
+    @property
+    def n_pages(self) -> int:
+        """Global pages (this pool's times the shards when it holds one)."""
+        held = self.k_pages.shape[2]
+        return held if self.shard is None else held * self.n_shards
+
+    @property
+    def first_page(self) -> int:
+        """The global id of this pool's page 0."""
+        return 0 if self.shard is None else self.shard * self.k_pages.shape[2]
 
     @property
     def max_pages_per_row(self) -> int:
@@ -63,11 +92,18 @@ class PagedKVCache:
     @staticmethod
     def zeros(cfg: LLMConfig, batch: int, n_pages: int, page_size: int,
               max_pages_per_row: int, dtype=torch.bfloat16,
-              n_shards: int = 1, kv_dtype=None, device=None
-              ) -> "PagedKVCache":
-        if n_shards != 1:
-            raise NotImplementedError("a sequence-sharded pool belongs to the "
-                                      "multi-GPU slice")
+              n_shards: int = 1, kv_dtype=None, device=None,
+              shard: Optional[int] = None,
+              kv_heads: Optional[int] = None) -> "PagedKVCache":
+        """An empty pool of ``n_pages`` global pages over ``n_shards``;
+        ``shard``: hold only that shard's pages; ``kv_heads``: the heads
+        held (default all)."""
+        if n_shards < 1 or n_pages % n_shards:
+            raise ValueError(f"{n_pages} pages do not split over {n_shards} "
+                             f"shards")
+        if shard is not None and not 0 <= shard < n_shards:
+            raise ValueError(f"shard {shard} of {n_shards}")
+        held = n_pages if shard is None else n_pages // n_shards
         quant = kv_dtype in ("int8", "int4", torch.int8)
         bits = 4 if kv_dtype == "int4" else 8
         if quant:
@@ -77,8 +113,9 @@ class PagedKVCache:
         if bits == 4 and cfg.head_dim % 2:
             raise ValueError("an int4 pool packs two dims of a head per byte: "
                              "the head dim must be even")
-        shape = (cfg.num_hidden_layers, cfg.num_key_value_heads, n_pages,
-                 page_size, cfg.head_dim // 2 if bits == 4 else cfg.head_dim)
+        shape = (cfg.num_hidden_layers, kv_heads or cfg.num_key_value_heads,
+                 held, page_size,
+                 cfg.head_dim // 2 if bits == 4 else cfg.head_dim)
 
         def scales():
             return torch.zeros(shape[:3] + (1, page_size),
@@ -91,18 +128,23 @@ class PagedKVCache:
             page_table=torch.full((batch, max_pages_per_row), -1,
                                   dtype=torch.int32, device=device),
             lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
-            next_page=torch.ones((1,), dtype=torch.int32, device=device),
-            k_scales=scales(), v_scales=scales(), kv_bits=bits)
+            next_page=(torch.arange(n_shards, dtype=torch.int32,
+                                    device=device) * (n_pages // n_shards)
+                       + 1).to(torch.int32),
+            k_scales=scales(), v_scales=scales(), kv_bits=bits, shard=shard)
 
 
 def allocate_rows(cache: PagedKVCache, new_lengths: torch.Tensor
                   ) -> PagedKVCache:
     """Extend each row's page table to cover ``lengths + new_lengths``
-    tokens with freshly bumped pages, in row-major order. Idempotent: slots
-    that already hold a page keep it (a session that rolls tokens back by
-    resetting lengths reuses its pages)."""
+    tokens with freshly bumped pages. The page at table slot s comes from
+    shard s % n_shards' head, in row-major order within each shard (one
+    shard: row-major from page 1). Idempotent: slots that already hold a
+    page keep it (a session that rolls tokens back by resetting lengths
+    reuses its pages)."""
     ps = cache.page_size
     B, MP = cache.page_table.shape
+    n = cache.n_shards
     lengths = cache.lengths.long()
     need = -(-(lengths + new_lengths.long()) // ps)
     have = -(-lengths // ps)
@@ -110,11 +152,19 @@ def allocate_rows(cache: PagedKVCache, new_lengths: torch.Tensor
     take = (slot >= have[:, None]) & (slot < need[:, None]) \
         & (cache.page_table == -1)
     flat = take.reshape(-1).to(torch.int32)
-    rank = (torch.cumsum(flat, 0, dtype=torch.int32) - flat).reshape(B, MP)
-    table = torch.where(take, cache.next_page + rank, cache.page_table)
+    shard = (slot % n).expand(B, MP).reshape(-1)
+    rank = torch.zeros_like(flat)
+    counts = []
+    for d in range(n):
+        sel = flat * (shard == d)
+        rank += torch.where(shard == d,
+                            torch.cumsum(sel, 0, dtype=torch.int32) - sel, 0)
+        counts.append(sel.sum(dtype=torch.int32))
+    new = (cache.next_page[shard] + rank).reshape(B, MP)
+    table = torch.where(take, new, cache.page_table)
     return dataclasses.replace(
         cache, page_table=table.to(torch.int32),
-        next_page=cache.next_page + flat.sum(dtype=torch.int32))
+        next_page=cache.next_page + torch.stack(counts))
 
 
 def _flat(pages: torch.Tensor) -> torch.Tensor:
@@ -134,14 +184,18 @@ def token_slots(cache: PagedKVCache, T: int,
                 valid: Optional[torch.Tensor] = None):
     """Where T tokens per row go, at each row's current length: (flat slot
     page*ps + offset of every written token (n,), (B, T) mask of the
-    written ones). A token is written iff its page is allocated and, when
-    given, ``valid`` (B, T) holds. Reads the mask back to the host once."""
+    written ones). A token is written iff its page is allocated, in this
+    pool (a rank's shard: at the page's local id) and, when given,
+    ``valid`` (B, T) holds. Reads the mask back to the host once."""
     ps = cache.page_size
     dev = cache.lengths.device
     pos = cache.lengths.long()[:, None] + torch.arange(T, device=dev)[None]
     page_slot = torch.clamp(pos // ps, max=cache.max_pages_per_row - 1)
     phys = torch.gather(cache.page_table.long(), 1, page_slot)   # (B, T)
     mask = phys >= 0
+    if cache.shard is not None:
+        phys = phys - cache.first_page
+        mask &= (phys >= 0) & (phys < cache.k_pages.shape[2])
     if valid is not None:
         mask &= valid.to(dev)
     return (phys * ps + pos % ps)[mask], mask
@@ -210,6 +264,30 @@ def gather_row_kv(cache: PagedKVCache, layer: int
     v = v.permute(1, 2, 3, 0, 4).reshape(B, MP * ps, Hkv, hd)
     pos = torch.arange(MP * ps, device=phys.device)[None]
     return k, v, pos < cache.lengths[:, None]
+
+
+def pool_shards():
+    """(shards of a new pool's page axis, the shard this process holds or
+    None) under the current ``ShardingContext``: where every paged entry
+    point reads how to lay out its pool."""
+    from v2pe_tpu_torch.parallel import context as pctx
+
+    ctx = pctx.current()
+    if ctx is None:
+        return 1, None
+    return ctx.pool_shards, ctx.pool_shard
+
+
+def shard_views(cache: PagedKVCache, fresh: bool = False):
+    """The sequence shards' views of ``cache`` that this process runs
+    (``ops/paged_attention.shard_views``), or None for one shard."""
+    if cache.n_shards == 1:
+        return None
+    from v2pe_tpu_torch.ops.paged_attention import shard_views as views
+
+    return views(cache.page_table, cache.lengths, cache.n_shards,
+                 cache.n_pages, cache.page_size, held=cache.shard,
+                 fresh=fresh)
 
 
 def advance_lengths(cache: PagedKVCache, t) -> PagedKVCache:

@@ -15,6 +15,10 @@ to the prompt end): the next turn re-embeds the response from the template
 text, so the cache always holds exactly the tokenization of the running
 template prefix. Suffixes are right-padded to a multiple of
 ``chunk_multiple`` (segment-0 padding), as in the JAX package.
+
+Under a context that shards the pool's page axis a session raises
+``NotImplementedError`` (JAX's builds a one-shard pool there, see
+``__init__``); under ``tensor`` alone its pool holds the rank's kv heads.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from v2pe_tpu_torch.infer.generate import (GenerationConfig,
                                            decode_from_logits, prompt_embeds)
 from v2pe_tpu_torch.infer.speculative import speculative_decode_from_logits
 from v2pe_tpu_torch.models import internlm2
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
 class ChatSession:
@@ -41,15 +46,26 @@ class ChatSession:
     def __init__(self, chat_model, max_len: int = 32768,
                  page_size: int = 512, kv_dtype=None,
                  chunk_multiple: int = 256):
+        if pk.pool_shards()[0] > 1:
+            # JAX's session builds a one-shard pool of MP + 1 pages whatever
+            # the context says, which the seq-sharded arms then split:
+            # shard_map refuses it where MP + 1 is no multiple of the seq
+            # axis (ROADMAP, "Known faults inside the reference")
+            raise NotImplementedError(
+                "ChatSession over a sequence-sharded pool: the JAX session "
+                "has no sharded pool to port (use generate, chunked_prefill "
+                "or the engine under the context)")
         self.m = chat_model
         self.cfg = chat_model.cfg
         self.max_len = max_len
         self.chunk_multiple = chunk_multiple
-        emb = chat_model.model.llm.tok_embeddings.weight
+        llm = chat_model.model.llm
+        emb = llm.tok_embeddings.weight
         MP = -(-max_len // page_size)
         self.cache = pk.PagedKVCache.zeros(
             self.cfg.llm, 1, MP + 1, page_size, MP, dtype=emb.dtype,
-            kv_dtype=kv_dtype, device=emb.device)
+            kv_dtype=kv_dtype, device=emb.device,
+            kv_heads=internlm2.local_kv_heads(llm, self.cfg.llm))
         self.consumed = 0  # tokens of the template prefix in the cache
         self.last_logits = None  # (1, V) fp32 logits of the last turn's
         # first generated token
@@ -69,7 +85,7 @@ class ChatSession:
         self.cache = dataclasses.replace(
             self.cache, lengths=torch.full_like(self.cache.lengths, n))
 
-    @torch.inference_mode()
+    @serving_mode
     def send(self, pixel_values, question: str,
              generation_config: Optional[GenerationConfig] = None) -> str:
         """One turn: ``pixel_values`` are the NEW image's tiles (from

@@ -26,6 +26,7 @@ import torch
 
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.models import internlm2
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
 def prompt_lookup_draft(ctx_ids: torch.Tensor, n_ctx: torch.Tensor, k: int,
@@ -108,7 +109,7 @@ def scatter_kept(buf: torch.Tensor, start: torch.Tensor, y: torch.Tensor,
     buf.scatter_(1, idx, torch.where(keep, y, torch.gather(buf, 1, idx)))
 
 
-@torch.inference_mode()
+@serving_mode
 def speculative_decode_from_logits(llm, lcfg, gc, cache: pk.PagedKVCache,
                                    last_logits, last_pos, ctx_ids, n_ctx):
     """Greedy decode with prompt-lookup speculation: the speculative

@@ -21,6 +21,7 @@ from v2pe_tpu_torch.infer.generate import (GenerationConfig,
                                            prompt_embeds)
 from v2pe_tpu_torch.models import internlm2
 from v2pe_tpu_torch.models.internlm2 import KVCache
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
 def _prefill(model, cfg: VLMConfig, gc: GenerationConfig, input_ids,
@@ -29,12 +30,14 @@ def _prefill(model, cfg: VLMConfig, gc: GenerationConfig, input_ids,
              cache_mode: str = "dense", page_size: int = 128,
              kv_dtype=None):
     llm = model.llm
+    heads = internlm2.local_kv_heads(llm, cfg.llm)
     embeds = prompt_embeds(model, cfg, input_ids, pixel_values, image_flags,
                            img_context_token_id)
     B, S = input_ids.shape
     if cache_mode == "paged":
         cache = paged_prefill_cache(cfg.llm, B, max_total, page_size,
-                                    kv_dtype, embeds.dtype, embeds.device)
+                                    kv_dtype, embeds.dtype, embeds.device,
+                                    kv_heads=heads)
         lens = torch.full((B,), S, dtype=torch.int32, device=embeds.device)
         cache = pk.allocate_rows(cache, lens)
         hidden, cache = internlm2.llm_forward(
@@ -43,7 +46,7 @@ def _prefill(model, cfg: VLMConfig, gc: GenerationConfig, input_ids,
         cache = dataclasses.replace(cache, lengths=lens)
     else:
         cache = KVCache.zeros(cfg.llm, B, max_total, dtype=embeds.dtype,
-                              device=embeds.device)
+                              device=embeds.device, kv_heads=heads)
         hidden, cache = internlm2.llm_forward(
             llm, cfg.llm, inputs_embeds=embeds, rope_pos_ids=rope_pos_ids,
             kv_cache=cache, return_hidden=True)
@@ -71,7 +74,7 @@ def _decode_chunk(model, cfg: VLMConfig, gc: GenerationConfig, cache, tok,
     return cache, tok, pos, done, out, cnt
 
 
-@torch.inference_mode()
+@serving_mode
 def stream_generate(model, cfg: VLMConfig, gc: GenerationConfig,
                     input_ids: np.ndarray,     # (1, S)
                     rope_pos_ids: np.ndarray,  # (1, S) float32

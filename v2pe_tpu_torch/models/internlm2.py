@@ -19,7 +19,13 @@ included. Up to 16 tokens: the decode kernel folds the fresh k/v in
 separately, then they are scattered into the pages. A longer prompt attends
 to itself through the flash kernel (and, in chunked prefill, also to the
 cached pages through the paged prefill kernel, merged by logsumexp), then
-is scattered into the pages layer by layer.
+is scattered into the pages layer by layer. A pool sharded on its page axis
+(``infer/paged_kv.py``) routes as JAX's ``attention_forward`` does: the
+sequence-sharded arms of ``ops/paged_attention.py`` (one kernel launch a
+shard over its compacted table, merged by logsumexp; the fresh tokens of a
+2-16 token step scattered into their owners' pages), else the plain path,
+which under a ``tensor`` axis runs on the rank's heads (JAX's ``sharded_*``
+arms).
 
 Training (no cache, ``remat`` set) checkpoints with ``torch.utils.checkpoint``
 as the JAX scan does with ``jax.checkpoint``: ``full`` per layer, ``block2``
@@ -58,8 +64,8 @@ from v2pe_tpu_torch.ops.quantized_matmul import (QUANT_WEIGHT_NAMES,
                                                  quantized_dot_stacked)
 from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      scale_positions)
-from v2pe_tpu_torch.parallel.mesh import (column_input, is_split,
-                                          row_linear, row_output)
+from v2pe_tpu_torch.parallel.mesh import (column_input, in_features,
+                                          is_split, row_linear, row_output)
 
 
 @dataclasses.dataclass
@@ -73,9 +79,11 @@ class KVCache:
 
     @staticmethod
     def zeros(cfg: LLMConfig, batch: int, max_len: int,
-              dtype=torch.bfloat16, device=None) -> "KVCache":
+              dtype=torch.bfloat16, device=None,
+              kv_heads: Optional[int] = None) -> "KVCache":
+        """``kv_heads``: the heads held (a tensor rank's; default all)."""
         shape = (cfg.num_hidden_layers, batch, max_len,
-                 cfg.num_key_value_heads, cfg.head_dim)
+                 kv_heads or cfg.num_key_value_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device), 0)
 
@@ -88,7 +96,9 @@ class PagedStep(NamedTuple):
     16 tokens a row; the decode kernel places 16 or fewer itself), how many
     of a row's 2-16 tokens it stores (``store_n``: the valid prefix of a
     right-padded step; None for all), and whether a multi-token chunk also
-    attends over the cached pages (chunked prefill)."""
+    attends over the cached pages (chunked prefill). A pool sharded on its
+    page axis adds the shards' ``views`` (``paged_kv.shard_views``) and,
+    across processes, the ``seq`` process group their partials meet over."""
 
     cache: paged_kv.PagedKVCache
     layer: int
@@ -96,6 +106,8 @@ class PagedStep(NamedTuple):
     slots: Optional[tuple]
     store_n: Optional[torch.Tensor]
     attend_cache: bool
+    views: Optional[list] = None
+    group: Optional[object] = None
 
 
 class LLMLayer(nn.Module):
@@ -252,10 +264,8 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
         and paged is None
     # under a tensor axis the layer holds whole KV groups of wqkv's rows and
     # the matching columns of wo (parallel/mesh.py)
-    hd = cfg.head_dim
-    split = is_split(p.wo, cfg.num_attention_heads * hd)
-    kv_heads = p.wo.in_features // (cfg.num_key_value_groups * hd) \
-        if split else None
+    split = is_split(p.wo, cfg.num_attention_heads * cfg.head_dim)
+    kv_heads = _kv_heads(p, cfg) if split else None
     q, k, v = split_wqkv(_dot(column_input(x, split), p.wqkv,
                               getattr(p, "wqkv_bias", None)), cfg, kv_heads)
     if not fused_rope:
@@ -295,9 +305,24 @@ def attention_forward(p: LLMLayer, cfg: LLMConfig, x: torch.Tensor,
             rope_positions=(rope_pack[0], None, rope_pack[1])
             if fused_rope else None)
     out = out.reshape(B, S, -1)
-    if split:
+    if split and isinstance(p.wo, nn.Linear):
         return row_linear(out, p.wo, True)
+    if split:  # a quantized slice: the kernel's product, then the sum
+        return row_output(_dot(out, p.wo), True, getattr(p, "wo_bias", None))
     return _dot(out, p.wo, getattr(p, "wo_bias", None))
+
+
+def _kv_heads(p, cfg: LLMConfig) -> int:
+    """The KV heads a layer holds: whole KV groups of the inputs of its
+    ``wo``, a ``tensor`` rank's share where ``parallel/mesh.py`` split the
+    attention."""
+    return in_features(p.wo) // (cfg.num_key_value_groups * cfg.head_dim)
+
+
+def local_kv_heads(llm, cfg: LLMConfig) -> int:
+    """The KV heads this rank's layers hold (all of them without a tensor
+    split): the heads of a paged or dense cache for ``llm``."""
+    return _kv_heads(llm.layers[0], cfg)
 
 
 def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
@@ -308,6 +333,9 @@ def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
     scales = dict(k_scales=cache.k_scales, v_scales=cache.v_scales)
     read = dict(scales, slot_base=paged.slot_base)
     S = q.shape[1]
+    if paged.views is not None:
+        return _seq_sharded_paged_attention(paged, q, k, v, segment_ids,
+                                            positions)
     if S <= 16:
         # one launch: at S == 1 store, then attend with the fresh slot in
         # the pages; else attend the fresh tokens folded in, then store them
@@ -324,6 +352,36 @@ def _paged_attention(paged: PagedStep, q, k, v, segment_ids, positions):
         out = flash_attention(
             q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             q_positions=positions, kv_positions=positions, causal=True)
+    paged_kv.scatter_layers(cache, slice(li, li + 1), k[None], v[None],
+                            paged.slots)
+    return out
+
+
+def _seq_sharded_paged_attention(paged: PagedStep, q, k, v, segment_ids,
+                                 positions):
+    """``_paged_attention`` over a pool sharded on its page axis."""
+    cache, li = paged.cache, paged.layer
+    pool = (cache.k_pages, cache.v_pages)
+    shards = dict(k_scales=cache.k_scales, v_scales=cache.v_scales,
+                  group=paged.group)
+    S = q.shape[1]
+    if S == 1:  # each shard's launch stores the rows whose page it owns
+        return pa.seq_sharded_paged_decode_attention(
+            q, k, v, *pool, paged.views, cache.lengths, li,
+            fresh_in_pages=True, store=True, **shards)
+    if S <= 16:
+        out = pa.seq_sharded_paged_decode_attention(
+            q, k, v, *pool, paged.views, cache.lengths, li, **shards)
+    elif paged.attend_cache:
+        out = pa.seq_sharded_chunked_prefill_attention(
+            q, k, v, segment_ids, *pool, paged.views, cache.lengths, li,
+            **shards)
+    else:  # prefill into empty pages: the prompt attends only to itself
+        out = flash_attention(
+            q, k, v, q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+            q_positions=positions, kv_positions=positions, causal=True)
+    # a step of 2-16 tokens may cross a page boundary onto another shard:
+    # its tokens go to their owners' pages by the scatter, as in JAX
     paged_kv.scatter_layers(cache, slice(li, li + 1), k[None], v[None],
                             paged.slots)
     return out
@@ -474,12 +532,19 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
     rope_pack = (scaled_pos, float(theta)) \
         if isinstance(theta, (int, float)) else None
 
-    slots = slot_base = store_n = None
+    slots = slot_base = store_n = views = group = None
     if paged_cache is not None:
-        slot_base = pa.default_slot_base(paged_cache.page_table,
-                                         paged_cache.page_size)
         valid = None if segment_ids is None else segment_ids != 0
-        if S > 16:
+        # a sharded pool: every layer's launches read these shard views
+        views = paged_kv.shard_views(paged_cache, fresh=S == 1)
+        if views is None:
+            slot_base = pa.default_slot_base(paged_cache.page_table,
+                                             paged_cache.page_size)
+        if paged_cache.shard is not None:
+            from v2pe_tpu_torch.parallel import context as pctx
+
+            group = pctx.current().group("seq")
+        if S > 16 or (views is not None and S > 1):
             slots = paged_kv.token_slots(paged_cache, S, valid)
         elif S > 1 and valid is not None:
             # the segment ids of a paged step of 2-16 tokens mark
@@ -497,12 +562,12 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
                                                      kv_cache.v[li])
             paged = None if paged_cache is None else PagedStep(
                 paged_cache, li, slot_base, slots, store_n,
-                paged_attend_cache)
-            x = layer_forward(layer, cfg, x, cos, sin,
-                              segment_ids=segment_ids, positions=positions,
-                              kv_cache_layer=kv_layer, cache_length=base,
-                              kv_valid=kv_valid, rope_pack=rope_pack,
-                              paged=paged)
+                paged_attend_cache, views, group)
+            # the module's call: the hooks of a sharded layer (FSDP2)
+            x = layer(cfg, x, cos, sin, segment_ids=segment_ids,
+                      positions=positions, kv_cache_layer=kv_layer,
+                      cache_length=base, kv_valid=kv_valid,
+                      rope_pack=rope_pack, paged=paged)
     new_cache = paged_cache if kv_cache is None else \
         dataclasses.replace(kv_cache, length=base + S)
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)

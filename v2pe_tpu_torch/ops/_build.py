@@ -181,7 +181,7 @@ def bind_paged(lib: ctypes.CDLL) -> None:
     lib.v2pe_paged_store.argtypes = [
         p, p,               # k_new, v_new
         p, p, p, p,         # k_pages, v_pages, k_scales, v_scales
-        p, p,               # page_table, lengths
+        p, p, p,            # page_table, lengths, fresh_pages (may be NULL)
         i, i, i, i, i, i,   # B, Hkv, NP, ps, D, MP
         i, i, i,            # layer, is_bf16, kv_bits (0, 8 or 4)
         p,                  # cudaStream_t
@@ -198,6 +198,7 @@ def bind_paged(lib: ctypes.CDLL) -> None:
         i, i, i,            # the plan: splits, entries a split, rows a block
         p, p,               # workspace, split counters (NULL at 1 split)
         i, p,               # store, store_n (NULL: all T tokens)
+        p,                  # fresh_pages (NULL: from the page table)
         p,                  # cudaStream_t
     ]
     lib.v2pe_paged_prefill.argtypes = [

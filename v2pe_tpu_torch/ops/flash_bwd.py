@@ -120,9 +120,11 @@ def flash_attention_bwd_torch(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse,
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernels_bwd(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, *,
-                 causal: bool, scale: float):
-    """Launch the dkv and dq kernels on rotated (or unrotated) q/k."""
+def _bwd_launches(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, *,
+                  causal: bool, scale: float):
+    """(dq, dk, dv) allocated for the kernels, and the kernels' launches
+    into them on rotated (or unrotated) q/k: (name, launch) pairs in the
+    order they run, none where an output is empty."""
     from v2pe_tpu_torch.ops import _build
 
     B, Sq, Hq, D = q.shape
@@ -131,7 +133,7 @@ def _kernels_bwd(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, *,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return dq.zero_(), dk.zero_(), dv.zero_(), []
     # di in fp32 outside the kernels, as the Pallas wrapper computes it
     di = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     lib = _build.load()
@@ -140,15 +142,30 @@ def _kernels_bwd(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, *,
             _ptr(seg_q), _ptr(seg_k), _ptr(pos_q), _ptr(pos_k))
     dims = (B, Sq, Sk, Hq, Hkv, D, int(q.dtype == torch.bfloat16),
             int(causal), float(scale), stream)
-    for name, fn, outs in (("flash_bwd_dkv", lib.v2pe_flash_bwd_dkv,
-                            (_ptr(dk), _ptr(dv))),
-                           ("flash_bwd_dq", lib.v2pe_flash_bwd_dq,
-                            (_ptr(dq),))):
-        err = fn(*args, *outs, *dims)
-        if err != 0:
-            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
-                               f"{err}")
-        LAUNCHES[name] += 1
+
+    def launcher(name, fn, outs):
+        def launch():
+            err = fn(*args, *outs, *dims)
+            if err != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {err}")
+            LAUNCHES[name] += 1
+        return name, launch
+
+    return dq, dk, dv, [
+        launcher("flash_bwd_dkv", lib.v2pe_flash_bwd_dkv,
+                 (_ptr(dk), _ptr(dv))),
+        launcher("flash_bwd_dq", lib.v2pe_flash_bwd_dq, (_ptr(dq),))]
+
+
+def _kernels_bwd(q, k, v, seg_q, seg_k, pos_q, pos_k, out, lse, do, *,
+                 causal: bool, scale: float):
+    """Launch the dkv and dq kernels on rotated (or unrotated) q/k."""
+    dq, dk, dv, launches = _bwd_launches(q, k, v, seg_q, seg_k, pos_q,
+                                         pos_k, out, lse, do, causal=causal,
+                                         scale=scale)
+    for _, launch in launches:
+        launch()
     return dq, dk, dv
 
 

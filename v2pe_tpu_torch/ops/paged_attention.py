@@ -26,10 +26,22 @@ functions tell an int4 pool from an int8 one by that last dim.
   chunk's own causal attention.
 
 Page-table entries of -1 are unallocated; ``slot_base`` (B, MP) gives each
-entry's first global slot, -1 for a dead entry, which is skipped. Quantized
+entry's first global slot, -1 for a dead entry, which is skipped. A store's
+``fresh_pages`` (B,) names each row's page outright, -1 for no write (a
+sequence shard's store: JAX's override of the page lookup). Quantized
 pools: the k scale multiplies the score before the softmax, the v scale
 multiplies the softmax weight after the sum l was taken, so l stays
 unscaled. A row with nothing to attend gives out 0 and lse -1e30.
+
+Sequence shards (the pool's page axis split n ways, JAX's ``seq`` axis):
+:func:`shard_views` gives each shard its compacted local table
+(:func:`local_page_view`), :func:`seq_sharded_store_fresh_token`,
+:func:`seq_sharded_paged_decode_attention` and
+:func:`seq_sharded_chunked_prefill_attention` run the kernels once a shard
+and :func:`merge_shards` meets their partials by logsumexp, over the shards
+of this process and, given a process group, over the other processes' with
+two all-reduces. JAX's ``tensor``-only arms (``sharded_*``) are the kernels
+themselves on a rank's local heads.
 
 The kernels are ``csrc/paged_attention.cu`` (built by ``ops/_build.py``).
 Each wrapper runs the twin for CPU tensors and the kernel for CUDA tensors,
@@ -178,18 +190,24 @@ def pool_bits(k_pages: torch.Tensor, k_scales, hd: int) -> int:
 
 def store_fresh_token_torch(k_new, v_new, k_pages, v_pages, page_table,
                             lengths, layer: int, *, k_scales=None,
-                            v_scales=None, store_n=None):
+                            v_scales=None, store_n=None, fresh_pages=None):
     """Plain twin of the store: each row's (B, T, Hkv, hd) fresh k/v, the
     first ``store_n`` (B,) of them (all T where None), at positions lengths
     + t: entry min(pos // ps, MP - 1) of the page table, offset pos % ps, no
-    write where that entry is -1. Writes the pool in place."""
+    write where that entry is -1. ``fresh_pages`` (B,), one token a row:
+    the page itself, -1 for none. Writes the pool in place."""
     B, T = k_new.shape[:2]
     ps = k_pages.shape[3]
     MP = page_table.shape[1]
     t = torch.arange(T, device=lengths.device)[None]
     pos = lengths.long()[:, None] + t                # (B, T)
-    page = torch.gather(page_table.long(), 1,
-                        torch.clamp(pos // ps, max=MP - 1))
+    if fresh_pages is None:
+        page = torch.gather(page_table.long(), 1,
+                            torch.clamp(pos // ps, max=MP - 1))
+    else:
+        if T != 1:
+            raise ValueError(f"fresh_pages places one token a row, got {T}")
+        page = fresh_pages.long()[:, None]
     ok = page >= 0  # an unallocated page takes no write
     if store_n is not None:
         ok &= t < store_n.long()[:, None]
@@ -263,7 +281,7 @@ def paged_decode_attention_torch(q, k_new, v_new, k_pages, v_pages,
                                  slot_base=None, fold_fresh: int = 1,
                                  return_lse: bool = False, k_scales=None,
                                  v_scales=None, store: bool = False,
-                                 store_n=None):
+                                 store_n=None, fresh_pages=None):
     """Plain twin of the decode kernel: one exact fp32 softmax per query
     over the gathered pages (and the fresh tokens). ``store``: the store
     twin before it (``fresh_in_pages``) or after it (folding)."""
@@ -271,7 +289,7 @@ def paged_decode_attention_torch(q, k_new, v_new, k_pages, v_pages,
     scales = dict(k_scales=k_scales, v_scales=v_scales)
     if store and fresh_in_pages:
         store_fresh_token_torch(k_new, v_new, *pool, store_n=store_n,
-                                **scales)
+                                fresh_pages=fresh_pages, **scales)
     res = _decode_torch(q, k_new, v_new, *pool, scale=scale,
                         fresh_in_pages=fresh_in_pages, slot_base=slot_base,
                         fold_fresh=fold_fresh, return_lse=return_lse,
@@ -474,15 +492,17 @@ def _launch(name: str, err: int) -> None:
 
 
 def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
-                      layer: int, *, k_scales=None, v_scales=None):
+                      layer: int, *, k_scales=None, v_scales=None,
+                      fresh_pages=None):
     """Write each row's fresh (B, 1, Hkv, hd) k/v at slot ``lengths % ps``
     of page ``page_table[b, min(lengths // ps, MP - 1)]`` of ``layer``, in
-    place (a quantized pool also takes the scales). Returns the pool tensors,
-    as the JAX function does."""
+    place (a quantized pool also takes the scales); with ``fresh_pages``
+    (B,) int32 of page ``fresh_pages[b]``, nothing where it is -1. Returns
+    the pool tensors, as the JAX function does."""
     if _route(k_new, "paged_store"):
         return store_fresh_token_torch(
             k_new, v_new, k_pages, v_pages, page_table, lengths, layer,
-            k_scales=k_scales, v_scales=v_scales)
+            k_scales=k_scales, v_scales=v_scales, fresh_pages=fresh_pages)
     B, one, Hkv, hd = k_new.shape
     if one != 1 or v_new.shape != k_new.shape or k_new.dtype not in DTYPES \
             or v_new.dtype != k_new.dtype or not k_new.is_contiguous() \
@@ -494,7 +514,8 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
                        k_new.device, hd)
     if k_pages.shape[1] != Hkv:
         raise ValueError("fresh k/v do not match the pool's heads")
-    _check_index(B, k_new.device, page_table, lengths)
+    _check_index(B, k_new.device, page_table, lengths, fresh_pages)
+    _check_vector(fresh_pages)
     layer = _check_layer(layer, k_pages)
     from v2pe_tpu_torch.ops import _build
 
@@ -502,7 +523,7 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
     err = _build.load().v2pe_paged_store(
         _ptr(k_new), _ptr(v_new), _ptr(k_pages), _ptr(v_pages),
         _ptr(k_scales), _ptr(v_scales), _ptr(page_table), _ptr(lengths),
-        B, Hkv, NP, ps, hd, page_table.shape[1], layer,
+        _ptr(fresh_pages), B, Hkv, NP, ps, hd, page_table.shape[1], layer,
         int(k_new.dtype == torch.bfloat16), bits,
         _build.raw_stream(k_new.device.index))
     _launch("paged_store", err)
@@ -511,10 +532,18 @@ def store_fresh_token(k_new, v_new, k_pages, v_pages, page_table, lengths,
     return k_pages, v_pages
 
 
-def _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages):
+def _check_vector(t) -> None:
+    if t is not None and t.ndim != 1:
+        raise ValueError(f"expected a (B,) index vector, got {tuple(t.shape)}")
+
+
+def _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages,
+                 fresh_pages=None):
     """A decode launch's store: contiguous (B, T, Hkv, hd) fresh k/v in q's
-    dtype on its device (T = 1 to store, then attend), ``store_n`` None or
-    contiguous (B,) int32 there."""
+    dtype on its device (T = 1 to store, then attend), ``store_n`` and
+    ``fresh_pages`` None or contiguous (B,) int32 there; ``fresh_pages``
+    for a store-then-attend only (a folding store finds its pages in the
+    table)."""
     B, T, _, hd = q.shape
     want = (B, T, k_pages.shape[1], hd)
     for t in (k_new, v_new):
@@ -528,6 +557,13 @@ def _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages):
         _check_index(B, q.device, store_n)
         if store_n.ndim != 1:
             raise ValueError("store_n must be (B,)")
+    if fresh_pages is not None:
+        if not fresh_in_pages:
+            raise ValueError("fresh_pages places a store-then-attend's one "
+                             "token; a folding store finds its pages in "
+                             "the table")
+        _check_index(B, q.device, fresh_pages)
+        _check_vector(fresh_pages)
 
 
 def _check_attention(q, k_pages, v_pages, k_scales, v_scales, page_table,
@@ -555,7 +591,7 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
                            fresh_in_pages: bool = False, slot_base=None,
                            fold_fresh: int = 1, return_lse: bool = False,
                            k_scales=None, v_scales=None, store: bool = False,
-                           store_n=None):
+                           store_n=None, fresh_pages=None):
     """(B, T, Hq, hd) attention of T <= 16 fresh queries (rope applied)
     over their row's pages, plus the fresh tokens themselves (causal), and
     with ``return_lse`` a (B, Hq, T) fp32 lse. ``lengths`` excludes the
@@ -567,15 +603,21 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
     packed for an int8 / int4 pool). With ``fresh_in_pages`` (T = 1) it
     stores first and attends the token as stored; folding, it attends the
     fresh tokens unquantized and stores the first ``store_n`` (B,) int32 of
-    each row (all T where None) at lengths + t."""
+    each row (all T where None) at lengths + t. ``fresh_pages`` (B,) int32
+    (store-then-attend): each row's page, -1 for no store, the entry that
+    holds it found among the row's (a sequence shard's compacted table)."""
     if store:
-        _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages)
+        _check_store(q, k_new, v_new, k_pages, store_n, fresh_in_pages,
+                     fresh_pages)
+    elif fresh_pages is not None:
+        raise ValueError("fresh_pages without a store")
     if _route(q, "paged_decode"):
         return paged_decode_attention_torch(
             q, k_new, v_new, k_pages, v_pages, page_table, lengths, layer,
             scale=scale, fresh_in_pages=fresh_in_pages, slot_base=slot_base,
             fold_fresh=fold_fresh, return_lse=return_lse, k_scales=k_scales,
-            v_scales=v_scales, store=store, store_n=store_n)
+            v_scales=v_scales, store=store, store_n=store_n,
+            fresh_pages=fresh_pages)
     B, T, Hq, hd = q.shape
     ps = k_pages.shape[3]
     if slot_base is None:
@@ -621,7 +663,7 @@ def paged_decode_attention(q, k_new, v_new, k_pages, v_pages, page_table,
         int(q.dtype == torch.bfloat16), bits, int(fresh_in_pages), fold,
         float(hd ** -0.5 if scale is None else scale), plan.splits,
         plan.span, plan.rows, _ptr(ws), _ptr(counters), int(store),
-        _ptr(store_n), _build.raw_stream(q.device.index))
+        _ptr(store_n), _ptr(fresh_pages), _build.raw_stream(q.device.index))
     _launch("paged_decode", err)
     if store:
         LAUNCHES["paged_decode_store"] += 1
@@ -660,3 +702,153 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, lengths,
         k_pages.shape[0], _build.raw_stream(q.device.index))
     _launch("paged_prefill", err)
     return out, lse
+
+
+# ------------------------------------------------------- sequence shards
+
+
+class ShardView(NamedTuple):
+    """One sequence shard's view of a pool's global page table
+    (:func:`shard_views`)."""
+    shard: int
+    page_table: torch.Tensor   # (B, MPl) ids in the pool this process
+    #                            holds, -1 for dead entries
+    slot_base: torch.Tensor    # (B, MPl) each entry's first global slot
+    fresh_pages: Optional[torch.Tensor]  # (B,) the page of slot lengths
+    #                            in that pool, -1 where another shard has it
+
+
+def local_page_view(page_table: torch.Tensor, shard: int, n_shards: int,
+                    n_pages: int):
+    """JAX's ``_local_page_view`` for shard ``shard`` of ``n_shards`` over a
+    pool of ``n_pages`` global pages (shard d holds [d NP/n, (d+1) NP/n)):
+    the shard's pages of each row compacted to the front in table order,
+    as shard-local ids, sliced to MPl = min(MP, ceil(MP/n) + 1) entries
+    (the round-robin placement bounds a row's pages on a shard by
+    ceil(MP/n)); and each entry's table slot, -1 for dead ones. Returns
+    (local ids (B, MPl), table slots (B, MPl)), int32."""
+    B, MP = page_table.shape
+    NPl = n_pages // n_shards
+    lo = shard * NPl
+    owned = (page_table >= lo) & (page_table < lo + NPl)
+    order = torch.argsort((~owned).to(torch.int8), dim=1, stable=True)
+    order = order[:, :min(MP, -(-MP // n_shards) + 1)]
+    own = torch.gather(owned, 1, order)
+    ids = torch.where(own, torch.gather(page_table, 1, order) - lo, -1)
+    slots = torch.where(own, order, -1)
+    return ids.to(torch.int32), slots.to(torch.int32)
+
+
+def shard_views(page_table: torch.Tensor, lengths: torch.Tensor,
+                n_shards: int, n_pages: int, page_size: int,
+                held: Optional[int] = None, fresh: bool = False):
+    """The views of the shards this process runs: all ``n_shards`` when its
+    pool holds every page (``held`` None: one card), else shard ``held``
+    alone, whose pool holds only its NP/n pages. Table ids index that pool
+    (shard-local ids plus the shard's first page on one card); ``fresh``
+    adds each row's page of slot ``lengths`` for a store."""
+    NPl = n_pages // n_shards
+    MP = page_table.shape[1]
+    phys = None
+    if fresh:
+        at = torch.clamp(lengths.long() // page_size, max=MP - 1)[:, None]
+        phys = torch.gather(page_table, 1, at)[:, 0]
+    views = []
+    for d in (range(n_shards) if held is None else (held,)):
+        ids, slots = local_page_view(page_table, d, n_shards, n_pages)
+        base = d * NPl if held is None else 0
+        fp = None
+        if fresh:
+            mine = (phys >= d * NPl) & (phys < (d + 1) * NPl)
+            fp = torch.where(mine, phys - d * NPl + base, -1).to(torch.int32)
+        views.append(ShardView(
+            d, torch.where(ids >= 0, ids + base, -1).to(torch.int32),
+            torch.where(slots >= 0, slots * page_size, -1).to(torch.int32),
+            fp))
+    return views
+
+
+def merge_shards(parts, group=None) -> torch.Tensor:
+    """Logsumexp merge of partials over disjoint key sets: ``parts`` is this
+    process's [(out (B, S, H, hd), lse (B, H, S) fp32)], and over ``group``
+    (a process group) every other process's too, by one MAX all-reduce of
+    the lse and one SUM all-reduce of numerator and denominator packed
+    together. A partial with lse -1e30 weighs 0; a query that attends
+    nothing comes out 0. Returns fp32 (B, S, H, hd)."""
+    lse = torch.stack([p[1] for p in parts])            # (n, B, H, S)
+    m = lse.amax(dim=0)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    w = torch.where(lse <= NEG_INF / 2, 0.0, torch.exp(lse - m))
+    num = sum(out.float() * wi.transpose(1, 2)[..., None]
+              for (out, _), wi in zip(parts, w))
+    den = w.sum(dim=0)
+    if group is not None:
+        import torch.distributed as dist
+
+        flat = torch.cat([num.reshape(-1), den.reshape(-1)])
+        dist.all_reduce(flat, group=group)
+        num = flat[:num.numel()].view_as(num)
+        den = flat[num.numel():].view_as(den)
+    return num / den.clamp_min(1e-30).transpose(1, 2)[..., None]
+
+
+def seq_sharded_store_fresh_token(k_new, v_new, k_pages, v_pages, views,
+                                  lengths, layer: int, *, k_scales=None,
+                                  v_scales=None):
+    """The fresh token of each row into whichever of ``views``' shards owns
+    its page (JAX's ``seq_sharded_store_fresh_token``): one store a shard,
+    each told its rows' pages by ``fresh_pages`` (-1: another shard's)."""
+    for v in views:
+        out = store_fresh_token(k_new, v_new, k_pages, v_pages, v.page_table,
+                                lengths, layer, k_scales=k_scales,
+                                v_scales=v_scales, fresh_pages=v.fresh_pages)
+    return out
+
+
+def seq_sharded_paged_decode_attention(q, k_new, v_new, k_pages, v_pages,
+                                       views, lengths, layer: int, *,
+                                       scale: Optional[float] = None,
+                                       fresh_in_pages: bool = False,
+                                       k_scales=None, v_scales=None,
+                                       store: bool = False, group=None):
+    """Decode attention over a pool sharded on its page axis (JAX's
+    ``seq_sharded_paged_decode_attention``): one decode launch a shard over
+    its compacted table with (out, lse), the separate fresh tokens folded on
+    shard 0 alone, merged by :func:`merge_shards`. ``store`` (T = 1, fresh
+    in the pages): each shard's launch first stores the rows whose fresh
+    page it owns."""
+    parts = [paged_decode_attention(
+        q, k_new, v_new, k_pages, v_pages, v.page_table, lengths, layer,
+        scale=scale, fresh_in_pages=fresh_in_pages, slot_base=v.slot_base,
+        fold_fresh=int(v.shard == 0), return_lse=True, k_scales=k_scales,
+        v_scales=v_scales, store=store,
+        fresh_pages=v.fresh_pages if store else None) for v in views]
+    return merge_shards(parts, group).to(q.dtype)
+
+
+def seq_sharded_chunked_prefill_attention(q, k, v, segment_ids, k_pages,
+                                          v_pages, views, lengths,
+                                          layer: int, *, k_scales=None,
+                                          v_scales=None, group=None):
+    """Chunked-prefill attention over a page-sharded pool (JAX's
+    ``seq_sharded_chunked_prefill_attention``): each shard sweeps its own
+    pages; the chunk's causal self-attention counts on shard 0 only, merged
+    there with its sweep; then the shards' partials meet by
+    :func:`merge_shards`."""
+    from v2pe_tpu_torch.ops.attention import flash_attention_with_lse
+
+    parts = []
+    for view in views:
+        part = paged_prefill_attention(
+            q, k_pages, v_pages, view.page_table, lengths, layer,
+            k_scales=k_scales, v_scales=v_scales, slot_base=view.slot_base)
+        if view.shard == 0:
+            own = flash_attention_with_lse(
+                q, k, v, q_segment_ids=segment_ids,
+                kv_segment_ids=segment_ids, causal=True)
+            part = merge_partials(*own, *part)
+        parts.append(part)
+    return merge_shards(parts, group).to(q.dtype)

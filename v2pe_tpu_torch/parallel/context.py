@@ -12,16 +12,30 @@ The JAX context holds a ``jax.sharding.Mesh``. The port's holds:
   (``parallel/bootstrap.py:make_global_mesh``); None in a process without
   a group;
 * ``seq_shards``: ring shards held by this one process, all on its card
-  (a world of 1 only; the ring of PR 6);
+  (a world of 1 only): the ring's shards in training, the paged pool's
+  shards in serving;
 * ``ring_mode``: 'scan' or 'fused'.
 
+Serving reads one number, :attr:`ShardingContext.pool_shards`: the shards
+of the paged pool's page axis, ``seq_shards`` on one card or the ``seq``
+axis across processes (the other is 1), as JAX reads
+``mesh.shape["seq"]``; and :attr:`ShardingContext.pool_shard`, the shard a
+process's pool holds (None on one card, which holds them all).
+
 ``pipe`` above 1 raises ``NotImplementedError``, and so does a mesh that
-does not match the world, and the fused ring across processes."""
+does not match the world, and the fused ring across processes.
+
+:func:`use_sharding` sets the process's context, which every thread reads
+(autograd's device threads too, where a checkpointed forward is recomputed
+under it). :func:`use_sharding_on_thread` sets one for the calling thread
+alone, over the process's: a server's scheduler thread steps under the
+context its engine was built in, and no other thread sees it."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Optional
 
 import torch
@@ -58,6 +72,16 @@ class ShardingContext:
         """Size of the pipeline axis: the port has none, which counts as
         1."""
         return 1
+
+    @property
+    def pool_shards(self) -> int:
+        """Shards of a paged pool's page axis (JAX: ``seq_shards``)."""
+        return self.seq_shards * self.size("seq")
+
+    @property
+    def pool_shard(self) -> Optional[int]:
+        """The pool shard this process holds; None when it holds all."""
+        return self.coord("seq") if self.size("seq") > 1 else None
 
     def size(self, axis: str) -> int:
         """Ranks along a mesh axis (1 without a mesh)."""
@@ -128,10 +152,13 @@ class ShardingContext:
 
 
 _CURRENT: Optional[ShardingContext] = None
+_THREAD = threading.local()   # .ctx: a thread's own, over _CURRENT
+_UNSET = object()
 
 
 def current() -> Optional[ShardingContext]:
-    return _CURRENT
+    ctx = getattr(_THREAD, "ctx", _UNSET)
+    return _CURRENT if ctx is _UNSET else ctx
 
 
 @contextlib.contextmanager
@@ -143,3 +170,15 @@ def use_sharding(ctx: Optional[ShardingContext]):
         yield ctx
     finally:
         _CURRENT = prev
+
+
+@contextlib.contextmanager
+def use_sharding_on_thread(ctx: Optional[ShardingContext]):
+    """``ctx`` (None too) for the calling thread alone: the process's
+    context and every other thread's are left as they are."""
+    prev = getattr(_THREAD, "ctx", _UNSET)
+    _THREAD.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _THREAD.ctx = prev

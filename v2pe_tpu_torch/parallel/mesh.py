@@ -25,12 +25,20 @@ divide stays whole on every rank. The vocab (tok_embeddings and the output
 head) is never split over ``tensor``: InternVL2's 92,553 entries do not
 divide, and no vocab-parallel CE is ported.
 
+A quantized decoder (int8 / int4 serving weights) splits over ``tensor`` by
+the same units, its codes and scales cut as the bf16 weights are
+(:func:`quantized_tensor_units`; int4 row splits on whole scale groups), so
+each rank's products run the quantized kernels on its slice. It stays whole
+over ``fsdp`` and ``data``, where JAX shards it: a difference of placement,
+not of numerics.
+
 The batch rule is ``batch_sharding``'s: rows over (data, fsdp), tokens
 over ``seq`` (``parallel/bootstrap.py:make_global_batch``).
 """
 
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, NamedTuple, Optional
 
@@ -196,9 +204,24 @@ def tensor_sum(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x, _tensor_group())
 
 
-def is_split(linear, full_in: int) -> bool:
-    """Whether a row-parallel ``nn.Linear`` holds a slice of its inputs."""
-    return isinstance(linear, nn.Linear) and linear.in_features != full_in
+def in_features(w) -> int:
+    """The inputs of a product's weight: an ``nn.Linear``, or a quantized
+    weight (a layer of a stack, ``StackedQuantizedRef``, or a 2-D one; an
+    int4 payload holds two rows a byte)."""
+    if isinstance(w, nn.Linear):
+        return w.in_features
+    from v2pe_tpu_torch.ops.quantized_matmul import (Int4Weight,
+                                                     StackedQuantizedRef)
+
+    qw = w.qw if isinstance(w, StackedQuantizedRef) else w
+    rows = qw.payload.shape[-2]
+    return 2 * rows if isinstance(qw, Int4Weight) else rows
+
+
+def is_split(w, full_in: int) -> bool:
+    """Whether a row-parallel product's weight (an ``nn.Linear`` or a
+    quantized weight) holds a slice of its inputs."""
+    return in_features(w) != full_in
 
 
 # --------------------------------------------------------------------------
@@ -364,14 +387,150 @@ def placement_of(model: nn.Module) -> Optional[Placement]:
     return getattr(model, "placement", None)
 
 
+def serving_mode(fn):
+    """Run a serving entry point (a function or a generator) without
+    autograd: under ``torch.inference_mode``, or ``torch.no_grad`` for a
+    model that FSDP2 holds (``shard_model``), whose hooks gather a layer's
+    weights into tensors that inference mode refuses. The call's first
+    argument names the model: the model, its decoder, or an object serving
+    a ``ChatModel`` as ``.m``."""
+    held, alone = torch.no_grad()(fn), torch.inference_mode()(fn)
+
+    @functools.wraps(fn)
+    def wrapped(first, *args, **kwargs):
+        run = held if _fsdp_held(first) else alone
+        return run(first, *args, **kwargs)
+    return wrapped
+
+
+def _fsdp_held(first) -> bool:
+    from torch.distributed.fsdp import FSDPModule
+
+    model = first.m.model if hasattr(first, "m") else first
+    llm = getattr(model, "llm", model)
+    return isinstance(llm.layers[0], FSDPModule)
+
+
+def _serving_root(model: nn.Module) -> None:
+    """The end of a serving placement under FSDP2: the model made FSDP2's
+    root (FSDP2 takes the first module whose forward runs, and serving
+    calls the layers first, so a layer would be taken and keep its weights
+    whole after its call) and the parameters of its root unit (the
+    embedding, the final norm, the head, the ViT's embeddings, the
+    projector) gathered whole and kept so, since serving calls them outside
+    the model's forward. The decoder and ViT layers gather theirs at each
+    call of the module. One all-gather over ``fsdp``."""
+    model._get_fsdp_state()._lazy_init()
+    model.unshard()
+
+
+# --------------------------------------------------------------------------
+# a quantized decoder over ``tensor``
+# --------------------------------------------------------------------------
+
+# stack name -> (unit, split side): "col" splits the output columns (the
+# bf16 rule's dim 0 of an nn.Linear weight), "row" the contracted rows
+_QUANT_RULES = {"wqkv": ("llm_attn", "col"), "wo": ("llm_attn", "row"),
+                "w1": ("llm_mlp", "col"), "w3": ("llm_mlp", "col"),
+                "w2": ("llm_mlp", "row")}
+
+
+def _quant_slice(w, side: str, n: int, i: int):
+    """Rank i's slice of a layer-stacked quantized weight under n ranks:
+    its output columns (codes and scales, re-padded to the lane width) or
+    its contracted rows (int8: the per-column scale whole, as it spans
+    every row; int4: whole scale groups, the rows unpacked and packed
+    again in the slice's two halves)."""
+    from v2pe_tpu_torch.ops.quantized_matmul import (LANE, Int4Weight,
+                                                     _pad_last,
+                                                     unpack_nibbles)
+
+    int4 = isinstance(w, Int4Weight)
+    extra = (w.group_size,) if int4 else ()
+    payload, scale = w.payload, w.scale
+    if side == "col":
+        n_out = w.n_out // n
+        cols = slice(i * n_out, (i + 1) * n_out)
+        pad = (-n_out) % LANE
+        return type(w)(_pad_last(payload[..., cols], pad, 0).clone(),
+                       _pad_last(scale[..., cols], pad, 1.0).clone(), n_out,
+                       *extra)
+    if not int4:
+        rows = payload.shape[-2] // n
+        return type(w)(payload[..., i * rows:(i + 1) * rows, :].clone(),
+                       scale.clone(), w.n_out)
+    lo, hi = unpack_nibbles(payload)
+    codes = torch.cat([lo, hi], dim=-2)             # (L, D, Npad)
+    rows = codes.shape[-2] // n
+    mine = codes[..., i * rows:(i + 1) * rows, :]
+    half = rows // 2
+    packed = ((mine[..., :half, :] & 0xF) | (mine[..., half:, :] << 4))
+    groups = scale.shape[-2] // n
+    return type(w)(packed.to(torch.int8),
+                   scale[..., i * groups:(i + 1) * groups, :].clone(),
+                   w.n_out, w.group_size)
+
+
+def quantized_tensor_units(llm, cfg: VLMConfig, tensor: int) -> list:
+    """The units of a quantized decoder that split over a ``tensor`` axis
+    of that size: ``_fit_spec``'s rule (the axis divides the unit's width)
+    and, for int4, whole scale groups in each half of a rank's rows (the
+    int4 product takes a weight's two halves group by group); a unit that
+    fails either stays whole."""
+    from v2pe_tpu_torch.ops.quantized_matmul import Int4Weight
+
+    if tensor == 1:
+        return []
+    out = []
+    for unit, row_name in (("llm_attn", "wo"), ("llm_mlp", "w2")):
+        w = llm.stacks[row_name]
+        if _unit_width(cfg, unit) % tensor:
+            continue
+        if isinstance(w, Int4Weight):
+            rows = 2 * w.payload.shape[-2] // tensor
+            if rows % (2 * w.group_size):
+                continue
+        out.append(unit)
+    return out
+
+
+@torch.no_grad()
+def _shard_quantized_llm(llm, cfg: VLMConfig, ctx) -> list:
+    """Slice a ``QuantizedInternLM2``'s stacks (and the qkv bias) over the
+    ``tensor`` axis in place, and point its layers at the slices. The
+    vocab head stays whole. Returns the split units."""
+    from v2pe_tpu_torch.ops.quantized_matmul import StackedQuantizedRef
+
+    n, i = ctx.size("tensor"), ctx.coord("tensor")
+    units = quantized_tensor_units(llm, cfg, n)
+    for name, (unit, side) in _QUANT_RULES.items():
+        if unit in units:
+            llm.stacks[name] = _quant_slice(llm.stacks[name], side, n, i)
+    for li, layer in enumerate(llm.layers):
+        for name in _QUANT_RULES:
+            setattr(layer, name, StackedQuantizedRef(llm.stacks[name], li))
+        if "llm_attn" in units and layer.wqkv_bias is not None:
+            layer.wqkv_bias = nn.Parameter(
+                layer.wqkv_bias.chunk(n)[i].clone(), requires_grad=False)
+    return units
+
+
 def shard_model(model: nn.Module, cfg: VLMConfig,
-                ctx: Optional[pctx.ShardingContext]) -> nn.Module:
+                ctx: Optional[pctx.ShardingContext],
+                serving: bool = False) -> nn.Module:
     """Place a whole model on ``ctx``'s mesh, in place: each tensor rank
     keeps its slice of the split parameters (``nn.Linear``'s
     ``in_features`` / ``out_features`` follow), then FSDP2 shards every
-    decoder layer, every ViT layer and the rest over ``fsdp``. Without a
-    mesh the model is left as it is. Every rank must pass the same whole
-    weights."""
+    decoder layer, every ViT layer and the rest over ``fsdp``. A model with
+    a quantized decoder (``QuantizedInternLM2``, serving) has its stacks
+    sliced over ``tensor`` by the same head and FFN split
+    (:func:`quantized_tensor_units`) and stays whole over ``fsdp`` and
+    ``data``: no FSDP2. Without a mesh the model is left as it is. Every
+    rank must pass the same whole weights. ``serving``: the placement of a
+    model that only serves (``_serving_root``): its root unit stays
+    gathered, so the serving entry points take it as it is; a model to be
+    trained is placed without it (its optimizer takes the sharded
+    parameters)."""
     if ctx is None or ctx.mesh is None:
         return model
     if placement_of(model) is not None:
@@ -380,11 +539,11 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
         raise NotImplementedError(
             "compress-seq under a mesh is not ported (ROADMAP Queue 1 "
             "item 6)")
-    if not isinstance(model.llm.layers[0].wo, nn.Linear):
-        raise NotImplementedError("a quantized decoder serves; it is not "
-                                  "placed on a training mesh")
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
+    quantized = not isinstance(model.llm.layers[0].wo, nn.Linear)
+    if quantized:  # serving: sliced over tensor, whole over fsdp and data
+        _shard_quantized_llm(model.llm, cfg, ctx)
     rules = tensor_rules(model, cfg, ctx.size("tensor"))
     mods = dict(model.named_modules())
     with torch.no_grad():
@@ -398,6 +557,9 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
                 requires_grad=p.requires_grad))
             if isinstance(owner, nn.Linear) and attr == "weight":
                 owner.out_features, owner.in_features = owner.weight.shape
+    if quantized:
+        model.placement = Placement(ctx, rules)
+        return model
     fsdp_mesh = ctx.mesh["fsdp"]
     for layer in list(model.llm.layers) + list(model.vision.layers):
         fully_shard(layer, mesh=fsdp_mesh)
@@ -411,5 +573,7 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
                 m.set_reduce_scatter_divide_factor(1.0)
             if hasattr(m, "set_force_sum_reduction_for_comms"):
                 m.set_force_sum_reduction_for_comms(True)
+    if serving:
+        _serving_root(model)
     model.placement = Placement(ctx, rules)
     return model

@@ -30,8 +30,17 @@ the lengths are written in place (JAX donates them to each jitted block);
 the decode state (token, position, active, budget per row) lives on the
 device between blocks and the host keeps mirrors from each harvest;
 sampling draws from a ``torch.Generator`` on the engine's device; a request
-keeps the logits its first token was sampled from; one card, so the mesh
-arms are absent and a pool with more than one shard raises.
+keeps the logits its first token was sampled from.
+
+Under a ``ShardingContext`` the pool is split as JAX's mesh splits it: its
+page axis over ``paged_kv.pool_shards()`` shards (``seq_shards`` on one
+card, which holds them all; the ``seq`` axis across processes, each rank
+holding NP/n pages) and, across processes, its kv heads over ``tensor``
+where the model's attention is split. The allocator places a row's page at
+table slot s on shard s % n. Across processes every rank runs this same
+scheduler on the same requests: its decisions depend only on the requests
+and on the tokens, which every rank samples alike (greedy, or a generator
+seeded alike), so the ranks agree without exchanging them.
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.infer.generate import GenerationConfig, _sample
 from v2pe_tpu_torch.infer.speculative import scatter_kept, verify_step
 from v2pe_tpu_torch.models import internlm2, internvl_chat
+from v2pe_tpu_torch.parallel import context as pctx
+from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 logger = logging.getLogger(__name__)
 
@@ -414,7 +425,12 @@ class InferenceEngine:
         MP = -(-max_len // page_size)
         self.max_pages_per_row = MP
         pool_tokens = pool_tokens or max_rows * max_len
-        NP = -(-pool_tokens // page_size) + 1   # + the reserved null page
+        # captured once: the pool is laid out for this context, and every
+        # step runs under it (parallel/context.py)
+        self.ctx = pctx.current()
+        # per shard: its pages and its reserved local null page 0
+        n_shards, shard = pk.pool_shards()
+        NP = n_shards * (-(-pool_tokens // (page_size * n_shards)) + 1)
         emb = chat_model.model.llm.tok_embeddings.weight
         self.device = dev = emb.device
         gc = generation_config or GenerationConfig()
@@ -449,8 +465,10 @@ class InferenceEngine:
             device=dev) if self._spec else None
         self.cache = pk.PagedKVCache.zeros(
             self.cfg.llm, max_rows, NP, page_size, MP, dtype=emb.dtype,
-            kv_dtype=kv_dtype, device=dev)
-        self.allocator = PageAllocator(NP)
+            kv_dtype=kv_dtype, device=dev, n_shards=n_shards, shard=shard,
+            kv_heads=internlm2.local_kv_heads(chat_model.model.llm,
+                                              self.cfg.llm))
+        self.allocator = PageAllocator(NP, n_shards=n_shards)
         self.prefix_cache = PrefixCache() if prefix_caching else None
         self.stats = {"prefill_chunks": 0, "prefix_hit_pages": 0}
         # per-row state: on the device (what the blocks run on, updated in
@@ -494,7 +512,8 @@ class InferenceEngine:
             raise ValueError(
                 f"prompt+max_new {len(ids) + max_new_tokens} exceeds the "
                 f"engine max_len {self.max_len}")
-        if need > self.allocator.pages_per_shard - 1:
+        if -(-need // self.allocator.n_shards) > \
+                self.allocator.pages_per_shard - 1:
             raise ValueError("request can never fit the page pool")
         req = EngineRequest(ids=ids, pos=np.asarray(pos, np.float32),
                             max_new_tokens=max_new_tokens,
@@ -535,12 +554,18 @@ class InferenceEngine:
                 return r
         return None
 
-    @torch.inference_mode()
     def step(self) -> bool:
         """One scheduler iteration: admit whatever fits, then one decode
         block if anything is decoding. Returns False when nothing could
         make progress (idle, or queued work is blocked on pages). Runs
-        without autograd whichever thread calls it."""
+        without autograd, under the context the engine was built in, set
+        for the calling thread alone (``use_sharding_on_thread``): whichever
+        thread calls it, no other thread's context changes."""
+        with pctx.use_sharding_on_thread(self.ctx):
+            return self._step()
+
+    @serving_mode
+    def _step(self) -> bool:
         progressed = False
         while True:
             with self._lock:
