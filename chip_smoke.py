@@ -143,25 +143,33 @@ each fuse method on the bench recipe's batch (4 chunks; launches 96 /
 seq-cls head on 4 right-padded rows of up to 2048 tokens (24 launches).
 Training across processes: phase 2 also holds #1-#3 at the shapes one rank
 of a mesh gives them, outputs allocated full of NaN: under tensor = 2 the
-ViT's 8 x 64 heads and the LLM's 8/4 x 128 heads on the packed 8192
-tokens, under seq = 2 the rectangles the scan ring cuts from the zigzag
-shards of that row. Phase 20, between the trainer's steps and the bench
-recipe's: the mesh's training path as a world of 1 over NCCL (the process
-group through ``parallel/bootstrap.py`` on a file store, a copy of the
-model placed by ``parallel/mesh.py:shard_model`` under FSDP2, three steps
-of ``make_train_step(mesh=MeshConfig())`` on the bench recipe's batch);
-the bench recipe then takes its three steps from the same weights in one
-process, and the losses and grad norms must agree within RING_TRAIN_TOL.
-Then the card line, then the last line {"ok": true, "device": {...}}.
+ViT's 8 x 64 heads, the LLM's 8/4 x 128 heads on the packed 8192 tokens
+and compress-seq's two attentions at 8/4 heads, under seq = 2 the
+rectangles the scan ring cuts from the zigzag shards of that row. Phase
+20, between the trainer's steps and the bench recipe's: the mesh's
+training path as a world of 1 over NCCL (the process group through
+``parallel/bootstrap.py`` on a file store, a copy of the model placed by
+``parallel/mesh.py:shard_model`` under FSDP2, three steps of
+``make_train_step(mesh=MeshConfig())`` with int8 Adam on the bench
+recipe's batch, its state gathered to one device's layout), then LoRA
+placed by ``place_lora`` and compress-seq placed, each beside its unplaced
+run; the bench recipe then takes its three steps from the same weights in
+one process: losses and grad norms within RING_TRAIN_TOL, the int8 states
+by ``compare_int8``. Then two processes on the card over gloo at fsdp 2
+(``phase_two_ranks``). Phase 15 also runs ``tools.inference_test`` on the
+exported checkpoint. Then the card line, then the last line {"ok": true,
+"device": {...}}.
 
-Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers:
-the pixels come from numpy and the text from a code-point tokenizer.
+Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers
+at module level: the pixels come from numpy and the text from a
+code-point tokenizer (``tool_inference_test`` writes its image with PIL).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import os
@@ -2875,9 +2883,39 @@ def phase_checkpoint_eval(model, cfg, tok, device: str = "cuda") -> list:
             raise AssertionError(f"eval: the engine route chose a token "
                                  f"beyond a near tie of the dense route's: "
                                  f"{far}")
+        paths.append(tool_inference_test(ckpt, tmp, tok))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return paths
+
+
+def tool_inference_test(ckpt: str, tmp: str, tok) -> dict:
+    """``python -m v2pe_tpu_torch.tools.inference_test`` on the exported
+    checkpoint (its default platform, the card): a 900 x 600 image made
+    here, tiled and asked about; the answer greedy. Returns its
+    launches."""
+    from PIL import Image
+
+    from v2pe_tpu_torch.tools import inference_test
+
+    image = os.path.join(tmp, "image.png")
+    Image.fromarray(np.random.default_rng(5).integers(
+        0, 255, (600, 900, 3), dtype=np.uint8)).save(image)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        answer = inference_test.main(
+            ["--checkpoint", ckpt, "--tokenizer", "code-point", "--image",
+             image, "--max-new-tokens", str(MAX_NEW)], tokenizer=tok)
+    counts = read_launches()
+    secs = time.perf_counter() - t0
+    tiling = printed.getvalue().splitlines()[0]
+    log(f"tools.inference_test: {tiling}; {len(answer)} characters answered "
+        f"in {secs:.2f}s (the checkpoint loaded, bf16, on the card); "
+        f"launches {dict((k, v) for k, v in counts.items() if v)}")
+    require(counts, ("flash_fwd",), "tools.inference_test")
+    return counts
 
 
 # ------------------------------------------------ phase 2c: flash backward
@@ -3087,7 +3125,9 @@ def rank_forms(device, packed: dict):
     of 16/8 heads on the packed 8192 tokens (q rotated in the kernel, as a
     rank's decoder calls it); under seq = 2 across ranks the rectangles the
     scan ring cuts from the zigzag shards of that row, each rank's
-    (queries, chunk) pair with work (q and k rotated before the ring)."""
+    (queries, chunk) pair with work (q and k rotated before the ring);
+    under tensor = 2 compress-seq's interaction and within-chunk attention
+    at 8/4 of the 16/8 heads."""
     from v2pe_tpu_torch.parallel import ring
     from v2pe_tpu_torch.train.synth import zigzag_permutation
 
@@ -3133,6 +3173,13 @@ def rank_forms(device, packed: dict):
                 (q, qr), (k, kr), (v, kr), (seg_z, qr), (seg_z, kr),
                 (pos_z, qr), (pos_z, kr))),
             dict(causal=True, scale=128 ** -0.5)))
+    # compress-seq under tensor = 2 (PR 16): the interaction over the 4 x
+    # 100 summaries and the within-chunk attention at a rank's 8/4 heads
+    for name, args, kw in compress_forms(randn, packed, device):
+        if name.endswith("bf16"):
+            forms.append((f"rank_tensor2_{name[:-5]}_8_4x128_bf16", (
+                args[0][:, :, :8].contiguous(), args[1][:, :, :4].contiguous(),
+                args[2][:, :, :4].contiguous(), *args[3:]), kw))
     return forms
 
 
@@ -3967,10 +4014,11 @@ def bench_recipe(model, cfg):
                               for k, v in batch.items()}
 
 
-def timed_steps(where: str, step, model, state, batch) -> list:
+def timed_steps(where: str, step, model, state, batch, then=None) -> list:
     """BENCH_STEPS calls of a train step on one batch: per step its loss,
     grad norm, host ms (to the read of the loss) and launches, each
-    logged."""
+    logged. ``then(i)``: called after step i (from 1), outside the timing
+    and the launch count."""
     steps = []
     for i in range(BENCH_STEPS):
         before = read_launches()
@@ -3984,19 +4032,37 @@ def timed_steps(where: str, step, model, state, batch) -> list:
         log(f"{where} step {i + 1}: loss {loss:.4f} grad_norm "
             f"{gnorm:.4f} {ms:.1f} ms {TRAIN_TOKENS / ms * 1e3:.0f} tok/s; "
             f"launches {steps[-1]['launches']}")
+        if then is not None:
+            then(i + 1)
     return steps
 
 
-def phase_bench_recipe(model, cfg, against=None) -> dict:
+# the int8 states of two bf16 runs are compared after this step: the
+# warmup makes step 1's update zero, so steps 1-2 take their gradients at
+# the same weights in both runs; step 2's update then parts them (where a
+# gradient is near 0, g / (|g| + eps) turns an ulp into a sign), and step
+# 3's gradients with them
+INT8_SAME_WEIGHTS_STEP = 2
+
+
+def phase_bench_recipe(model, cfg, against=None, moments=None) -> dict:
     """Three steps of the bench recipe (make_train_step called directly,
     the first step bench.py's compile step): per-step loss, grad_norm,
     time and launches, and the median rate of steps 2-3. ``against``: the
     steps of ``phase_dist_train`` from the same weights, whose losses and
-    grad norms must match these within RING_TRAIN_TOL."""
+    grad norms must match these within RING_TRAIN_TOL; ``moments``: its
+    int8 state gathered after them, which ``compare_int8`` holds to this
+    run's."""
     step, state, batch = bench_recipe(model, cfg)
     model.train()
     reset_launches()
-    steps = timed_steps("bench recipe", step, model, state, batch)
+    held = {}
+    steps = timed_steps("bench recipe", step, model, state, batch,
+                        lambda i: held.update(int8_on_card(
+                            model, state, f"bench recipe after step {i}",
+                            to_cpu=False))
+                        if moments is not None
+                        and i == INT8_SAME_WEIGHTS_STEP else None)
     counts = read_launches()
     model.eval()
     ms = sorted(m["ms"] for m in steps[1:])[len(steps[1:]) // 2]
@@ -4019,6 +4085,9 @@ def phase_bench_recipe(model, cfg, against=None) -> dict:
                 or r[1] > RING_TRAIN_TOL["grad_norm"] for r in rel):
             raise AssertionError("the world-1 mesh's steps disagree with the "
                                  "single-process steps")
+    if moments is not None:
+        compare_int8(moments, held, f"dist train against the bench recipe "
+                     f"after step {INT8_SAME_WEIGHTS_STEP}")
     return counts
 
 
@@ -4029,9 +4098,17 @@ def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
     (``shard_model``: FSDP2 per decoder and ViT layer, DTensor parameters),
     and BENCH_STEPS steps of ``make_train_step(mesh=MeshConfig())`` on the
     bench recipe's batch (``make_global_batch``; the global CE denominator,
-    the reduce-scatter and the optimizer on the shards). Returns (launches,
-    steps); ``phase_bench_recipe`` then takes the same steps from the same
-    weights in one process and holds the two against each other."""
+    the reduce-scatter and int8 Adam on the shards, its state gathered to
+    one device's layout after the last step). Then, in the same group, the
+    serving copy (``dist_serve``), LoRA placed (``dist_lora``) and
+    compress-seq placed (``dist_compress``), each beside its unplaced run.
+    A world of 1 calls no collective and cuts no int8 block: the multi-rank
+    cases are held to JAX on the CPU (``tests/test_torch_dist_*.py``).
+    Returns (launches, steps, the serving copy's launches, the gathered
+    int8 state on the CPU, LoRA's launches, compress-seq's launches);
+    ``phase_bench_recipe`` then takes the same steps from the same weights
+    in one process and holds the two against each other (the int8 states
+    after step INT8_SAME_WEIGHTS_STEP)."""
     import copy
     import tempfile
 
@@ -4067,12 +4144,18 @@ def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
             setup_s = time.perf_counter() - t0
             placed.train()
             reset_launches()
-            steps = timed_steps("dist train (world 1, NCCL, FSDP2)", step,
-                                placed, state, batch)
+            moments = {}
+            steps = timed_steps(
+                "dist train (world 1, NCCL, FSDP2)", step, placed, state,
+                batch, lambda i: moments.update(int8_on_card(
+                    placed, state, f"dist train after step {i}"))
+                if i == INT8_SAME_WEIGHTS_STEP else None)
             counts = read_launches()
             del placed, opt, state, step
             torch.cuda.empty_cache()
             serve_counts = dist_serve(model, cfg, ctx)
+            lora_counts = dist_lora(model, cfg, ctx, batch)
+            compress_counts = dist_compress(model, cfg, ctx, batch)
         finally:
             bootstrap.shutdown()
     torch.cuda.empty_cache()
@@ -4085,7 +4168,403 @@ def phase_dist_train(model, cfg, device: str = "cuda") -> tuple:
     check_train_steps(cfg, steps, BENCH_STEPS, "dist train")
     if n_dt != sum(1 for _ in model.parameters()):
         raise AssertionError("dist train: not every parameter is a DTensor")
-    return counts, steps, serve_counts
+    return counts, steps, serve_counts, moments, lora_counts, compress_counts
+
+
+def int8_bytes(model, state, where: str) -> None:
+    """Log the bytes of a run's int8 Adam state on the card beside the
+    fp32 moments it stands for (two a trained value)."""
+    from v2pe_tpu_torch.parallel.mesh import local
+
+    held = sum(t.numel() * t.element_size()
+               for mom in state["moments"].values() for t in mom.values())
+    n = sum(local(p).numel() for p in model.parameters())
+    log(f"{where}: int8 Adam state {held / 2 ** 20:.2f} MiB on the card "
+        f"({held / n:.4f} bytes a trained value) against fp32 moments' "
+        f"{8 * n / 2 ** 20:.2f} MiB ({card_line()})")
+
+
+def int8_on_card(model, state, where: str, to_cpu: bool = True) -> dict:
+    """The int8 Adam state of a run (its bytes logged by ``int8_bytes``),
+    gathered to one device's layout (JAX's flat order): a copy (on the
+    CPU with ``to_cpu``) that later steps leave as it is."""
+    from v2pe_tpu_torch.parallel.mesh import placement_of
+
+    int8_bytes(model, state, where)
+    moments = state["moments"]
+    placement = placement_of(model)
+    if placement is not None:
+        moments = placement.gather_state(model, state)["moments"]
+    return {k: {t: v.to("cpu", copy=True) if to_cpu else v.clone()
+                for t, v in mom.items()} for k, mom in moments.items()}
+
+
+def _dequantized(mom: dict, tag: str, dev) -> torch.Tensor:
+    """A leaf's first (m) or second (v) moment from its int8 state, as
+    ``train/adam8bit.py`` reads it back (v: the square of its code)."""
+    from v2pe_tpu_torch.train.adam8bit import BLOCK
+
+    code, scale = mom[f"{tag}_code"].to(dev), mom[f"{tag}_scale"].to(dev)
+    n = code.numel()
+    x = torch.cat([code, code.new_zeros(scale.numel() * BLOCK - n)]).view(
+        -1, BLOCK).float()
+    return ((x if tag == "m" else x * x) * scale[:, None]).view(-1)[:n]
+
+
+def compare_int8(got: dict, want: dict, where: str) -> None:
+    """Two int8 Adam states of one device's layout, leaf by leaf: the
+    moments they hold within two code steps of the leaf's largest block
+    (2/127 of its largest value: a value on a rounding tie lands one step
+    away where the two runs' gradients differ in their last bits) and at
+    most 1 in 10^4 codes off. A block whose gradients are rounding noise
+    (the ViT's key bias: the softmax cancels its gradient) may hold other
+    codes by many steps at no weight. Logs the codes off, the leaves with
+    the largest steps, and the largest moment difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{where}: int8 leaves differ")
+    off = total = 0
+    worst_code, worst, by_leaf = 0, 0.0, {}
+    for key in want:
+        for tag in ("m", "v"):
+            dev = want[key][f"{tag}_code"].device  # compared where want is
+            d = (got[key][f"{tag}_code"].to(dev).int()
+                 - want[key][f"{tag}_code"].int()).abs()
+            n_off = int((d > 0).sum())
+            off += n_off
+            total += d.numel()
+            if n_off:
+                by_leaf[f"{key} {tag}"] = (n_off, int(d.max()))
+                worst_code = max(worst_code, int(d.max()))
+            w = _dequantized(want[key], tag, dev)
+            dm = (_dequantized(got[key], tag, dev) - w).abs().max() / \
+                w.abs().max().clamp_min(1e-30) if w.numel() else 0.0
+            worst = max(worst, float(dm))
+            del d, w
+    top = sorted(by_leaf.items(), key=lambda kv: -kv[1][1])[:4]
+    log(f"{where}: int8 codes equal {total - off}/{total} (largest step "
+        f"{worst_code}; the leaves off, codes off and largest step: {top}); "
+        f"moments within {worst:.2e} of each leaf's largest (limit "
+        f"{2 / 127:.2e}); {len(want)} leaves in JAX's flat order")
+    if off > 1e-4 * total or worst > 2 / 127:
+        raise AssertionError(f"{where}: int8 states disagree")
+
+
+def dist_lora(model, cfg, ctx, batch) -> dict:
+    """LoRA on the mesh (world 1): the trainer's adapters (ranks LORA_LLM_R /
+    LORA_VIT_R from its seed) over a frozen view of the weights placed by
+    ``place_lora`` (FSDP2 per layer; the adapters beside it), BENCH_STEPS
+    steps of ``make_train_step(lora=True)`` on the bench batch, then the
+    same from the same adapters unplaced (``lora_view``): losses and grad
+    norms step by step within RING_TRAIN_TOL, the adapters after the last
+    step within 2 x BENCH_STEPS x lr (a step of Adam moves a value by at
+    most about lr); the base untouched. Returns the placed run's
+    launches."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.lora import build_lora, whole_lora
+    from v2pe_tpu_torch.parallel.mesh import place_lora
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    tc = train_config()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs, counts = {}, None
+    for placed in (True, False):
+        dev = next(model.parameters()).device
+        lora = build_lora(torch.Generator(dev).manual_seed(42 ^ 0x10BA),
+                          model, backbone_r=LORA_VIT_R, llm_r=LORA_LLM_R)
+        base = place_lora(model, lora, cfg, ctx) if placed else model
+        opt = build_optimizer(tc, lora, cfg)
+        step = make_train_step(cfg, opt, config.MeshConfig() if placed
+                               else None, img_context_token_id=IMG_CONTEXT_ID,
+                               remat="full", lora=True)
+        state = opt.init()
+        base.train()
+        torch.cuda.synchronize()
+        reset_launches()
+        what = "placed" if placed else "unplaced"
+        steps = timed_steps(f"dist lora ({what})",
+                            lambda m, s, b: step(lora, s, b, base), base,
+                            state, batch)
+        if placed:
+            counts = read_launches()
+            int8_bytes(lora, state, "dist lora (placed)")
+        base.eval()
+        runs[what] = (steps, whole_lora(lora).state_dict())
+        del base, opt, state, step, lora
+        torch.cuda.empty_cache()
+    check_train_steps(cfg, runs["placed"][0], BENCH_STEPS, "dist lora")
+    rel = step_rel(runs["placed"][0], runs["unplaced"][0])
+    a, b = runs["placed"][1], runs["unplaced"][1]
+    diff = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    moved = max(float((a[k].float() - b[k].float()).abs().max()) for k in b
+                if k.endswith(".B"))
+    limit = 2 * BENCH_STEPS * tc.learning_rate
+    changed = [k for k, v in model.state_dict().items()
+               if not same_bits(v, before[k])]
+    ms = [sorted(m["ms"] for m in runs[w][0][1:])[len(runs[w][0][1:]) // 2]
+          for w in ("placed", "unplaced")]
+    log(f"dist lora: {len(b) // 3} adapters placed beside the FSDP2 view; "
+        f"median of steps 2-{BENCH_STEPS} {ms[0]:.1f} ms placed, {ms[1]:.1f} "
+        f"unplaced; loss rel {[f'{r[0]:.2e}' for r in rel]}, grad_norm rel "
+        f"{[f'{r[1]:.2e}' for r in rel]} (tol {RING_TRAIN_TOL}); adapters "
+        f"after step {BENCH_STEPS}: max |placed - unplaced| {diff:.2e} (B "
+        f"{moved:.2e}; limit {limit:.1e}); base tensors changed "
+        f"{len(changed)} ({card_line()})")
+    if any(r[0] > RING_TRAIN_TOL["loss"] or r[1] > RING_TRAIN_TOL["grad_norm"]
+           for r in rel) or diff > limit or changed:
+        raise AssertionError("dist lora: the placed run disagrees with the "
+                             "unplaced one")
+    return counts
+
+
+def step_rel(got: list, want: list) -> list:
+    """(loss, grad_norm) relative differences, step by step."""
+    return [(abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+             abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"]))
+            for a, b in zip(got, want)]
+
+
+def dist_compress(model, cfg, ctx, batch) -> dict:
+    """Compress-seq on the mesh (world 1): the 'add' module built from the
+    decoder, a copy of the model placed by ``shard_model`` (each decoder
+    layer's compress part through its FSDP2 unit, the compress parameters
+    in the root unit), BENCH_STEPS bench-recipe steps in COMPRESS_CHUNKS
+    chunks, then the same unplaced: losses and grad norms within
+    RING_TRAIN_TOL step by step. Returns the placed run's launches."""
+    import copy
+
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.compress_seq import init_compress_params
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    cfg_c = dataclasses.replace(cfg, compress_seq=True, fuse_method="add",
+                                chunk_num=COMPRESS_CHUNKS)
+    runs, counts = {}, None
+    for placed in (True, False):
+        m = copy.deepcopy(model)
+        m.compress = init_compress_params(m.llm, cfg=cfg.llm)
+        if placed:
+            shard_model(m, cfg_c, ctx)
+        opt = build_optimizer(train_config(), m, cfg_c)
+        step = make_train_step(cfg_c, opt, config.MeshConfig() if placed
+                               else None, img_context_token_id=IMG_CONTEXT_ID,
+                               remat="full")
+        state = opt.init()
+        m.train()
+        torch.cuda.synchronize()
+        reset_launches()
+        what = "placed" if placed else "unplaced"
+        runs[what] = timed_steps(f"dist compress ({what})", step, m, state,
+                                 batch)
+        if placed:
+            counts = read_launches()
+            int8_bytes(m, state, "dist compress (placed)")
+        del m, opt, state, step
+        torch.cuda.empty_cache()
+    check_compress_steps(cfg, runs["placed"], "dist compress")
+    rel = step_rel(runs["placed"], runs["unplaced"])
+    ms = [sorted(x["ms"] for x in runs[w][1:])[len(runs[w][1:]) // 2]
+          for w in ("placed", "unplaced")]
+    log(f"dist compress (add, {COMPRESS_CHUNKS} chunks): median of steps "
+        f"2-{BENCH_STEPS} {ms[0]:.1f} ms placed, {ms[1]:.1f} unplaced; loss "
+        f"rel {[f'{r[0]:.2e}' for r in rel]}, grad_norm rel "
+        f"{[f'{r[1]:.2e}' for r in rel]} (tol {RING_TRAIN_TOL}) "
+        f"({card_line()})")
+    if any(r[0] > RING_TRAIN_TOL["loss"] or r[1] > RING_TRAIN_TOL["grad_norm"]
+           for r in rel):
+        raise AssertionError("dist compress: the placed run disagrees with "
+                             "the unplaced one")
+    return counts
+
+
+TWO_RANK_TOKENS, TWO_RANK_STEPS = 2048, 2  # a row a rank, one tile each
+# the vocab of the two-rank phase: a tenth of InternVL2's 92,553, still no
+# multiple of 256, so the head's int8 blocks are cut between the ranks;
+# the root unit's host-staged gathers shrink with it
+TWO_RANK_VOCAB = 9257
+
+
+def two_rank_cfg(cfg):
+    """InternVL2-2B's hidden widths at 2 layers a tower and a vocab of
+    TWO_RANK_VOCAB."""
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, num_hidden_layers=2),
+        llm=dataclasses.replace(cfg.llm, num_hidden_layers=2,
+                                vocab_size=TWO_RANK_VOCAB))
+
+
+def two_rank_recipes(cfg, device, ctx=None) -> dict:
+    """The three recipes of this slice on a model drawn from seed 0 (fp32:
+    bf16 gradients summed over two ranks round twice, which moves int8
+    codes by a few steps and would hide a fault),
+    TWO_RANK_STEPS steps each on make_synthetic_batch's 2 rows of
+    TWO_RANK_TOKENS tokens and a tile: the bench recipe with int8 Adam,
+    LoRA (the trainer's ranks and seed), compress-seq ('add', 4 chunks).
+    With ``ctx`` (fsdp 2) each is placed and each rank takes its row.
+    Returns, per recipe, the (loss, grad norm) of each step and, on the
+    CPU, the int8 state gathered to one device's layout or the adapters
+    whole."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.compress_seq import init_compress_params
+    from v2pe_tpu_torch.models.lora import build_lora, whole_lora
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.parallel import bootstrap
+    from v2pe_tpu_torch.parallel.mesh import (place_lora, placement_of,
+                                              shard_model)
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    mesh = config.MeshConfig(fsdp=2) if ctx is not None else None
+    b = make_synthetic_batch(cfg, 2, TWO_RANK_TOKENS, tiles_per_row=1,
+                             stride=64)
+    # the image tokens (92544-92546) onto the vocab's last three ids
+    shift = IMG_CONTEXT_ID - (cfg.llm.vocab_size - 1)
+    for k in ("input_ids", "targets"):
+        b[k] = np.where(b[k] >= IMG_CONTEXT_ID - 2, b[k] - shift, b[k])
+    if ctx is not None:
+        b = bootstrap.rows_of_global_batch(b, ctx.dp_index, ctx.dp_size,
+                                           cfg.num_image_token)
+    batch = bootstrap.make_global_batch(b, ctx, device) if ctx is not None \
+        else {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+    out = {}
+    for recipe in ("int8", "lora", "compress"):
+        rc = cfg if recipe != "compress" else dataclasses.replace(
+            cfg, compress_seq=True, fuse_method="add",
+            chunk_num=COMPRESS_CHUNKS)
+        model = init_vlm_params(rc, torch.Generator(device).manual_seed(0),
+                                device=device, dtype=torch.float32)
+        trained, forward = model, model
+        if recipe == "compress":
+            model.compress = init_compress_params(model.llm, cfg=rc.llm)
+        if recipe == "lora":
+            trained = build_lora(
+                torch.Generator(device).manual_seed(42 ^ 0x10BA), model,
+                backbone_r=LORA_VIT_R, llm_r=LORA_LLM_R)
+            if ctx is not None:
+                forward = place_lora(model, trained, rc, ctx)
+        elif ctx is not None:
+            shard_model(model, rc, ctx)
+        opt = build_optimizer(train_config(), trained, rc)
+        step = make_train_step(rc, opt, mesh, lora=recipe == "lora",
+                               img_context_token_id=IMG_CONTEXT_ID - shift,
+                               remat="full")
+        state = opt.init()
+        forward.train()
+        steps = []
+        for _ in range(TWO_RANK_STEPS):
+            loss, gnorm = step(trained, state, batch, forward) \
+                if recipe == "lora" else step(model, state, batch)
+            steps.append((loss.item(), gnorm.item()))
+        rec = {"steps": steps}
+        if recipe == "int8":
+            rec["moments"] = int8_on_card(model, state, f"two ranks "
+                                          f"({'fsdp 2' if ctx else 'one'})")
+        if recipe == "lora":
+            rec["adapters"] = {k: v.cpu() for k, v in
+                               whole_lora(trained).state_dict().items()}
+        out[recipe] = rec
+        del model, trained, forward, opt, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _two_rank_worker(rank: int, store: str, result: str, cfg,
+                     device: str) -> None:
+    """One of two processes on the one card: gloo over CUDA tensors
+    (NCCL refuses a second rank on a device), the mesh fsdp = 2, the
+    recipes of ``two_rank_recipes`` placed; rank 0 saves the results."""
+    import traceback
+
+    os.environ.update(V2PE_NUM_PROCESSES="2", V2PE_PROCESS_ID=str(rank))
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.parallel import bootstrap
+    from v2pe_tpu_torch.parallel.context import ShardingContext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        bootstrap.initialize_distributed(
+            device=device, init_method=f"file://{store}", backend="gloo")
+        ctx = ShardingContext.from_mesh(config.MeshConfig(fsdp=2))
+        out = two_rank_recipes(cfg, torch.device(
+            "cuda", torch.cuda.current_device()) if device == "cuda"
+            else torch.device(device), ctx)
+        if rank == 0:
+            torch.save(out, result)
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)  # a peer in a collective must not hang us
+    finally:
+        bootstrap.shutdown()
+
+
+def phase_two_ranks(device: str = "cuda", cfg=None,
+                    start: str = "spawn") -> None:
+    """Two processes on the one card as a mesh of fsdp = 2 over gloo (the
+    collectives staged through the host; NCCL refuses two ranks on one
+    device, ``tests/torch_two_ranks_one_card.py``), at InternVL2-2B's
+    hidden widths, 2 layers a tower and a vocab of TWO_RANK_VOCAB: int8
+    Adam with blocks cut between the ranks (the head's), LoRA placed,
+    compress-seq placed, each held to the
+    same recipe run unplaced in this process on both rows: losses and grad
+    norms within RING_TRAIN_TOL, the int8 state by ``compare_int8``, the
+    adapters within 2 x steps x lr. Fails the run when a rank fails."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from v2pe_tpu_torch import config
+
+    cfg = cfg or two_rank_cfg(config.internvl2_2b())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "ranks.pt")
+        spawn = mp.get_context(start)
+        procs = [spawn.Process(target=_two_rank_worker, args=(
+            r, os.path.join(tmp, "store"), result, cfg, device))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        want = two_rank_recipes(cfg, torch.device(device))
+        for p in procs:
+            p.join(timeout=600)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0] or not os.path.exists(result):
+            raise AssertionError(f"two ranks on one card: exit codes {codes}")
+        got = torch.load(result)
+    wall = time.perf_counter() - t0
+    for recipe in ("int8", "lora", "compress"):
+        rel = step_rel([dict(loss=a, grad_norm=b)
+                        for a, b in got[recipe]["steps"]],
+                       [dict(loss=a, grad_norm=b)
+                        for a, b in want[recipe]["steps"]])
+        log(f"two ranks ({recipe}, fsdp 2 over gloo on one card): losses "
+            f"{[round(a, 4) for a, _ in got[recipe]['steps']]}, loss rel "
+            f"{[f'{r[0]:.2e}' for r in rel]}, grad_norm rel "
+            f"{[f'{r[1]:.2e}' for r in rel]} against one process (tol "
+            f"{RING_TRAIN_TOL})")
+        if any(r[0] > RING_TRAIN_TOL["loss"]
+               or r[1] > RING_TRAIN_TOL["grad_norm"] for r in rel):
+            raise AssertionError(f"two ranks ({recipe}) disagree with one "
+                                 f"process")
+    compare_int8(got["int8"]["moments"], want["int8"]["moments"],
+                 "two ranks (int8)")
+    a, b = got["lora"]["adapters"], want["lora"]["adapters"]
+    diff = max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+    limit = 2 * TWO_RANK_STEPS * train_config().learning_rate
+    log(f"two ranks (lora): adapters max |fsdp 2 - one| {diff:.2e} (limit "
+        f"{limit:.1e}); phase wall {wall:.1f} s ({card_line()})")
+    if diff > limit:
+        raise AssertionError("two ranks (lora): adapters disagree")
 
 
 def dist_serve(model, cfg, ctx) -> dict:
@@ -5871,10 +6350,13 @@ def main(argv=None) -> int:
     lap("train")
     # the mesh's training path as a world of 1, on a copy of the weights the
     # bench recipe then starts from
-    dist_counts, dist_steps, serve_counts = phase_dist_train(model, cfg)
-    paths += [dist_counts, serve_counts,
-              phase_bench_recipe(model, cfg, dist_steps),
+    dist_counts, dist_steps, serve_counts, dist_moments, lora_counts, \
+        compress_counts = phase_dist_train(model, cfg)
+    paths += [dist_counts, serve_counts, lora_counts, compress_counts,
+              phase_bench_recipe(model, cfg, dist_steps, dist_moments),
               phase_ring_train(model, cfg)]
+    del dist_moments
+    phase_two_ranks()
     lap("dist train, bench recipe, ring train")
     paths += phase_compress_train(model, cfg)
     paths.append(phase_compress_fuse_only(model, cfg))

@@ -254,11 +254,13 @@ def test_ulysses_all_to_all_across_two_processes_equals_one(worker_run):
 def test_what_a_mesh_of_processes_refuses(worker_run):
     got = worker_run.result()[1]
     for what in ("mismatched world", "pipe", "fused ring across ranks",
-                 "int8 adam, fsdp", "compress-seq"):
+                 "compress-seq over seq"):
         assert got[what] is not None, what
         assert got[what][0] == "NotImplementedError", (what, got[what])
     assert "#11 across cards" in got["fused ring across ranks"][1]
-    assert "int8 Adam over sharded leaves" in got["int8 adam, fsdp"][1]
+    assert "Queue 1 item 6.5" in got["fused ring across ranks"][1]
+    assert "Queue 1 item 8" in got["pipe"][1]
+    assert "Queue 1 item 6.4" in got["compress-seq over seq"][1]
 
 
 def test_save_and_resume_at_fsdp2_continues_as_an_unbroken_run(worker_run):

@@ -95,6 +95,11 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
             "v2pe_tpu_torch.models.safetensors_io",
             "v2pe_tpu_torch.models.export",
             "v2pe_tpu_torch.tools.export_hf",
+            "v2pe_tpu_torch.tools.token_count",
+            "v2pe_tpu_torch.tools.test_image_patch",
+            "v2pe_tpu_torch.tools.inference_test",
+            "v2pe_tpu_torch.scripts.bench_decode",
+            "v2pe_tpu_torch.scripts.bench_train_remat",
             "v2pe_tpu_torch.models.lora", "v2pe_tpu_torch.models.compress_seq",
             "v2pe_tpu_torch.models.sequence_classification",
             "v2pe_tpu_torch.utils", "v2pe_tpu_torch.utils.diagnostics",

@@ -31,10 +31,11 @@ def _ctx(mesh: dict, ring_mode: str = "scan"):
     return ShardingContext.from_mesh(MeshConfig(**mesh), ring_mode=ring_mode)
 
 
-def _cfg(spec):
+def _cfg(spec, task=None):
+    """The run's config (a task's own where it has one)."""
     from v2pe_tpu_torch.core.config import VLMConfig
 
-    return VLMConfig.from_json(spec["cfg"])
+    return VLMConfig.from_json((task or {}).get("cfg", spec["cfg"]))
 
 
 def _local_batch(batch, ctx, cfg):
@@ -54,12 +55,12 @@ def _setup(spec, task):
     from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
     from v2pe_tpu_torch.train.train_step import make_train_step
 
-    cfg = _cfg(spec)
+    cfg = _cfg(spec, task)
     if task.get("drop_path_rate"):
         cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
             cfg.vision, drop_path_rate=task["drop_path_rate"]))
     ctx = _ctx(task["mesh"])
-    model = from_jax_params(spec["tree"], cfg, mesh=ctx)
+    model = from_jax_params(task.get("tree", spec["tree"]), cfg, mesh=ctx)
     opt = build_optimizer(TrainConfig(**task["tc"]), model, cfg)
     step = make_train_step(cfg, opt, MeshConfig(**task["mesh"]),
                            img_context_token_id=spec["img_context_id"],
@@ -93,7 +94,82 @@ def task_train(spec, task):
     return {"loss": losses, "grad_norm": norms,
             "params": {n: t.numpy() for n, t in full.items()},
             "rules": sorted(model.placement.rules),
-            "ring_q_shapes": sorted(set(calls))}
+            "ring_q_shapes": sorted(set(calls)),
+            **_int8_state(model, state)}
+
+
+def _int8_state(model, state) -> dict:
+    """An int8 Adam state gathered to one device's layout, and the bytes
+    of it each rank holds (rank order); nothing for another optimizer."""
+    import torch.distributed as dist
+
+    if "moments" not in state:
+        return {}
+    mine = sum(t.numel() * t.element_size()
+               for mom in state["moments"].values() for t in mom.values())
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    whole = model.placement.gather_state(model, state)["moments"]
+    return {"moments": {k: {t: v.cpu().numpy() for t, v in mom.items()}
+                        for k, mom in whole.items()},
+            "state_bytes": every}
+
+
+def task_lora(spec, task):
+    """LoRA steps on a mesh: the spec's whole base and adapters (a JAX
+    adapter tree), placed by ``place_lora``; the losses, grad norms, the
+    adapters after the steps (whole), their split, and whether the base
+    stayed as it was."""
+    from v2pe_tpu_torch.core.config import MeshConfig
+    from v2pe_tpu_torch.models.lora import from_jax_lora
+    from v2pe_tpu_torch.models.params import from_jax_params
+    from v2pe_tpu_torch.parallel.mesh import place_lora
+    from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    cfg, ctx = _cfg(spec, task), _ctx(task["mesh"])
+    model = from_jax_params(spec["tree"], cfg)
+    before = {n: t.clone() for n, t in model.state_dict().items()}
+    lora = from_jax_lora(spec["adapters"])
+    view = place_lora(model, lora, cfg, ctx)
+    opt = build_optimizer(TrainConfig(**task["tc"]), lora, cfg)
+    step = make_train_step(cfg, opt, MeshConfig(**task["mesh"]),
+                           img_context_token_id=spec["img_context_id"],
+                           remat=task.get("remat", "full"), lora=True)
+    state = opt.init()
+    losses, norms = [], []
+    for batch in spec["batches"]:
+        loss, gnorm = step(lora, state, _local_batch(batch, ctx, cfg), view)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    return {"loss": losses, "grad_norm": norms,
+            "adapters": {n: t.numpy() for n, t in
+                         lora.placement.full_state_dict(lora).items()},
+            "rules": sorted(lora.placement.rules),
+            "partial": sorted(lora.placement.partial),
+            "base_unchanged": all(torch.equal(t, before[n]) for n, t in
+                                  model.state_dict().items())}
+
+
+def task_int8_opt(spec, task):
+    """int8 Adam on a placed model, fed the spec's whole gradients (each
+    rank its shards of them): the parameters after the steps, the state
+    gathered, each rank's bytes of it."""
+    from v2pe_tpu_torch.models.params import from_jax_params
+    from v2pe_tpu_torch.train.optimizer import TrainConfig, build_optimizer
+
+    cfg, ctx = _cfg(spec), _ctx(task["mesh"])
+    model = from_jax_params(spec["tree"], cfg, mesh=ctx)
+    opt = build_optimizer(TrainConfig(**task["tc"]), model, cfg)
+    state = opt.init()
+    pl, params = model.placement, dict(model.named_parameters())
+    for grads in spec["grads"]:
+        opt.step({n: pl._shard(n, torch.from_numpy(np.array(g)),
+                               params[n]).contiguous()
+                  for n, g in grads.items()}, state)
+    full = pl.full_state_dict(model)
+    return {"params": {n: t.numpy() for n, t in full.items()},
+            **_int8_state(model, state)}
 
 
 def task_resume(spec, task):
@@ -115,9 +191,16 @@ def task_resume(spec, task):
     resumed = float(step2(model2, state2, b2)[0])
     full = {n: t.numpy() for n, t in
             model2.placement.full_state_dict(model2).items()}
-    return {"unbroken": unbroken, "resumed": resumed, "step": at,
-            "data_state": data_state, "files": sorted(os.listdir(path)),
-            "params": full}
+    out = {"unbroken": unbroken, "resumed": resumed, "step": at,
+           "data_state": data_state, "files": sorted(os.listdir(path)),
+           "params": full}
+    if task.get("compare"):  # the unbroken run's state beside the resumed
+        out["unbroken_params"] = {
+            n: t.numpy() for n, t in
+            model.placement.full_state_dict(model).items()}
+        out["unbroken_moments"] = _int8_state(model, state).get("moments")
+        out["resumed_moments"] = _int8_state(model2, state2).get("moments")
+    return out
 
 
 def task_ulysses(spec, task):
@@ -245,11 +328,7 @@ def task_refusals(spec, task):
         "pipe": lambda: _ctx({"fsdp": world, "pipe": 2}),
         "fused ring across ranks": lambda: _ctx({"seq": world},
                                                 ring_mode="fused"),
-        "int8 adam, fsdp": lambda: build_optimizer(
-            TrainConfig(use_8bit_optimizer=True),
-            from_jax_params(spec["tree"], cfg, mesh=_ctx({"fsdp": world})),
-            cfg),
-        "compress-seq": lambda: _compress(spec, cfg, world),
+        "compress-seq over seq": lambda: _compress(spec, cfg, world),
     }
     out = {}
     for what, fn in calls.items():
@@ -258,22 +337,32 @@ def task_refusals(spec, task):
             out[what] = None
         except Exception as e:  # the test reads the type and message
             out[what] = (type(e).__name__, str(e))
-    # int8 Adam stays exact under data alone: it builds
-    build_optimizer(TrainConfig(use_8bit_optimizer=True),
-                    from_jax_params(spec["tree"], cfg,
-                                    mesh=_ctx({"data": world})), cfg)
+    # int8 Adam builds under data alone and over sharded leaves
+    for axis in ("data", "fsdp"):
+        build_optimizer(TrainConfig(use_8bit_optimizer=True),
+                        from_jax_params(spec["tree"], cfg,
+                                        mesh=_ctx({axis: world})), cfg)
     return out
 
 
 def _compress(spec, cfg, world):
-    from v2pe_tpu_torch.models.compress_seq import init_compress_params
+    """A compress-seq model placed on a seq mesh (the placement takes it),
+    then its forward under the mesh's context (refused)."""
+    from v2pe_tpu_torch.models.compress_seq import (compress_llm_forward,
+                                                    init_compress_params)
     from v2pe_tpu_torch.models.params import from_jax_params
+    from v2pe_tpu_torch.parallel.context import use_sharding
     from v2pe_tpu_torch.parallel.mesh import shard_model
 
     model = from_jax_params(spec["tree"], cfg)
     model.compress = init_compress_params(model.llm, cfg=cfg.llm,
                                           fuse_method="add")
-    shard_model(model, cfg, _ctx({"fsdp": world}))
+    ctx = _ctx({"seq": world})
+    shard_model(model, cfg, ctx)
+    x = torch.zeros(1, 8, cfg.llm.hidden_size)
+    with use_sharding(ctx):
+        compress_llm_forward(model.llm, model.compress, cfg.llm, x,
+                             torch.zeros(1, 8), 4)
 
 
 # ---------------------------------------------------------------- serving
@@ -388,6 +477,7 @@ def task_serve(spec, task):
 
 
 TASKS = {"train": task_train, "resume": task_resume,
+         "int8_opt": task_int8_opt, "lora": task_lora,
          "ulysses": task_ulysses, "ring": task_ring,
          "drop_path": task_drop_path,
          "refusals": task_refusals, "serve": task_serve}

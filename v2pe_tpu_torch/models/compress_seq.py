@@ -20,6 +20,15 @@ sequence with one segment per (packed sample, chunk). The cross-attention
 fuse is plain fp32 torch, as the JAX version computes it in fp32 einsums
 outside any kernel. As in the JAX package, ``remat`` does not apply to
 this decoder (the ViT keeps it).
+
+On a mesh (``parallel/mesh.py:shard_model``) each decoder layer's part of
+the forward runs through the layer's call (``LLMLayer.forward``'s
+``body``), so that FSDP2 gathers its weights around it and reduce-scatters
+their gradients; the compress parameters sit in the root unit. Over
+``tensor`` the interaction attention splits its heads as the layer's own
+attention does, and so does the cross-attention fuse (``wq`` and ``wkv``
+by heads, ``wo`` by its inputs, one all-reduce after it). A sharded
+sequence (``seq`` above 1) is refused: see :func:`_no_sharding`.
 """
 
 from __future__ import annotations
@@ -32,12 +41,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from v2pe_tpu_torch.core.config import LLMConfig
-from v2pe_tpu_torch.models.internlm2 import (InternLM2Model,
-                                             attention_forward, head_logits,
-                                             mlp_forward)
+from v2pe_tpu_torch.models.internlm2 import (InternLM2Model, _mlp_block,
+                                             attention_forward, head_logits)
 from v2pe_tpu_torch.ops.norms import rms_norm
 from v2pe_tpu_torch.ops.rope import apply_rotary, compute_rope_cos_sin
 from v2pe_tpu_torch.parallel import context as parallel_context
+from v2pe_tpu_torch.parallel.mesh import column_input, row_output
 
 FINAL_SIZE = 100
 
@@ -202,12 +211,18 @@ def cross_attention_fuse(fuse: FuseLayer, cfg: LLMConfig, x_q: torch.Tensor,
     values, (B, Sk, D)): a rotary per side from the float32 ids pos_q /
     pos_k, GQA, an fp32 softmax with no mask, then ``wo``
     (``InternLM2CrossAttention``). Each projection takes the products of
-    the operands accumulated in fp32, rounded to x's dtype."""
+    the operands accumulated in fp32, rounded to x's dtype. Under a
+    ``tensor`` split (``parallel/mesh.py``) the fuse holds a rank's query
+    and KV heads and ``wo``'s matching inputs; its fp32 partial products
+    are summed over the ranks before the rounding."""
     B, Sq, D = x_q.shape
     Sk = x_kv.shape[1]
-    Hq, Hkv, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
+    hd = cfg.head_dim
+    Hq, Hkv = fuse.wq.weight.shape[0] // hd, \
+        fuse.wkv.weight.shape[0] // (2 * hd)
+    split = Hq != cfg.num_attention_heads
     G = Hq // Hkv
+    x_q, x_kv = column_input(x_q, split), column_input(x_kv, split)
 
     def dot(x, w):
         return F.linear(x.float(), w.float()).to(x.dtype)
@@ -224,15 +239,24 @@ def cross_attention_fuse(fuse: FuseLayer, cfg: LLMConfig, x_q: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     o = o.reshape(B, Sq, Hq * hd).to(x_q.dtype)
-    return dot(o, fuse.wo.weight)
+    return row_output(F.linear(o.float(), fuse.wo.weight.float()),
+                      split).to(x_q.dtype)
 
 
 def _no_sharding(what: str) -> None:
+    """Refuse a sharded sequence. JAX runs its compress step under ``seq``
+    as its one-device step on whatever array it is given, and its trainer
+    hands it the zigzag-permuted batch of the ring, so its chunks are other
+    tokens than at ``seq`` = 1 (ROADMAP Queue 3, "Known faults inside the
+    reference"): there is no step of JAX's to hold a split of the chunks
+    to."""
     ctx = parallel_context.current()
     if ctx is not None and (ctx.seq_shards > 1 or ctx.size("seq") > 1):
         raise NotImplementedError(
-            f"{what} with a sharded sequence (--mesh_seq > 1) is not ported "
-            f"(ROADMAP Queue 1 item 6)")
+            f"{what} with a sharded sequence (--mesh_seq > 1): JAX's "
+            f"trainer chunks the zigzag-permuted batch there (ROADMAP "
+            f"Queue 1 item 6.4; Queue 3, 'Known faults inside the "
+            f"reference')")
 
 
 def compress_llm_forward(model: InternLM2Model, compress: Compress,
@@ -278,7 +302,7 @@ def compress_llm_forward(model: InternLM2Model, compress: Compress,
     cos_i, sin_i = compute_rope_cos_sin(sum_pos, cfg.head_dim, cfg.rope_theta)
     ones = torch.ones((B, n_sum), dtype=torch.int32, device=dev)
 
-    for li, p in enumerate(model.layers):
+    def layer(p, cfg, x, cos, sin, li):
         gamma = compress.layer_scale[li]
         h = rms_norm(x, p.attention_norm, cfg.rms_norm_eps)
 
@@ -314,8 +338,10 @@ def compress_llm_forward(model: InternLM2Model, compress: Compress,
         # 4. the within-chunk attention, then the SwiGLU block
         x = x + attention_forward(p, cfg, h, cos, sin, segment_ids=seg,
                                   positions=None)
-        x = x + mlp_forward(p, rms_norm(x, p.ffn_norm, cfg.rms_norm_eps))
+        return _mlp_block(p, cfg, x)
 
+    for li, p in enumerate(model.layers):
+        x = p(cfg, x, cos, sin, body=layer, li=li)
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)
     return x if return_hidden else head_logits(x, model.output)
 
@@ -345,7 +371,7 @@ def compress_fuse_only_forward(model: InternLM2Model, compress: Compress,
                                     cfg.rope_theta)
     seg = (torch.arange(S, device=x.device) // c + 1).to(torch.int32)[None] \
         .expand(B, S)
-    for li, p in enumerate(model.layers):
+    def layer(p, cfg, x, cos, sin, li):
         gamma = compress.layer_scale[li]
         h = rms_norm(x, p.attention_norm, cfg.rms_norm_eps)
         fused = [h[:, :c]]  # chunk 0: no earlier context
@@ -362,6 +388,9 @@ def compress_fuse_only_forward(model: InternLM2Model, compress: Compress,
         h = torch.cat(fused, dim=1)
         x = x + attention_forward(p, cfg, h, cos, sin, segment_ids=seg,
                                   positions=None)
-        x = x + mlp_forward(p, rms_norm(x, p.ffn_norm, cfg.rms_norm_eps))
+        return _mlp_block(p, cfg, x)
+
+    for li, p in enumerate(model.layers):
+        x = p(cfg, x, cos, sin, body=layer, li=li)
     x = rms_norm(x, model.norm, cfg.rms_norm_eps)
     return head_logits(x, model.output)

@@ -125,10 +125,12 @@ class LLMLayer(nn.Module):
         self.w3 = nn.Linear(D, I, bias=False)
         self.w2 = nn.Linear(I, D, bias=False)
 
-    def forward(self, cfg: LLMConfig, x, cos, sin, **kw):
+    def forward(self, cfg: LLMConfig, x, cos, sin, body=None, **kw):
         """:func:`layer_forward` through the module's call, so that the
-        hooks of a sharded layer (FSDP2) run around it."""
-        return layer_forward(self, cfg, x, cos, sin, **kw)
+        hooks of a sharded layer (FSDP2) run around it; ``body``: another
+        computation of the layer's, ``body(self, x, cos, sin, **kw)``, run
+        the same way (compress-seq's layer)."""
+        return (body or layer_forward)(self, cfg, x, cos, sin, **kw)
 
 
 class InternLM2Model(nn.Module):

@@ -157,12 +157,13 @@ def lora_trainable_mask(model: nn.Module, lora: LoRA) -> Dict[str, bool]:
 
 def _shallow(module: nn.Module) -> nn.Module:
     """A copy of ``module`` with its own parameter, buffer and child dicts
-    (so that replacing one of them leaves ``module`` as it was), sharing
+    and its own hook registries (so that replacing an entry, or a hook a
+    placement registers on the copy, leaves ``module`` as it was), sharing
     every tensor and child."""
     new = copy.copy(module)
-    new._parameters = dict(module._parameters)
-    new._buffers = dict(module._buffers)
-    new._modules = dict(module._modules)
+    for k, v in module.__dict__.items():
+        if isinstance(v, (dict, set)):
+            new.__dict__[k] = copy.copy(v)
     return new
 
 
@@ -212,7 +213,9 @@ class _Merge(nn.Module):
         return self.adapter.merged(w)
 
 
-def _frozen(module: nn.Module) -> nn.Module:
+def frozen(module: nn.Module) -> nn.Module:
+    """A copy of ``module``'s tree (every module a shallow copy) whose
+    parameters alias its storage with ``requires_grad=False``."""
     new = _shallow(module)
     for k, p in new._parameters.items():
         if p is not None:  # the same storage, no gradient
@@ -220,21 +223,39 @@ def _frozen(module: nn.Module) -> nn.Module:
                                               requires_grad=False)
     for k, child in new._modules.items():
         if child is not None:
-            new._modules[k] = _frozen(child)
+            new._modules[k] = frozen(child)
     return new
+
+
+def merge_targets(view: nn.Module, lora: LoRA) -> None:
+    """Make each target Linear of ``view`` compute its weight, on access,
+    as its merge with the adapter (in place)."""
+    mods = dict(view.named_modules())
+    for name, ad in lora.targets().items():
+        parametrize.register_parametrization(mods[name], "weight",
+                                             _Merge(ad))
 
 
 def lora_view(model: nn.Module, lora: LoRA) -> nn.Module:
     """The training forward's model: every parameter an alias of the
     base's storage with ``requires_grad=False``, each target Linear's
     weight computed on access as its merge with the adapter. The base
-    model is not changed; gradients reach the adapters only."""
-    view = _frozen(model)
-    mods = dict(view.named_modules())
-    for name, ad in lora.targets().items():
-        parametrize.register_parametrization(mods[name], "weight",
-                                             _Merge(ad))
+    model is not changed; gradients reach the adapters only. On a mesh,
+    ``parallel/mesh.py:place_lora`` builds the view and places it."""
+    view = frozen(model)
+    merge_targets(view, lora)
     return view
+
+
+def whole_lora(lora: LoRA) -> LoRA:
+    """The adapters whole: ``lora`` itself, or, for adapters placed on a
+    mesh (``place_lora``), a new set gathered from every tensor rank (a
+    collective)."""
+    placement = getattr(lora, "placement", None)
+    if placement is None:
+        return lora
+    device = next(lora.parameters()).device
+    return lora_from_state_dict(placement.full_state_dict(lora), device)
 
 
 # ------------------------------------------------ the JAX tree's layout

@@ -41,6 +41,8 @@ AXES = ("data", "fsdp", "seq", "tensor")
 # DeviceMeshes built so far, by (shape, device type): building one creates
 # process groups, a collective call on every rank
 _MESHES: dict = {}
+# the device type of this process's ranks ("type"), set when it joins
+_DEVICE: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,12 +110,16 @@ def _init_url(coordinator: str) -> str:
 def initialize_distributed(launcher: str = "auto",
                            coordinator_port: int = 8476,
                            device: str = "cuda",
-                           init_method: Optional[str] = None) -> DistEnv:
+                           init_method: Optional[str] = None,
+                           backend: Optional[str] = None) -> DistEnv:
     """Join the process group a launcher describes (or ``launcher``
     forces): NCCL on ``cuda``, after ``torch.cuda.set_device(local_rank)``;
-    gloo on ``cpu``. A single process without ``init_method`` starts no
-    group. ``init_method`` (a ``file://`` URL, say) starts one even in a
-    world of 1. Idempotent."""
+    gloo on ``cpu``. ``backend="gloo"`` on ``cuda`` lets several ranks
+    share a card (rank r on card ``local_rank % cards``; NCCL refuses a
+    second rank on a device), their collectives staged through the host. A
+    single process without ``init_method`` starts no group.
+    ``init_method`` (a ``file://`` URL, say) starts one even in a world of
+    1. Idempotent."""
     denv = detect_env(coordinator_port)
     if launcher != "auto":
         denv = dataclasses.replace(denv, launcher=launcher)
@@ -122,14 +128,16 @@ def initialize_distributed(launcher: str = "auto",
         return denv
     if dist.is_initialized():
         return denv
+    backend = backend or ("nccl" if device == "cuda" else "gloo")
     if device == "cuda":
-        torch.cuda.set_device(denv.local_rank)
+        torch.cuda.set_device(denv.local_rank % torch.cuda.device_count()
+                              if backend == "gloo" else denv.local_rank)
     url = init_method or _init_url(denv.coordinator or
                                    f"127.0.0.1:{coordinator_port}")
-    dist.init_process_group("nccl" if device == "cuda" else "gloo",
-                            init_method=url,
+    dist.init_process_group(backend, init_method=url,
                             world_size=denv.num_processes,
                             rank=denv.process_id)
+    _DEVICE["type"] = "cuda" if device == "cuda" else "cpu"
     logger.info("torch.distributed up: launcher=%s rank %d/%d (%s)",
                 denv.launcher, dist.get_rank(), dist.get_world_size(),
                 dist.get_backend())
@@ -139,6 +147,7 @@ def initialize_distributed(launcher: str = "auto",
 def shutdown() -> None:
     """Leave the process group and forget the meshes built on it."""
     _MESHES.clear()
+    _DEVICE.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -162,7 +171,8 @@ def make_global_mesh(cfg):
             f"the mesh {dict(zip(AXES, shape))} covers {n} cards, the "
             f"process group has {world_size()} ranks: one process drives "
             f"one card (ROADMAP Queue 1 item 6)")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = _DEVICE.get("type") or (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
     key = (shape, device_type)
     if key not in _MESHES:
         _MESHES[key] = init_device_mesh(device_type, shape,

@@ -64,8 +64,8 @@ class ShardingContext:
         if self.ring_mode == "fused" and self.size("seq") > 1:
             raise NotImplementedError(
                 "--ring_mode fused across processes: the fused ring's chunk "
-                "table points at local memory only (ROADMAP Queue 2, '#11 "
-                "across cards'); use --ring_mode scan")
+                "table points at local memory only (ROADMAP Queue 1 item "
+                "6.5; Queue 2, '#11 across cards'); use --ring_mode scan")
 
     @property
     def pipe_shards(self) -> int:
@@ -129,7 +129,7 @@ class ShardingContext:
         if mesh_cfg.pipe > 1:
             raise NotImplementedError(
                 "the pipe axis (parallel/pipeline.py) is not ported "
-                "(ROADMAP Queue 1 item 6, the last of its list)")
+                "(ROADMAP Queue 1 item 8, the next after Queue 1 item 6)")
         world = bootstrap.world_size()
         if world > 1:
             return cls(ring_mode=ring_mode,

@@ -72,6 +72,13 @@ _TENSOR_RULES = [
     (r"vision\.layers\.\d+\.fc2\.weight", TensorRule(1, 1, "vit_mlp")),
     (r"mlp1\.fc1\.(weight|bias)", TensorRule(0, 1, "projector")),
     (r"mlp1\.fc2\.weight", TensorRule(1, 1, "projector")),
+    # compress-seq: the interaction attention as the layer's own; the
+    # cross-attention fuse's wq (query heads) and wkv (k, v a KV head)
+    (r"compress\.interaction\.\d+\.wqkv\.(weight|bias)",
+     TensorRule(0, 1, "llm_attn")),
+    (r"compress\.interaction\.\d+\.wo\.weight", TensorRule(1, 1, "llm_attn")),
+    (r"compress\.fuse\.\d+\.w(q|kv)\.weight", TensorRule(0, 1, "llm_attn")),
+    (r"compress\.fuse\.\d+\.wo\.weight", TensorRule(1, 1, "llm_attn")),
 ]
 
 
@@ -248,12 +255,51 @@ def _fsdp_chunk(full: torch.Tensor, n: int, i: int) -> torch.Tensor:
 
 class Placement:
     """How a model sits on a mesh: its context and its tensor rules.
-    ``shard_model`` attaches one to the model as ``model.placement``."""
+    ``shard_model`` attaches one to the model as ``model.placement``; a
+    LoRA adapter set placed beside it gets one too (``fsdp=False``: the
+    adapters stay whole over ``fsdp``, and ``partial`` names the adapter
+    tensors whose gradients each tensor rank holds a part of).
+    ``moments``: the int8 Adam state's own gather and shard (set by the
+    optimizer, ``train/optimizer.py``), since its blocks do not follow the
+    parameters' shards."""
 
     def __init__(self, ctx: pctx.ShardingContext,
-                 rules: Dict[str, TensorRule]):
+                 rules: Dict[str, TensorRule], fsdp: bool = True,
+                 partial=()):
         self.ctx = ctx
         self.rules = rules
+        self.fsdp = fsdp
+        self.partial = sorted(partial)  # one order on every rank
+        self.moments = None
+
+    def shard_axes(self, name: str, p) -> tuple:
+        """The mesh axes above 1 over which parameter ``name`` is cut."""
+        from torch.distributed.tensor import DTensor
+
+        axes = [a for a, cut in (("fsdp", isinstance(p, DTensor)),
+                                 ("tensor", name in self.rules))
+                if cut and self.ctx.size(a) > 1]
+        return tuple(axes)
+
+    def shard_index(self, name: str, p) -> list:
+        """For each dimension of parameter ``name``, the indices into the
+        whole parameter of this rank's shard along it (int64, ascending;
+        the shard is the whole parameter indexed by each in turn)."""
+        from torch.distributed.tensor import DTensor
+
+        rule = self.rules.get(name)
+        out = []
+        for d, size in enumerate(self._full_shape(name, p)):
+            idx = torch.arange(size)
+            if rule is not None and rule.dim == d:
+                idx = tensor_slice(idx, TensorRule(0, rule.blocks, rule.unit),
+                                   self.ctx.size("tensor"),
+                                   self.ctx.coord("tensor"))
+            if d == 0 and isinstance(p, DTensor):
+                idx = _fsdp_chunk(idx, self.ctx.size("fsdp"),
+                                  self.ctx.coord("fsdp"))
+            out.append(idx)
+        return out
 
     # the parameters' whole values ------------------------------------
 
@@ -288,16 +334,27 @@ class Placement:
                                self.ctx.coord("fsdp"))
         return full
 
+    def _buffers(self, model: nn.Module) -> dict:
+        """The buffers a placed adapter set's state dict carries (each
+        adapter's ``alpha``); a placed model's are not saved."""
+        return {} if self.fsdp else dict(model.named_buffers())
+
     @torch.no_grad()
     def full_state_dict(self, model: nn.Module) -> dict:
         """Every parameter whole, in the layout of the unsharded model (a
         collective: every rank calls it)."""
-        return {n: self._full(n, local(p), p).detach()
-                for n, p in model.named_parameters()}
+        out = {n: self._full(n, local(p), p).detach()
+               for n, p in model.named_parameters()}
+        return {**out, **{n: b.detach() for n, b in
+                          self._buffers(model).items()}}
 
     @torch.no_grad()
     def load_full_state_dict(self, model: nn.Module, sd: dict) -> None:
         """Copy a whole state dict into the model's shards."""
+        buffers = self._buffers(model)
+        for n, b in buffers.items():
+            b.copy_(sd[n])
+        sd = {n: v for n, v in sd.items() if n not in buffers}
         got, want = set(sd), {n for n, _ in model.named_parameters()}
         if got != want:
             raise KeyError(f"state dict keys differ: missing "
@@ -326,7 +383,11 @@ class Placement:
     @torch.no_grad()
     def gather_state(self, model: nn.Module, state: dict) -> dict:
         """An optimizer state with every per-parameter tensor (keyed by
-        the parameter's name, shaped like its shard) whole."""
+        the parameter's name, shaped like its shard) whole, and the int8
+        moments in the layout of one device."""
+        if "moments" in state and self.moments is not None:
+            state = dict(state, moments=self.moments.gather(
+                state["moments"]))
         return self._per_param(
             model, state, lambda n, v, p: self._full(n, v, p)
             if v.shape == local(p).shape else v)
@@ -341,6 +402,8 @@ class Placement:
     @torch.no_grad()
     def shard_state(self, model: nn.Module, full: dict) -> dict:
         """The inverse of :meth:`gather_state`."""
+        if "moments" in full and self.moments is not None:
+            full = dict(full, moments=self.moments.shard(full["moments"]))
         return self._per_param(
             model, full, lambda n, v, p: self._shard(n, v, p).clone()
             if tuple(v.shape) == self._full_shape(n, p) else v)
@@ -350,24 +413,12 @@ class Placement:
     def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> None:
         """Sum the (local) gradients over ``data`` and ``seq`` in place:
         those ranks hold the same parameters and saw other tokens. FSDP2
-        has summed them over ``fsdp`` already."""
-        axes = [a for a in ("data", "seq") if self.ctx.size(a) > 1]
-        if not axes:
-            return
-        bucket, size = [], 0
-        for g in list(grads.values()) + [None]:
-            if g is not None:
-                bucket.append(g)
-                size += g.numel()
-            if bucket and (g is None or size >= REDUCE_BUCKET):
-                # one fp32 all-reduce a bucket of gradients
-                flat = torch.cat([b.reshape(-1).float() for b in bucket])
-                self.ctx.all_reduce(flat, axes)
-                at = 0
-                for b in bucket:
-                    b.copy_(flat[at:at + b.numel()].view_as(b))
-                    at += b.numel()
-                bucket, size = [], 0
+        has summed them over ``fsdp`` already; adapters, whole over
+        ``fsdp``, are summed over it here, and the ``partial`` ones over
+        ``tensor`` too."""
+        axes = ["data", "seq"] + ([] if self.fsdp else ["fsdp"])
+        _sum_over(self.ctx, list(grads.values()), axes)
+        _sum_over(self.ctx, [grads[n] for n in self.partial], ["tensor"])
 
     def sum_of_shards(self, per_param: Dict[str, torch.Tensor]
                       ) -> torch.Tensor:
@@ -378,9 +429,33 @@ class Placement:
         terms = [s for n, s in per_param.items()
                  if n in self.rules or keep_whole]
         dev = next(iter(per_param.values())).device if per_param else None
-        total = torch.stack(terms).sum() if terms else \
-            torch.zeros((), device=dev)
-        return self.ctx.all_reduce(total.float().clone(), ("fsdp", "tensor"))
+        # summed in the unplaced optimizer's order (``sum`` of the terms),
+        # so that a world of 1 clips by the same norm to the bit
+        total = sum(terms) if terms else torch.zeros((), device=dev)
+        return self.ctx.all_reduce(total.float().clone(),
+                                   ("fsdp", "tensor") if self.fsdp
+                                   else ("tensor",))
+
+
+def _sum_over(ctx, tensors, axes) -> None:
+    """Sum ``tensors`` in place over the mesh axes (those above 1), one
+    fp32 all-reduce a bucket of about ``REDUCE_BUCKET`` elements."""
+    axes = [a for a in axes if ctx.size(a) > 1]
+    if not axes:
+        return
+    bucket, size = [], 0
+    for g in list(tensors) + [None]:
+        if g is not None:
+            bucket.append(g)
+            size += g.numel()
+        if bucket and (g is None or size >= REDUCE_BUCKET):
+            flat = torch.cat([b.reshape(-1).float() for b in bucket])
+            ctx.all_reduce(flat, axes)
+            at = 0
+            for b in bucket:
+                b.copy_(flat[at:at + b.numel()].view_as(b))
+                at += b.numel()
+            bucket, size = [], 0
 
 
 def placement_of(model: nn.Module) -> Optional[Placement]:
@@ -515,35 +590,11 @@ def _shard_quantized_llm(llm, cfg: VLMConfig, ctx) -> list:
     return units
 
 
-def shard_model(model: nn.Module, cfg: VLMConfig,
-                ctx: Optional[pctx.ShardingContext],
-                serving: bool = False) -> nn.Module:
-    """Place a whole model on ``ctx``'s mesh, in place: each tensor rank
-    keeps its slice of the split parameters (``nn.Linear``'s
-    ``in_features`` / ``out_features`` follow), then FSDP2 shards every
-    decoder layer, every ViT layer and the rest over ``fsdp``. A model with
-    a quantized decoder (``QuantizedInternLM2``, serving) has its stacks
-    sliced over ``tensor`` by the same head and FFN split
-    (:func:`quantized_tensor_units`) and stays whole over ``fsdp`` and
-    ``data``: no FSDP2. Without a mesh the model is left as it is. Every
-    rank must pass the same whole weights. ``serving``: the placement of a
-    model that only serves (``_serving_root``): its root unit stays
-    gathered, so the serving entry points take it as it is; a model to be
-    trained is placed without it (its optimizer takes the sharded
-    parameters)."""
-    if ctx is None or ctx.mesh is None:
-        return model
-    if placement_of(model) is not None:
-        raise ValueError("the model is placed already")
-    if getattr(model, "compress", None) is not None:
-        raise NotImplementedError(
-            "compress-seq under a mesh is not ported (ROADMAP Queue 1 "
-            "item 6)")
-    from torch.distributed.fsdp import FSDPModule, fully_shard
-
-    quantized = not isinstance(model.llm.layers[0].wo, nn.Linear)
-    if quantized:  # serving: sliced over tensor, whole over fsdp and data
-        _shard_quantized_llm(model.llm, cfg, ctx)
+def _split_over_tensor(model: nn.Module, cfg: VLMConfig,
+                       ctx: pctx.ShardingContext) -> Dict[str, TensorRule]:
+    """Each tensor rank keeps its slice of the split parameters, in place
+    (``nn.Linear``'s ``in_features`` / ``out_features`` follow); returns
+    the rules."""
     rules = tensor_rules(model, cfg, ctx.size("tensor"))
     mods = dict(model.named_modules())
     with torch.no_grad():
@@ -557,9 +608,15 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
                 requires_grad=p.requires_grad))
             if isinstance(owner, nn.Linear) and attr == "weight":
                 owner.out_features, owner.in_features = owner.weight.shape
-    if quantized:
-        model.placement = Placement(ctx, rules)
-        return model
+    return rules
+
+
+def _fully_shard(model: nn.Module, ctx: pctx.ShardingContext) -> None:
+    """FSDP2 over ``fsdp``: every decoder layer, every ViT layer, then the
+    rest (the root unit: embeddings, head, projector, compress-seq's
+    parameters), reduce-scattering sums."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
+
     fsdp_mesh = ctx.mesh["fsdp"]
     for layer in list(model.llm.layers) + list(model.vision.layers):
         fully_shard(layer, mesh=fsdp_mesh)
@@ -573,7 +630,75 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
                 m.set_reduce_scatter_divide_factor(1.0)
             if hasattr(m, "set_force_sum_reduction_for_comms"):
                 m.set_force_sum_reduction_for_comms(True)
-    if serving:
-        _serving_root(model)
+
+
+def shard_model(model: nn.Module, cfg: VLMConfig,
+                ctx: Optional[pctx.ShardingContext],
+                serving: bool = False) -> nn.Module:
+    """Place a whole model on ``ctx``'s mesh, in place: each tensor rank
+    keeps its slice of the split parameters (``nn.Linear``'s
+    ``in_features`` / ``out_features`` follow), then FSDP2 shards every
+    decoder layer, every ViT layer and the rest over ``fsdp``. A model with
+    a quantized decoder (``QuantizedInternLM2``, serving) has its stacks
+    sliced over ``tensor`` by the same head and FFN split
+    (:func:`quantized_tensor_units`) and stays whole over ``fsdp`` and
+    ``data``: no FSDP2. A compress-seq model's interaction and fuse
+    attentions split over ``tensor`` as the layers' attention does, and
+    sit in the root unit over ``fsdp`` (``models/compress_seq.py`` runs
+    each decoder layer's part through the layer's call). Without a mesh the
+    model is left as it is. Every rank must pass the same whole weights.
+    ``serving``: the placement of a model that only serves
+    (``_serving_root``): its root unit stays gathered, so the serving entry
+    points take it as it is; a model to be trained is placed without it
+    (its optimizer takes the sharded parameters)."""
+    if ctx is None or ctx.mesh is None:
+        return model
+    if placement_of(model) is not None:
+        raise ValueError("the model is placed already")
+    quantized = not isinstance(model.llm.layers[0].wo, nn.Linear)
+    if quantized:  # serving: sliced over tensor, whole over fsdp and data
+        _shard_quantized_llm(model.llm, cfg, ctx)
+    rules = _split_over_tensor(model, cfg, ctx)
+    if not quantized:
+        _fully_shard(model, ctx)
+        if serving:
+            _serving_root(model)
     model.placement = Placement(ctx, rules)
     return model
+
+
+def place_lora(model: nn.Module, lora, cfg: VLMConfig,
+               ctx: pctx.ShardingContext) -> nn.Module:
+    """LoRA on a mesh: the training forward's model, a frozen view of the
+    whole base ``model`` (``models/lora.py:lora_view``; the base is left
+    as it was) placed as :func:`shard_model` places a model, each target's
+    weight the merge of its slice and the adapter's; and the adapters
+    placed beside it (``lora.placement``). Over ``tensor`` a
+    column-parallel target's ``B`` splits its rows with the weight (``A``
+    whole; its gradient a part on each rank, summed over ``tensor``), a
+    row-parallel target's ``A`` its columns (``B`` likewise whole). Over
+    ``fsdp`` and ``data`` the adapters stay whole and their gradients are
+    summed. Returns the view."""
+    from v2pe_tpu_torch.models.lora import frozen, merge_targets
+
+    view = frozen(model)
+    rules = _split_over_tensor(view, cfg, ctx)
+    n, i = ctx.size("tensor"), ctx.coord("tensor")
+    ad_rules, partial = {}, []
+    with torch.no_grad():
+        for name, ad in lora.targets().items():
+            rule = rules.get(name + ".weight")
+            if rule is None:
+                continue
+            cut, whole = ("B", "A") if rule.dim == 0 else ("A", "B")
+            r = TensorRule(rule.dim, rule.blocks, rule.unit)
+            t = getattr(ad, cut)
+            setattr(ad, cut, nn.Parameter(tensor_slice(t.detach(), r, n, i)
+                                          .clone()))
+            ad_rules[f"{name}.{cut}"] = r
+            partial.append(f"{name}.{whole}")
+    merge_targets(view, lora)
+    _fully_shard(view, ctx)
+    view.placement = Placement(ctx, rules)
+    lora.placement = Placement(ctx, ad_rules, fsdp=False, partial=partial)
+    return view

@@ -10,16 +10,18 @@ rank packs the data of its (data, fsdp) coordinate. In one process without
 a launcher only ``--mesh_seq`` may exceed 1 (all its shards on the one
 device).
 
-Flags that need a module the port does not have yet raise
-``NotImplementedError``: ``--mesh_pipe`` and ``--pipe_microbatches``,
-``--compress_seq`` with any mesh axis above 1, LoRA under a launcher,
-``--use_8bit_optimizer`` with ``--mesh_fsdp`` or ``--mesh_tensor`` above 1,
-``--ring_mode fused`` with ``--mesh_seq`` across processes, and
-``--offload_optimizer``. ``--use_llm_lora R`` / ``--use_backbone_lora R``
-train LoRA adapters over the frozen model (checkpoints hold the adapters;
+Flags the port refuses raise ``NotImplementedError`` naming their
+ROADMAP item: ``--mesh_pipe`` and ``--pipe_microbatches`` (Queue 1 item
+8), ``--ring_mode fused`` with ``--mesh_seq`` across processes (item 6.5),
+``--compress_seq`` with ``--mesh_seq`` above 1 (item 6.4: JAX's trainer
+chunks the zigzag-permuted batch there) and ``--offload_optimizer``
+("Left out"). ``--use_llm_lora R`` / ``--use_backbone_lora R`` train LoRA
+adapters over the frozen model (checkpoints hold the adapters;
 ``tools/export_hf.py --lora-base`` exports merged weights);
 ``--compress_seq --fuse_method add|cross-attn --chunk_num N`` trains the
-compress-seq decoder (``models/compress_seq.py``).
+compress-seq decoder (``models/compress_seq.py``). Both, and
+``--use_8bit_optimizer``, run on the data, fsdp and tensor axes (LoRA on
+seq too).
 ``--model_name_or_path`` starts from an HF safetensors checkpoint
 (``models/params.py:load_safetensors_checkpoint``); ``--llm_arch`` picks the
 decoder family.
@@ -184,23 +186,18 @@ def build_argparser() -> argparse.ArgumentParser:
 
 
 def _unported(args) -> list:
-    """The flags given that need a module the port lacks (ROADMAP Queue 1
-    item 6)."""
-    mesh = {a: getattr(args, f"mesh_{a}") for a in
-            ("data", "fsdp", "seq", "tensor")}
-    sharded = args.mesh_fsdp > 1 or args.mesh_tensor > 1
+    """The flags given that the port refuses, each with its ROADMAP
+    item."""
     checks = [
-        (args.mesh_pipe > 1, "--mesh_pipe (parallel/pipeline.py)"),
-        (args.pipe_microbatches, "--pipe_microbatches"),
-        (args.compress_seq and any(v > 1 for v in mesh.values()),
-         f"--compress_seq with mesh axes {mesh}"),
-        ((args.use_llm_lora or args.use_backbone_lora) and
-         any(v > 1 for k, v in mesh.items() if k != "seq"),
-         "LoRA on a mesh of processes"),
-        (args.use_8bit_optimizer and sharded,
-         "--use_8bit_optimizer with --mesh_fsdp or --mesh_tensor > 1 "
-         "(int8 Adam over sharded leaves)"),
-        (args.offload_optimizer, "--offload_optimizer"),
+        (args.mesh_pipe > 1,
+         "--mesh_pipe (parallel/pipeline.py, ROADMAP Queue 1 item 8)"),
+        (args.pipe_microbatches,
+         "--pipe_microbatches (ROADMAP Queue 1 item 8)"),
+        (args.compress_seq and args.mesh_seq > 1,
+         "--compress_seq with --mesh_seq above 1 (ROADMAP Queue 1 item "
+         "6.4: JAX's trainer chunks the zigzag-permuted batch there)"),
+        (args.offload_optimizer,
+         "--offload_optimizer (ROADMAP Queue 1, 'Left out of the port')"),
     ]
     return [what for flag, what in checks if flag]
 
@@ -210,8 +207,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     missing = _unported(args)
     if missing:
-        raise NotImplementedError(f"not ported: {', '.join(missing)} "
-                                  "(ROADMAP Queue 1 item 6)")
+        raise NotImplementedError(f"not ported: {'; '.join(missing)}")
 
     import dataclasses
 

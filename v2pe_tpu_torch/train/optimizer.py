@@ -35,8 +35,17 @@ parameters are FSDP2 DTensors: the chain runs on each rank's local shards,
 its moments are shards alike, and the global gradient norm sums each
 shard's squares over ``fsdp`` and ``tensor``, a parameter whole on every
 tensor rank counted once. Every mask and scale is elementwise, so the
-update equals the single-device one. int8 Adam needs whole leaves in JAX's
-flattened layout, so it refuses ``fsdp`` or ``tensor`` above 1.
+update equals the single-device one.
+
+int8 Adam's 256-value blocks run over each JAX leaf flattened in JAX's
+layout, which a rank's shard is not a run of (a dim-0 shard of a torch
+(out, in) weight is a set of columns of JAX's (in, out) kernel). Under
+``fsdp`` or ``tensor`` each rank keeps the blocks its shard touches
+(:class:`_Int8Shards`): a block it holds whole it updates alone; a block
+cut between ranks has its prepared gradient summed into a buffer of the
+cut blocks over the leaf's shard axes (each value sent by the one rank
+that holds it) and updated by every rank that holds a part of it, so all
+of them end with the codes and scales of one device.
 """
 
 from __future__ import annotations
@@ -226,19 +235,10 @@ class Optimizer:
         if tc.offload_optimizer:
             raise NotImplementedError(
                 "offload_optimizer (int8 moments in host memory) is not "
-                "ported")
-        self.tc = tc
+                "ported (ROADMAP Queue 1, 'Left out of the port')")
+        self.tc, self.cfg = tc, cfg
         self.params = dict(model.named_parameters())
         self.placement = placement_of(model)
-        ctx = self.placement.ctx if self.placement else None
-        if tc.use_8bit_optimizer and ctx is not None and \
-                (ctx.size("fsdp") > 1 or ctx.size("tensor") > 1):
-            raise NotImplementedError(
-                "int8 Adam over sharded leaves (--use_8bit_optimizer with "
-                "--mesh_fsdp or --mesh_tensor above 1): its 256-value blocks "
-                "run over each leaf flattened in JAX's layout, which a shard "
-                "of a torch (out, in) weight is not a run of (ROADMAP Queue "
-                "1 item 6)")
         leaves = leaf_map(model, cfg)
         self.decay = decay_mask(model, cfg)
         self.scales = lr_scale_tree(cfg, tc, leaves)
@@ -254,12 +254,31 @@ class Optimizer:
             groups.setdefault(_path_str(leaves[n]), []).append(n)
         self.groups = {k: sorted(v, key=lambda n: leaves[n].layer or 0)
                        for k, v in groups.items()}
+        self.shards = None
+        if tc.use_8bit_optimizer and self.placement is not None:
+            self.shards = _Int8Shards(self)
+            self.placement.moments = self.shards
 
     def _segments(self, names):
-        sizes = [self._local(n).numel() for n in names]
-        if all(s % adam8bit.BLOCK == 0 for s in sizes):
-            return [[n] for n in names]
-        return [list(names)]
+        """Runs of a leaf's layers updated together: a run ends where the
+        blocks end, so that each starts on a block of its own."""
+        out, run, at = [], [], 0
+        for n in names:
+            run.append(n)
+            at += self._local(n).numel()
+            if at % adam8bit.BLOCK == 0:
+                out.append(run)
+                run = []
+        return out + ([run] if run else [])
+
+    def _state_size(self, key: str) -> int:
+        """Values of leaf ``key``'s int8 state on this rank: its shard's,
+        or a whole block for each block the shard touches where one is
+        cut."""
+        plan = self.shards.plans.get(key) if self.shards else None
+        if plan is not None and plan.src is not None:
+            return plan.blocks.numel() * adam8bit.BLOCK
+        return sum(self._local(n).numel() for n in self.groups[key])
 
     def _local(self, n: str) -> torch.Tensor:
         """This rank's shard of parameter ``n`` (the parameter itself off a
@@ -278,7 +297,7 @@ class Optimizer:
         zeros = {n: torch.zeros_like(self._local(n)) for n in self.params}
         if self.tc.use_8bit_optimizer:
             state["moments"] = {
-                k: adam8bit.zeros(sum(self._local(n).numel() for n in names),
+                k: adam8bit.zeros(self._state_size(k),
                                   self.params[names[0]].device)
                 for k, names in self.groups.items()}
         else:
@@ -355,15 +374,24 @@ class Optimizer:
                                           + tc.eps)
                 finish(n, u)
             return
+        adam = dict(b1=tc.beta1, b2=tc.beta2, eps=tc.eps, bc1=bc1, bc2=bc2)
         for key, names in self.groups.items():
-            mom, offset = state["moments"][key], 0
-            for seg in self._segments(names):
+            mom = state["moments"][key]
+            plan = self.shards.plans.get(key) if self.shards else None
+            segs = [names] if plan is not None and plan.src is not None \
+                else self._segments(names)
+            if plan is not None and plan.src is None and plan.cut:
+                plan.meet(mom["m_scale"])  # its peers' cut blocks
+            offset = 0
+            for seg in segs:
                 tr = [self.leaves[n].transposed for n in seg]
                 flat = torch.cat([_jax_layout(prepared(n), t).reshape(-1)
                                   for n, t in zip(seg, tr)])
-                out = adam8bit.update(flat, mom, offset, b1=tc.beta1,
-                                      b2=tc.beta2, eps=tc.eps, bc1=bc1,
-                                      bc2=bc2)
+                if plan is not None and plan.src is not None:
+                    out = plan.update(flat, mom, adam)
+                else:
+                    out = adam8bit.update(flat, mom, offset, **adam) \
+                        if flat.numel() else flat
                 offset += flat.numel()
                 at = 0
                 for n, t in zip(seg, tr):
@@ -372,6 +400,183 @@ class Optimizer:
                     u = out[at:at + p.numel()].reshape(shape)
                     at += p.numel()
                     finish(n, _jax_layout(u, t))
+
+
+class _LeafPlan:
+    """Where one JAX leaf's int8 blocks sit on this rank. ``blocks``: the
+    leaf's blocks this rank's shard touches, ascending (the rows of its
+    state). ``src`` is None where the shard is whole blocks in that order
+    (its state is the shard's values in JAX order, updated in place);
+    else, for each value of the rank's (blocks, BLOCK) state, where it
+    comes from in ``[shard values | cut buffer | 0]``. ``cut``: the cut
+    blocks of the leaf on any rank of its shard axes (the buffer's rows);
+    ``send_from`` / ``send_to``: this rank's values in them."""
+
+    def __init__(self, ctx, axes, numel, blocks, src, cut, send_from,
+                 send_to):
+        self.ctx, self.axes, self.numel = ctx, axes, numel
+        self.blocks, self.src, self.cut = blocks, src, cut
+        self.send_from, self.send_to = send_from, send_to
+
+    def meet(self, flat: torch.Tensor) -> torch.Tensor:
+        """The cut blocks whole on every rank of the shard axes (a sum in
+        which each value comes from the one rank that holds it)."""
+        buf = flat.new_zeros(self.cut * adam8bit.BLOCK)
+        if self.send_from.numel():
+            buf[self.send_to] = flat[self.send_from]
+        return self.ctx.all_reduce(buf, self.axes)
+
+    def update(self, flat: torch.Tensor, mom: dict, adam: dict
+               ) -> torch.Tensor:
+        """One step over this rank's blocks; the update of its shard's
+        values (JAX order)."""
+        ext = torch.cat([flat, self.meet(flat), flat.new_zeros(1)])
+        out = adam8bit.update(ext[self.src], mom, 0, **adam)
+        back = torch.empty_like(ext)
+        back[self.src] = out  # the slots of peers' values and of 0 drop
+        return back[:flat.numel()]
+
+
+def _jax_index(placement, name: str, p, leaf: JaxLeaf) -> torch.Tensor:
+    """The index in JAX's flat (stacked) leaf of each value of this rank's
+    shard of parameter ``name``, in JAX order."""
+    idx = placement.shard_index(name, p)
+    shape = placement._full_shape(name, p)
+    if leaf.transposed:  # (out, in) here, (in, out) in JAX
+        idx, shape = idx[::-1], shape[::-1]
+    strides = [int(np.prod(shape[d + 1:])) for d in range(len(shape))]
+    flat = torch.zeros((), dtype=torch.int64)
+    for i, st in zip(idx, strides):
+        flat = flat[..., None] + i * st
+    return flat.reshape(-1) + (leaf.layer or 0) * int(np.prod(shape))
+
+
+def _gather_rows(ctx, t: torch.Tensor, axes) -> torch.Tensor:
+    """Every rank's rows of ``t`` over the mesh axes, concatenated (each
+    rank may hold another number of them); over gloo through the host."""
+    import torch.distributed as dist
+
+    dev = t.device
+    if axes and dist.get_backend(ctx.group(axes[0])) == "gloo":
+        t = t.cpu()
+    for a in axes:
+        n, group = ctx.size(a), ctx.group(a)
+        count = torch.tensor([t.shape[0]], dtype=torch.int64,
+                             device=t.device)
+        counts = [torch.empty_like(count) for _ in range(n)]
+        dist.all_gather(counts, count, group=group)
+        counts = [int(c) for c in counts]
+        pad = t.new_zeros((max(counts),) + tuple(t.shape[1:]))
+        pad[:t.shape[0]] = t
+        parts = [torch.empty_like(pad) for _ in range(n)]
+        dist.all_gather(parts, pad, group=group)
+        t = torch.cat([p[:c] for p, c in zip(parts, counts)])
+    return t.to(dev)
+
+
+class _Int8Shards:
+    """The int8 state of a placed model's leaves (the ``moments`` hook of
+    its ``Placement``): one :class:`_LeafPlan` for each leaf cut over a
+    mesh axis, and the state's gather to one device's layout and back
+    (checkpoints)."""
+
+    def __init__(self, opt: "Optimizer"):
+        pl, B = opt.placement, adam8bit.BLOCK
+        self.ctx, self.plans = pl.ctx, {}
+        for key, names in opt.groups.items():
+            ps = [opt.params[n] for n in names]
+            axes = pl.shard_axes(names[0], ps[0])
+            if not axes:
+                continue
+            leaf = opt.leaves[names[0]]
+            layers = 1 if leaf.layer is None else \
+                _stack_len(opt.cfg, _path_str(leaf))
+            numel = layers * int(np.prod(pl._full_shape(names[0], ps[0])))
+            g = torch.cat([_jax_index(pl, n, p, opt.leaves[n])
+                           for n, p in zip(names, ps)])
+            assert bool((g[1:] > g[:-1]).all()), key
+            blk = g // B
+            blocks, counts = torch.unique_consecutive(blk, return_counts=True)
+            whole = counts == torch.clamp(numel - blocks * B, max=B)
+            cut = _gather_rows(self.ctx, blocks[~whole][:, None],
+                               axes)[:, 0].unique()
+            row = torch.repeat_interleave(torch.arange(blocks.numel()),
+                                          counts)
+            mine = ~whole[row]
+            send_from = torch.nonzero(mine)[:, 0]
+            send_to = torch.searchsorted(cut, blk[mine]) * B + g[mine] % B
+            src = None
+            if not bool(whole.all()):
+                n = g.numel()
+                src = torch.full((blocks.numel(), B), n + cut.numel() * B)
+                at = torch.searchsorted(cut, blocks[~whole])
+                src[~whole] = n + at[:, None] * B + torch.arange(B)
+                src.view(-1)[row * B + g % B] = torch.arange(n)
+                src = src.reshape(-1)
+            dev = local(ps[0]).device  # the indices live beside the state
+            self.plans[key] = _LeafPlan(
+                self.ctx, axes, numel, blocks.to(dev),
+                None if src is None else src.to(dev), cut.numel(),
+                send_from.to(dev), send_to.to(dev))
+
+    def _rows(self, mom: dict, plan: _LeafPlan, tag: str):
+        codes = mom[f"{tag}_code"]
+        pad = plan.blocks.numel() * adam8bit.BLOCK - codes.numel()
+        return torch.cat([codes, codes.new_zeros(pad)]).view(
+            -1, adam8bit.BLOCK), mom[f"{tag}_scale"]
+
+    @torch.no_grad()
+    def gather(self, moments: dict) -> dict:
+        """The state of one device: every leaf's codes and scales whole,
+        in JAX's flat order (a collective over the shard axes)."""
+        out, B = dict(moments), adam8bit.BLOCK
+        for key, plan in self.plans.items():
+            mom, whole = moments[key], {}
+            nb = -(-plan.numel // B)
+            for tag in ("m", "v"):
+                codes, scales = self._rows(mom, plan, tag)
+                dev = codes.device
+                ids = _gather_rows(self.ctx, plan.blocks.to(dev), plan.axes)
+                codes = _gather_rows(self.ctx, codes, plan.axes)
+                scales = _gather_rows(self.ctx, scales, plan.axes)
+                full = codes.new_zeros(nb, B)
+                full[ids] = codes
+                s = scales.new_zeros(nb)
+                s[ids] = scales
+                whole[f"{tag}_code"] = full.reshape(-1)[:plan.numel]
+                whole[f"{tag}_scale"] = s
+            out[key] = whole
+        return out
+
+    @torch.no_grad()
+    def shard(self, moments: dict) -> dict:
+        """This rank's state out of one device's (:meth:`gather`'s
+        inverse)."""
+        out, B = dict(moments), adam8bit.BLOCK
+        for key, plan in self.plans.items():
+            mom, mine = moments[key], {}
+            nb = -(-plan.numel // B)
+            for tag in ("m", "v"):
+                codes = mom[f"{tag}_code"]
+                codes = torch.cat([codes, codes.new_zeros(
+                    nb * B - codes.numel())]).view(nb, B)
+                rows = codes[plan.blocks.to(codes.device)].reshape(-1)
+                mine[f"{tag}_code"] = rows if plan.src is not None else \
+                    rows[:self._shard_size(plan)]
+                mine[f"{tag}_scale"] = mom[f"{tag}_scale"][
+                    plan.blocks.to(codes.device)].clone()
+            out[key] = mine
+        return out
+
+    @staticmethod
+    def _shard_size(plan: _LeafPlan) -> int:
+        """Values of a shard of whole blocks (the last may be the leaf's
+        short tail)."""
+        B = adam8bit.BLOCK
+        if not plan.blocks.numel():
+            return 0
+        last = int(plan.blocks[-1])
+        return (plan.blocks.numel() - 1) * B + min(B, plan.numel - last * B)
 
 
 def build_optimizer(tc: TrainConfig, model: nn.Module,

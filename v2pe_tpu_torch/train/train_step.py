@@ -27,7 +27,9 @@ optimizer raise ``NotImplementedError``.
 ``lora=True`` trains LoRA adapters (``models/lora.py``) over a frozen base
 model, as the JAX step does: the forward runs on the merged weights of
 ``lora_view(base, adapters)`` and the gradients reach the adapters only;
-the optimizer is built over the adapters.
+the optimizer is built over the adapters. On a mesh the step takes the
+view ``parallel/mesh.py:place_lora`` placed in place of the base, and the
+adapters' gradients are summed as their placement says.
 """
 
 from __future__ import annotations
@@ -81,18 +83,18 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
 
     With ``lora=True`` the step is ``step(adapters, opt_state, batch, base,
     drop_path_generator=None)``: the adapters (a ``LoRA``) and
-    ``opt_state`` are updated in place, the base model is only read."""
-    for flag, what in ((pipe_microbatches, "pipeline microbatches"),
-                       (offload_optimizer, "the offloaded optimizer")):
+    ``opt_state`` are updated in place, the base model is only read; on a
+    mesh ``base`` is the placed view (``place_lora``)."""
+    for flag, what in ((pipe_microbatches, "pipeline microbatches (ROADMAP "
+                        "Queue 1 item 8)"),
+                       (offload_optimizer, "the offloaded optimizer (ROADMAP "
+                        "Queue 1, 'Left out of the port')")):
         if flag:
             raise NotImplementedError(f"{what} is not ported")
     # unlike the JAX package off the TPU, 'fused' takes any remat mode: the
     # backward recomputes the fused forward like any other op
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
         mesh, ring_mode=ring_mode)
-    if lora and ctx is not None and ctx.mesh is not None:
-        raise NotImplementedError("LoRA under a process group is not ported "
-                                  "(ROADMAP Queue 1 item 6)")
 
     def update(trained, forward_model, opt_state, batch, gen):
         params = dict(trained.named_parameters())
@@ -136,10 +138,13 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     def lora_step(adapters, opt_state, batch, base,
                   drop_path_generator=None):
         key = (id(base), id(adapters))
-        if key not in views:  # the view aliases base's storage: built once
-            views.clear()
-            views[key] = (lora_view(base, adapters), base, adapters)
-        view = views[key][0]
+        if placement_of(base) is not None:  # placed with the adapters
+            view = base
+        else:
+            if key not in views:  # the view aliases base's storage
+                views.clear()
+                views[key] = (lora_view(base, adapters), base, adapters)
+            view = views[key][0]
         view.train(base.training)
         return update(adapters, view, opt_state, batch, drop_path_generator)
 

@@ -28,7 +28,8 @@ from v2pe_tpu_torch.data.packing import PackedSampleIterator, collate_rows
 from v2pe_tpu_torch.core import checkpoint as ckpt_lib
 from v2pe_tpu_torch.parallel import context as pctx
 from v2pe_tpu_torch.parallel.bootstrap import make_global_batch
-from v2pe_tpu_torch.parallel.mesh import placement_of, shard_model
+from v2pe_tpu_torch.parallel.mesh import (place_lora, placement_of,
+                                          shard_model)
 from v2pe_tpu_torch.train.optimizer import (TrainConfig, build_optimizer,
                                             lr_schedule)
 from v2pe_tpu_torch.train.train_step import make_train_step
@@ -125,29 +126,36 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     drawn from a generator seeded ``run.seed ^ 0x10BA``): checkpoints hold
     the adapters and their optimizer state only, resume restores the
     adapters, and the model returned is a new merged model (base +
-    adapters, export-ready); the model passed in is left as it was."""
+    adapters, export-ready); the model passed in is left as it was. On a
+    mesh the adapters are drawn on the whole model, then a frozen view of
+    it and the adapters are placed (``parallel/mesh.py:place_lora``), then
+    the optimizer is built over the adapters, JAX's order."""
     grouped = dist.is_initialized()
     mesh = mesh_cfg if mesh_cfg and (mesh_cfg.num_devices > 1 or grouped) \
         else None
     seq_shards = mesh_cfg.seq if mesh_cfg else 1
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
         mesh, ring_mode=ring_mode)
-    if ctx is not None and ctx.mesh is not None and \
-            placement_of(model) is None:
-        shard_model(model, cfg, ctx)
+    placed = ctx is not None and ctx.mesh is not None
     lead = not grouped or dist.get_rank() == 0  # logs and reports
     if offload_optimizer:
         tc = dataclasses.replace(tc, use_8bit_optimizer=True,
                                  offload_optimizer=True)
     device = next(model.parameters()).device
     lora_mode = bool(use_backbone_lora or use_llm_lora)
-    trainable = model
-    if lora_mode:
+    trainable, forward = model, model
+    if lora_mode:  # JAX's order: the adapters, then the placement
         from v2pe_tpu_torch.models.lora import build_lora
 
+        if placed and placement_of(model) is not None:
+            raise ValueError("LoRA on a mesh takes the whole base model")
         trainable = build_lora(
             torch.Generator(device=device).manual_seed(run.seed ^ 0x10BA),
             model, backbone_r=use_backbone_lora, llm_r=use_llm_lora)
+        if placed:
+            forward = place_lora(model, trainable, cfg, ctx)
+    elif placed and placement_of(model) is None:
+        shard_model(model, cfg, ctx)
     optimizer = build_optimizer(tc, trainable, cfg)
     opt_state = optimizer.init()
     step_fn = make_train_step(cfg, optimizer, mesh, img_context_token_id,
@@ -196,7 +204,7 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
             batch = make_global_batch(batch, ctx, device)
             gen = _dp_generator(run.seed, step, device) if use_dp else None
             if lora_mode:
-                loss, gnorm = step_fn(trainable, opt_state, batch, model,
+                loss, gnorm = step_fn(trainable, opt_state, batch, forward,
                                       gen)
             else:
                 loss, gnorm = step_fn(model, opt_state, batch, gen)
@@ -230,7 +238,7 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
         if saver is not None:
             saver.close()
     if lora_mode:
-        from v2pe_tpu_torch.models.lora import merge_lora
+        from v2pe_tpu_torch.models.lora import merge_lora, whole_lora
 
-        model = merge_lora(model, trainable)
+        model = merge_lora(model, whole_lora(trainable))
     return model, opt_state, run.max_steps
