@@ -156,7 +156,15 @@ placed by ``place_lora`` and compress-seq placed, each beside its unplaced
 run; the bench recipe then takes its three steps from the same weights in
 one process: losses and grad norms within RING_TRAIN_TOL, the int8 states
 by ``compare_int8``. Then two processes on the card over gloo at fsdp 2
-(``phase_two_ranks``). Phase 15 also runs ``tools.inference_test`` on the
+(``phase_two_ranks``), as the two GPipe stages of InternVL2-2B at full
+depth (``phase_pipe_two_ranks``: 12 decoder layers a rank, 4 rows of 2048
+tokens + 8 tiles in 4 microbatches, int8 Adam, against the unpipelined
+step; launches of #1-#3 per stage and microbatch), and as the two ``seq``
+ranks of the fused ring (``phase_fused_two_ranks``: #11 launched once a
+rank over the peer's chunks mapped by CUDA IPC, bit for bit against the
+one-process launch at row 11's widths split in two, then a fused seq = 2
+train step against one process); ``--two-ranks`` runs these three alone.
+Phase 15 also runs ``tools.inference_test`` on the
 exported checkpoint. Then the card line, then the last line {"ok": true,
 "device": {...}}.
 
@@ -4473,39 +4481,409 @@ def two_rank_recipes(cfg, device, ctx=None) -> dict:
     return out
 
 
-def _two_rank_worker(rank: int, store: str, result: str, cfg,
-                     device: str) -> None:
-    """One of two processes on the one card: gloo over CUDA tensors
-    (NCCL refuses a second rank on a device), the mesh fsdp = 2, the
-    recipes of ``two_rank_recipes`` placed; rank 0 saves the results."""
-    import traceback
+def two_ranks(target, args: tuple, meanwhile=None, timeout: float = 600):
+    """``target(rank, store, result, *args)`` in two processes on the one
+    card (spawned; rank 0 saves what it gathered to ``result``, as
+    ``_rank_main`` does), with ``meanwhile()`` run in this process while
+    they run. Returns (every rank's result in rank order, what
+    ``meanwhile`` returned). Fails when a rank fails or outlives
+    ``timeout``; no process outlives the call."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "ranks.pt")
+        spawn = mp.get_context("spawn")
+        procs = [spawn.Process(target=target, args=(
+            r, os.path.join(tmp, "store"), result) + tuple(args))
+            for r in range(2)]
+        for p in procs:
+            p.start()
+        try:
+            done = meanwhile() if meanwhile is not None else None
+        finally:
+            for p in procs:
+                p.join(timeout=timeout)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        codes = [p.exitcode for p in procs]
+        if codes != [0, 0] or not os.path.exists(result):
+            raise AssertionError(f"two ranks on one card: exit codes {codes}")
+        return torch.load(result), done
+
+
+def _join_gloo(rank: int, store: str, device: str):
+    """A rank of two on the one card: the process group over gloo (NCCL
+    refuses a second rank on a device), fp32 products in full precision."""
+    from v2pe_tpu_torch.parallel import bootstrap
 
     os.environ.update(V2PE_NUM_PROCESSES="2", V2PE_PROCESS_ID=str(rank))
-    from v2pe_tpu_torch import config
-    from v2pe_tpu_torch.parallel import bootstrap
-    from v2pe_tpu_torch.parallel.context import ShardingContext
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    bootstrap.initialize_distributed(
+        device=device, init_method=f"file://{store}", backend="gloo")
+    return torch.device("cuda", torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+
+
+def _rank_main(rank: int, result: str, body) -> None:
+    """Run ``body()`` as a rank; rank 0 saves every rank's result (rank
+    order). A failure ends the process at once: a peer in a collective
+    must not hang us."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from v2pe_tpu_torch.parallel import bootstrap
+
     try:
-        bootstrap.initialize_distributed(
-            device=device, init_method=f"file://{store}", backend="gloo")
-        ctx = ShardingContext.from_mesh(config.MeshConfig(fsdp=2))
-        out = two_rank_recipes(cfg, torch.device(
-            "cuda", torch.cuda.current_device()) if device == "cuda"
-            else torch.device(device), ctx)
+        out = body()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, out)
         if rank == 0:
-            torch.save(out, result)
+            torch.save(every, result)
     except Exception:
         traceback.print_exc()
         sys.stderr.flush()
-        os._exit(1)  # a peer in a collective must not hang us
+        os._exit(1)
     finally:
         bootstrap.shutdown()
 
 
-def phase_two_ranks(device: str = "cuda", cfg=None,
-                    start: str = "spawn") -> None:
+# GPipe on the card: the bench recipe's totals (8192 tokens, 8 tiles) as 4
+# rows of 2048 tokens with 2 tiles each, in PIPE_MICRO microbatches over
+# PIPE_STAGES stages
+PIPE_STAGES, PIPE_ROWS, PIPE_TOKENS, PIPE_TILES, PIPE_MICRO = 2, 4, 2048, 2, 4
+
+
+def pipe_recipe(cfg, device, ctx=None, steps: int = 2) -> dict:
+    """``steps`` steps of make_train_step on a model drawn from seed 0 (the
+    dtype of the card's model, bf16; fp32 on the CPU), int8 Adam at the
+    bench recipe's settings, remat 'full', on make_synthetic_batch's
+    PIPE_ROWS rows: pipelined over ``ctx``'s pipe axis in PIPE_MICRO
+    microbatches, or in one process without ``ctx``. Returns each step's
+    (loss, grad norm, ms), the peak GiB allocated, the launches of the
+    steps, and the decoder layers held."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.parallel.mesh import layer_index
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    cuda = torch.device(device).type == "cuda"
+    model = init_vlm_params(
+        cfg, torch.Generator(device).manual_seed(0), device=device,
+        dtype=torch.bfloat16 if cuda else torch.float32, mesh=ctx)
+    opt = build_optimizer(train_config(), model, cfg)
+    mesh = config.MeshConfig(pipe=PIPE_STAGES) if ctx is not None else None
+    step = make_train_step(cfg, opt, mesh, IMG_CONTEXT_ID, remat="full",
+                           pipe_microbatches=PIPE_MICRO if ctx else 0)
+    b = make_synthetic_batch(cfg, PIPE_ROWS, PIPE_TOKENS,
+                             tiles_per_row=PIPE_TILES, stride=64)
+    batch = {k: torch.as_tensor(v).to(device) for k, v in b.items()}
+    state = opt.init()
+    model.train()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss, gnorm = step(model, state, batch)
+        loss, gnorm = loss.item(), gnorm.item()
+        out.append((loss, gnorm, (time.perf_counter() - t0) * 1e3))
+    counts = read_launches() if cuda else {}
+    held = sorted({layer_index(n) for n, _ in model.named_parameters()
+                   if layer_index(n) is not None})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    del model, opt, state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(steps=out, peak_gib=peak, counts=counts, held=held)
+
+
+def _pipe_worker(rank: int, store: str, result: str, cfg,
+                 device: str) -> None:
+    """One pipe stage of two on the one card (gloo, the hops staged
+    through the host): ``pipe_recipe`` on the stage's layers."""
+    def body():
+        from v2pe_tpu_torch import config
+        from v2pe_tpu_torch.parallel.context import ShardingContext
+
+        dev = _join_gloo(rank, store, device)
+        ctx = ShardingContext.from_mesh(
+            config.MeshConfig(pipe=PIPE_STAGES),
+            pipe_microbatches=PIPE_MICRO)
+        return pipe_recipe(cfg, dev, ctx)
+
+    _rank_main(rank, result, body)
+
+
+def phase_pipe_two_ranks(device: str = "cuda", cfg=None) -> list:
+    """GPipe on the card: two processes as the two stages of a pipe mesh
+    (12 decoder layers each at InternVL2-2B's full width and depth, the
+    24-layer ViT, the embedding and the head on both; gloo, the activation
+    hops staged through the host), two steps of ``pipe_recipe``, held
+    against the same recipe unpipelined in this process first: losses and
+    grad norms within RING_TRAIN_TOL. Logs each step's ms of both, each
+    rank's peak GiB, the bubble, and each rank's launches, held to what
+    the schedule gives: per step, the flash forward twice (remat) and each
+    backward kernel once for every decoder layer of the stage and
+    microbatch and for every ViT layer. Returns each rank's launch counts
+    (the main path's, through the flash kernels #1-#3)."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.parallel.pipeline import bubble
+
+    cfg = cfg or config.internvl2_2b()
+    t0 = time.perf_counter()
+    want = pipe_recipe(cfg, device)
+    got, _ = two_ranks(_pipe_worker, (cfg, device))
+    wall = time.perf_counter() - t0
+    rel = step_rel([dict(loss=a, grad_norm=b) for a, b, _ in got[0]["steps"]],
+                   [dict(loss=a, grad_norm=b) for a, b, _ in want["steps"]])
+    L, Lv = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers
+    per = L // PIPE_STAGES
+    steps = len(want["steps"])
+    expect = {"flash_fwd": steps * 2 * (per * PIPE_MICRO + Lv),
+              "flash_bwd_dkv": steps * (per * PIPE_MICRO + Lv),
+              "flash_bwd_dq": steps * (per * PIPE_MICRO + Lv)}
+    gib = lambda x: "not measured" if x is None else f"{x:.2f} GiB"  # noqa
+    for r, rec in enumerate(got):
+        log(f"pipe rank {r} (layers {rec['held'][0]}-{rec['held'][-1]}): "
+            f"losses {[round(a, 4) for a, _, _ in rec['steps']]}, step ms "
+            f"{[round(ms, 1) for _, _, ms in rec['steps']]}, peak "
+            f"{gib(rec['peak_gib'])} allocated; launches "
+            f"{ {k: v for k, v in rec['counts'].items() if v} } (expected "
+            f"{expect})")
+    log(f"pipe 2 x {PIPE_MICRO} microbatches over gloo on one card against "
+        f"one process: loss rel {[f'{r[0]:.2e}' for r in rel]}, grad_norm "
+        f"rel {[f'{r[1]:.2e}' for r in rel]} (tol {RING_TRAIN_TOL}); "
+        f"unpipelined step ms {[round(ms, 1) for _, _, ms in want['steps']]}"
+        f", peak {gib(want['peak_gib'])}; bubble (P-1)/(M+P-1) = "
+        f"{bubble(PIPE_STAGES, PIPE_MICRO):.3f}; {PIPE_ROWS} rows x "
+        f"{PIPE_TOKENS} tokens, {PIPE_ROWS * PIPE_TILES} tiles; phase wall "
+        f"{wall:.1f} s ({card_line()})")
+    if any(r[0] > RING_TRAIN_TOL["loss"] or r[1] > RING_TRAIN_TOL["grad_norm"]
+           for r in rel):
+        raise AssertionError("pipe: two stages disagree with one process")
+    if [rec["held"] for rec in got] != [list(range(s * per, (s + 1) * per))
+                                        for s in range(PIPE_STAGES)]:
+        raise AssertionError(f"pipe: the stages hold "
+                             f"{[rec['held'] for rec in got]}")
+    for rec in got:
+        if torch.device(device).type == "cuda" and any(
+                rec["counts"][k] != v for k, v in expect.items()):
+            raise AssertionError(f"pipe: launches {rec['counts']}, expected "
+                                 f"{expect}")
+    return [rec["counts"] for rec in got]
+
+
+FUSED_RANKS = 2  # the fused ring across processes: one rank a process
+
+
+def fused_form(device):
+    """Row 11's main form (causal zigzag, 32,768 tokens, 16/8 heads of 128,
+    bf16, three packed segments and a padded tail) for FUSED_RANKS ranks:
+    (name, args in global order, kwargs), as ``ring_forms`` makes it."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    S = RING_EVAL_TOKENS
+    q, k, v = (torch.randn(1, S, H, LLM_HD, generator=g).to(
+        device, torch.bfloat16) for H in (LLM_HQ, LLM_HKV, LLM_HKV))
+    seg = torch.ones(1, S, dtype=torch.int32, device=device)
+    seg[:, S // 3: 2 * S // 3] = 2
+    seg[:, 2 * S // 3:] = 3
+    seg[:, S - 200:] = 0
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    return (f"ring{FUSED_RANKS}_zigzag_{S}_3seg_pad_bf16_per_rank",
+            (q, k, v, seg, seg, pos, pos), dict(causal=True,
+                                                 scale=LLM_HD ** -0.5))
+
+
+def fused_recipe(cfg, device, ctx=None, steps: int = 2) -> dict:
+    """``steps`` fused-ring train steps under ``MeshConfig(seq=2)`` at
+    ``two_rank_cfg``'s widths (fp32, int8 Adam, remat 'full') on
+    make_synthetic_batch's 2 rows of TWO_RANK_TOKENS tokens and a tile
+    each, zigzag-permuted for 2 ranks: across the ranks of ``ctx`` (each
+    its half of every row), or with both shards in this one process.
+    Returns each step's (loss, grad norm) and the steps' launches."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.models.params import init_vlm_params
+    from v2pe_tpu_torch.parallel import bootstrap
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    b = make_synthetic_batch(cfg, 2, TWO_RANK_TOKENS, tiles_per_row=1,
+                             stride=64, seq_shards=FUSED_RANKS)
+    # the image tokens (92544-92546) onto the vocab's last three ids
+    shift = IMG_CONTEXT_ID - (cfg.llm.vocab_size - 1)
+    for k in ("input_ids", "targets"):
+        b[k] = np.where(b[k] >= IMG_CONTEXT_ID - 2, b[k] - shift, b[k])
+    batch = bootstrap.make_global_batch(b, ctx, device)
+    model = init_vlm_params(cfg, torch.Generator(device).manual_seed(0),
+                            device=device, dtype=torch.float32, mesh=ctx)
+    opt = build_optimizer(train_config(), model, cfg)
+    step = make_train_step(cfg, opt, config.MeshConfig(seq=FUSED_RANKS),
+                           IMG_CONTEXT_ID - shift, remat="full",
+                           ring_mode="fused")
+    state = opt.init()
+    model.train()
+    reset_launches()
+    out = []
+    for _ in range(steps):
+        loss, gnorm = step(model, state, batch)
+        out.append((loss.item(), gnorm.item()))
+    counts = read_launches() if torch.device(device).type == "cuda" else {}
+    return dict(steps=out, counts=counts)
+
+
+def _fused_worker(rank: int, store: str, result: str, cfg,
+                  device: str) -> None:
+    """One rank of two on the one card, seq = 2, the fused ring's chunks
+    shared by CUDA IPC: row 11's form held bit for bit against the
+    one-process 2-shard launch and timed (each rank's launch alone, the
+    other rank waiting), the host side of a call logged; then
+    ``fused_recipe`` across the two ranks."""
+    def body():
+        import torch.distributed as dist
+
+        from v2pe_tpu_torch import config
+        from v2pe_tpu_torch.parallel import ring_fused
+        from v2pe_tpu_torch.parallel.context import ShardingContext
+
+        dev = _join_gloo(rank, store, device)
+        ctx = ShardingContext.from_mesh(config.MeshConfig(seq=FUSED_RANKS),
+                                        ring_mode="fused")
+        group = ctx.group("seq")
+        name, args, kw = fused_form(dev)
+        zz = [_zigzag(a, FUSED_RANKS) for a in args]
+        Sl = zz[0].shape[1] // FUSED_RANKS
+        rows = slice(rank * Sl, (rank + 1) * Sl)
+        mine = [t[:, rows].contiguous() for t in zz]
+        with nan_empty():
+            out, lse = ring_fused.dist_fused_ring_fwd(group, *mine, **kw)
+            one_out, one_lse = ring_fused.fused_ring_fwd(FUSED_RANKS, *zz,
+                                                         **kw)
+        torch.cuda.synchronize()
+        same = same_bits(out, one_out[:, rows].contiguous()) and same_bits(
+            lse, one_lse[:, :, rows].contiguous())
+        err = max((out.float() - one_out[:, rows].float()).abs().max().item(),
+                  (lse - one_lse[:, :, rows]).abs().max().item())
+        chunk = (mine[1], mine[2], mine[4], mine[6])
+        timed = {}
+        for turn in range(FUSED_RANKS):  # one rank's launches at a time
+            dist.barrier(group=group)
+            if turn == rank:
+                timed["ms"] = time_ms(lambda: ring_fused.rank_launch(
+                    group, mine[0], mine[3], mine[5], chunk, **kw), iters=5)
+                timed["one_ms"] = time_ms(lambda: ring_fused.fused_ring_fwd(
+                    FUSED_RANKS, *zz, **kw), iters=3)
+                timed["plain_ms"] = time_ms(
+                    lambda: ring_fused._rank_sweep_torch(
+                        FUSED_RANKS, rank, mine[0], zz[1], zz[2], mine[3],
+                        zz[4], mine[5], zz[6], **kw), iters=2)
+            dist.barrier(group=group)
+        calls = []
+        for _ in range(5):  # whole calls, both ranks at once
+            t0 = time.perf_counter()
+            ring_fused.dist_fused_ring_fwd(group, *mine, **kw)
+            calls.append(dict(ring_fused.DIST_SECONDS,
+                              call=time.perf_counter() - t0))
+        pairs = attended_pairs(mine[3], zz[4], mine[5], zz[6], True)
+        bound = attention_roof(mine[0], zz[1], zz[2], pairs, 2, out, lse)
+        del zz, one_out, one_lse
+        torch.cuda.empty_cache()
+        train = fused_recipe(cfg, dev, ctx)
+        return dict(form=name, same=same, max_abs_err=err, pairs=pairs,
+                    calls=calls, train=train, **timed, **bound)
+
+    _rank_main(rank, result, body)
+
+
+def phase_fused_two_ranks(device: str = "cuda", cfg=None) -> tuple:
+    """The fused ring (#11) across processes: two processes on the one
+    card as the two ranks of ``MeshConfig(seq=2)`` with
+    ``ring_mode='fused'``, each launching the kernel for its own queries
+    over both ranks' chunks, the peer's mapped by CUDA IPC. Row 11's form
+    split over the two: each rank's out and lse equal to the one-process
+    2-shard launch bit for bit (under ``nan_empty``); each rank's launch
+    timed alone beside the one-process launch, the copy and the barriers
+    of a call logged. Then two fused train steps across the ranks at
+    ``two_rank_cfg``, held to the one-process fused ``seq_shards=2`` steps
+    run here meanwhile, within RING_TRAIN_TOL. Returns (each rank's launch
+    counts of the train steps, the form records of row 11's per-rank
+    form)."""
+    from v2pe_tpu_torch import config
+
+    cfg = cfg or two_rank_cfg(config.internvl2_2b())
+    t0 = time.perf_counter()
+    got, want = two_ranks(_fused_worker, (cfg, device),
+                          meanwhile=lambda: fused_recipe(cfg, device))
+    wall = time.perf_counter() - t0
+    records = []
+    for r, rec in enumerate(got):
+        mean = {k: 1e3 * sum(c[k] for c in rec["calls"]) / len(rec["calls"])
+                for k in rec["calls"][0]}
+        log(f"kernel ring_fused_fwd {rec['form']} rank {r} (chunks by CUDA "
+            f"IPC): out and lse {'equal' if rec['same'] else 'NOT equal'} "
+            f"bit for bit to the one-process launch's rows (max|d| "
+            f"{rec['max_abs_err']:.3e}); launch alone {rec['ms']:.3f} ms, "
+            f"one-process 2-shard launch {rec['one_ms']:.3f} ms, plain "
+            f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} ({rec['pairs']} attended pairs a head); a "
+            f"whole call with both ranks at once (ms): "
+            f"{ {k: round(v, 3) for k, v in mean.items()} }")
+        if not rec["same"]:
+            raise AssertionError(f"fused ring rank {r} differs from the "
+                                 f"one-process launch")
+        records.append(dict(form=f"{rec['form']}{r}", max_abs_err=0.0,
+                            ms=rec["ms"], plain_ms=rec["plain_ms"],
+                            bound_ms=rec["bound_ms"],
+                            bound_by=rec["bound_by"], library_ms=None,
+                            main=False))
+    rel = step_rel([dict(loss=a, grad_norm=b)
+                    for a, b in got[0]["train"]["steps"]],
+                   [dict(loss=a, grad_norm=b) for a, b in want["steps"]])
+    counts = [rec["train"]["counts"] for rec in got]
+    log(f"fused ring across two processes (seq 2, IPC chunks): train "
+        f"losses {[round(a, 4) for a, _ in got[0]['train']['steps']]}, loss "
+        f"rel {[f'{r[0]:.2e}' for r in rel]}, grad_norm rel "
+        f"{[f'{r[1]:.2e}' for r in rel]} against one process with both "
+        f"shards (tol {RING_TRAIN_TOL}); launches per rank "
+        f"{[{k: v for k, v in c.items() if v} for c in counts]}; phase "
+        f"wall {wall:.1f} s ({card_line()})")
+    if any(r[0] > RING_TRAIN_TOL["loss"] or r[1] > RING_TRAIN_TOL["grad_norm"]
+           for r in rel):
+        raise AssertionError("fused ring across processes disagrees with "
+                             "one process")
+    for c in counts:
+        require(c, ("ring_fused_fwd", "flash_fwd", "flash_bwd_dkv",
+                    "flash_bwd_dq"), "fused ring across processes")
+    return counts, records
+
+
+def _two_rank_worker(rank: int, store: str, result: str, cfg,
+                     device: str) -> None:
+    """One of two processes on the one card: the mesh fsdp = 2, the
+    recipes of ``two_rank_recipes`` placed; rank 0 returns the results
+    (its gathered int8 state and adapters are every rank's)."""
+    def body():
+        from v2pe_tpu_torch import config
+        from v2pe_tpu_torch.parallel.context import ShardingContext
+
+        dev = _join_gloo(rank, store, device)
+        out = two_rank_recipes(cfg, dev, ShardingContext.from_mesh(
+            config.MeshConfig(fsdp=2)))
+        return out if rank == 0 else None
+
+    _rank_main(rank, result, body)
+
+
+def phase_two_ranks(device: str = "cuda", cfg=None) -> None:
     """Two processes on the one card as a mesh of fsdp = 2 over gloo (the
     collectives staged through the host; NCCL refuses two ranks on one
     device, ``tests/torch_two_ranks_one_card.py``), at InternVL2-2B's
@@ -4515,32 +4893,13 @@ def phase_two_ranks(device: str = "cuda", cfg=None,
     same recipe run unplaced in this process on both rows: losses and grad
     norms within RING_TRAIN_TOL, the int8 state by ``compare_int8``, the
     adapters within 2 x steps x lr. Fails the run when a rank fails."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from v2pe_tpu_torch import config
 
     cfg = cfg or two_rank_cfg(config.internvl2_2b())
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        result = os.path.join(tmp, "ranks.pt")
-        spawn = mp.get_context(start)
-        procs = [spawn.Process(target=_two_rank_worker, args=(
-            r, os.path.join(tmp, "store"), result, cfg, device))
-            for r in range(2)]
-        for p in procs:
-            p.start()
-        want = two_rank_recipes(cfg, torch.device(device))
-        for p in procs:
-            p.join(timeout=600)
-            if p.is_alive():
-                p.kill()
-                p.join()
-        codes = [p.exitcode for p in procs]
-        if codes != [0, 0] or not os.path.exists(result):
-            raise AssertionError(f"two ranks on one card: exit codes {codes}")
-        got = torch.load(result)
+    (got, _), want = two_ranks(
+        _two_rank_worker, (cfg, device),
+        meanwhile=lambda: two_rank_recipes(cfg, torch.device(device)))
     wall = time.perf_counter() - t0
     for recipe in ("int8", "lora", "compress"):
         rel = step_rel([dict(loss=a, grad_norm=b)
@@ -6233,6 +6592,10 @@ def main(argv=None) -> int:
                     help="only check and time the flash tiles (the "
                     "backward #2-#3, the forward #1, #11) at a few forms; "
                     "no result line")
+    ap.add_argument("--two-ranks", action="store_true",
+                    help="only the phases of two processes on the card "
+                    "(fsdp 2, the pipe stages, the fused ring's ranks); no "
+                    "result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6252,6 +6615,12 @@ def main(argv=None) -> int:
     phase_device()
     if args.probe:
         probe_flash()
+        log(card_line())
+        return 0
+    if args.two_ranks:
+        phase_pipe_two_ranks()
+        phase_fused_two_ranks()
+        phase_two_ranks()
         log(card_line())
         return 0
 
@@ -6358,6 +6727,12 @@ def main(argv=None) -> int:
     del dist_moments
     phase_two_ranks()
     lap("dist train, bench recipe, ring train")
+    # two processes on the card: two GPipe stages, the fused ring's ranks
+    paths += phase_pipe_two_ranks()
+    fused_counts, fused_records = phase_fused_two_ranks()
+    paths += fused_counts
+    forms["ring_fused_fwd"].extend(fused_records)
+    lap("pipe and fused ring across processes")
     paths += phase_compress_train(model, cfg)
     paths.append(phase_compress_fuse_only(model, cfg))
     paths.append(phase_seq_cls(model, cfg))

@@ -252,15 +252,24 @@ def test_ulysses_all_to_all_across_two_processes_equals_one(worker_run):
 
 
 def test_what_a_mesh_of_processes_refuses(worker_run):
+    """A mesh that does not match the world and compress-seq over seq or
+    under pipe raise ``NotImplementedError`` naming their ROADMAP entry;
+    seq with pipe raises JAX's ``ValueError``. The pipe axis and the fused
+    ring across ranks are taken."""
     got = worker_run.result()[1]
-    for what in ("mismatched world", "pipe", "fused ring across ranks",
+    for what in ("mismatched world", "compress-seq under pipe",
                  "compress-seq over seq"):
         assert got[what] is not None, what
         assert got[what][0] == "NotImplementedError", (what, got[what])
-    assert "#11 across cards" in got["fused ring across ranks"][1]
-    assert "Queue 1 item 6.5" in got["fused ring across ranks"][1]
-    assert "Queue 1 item 8" in got["pipe"][1]
+    assert got["pipe with seq"][0] == "ValueError"
+    assert "seq must be 1" in got["pipe with seq"][1]
+    assert "Known faults inside the reference" in \
+        got["compress-seq under pipe"][1]
     assert "Queue 1 item 6.4" in got["compress-seq over seq"][1]
+    assert got["accepted"] == {
+        "pipe": (2, 2, got["accepted"]["pipe"][2],
+                 ("pipe", "data", "fsdp", "seq", "tensor")),
+        "fused ring across ranks": ("fused", 2)}
 
 
 def test_save_and_resume_at_fsdp2_continues_as_an_unbroken_run(worker_run):

@@ -1,5 +1,5 @@
 """The port's train CLI as two processes on the CPU (gloo) with int8 Adam
-over sharded leaves, LoRA and compress-seq (apart from
+over sharded leaves, LoRA, compress-seq and two pipe stages (apart from
 ``tests/test_torch_dist_cli.py`` to keep each file near 50 s on one
 worker)."""
 
@@ -22,6 +22,11 @@ RECIPES = {
                    "--use_backbone_lora", "2"],
     "compress_tensor2": ["--mesh_tensor", "2", "--compress_seq",
                          "--fuse_method", "cross-attn", "--chunk_num", "4"],
+    # two GPipe stages, a layer each, two microbatches of a row
+    "int8_pipe2": ["--mesh_pipe", "2", "--pipe_microbatches", "2",
+                   "--rows_per_batch", "2", "--max_tiles", "4",
+                   "--use_8bit_optimizer",
+                   "--dist_backend", "gloo"],
 }
 
 
@@ -56,6 +61,11 @@ def test_train_cli_recipes_on_a_mesh(toy_dataset, tmp_path,  # noqa: F811
         mom = opt["moments"]["llm/output_kernel"]
         assert mom["m_code"].numel() == params[
             "llm.output.weight"].numel() == 92553 * 64
+    if recipe.endswith("pipe2"):  # both stages' layers, whole leaves
+        assert {"llm.layers.0.wqkv.weight", "llm.layers.1.wqkv.weight"} \
+            <= set(params)
+        assert opt["moments"]["llm/layers/wqkv_kernel"]["m_code"].numel() \
+            == 2 * 64 * 128
     if recipe.startswith("lora"):
         assert params["llm.layers.1.wqkv.A"].shape == (4, 64)
         assert float(params["vision.layers.0.qkv.alpha"]) == 4.0

@@ -89,6 +89,7 @@ def test_every_port_module_imports_with_jax_and_the_jax_package_blocked():
             "v2pe_tpu_torch.parallel.ulysses",
             "v2pe_tpu_torch.parallel.shard_attn",
             "v2pe_tpu_torch.parallel.bootstrap", "v2pe_tpu_torch.parallel.mesh",
+            "v2pe_tpu_torch.parallel.pipeline",
             "v2pe_tpu_torch.evalkit",
             "v2pe_tpu_torch.evalkit.mm_niah_long",
             "v2pe_tpu_torch.evalkit.cli", "v2pe_tpu_torch.data.validate",

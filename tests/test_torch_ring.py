@@ -449,6 +449,9 @@ def test_sharding_context_holds_the_seq_axis_only():
                  dict(seq=2, fsdp=2)):
         with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             tctx.ShardingContext.from_mesh(tconfig.MeshConfig(**axes))
+    # seq with pipe, as JAX's pipeline asserts
+    with pytest.raises(ValueError, match="seq must be 1"):
+        tctx.ShardingContext.from_mesh(tconfig.MeshConfig(seq=2, pipe=2))
     for bad in (dict(seq_shards=2, ring_mode="rdma"), dict(seq_shards=0)):
         with pytest.raises(ValueError):
             tctx.ShardingContext(**bad)

@@ -438,10 +438,17 @@ def test_unported_options_raise():
 
     for kw in (dict(mesh=MeshConfig(fsdp=2)), dict(mesh=MeshConfig(data=2)),
                dict(mesh=MeshConfig(seq=2, tensor=2)),
-               dict(mesh=MeshConfig(pipe=2)),
-               dict(pipe_microbatches=2), dict(offload_optimizer=True)):
+               dict(mesh=MeshConfig(pipe=2)), dict(offload_optimizer=True)):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(port_config(cfg), opt, **kw)
+    # the pipe axis is ported (a mesh of processes): seq with pipe is
+    # refused as JAX's pipeline refuses it, and a microbatch count without
+    # a pipe axis is taken and unused, as in JAX
+    with pytest.raises(ValueError, match="seq must be 1"):
+        tstep.make_train_step(port_config(cfg), opt,
+                              mesh=MeshConfig(seq=2, pipe=2))
+    assert callable(tstep.make_train_step(port_config(cfg), opt,
+                                          pipe_microbatches=2))
     # LoRA is ported: the step takes the adapters, then the base model
     from v2pe_tpu_torch.models.lora import build_lora
 
@@ -593,11 +600,15 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
     assert "resumed from" in caplog.text
     for bad in (["--mesh_fsdp", "2"], ["--mesh_data", "2"],
                 ["--mesh_tensor", "2"], ["--mesh_pipe", "2"],
-                ["--mesh_seq", "2", "--pipe_microbatches", "2"],
+                ["--mesh_pipe", "2", "--compress_seq"],
                 ["--mesh_seq", "2", "--compress_seq"],
                 ["--offload_optimizer"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + bad)
+    # seq with pipe: JAX's pipeline refuses the pair
+    with pytest.raises(ValueError, match="seq must be 1"):
+        cli.main(argv + ["--mesh_seq", "2", "--mesh_pipe", "2",
+                         "--pipe_microbatches", "2"])
     # LoRA and compress-seq are ported: each trains a step
     for i, more in enumerate((["--use_llm_lora", "4"], ["--compress_seq"])):
         _, _, step = cli.main(argv + more + [

@@ -24,11 +24,12 @@ import torch
 torch.set_num_threads(1)
 
 
-def _ctx(mesh: dict, ring_mode: str = "scan"):
+def _ctx(mesh: dict, ring_mode: str = "scan", microbatches: int = 0):
     from v2pe_tpu_torch.core.config import MeshConfig
     from v2pe_tpu_torch.parallel.context import ShardingContext
 
-    return ShardingContext.from_mesh(MeshConfig(**mesh), ring_mode=ring_mode)
+    return ShardingContext.from_mesh(MeshConfig(**mesh), ring_mode=ring_mode,
+                                     pipe_microbatches=microbatches)
 
 
 def _cfg(spec, task=None):
@@ -64,23 +65,73 @@ def _setup(spec, task):
     opt = build_optimizer(TrainConfig(**task["tc"]), model, cfg)
     step = make_train_step(cfg, opt, MeshConfig(**task["mesh"]),
                            img_context_token_id=spec["img_context_id"],
-                           remat=task.get("remat", "full"))
+                           remat=task.get("remat", "full"),
+                           ring_mode=task.get("ring_mode", "scan"),
+                           pipe_microbatches=task.get("microbatches", 0))
     return cfg, ctx, model, opt, step
+
+
+def _replicated_grads(model, ctx) -> dict:
+    """Wrap the placement's ``reduce_grads`` to keep, at its first call,
+    the gradients of the parameters outside the decoder layers (whole on
+    every pipe rank); returns where they land."""
+    from v2pe_tpu_torch.parallel.mesh import layer_index
+
+    pl, seen = model.placement, {}
+    reduce = pl.reduce_grads
+
+    def keep(grads):
+        if not seen:
+            seen.update({n: g.detach().clone() for n, g in grads.items()
+                         if layer_index(n) is None})
+        return reduce(grads)
+
+    pl.reduce_grads = keep
+    return seen
+
+
+def _pipe_spread(seen: dict, ctx) -> float:
+    """The largest difference between the pipe ranks of one (data, fsdp,
+    tensor) coordinate in the gradients ``seen`` (a collective)."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    key = (ctx.coord("data"), ctx.coord("fsdp"), ctx.coord("tensor"))
+    dist.all_gather_object(every, (key, {n: g.numpy() for n, g in
+                                         seen.items()}))
+    worst = 0.0
+    for k0, g0 in every:
+        for k1, g1 in every:
+            if k0 == k1:
+                worst = max([worst] + [
+                    float(np.abs(g0[n] - g1[n]).max(initial=0))
+                    for n in g0])
+    return worst
 
 
 def task_train(spec, task):
     """Steps of ``make_train_step`` on the spec's global batches: the
-    losses, grad norms, and the parameters after them (whole)."""
-    from v2pe_tpu_torch.parallel import shard_attn
+    losses, grad norms, and the parameters after them (whole); on a pipe
+    mesh also the decoder layers each rank holds and how far apart the
+    pipe ranks' gradients of everything else were at the first step."""
+    import torch.distributed as dist
+
+    from v2pe_tpu_torch.parallel import ring_fused, shard_attn
 
     cfg, ctx, model, opt, step = _setup(spec, task)
     state = opt.init()
+    piped = ctx.pipe_shards > 1
+    seen = _replicated_grads(model, ctx) if piped else None
     ring = shard_attn.dist_ring_flash_attention
+    fused = ring_fused.dist_fused_ring_fwd
     calls = []
     shard_attn.dist_ring_flash_attention = \
         lambda *a: calls.append(a[2].shape) or ring(*a)
+    ring_fused.dist_fused_ring_fwd = \
+        lambda *a, **k: calls.append(("fused",) + tuple(a[1].shape)) \
+        or fused(*a, **k)
     losses, norms = [], []
-    for i, batch in enumerate(spec["batches"]):
+    for i, batch in enumerate(task.get("batches", spec["batches"])):
         gen = None
         if task.get("drop_path_rate"):  # the trainer's DropPath stream
             from v2pe_tpu_torch.train.trainer import _dp_generator
@@ -90,12 +141,27 @@ def task_train(spec, task):
         losses.append(float(loss))
         norms.append(float(gnorm))
     shard_attn.dist_ring_flash_attention = ring
+    ring_fused.dist_fused_ring_fwd = fused
     full = model.placement.full_state_dict(model)
-    return {"loss": losses, "grad_norm": norms,
-            "params": {n: t.numpy() for n, t in full.items()},
-            "rules": sorted(model.placement.rules),
-            "ring_q_shapes": sorted(set(calls)),
-            **_int8_state(model, state)}
+    out = {"loss": losses, "grad_norm": norms,
+           "params": {n: t.numpy() for n, t in full.items()},
+           "rules": sorted(model.placement.rules),
+           "ring_q_shapes": sorted(set(calls), key=str),
+           **_int8_state(model, state)}
+    if piped:
+        held = [None] * dist.get_world_size()
+        dist.all_gather_object(held, _held_layers(model))
+        out.update(held_layers=held, pipe_spread=_pipe_spread(seen, ctx),
+                   replicated=len(seen))
+    return out
+
+
+def _held_layers(model) -> list:
+    """The decoder layers whose parameters this rank holds."""
+    from v2pe_tpu_torch.parallel.mesh import layer_index
+
+    return sorted({layer_index(n) for n, _ in model.named_parameters()
+                   if layer_index(n) is not None})
 
 
 def _int8_state(model, state) -> dict:
@@ -138,7 +204,7 @@ def task_lora(spec, task):
                            remat=task.get("remat", "full"), lora=True)
     state = opt.init()
     losses, norms = [], []
-    for batch in spec["batches"]:
+    for batch in task.get("batches", spec["batches"]):
         loss, gnorm = step(lora, state, _local_batch(batch, ctx, cfg), view)
         losses.append(float(loss))
         norms.append(float(gnorm))
@@ -179,7 +245,8 @@ def task_resume(spec, task):
 
     cfg, ctx, model, opt, step = _setup(spec, task)
     state = opt.init()
-    b1, b2 = (_local_batch(b, ctx, cfg) for b in spec["batches"][:2])
+    b1, b2 = (_local_batch(b, ctx, cfg)
+              for b in task.get("batches", spec["batches"])[:2])
     step(model, state, b1)
     path = ckpt.save_checkpoint(task["dir"], 1, model, state,
                                 data_state={"rank": ctx.coord("fsdp")})
@@ -285,6 +352,126 @@ def task_ring(spec, task):
     return {"errors": errs.tolist()}
 
 
+def task_pipe_forward(spec, task):
+    """The pipelined ``llm_forward`` of the spec's model on a pipe mesh:
+    the logits of the spec's ids (rank 0's; every rank's must agree), the
+    layers each rank holds, and what the mesh refuses (a KV cache, a
+    serving placement, compress-seq)."""
+    import torch.distributed as dist
+
+    from v2pe_tpu_torch.models.internlm2 import KVCache, llm_forward
+    from v2pe_tpu_torch.models.params import from_jax_params
+    from v2pe_tpu_torch.parallel.context import use_sharding
+    from v2pe_tpu_torch.parallel.mesh import shard_model
+
+    cfg = _cfg(spec, task)
+    ctx = _ctx(task["mesh"], microbatches=task.get("microbatches", 0))
+    model = from_jax_params(spec["tree"], cfg, mesh=ctx)
+    # the decoder is called outside the model's forward: its root unit
+    # (the embedding, the head) gathered first, as a serving placement does
+    model._get_fsdp_state()._lazy_init()
+    model.unshard()
+    ids, pos, seg = (torch.from_numpy(spec[k]) for k in ("fwd_ids",
+                                                         "fwd_pos",
+                                                         "fwd_seg"))
+    with use_sharding(ctx), torch.no_grad():
+        logits, _ = llm_forward(model.llm, cfg.llm, input_ids=ids,
+                                rope_pos_ids=pos, segment_ids=seg)
+    every = [torch.empty_like(logits) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, logits)
+    refused = {}
+    calls = {
+        "kv cache": lambda: llm_forward(
+            model.llm, cfg.llm, input_ids=ids[:, :4],
+            kv_cache=KVCache.zeros(cfg.llm, ids.shape[0], 8, torch.float32,
+                                   "cpu")),
+        "serving placement": lambda: shard_model(
+            from_jax_params(spec["tree"], cfg), cfg, ctx, serving=True),
+        "compress-seq": lambda: _compress_on(spec, cfg, ctx),
+    }
+    for what, fn in calls.items():
+        try:
+            with use_sharding(ctx), torch.no_grad():
+                fn()
+            refused[what] = None
+        except Exception as e:  # the test reads the type and message
+            refused[what] = (type(e).__name__, str(e))
+    held = [None] * dist.get_world_size()
+    dist.all_gather_object(held, _held_layers(model))
+    return {"logits": logits.numpy(),
+            "spread": max(float((e - logits).abs().max()) for e in every),
+            "held_layers": held, "refused": refused}
+
+
+def _compress_on(spec, cfg, ctx):
+    """A compress-seq model's forward under ``ctx`` (refused on a pipe
+    mesh before anything runs)."""
+    from v2pe_tpu_torch.models.compress_seq import (compress_llm_forward,
+                                                    init_compress_params)
+    from v2pe_tpu_torch.models.params import from_jax_params
+
+    model = from_jax_params(spec["tree"], cfg)
+    compress = init_compress_params(model.llm, cfg=cfg.llm,
+                                    fuse_method="add")
+    x = torch.zeros(1, 8, cfg.llm.hidden_size)
+    compress_llm_forward(model.llm, compress, cfg.llm, x, torch.zeros(1, 8),
+                         4)
+
+
+def task_fused_ring(spec, task):
+    """The fused ring across the ranks (each its zigzag shard, the peers'
+    chunks gathered on the CPU) against the scan ring with every shard in
+    one process: outputs and gradients of this rank's rows, the largest
+    difference over ranks; and the forward's (out, lse) against the
+    one-process fused forward's rows."""
+    import torch.distributed as dist
+
+    from v2pe_tpu_torch.parallel import ring, ring_fused
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    g = torch.Generator().manual_seed(2)
+    B, S, Hq, Hkv, D = 2, 64 * n, 4, 2, 16
+    q, k, v = (torch.randn(B, S, h, D, generator=g) for h in (Hq, Hkv, Hkv))
+    seg = torch.ones(B, S, dtype=torch.int32)
+    seg[0, S // 3:] = 2
+    seg[1, -S // 5:] = 0  # a padded tail
+    zig = lambda t: torch.cat([ring.zigzag_shard(t, i, n) for i in range(n)],
+                              dim=1).contiguous()  # noqa: E731
+    pos = zig(torch.arange(S, dtype=torch.int32).expand(B, S))
+    q, k, v, seg = zig(q), zig(k), zig(v), zig(seg)
+    w = torch.randn(B, S, Hq, D, generator=g)
+    statics = ring.RingStatics(causal=True, scale=D ** -0.5)
+    rows = slice(r * S // n, (r + 1) * S // n)
+    mine = lambda t: t[:, rows].contiguous()  # noqa: E731
+
+    def run(fn, ts, wt):
+        ts = [t.clone().requires_grad_() for t in ts]
+        out = fn(*ts)
+        return out, torch.autograd.grad((out * wt).sum(), ts)
+
+    ids = [mine(seg), mine(pos)]
+    out, grads = run(lambda q_, k_, v_:
+                     ring_fused.dist_fused_ring_flash_attention(
+                         dist.group.WORLD, statics, q_, k_, v_, ids[0],
+                         ids[0], ids[1], ids[1]),
+                     [mine(t) for t in (q, k, v)], w[:, rows])
+    ref, ref_grads = run(lambda q_, k_, v_: ring.ring_flash_attention(
+        n, statics, q_, k_, v_, seg, seg, pos, pos), [q, k, v], w)
+    got_fwd = ring_fused.dist_fused_ring_fwd(
+        dist.group.WORLD, mine(q), mine(k), mine(v), ids[0], ids[0], ids[1],
+        ids[1], causal=True, scale=statics.scale)
+    want_fwd = ring_fused.fused_ring_fwd(n, q, k, v, seg, seg, pos, pos,
+                                         causal=True, scale=statics.scale)
+    errs = torch.tensor(
+        [float((out - ref[:, rows]).abs().max())]
+        + [float((a - b[:, rows]).abs().max())
+           for a, b in zip(grads, ref_grads)]
+        + [float((got_fwd[0] - want_fwd[0][:, rows]).abs().max()),
+           float((got_fwd[1] - want_fwd[1][:, :, rows]).abs().max())])
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+    return {"errors": errs.tolist()}
+
+
 def task_drop_path(spec, task):
     """The ViT features of every rank's tiles under DropPath (the step's
     generator, rate 0.1) on a data axis, gathered in rank order."""
@@ -325,9 +512,9 @@ def task_refusals(spec, task):
     world = int(os.environ["V2PE_NUM_PROCESSES"])
     calls = {
         "mismatched world": lambda: _ctx({"fsdp": 2 * world}),
-        "pipe": lambda: _ctx({"fsdp": world, "pipe": 2}),
-        "fused ring across ranks": lambda: _ctx({"seq": world},
-                                                ring_mode="fused"),
+        "pipe with seq": lambda: _ctx({"seq": 2, "pipe": 2}),
+        "compress-seq under pipe": lambda: _compress(spec, cfg, world,
+                                                     {"pipe": world}),
         "compress-seq over seq": lambda: _compress(spec, cfg, world),
     }
     out = {}
@@ -342,12 +529,20 @@ def task_refusals(spec, task):
         build_optimizer(TrainConfig(use_8bit_optimizer=True),
                         from_jax_params(spec["tree"], cfg,
                                         mesh=_ctx({axis: world})), cfg)
+    # what the mesh of processes takes now: the pipe axis, the fused ring
+    pipe = _ctx({"pipe": world}, microbatches=2)
+    fused = _ctx({"seq": world}, ring_mode="fused")
+    out["accepted"] = {
+        "pipe": (pipe.pipe_shards, pipe.pipe_microbatches,
+                 pipe.coord("pipe"), tuple(pipe.mesh.mesh_dim_names)),
+        "fused ring across ranks": (fused.ring_mode, fused.size("seq"))}
     return out
 
 
-def _compress(spec, cfg, world):
-    """A compress-seq model placed on a seq mesh (the placement takes it),
-    then its forward under the mesh's context (refused)."""
+def _compress(spec, cfg, world, mesh=None):
+    """A compress-seq model placed on a seq mesh (or ``mesh``; the
+    placement takes it), then its forward under the mesh's context
+    (refused)."""
     from v2pe_tpu_torch.models.compress_seq import (compress_llm_forward,
                                                     init_compress_params)
     from v2pe_tpu_torch.models.params import from_jax_params
@@ -357,7 +552,7 @@ def _compress(spec, cfg, world):
     model = from_jax_params(spec["tree"], cfg)
     model.compress = init_compress_params(model.llm, cfg=cfg.llm,
                                           fuse_method="add")
-    ctx = _ctx({"seq": world})
+    ctx = _ctx(mesh or {"seq": world})
     shard_model(model, cfg, ctx)
     x = torch.zeros(1, 8, cfg.llm.hidden_size)
     with use_sharding(ctx):
@@ -479,6 +674,7 @@ def task_serve(spec, task):
 TASKS = {"train": task_train, "resume": task_resume,
          "int8_opt": task_int8_opt, "lora": task_lora,
          "ulysses": task_ulysses, "ring": task_ring,
+         "pipe_forward": task_pipe_forward, "fused_ring": task_fused_ring,
          "drop_path": task_drop_path,
          "refusals": task_refusals, "serve": task_serve}
 

@@ -9,7 +9,10 @@
 // rotated; out in the input dtype and lse fp32 are written once, with the
 // flash contract (a row that attends nothing: out 0, lse -1e30).
 //
-// Design. One launch serves every rank whose shard lives on this card: a
+// Design. One launch serves the ranks r0 .. r0 + nr - 1 of the ring: every
+// rank when all shards live in one process's memory (q the global tensor),
+// or the caller's rank alone when each rank is a process (q its own shard,
+// the peers' chunks mapped into it by CUDA IPC). A
 // thread block owns one (rank, batch row, q head, 64-row query tile) and
 // sweeps all n chunks itself, so the fp32 online-softmax state stays on
 // chip across the hops and nothing is merged through device memory, which
@@ -26,9 +29,9 @@
 // the host from the same addresses (kernel parameters: at most 8 ranks). The
 // TPU kernel's slots, semaphores, startup barrier and drain move chunks
 // between chips by remote DMA; here a block pulls a chunk's tiles itself.
-// With every shard on one card the addresses point into one tensor;
-// addresses of a peer card's memory, in the table and the maps, are all a
-// multi-card ring changes.
+// With every shard in one process the addresses point into one tensor;
+// across processes they are the peers' buffers as mapped in the caller, and
+// that, with the launched ranks, is all a ring of processes changes.
 
 // Under a causal zigzag layout half of all (query tile, hop) pairs are dead;
 // both tiles skip a dead K/V tile from the min/max of its segment ids and
@@ -43,16 +46,19 @@
 namespace {
 
 struct RingParams {
-  const void* q;       // (B, n * Sl, Hq, D): rank r's rows at [r Sl, (r+1) Sl)
-  const int* seg_q;    // (B, n * Sl)
-  const int* pos_q;    // (B, n * Sl)
+  // the launched ranks r0 .. r0 + nr - 1: q, its ids, out and lse hold
+  // their rows, rank r's at [(r - r0) Sl, (r - r0 + 1) Sl)
+  const void* q;       // (B, nr * Sl, Hq, D)
+  const int* seg_q;    // (B, nr * Sl)
+  const int* pos_q;    // (B, nr * Sl)
   // (4, n) chunk base pointers: k, v (each chunk (B,Sl,Hkv,D) with batch
   // stride kv_batch_stride elements), segment ids, positions (each (B,Sl)
   // with batch stride vec_batch_stride)
   const long long* table;
   void* out;           // like q
-  float* lse;          // (B, Hq, n * Sl)
+  float* lse;          // (B, Hq, nr * Sl)
   int B, n, Sl, Hq, Hkv;
+  int r0, nr;          // the first rank launched, the ranks launched
   long long kv_batch_stride, vec_batch_stride;
   int causal;
   float scale;
@@ -64,11 +70,11 @@ __global__ void __launch_bounds__(THREADS) ring_fused_fwd_kernel(
   extern __shared__ float smem[];
   const Smem<D> sm(smem);
   const int q0 = blockIdx.x * BQ, h = blockIdx.y;
-  const int r = blockIdx.z / p.B;
+  const int r = p.r0 + static_cast<int>(blockIdx.z) / p.B;
   const size_t b = blockIdx.z % p.B;
   const int hk = h / (p.Hq / p.Hkv);
-  const size_t S = static_cast<size_t>(p.n) * p.Sl;
-  const size_t row0 = b * S + static_cast<size_t>(r) * p.Sl;  // rank's rows
+  const size_t S = static_cast<size_t>(p.nr) * p.Sl;  // q's rows a batch row
+  const size_t row0 = b * S + static_cast<size_t>(r - p.r0) * p.Sl;
 
   const QSummary qs = load_q<D>(
       sm, static_cast<const float*>(p.q) + row0 * p.Hq * D, p.seg_q + row0,
@@ -93,7 +99,8 @@ __global__ void __launch_bounds__(THREADS) ring_fused_fwd_kernel(
   }
 
   write_out<D>(sm, acc, static_cast<float*>(p.out) + row0 * p.Hq * D,
-                  p.lse + (b * p.Hq + h) * S + static_cast<size_t>(r) * p.Sl,
+                  p.lse + (b * p.Hq + h) * S +
+                      static_cast<size_t>(r - p.r0) * p.Sl,
                   q0, p.Sl, p.Hq, h);
 }
 
@@ -116,12 +123,12 @@ __global__ void __launch_bounds__(tc::THREADS, 2)
   const tc::Smem<D> sm(smem_raw);
   using bf16 = tc::bf16;
   const int h = blockIdx.x;
-  const int r = blockIdx.y / p.B;
+  const int r = p.r0 + static_cast<int>(blockIdx.y) / p.B;
   const size_t b = blockIdx.y % p.B;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * tc::BQ;
   const int hk = h / (p.Hq / p.Hkv);
-  const size_t S = static_cast<size_t>(p.n) * p.Sl;
-  const size_t row0 = b * S + static_cast<size_t>(r) * p.Sl;  // rank's rows
+  const size_t S = static_cast<size_t>(p.nr) * p.Sl;  // q's rows a batch row
+  const size_t row0 = b * S + static_cast<size_t>(r - p.r0) * p.Sl;
 
   tc::setup<D>(sm, static_cast<const bf16*>(p.q) + row0 * p.Hq * D,
                p.seg_q + row0, p.pos_q + row0, nullptr, nullptr, q0, p.Sl,
@@ -145,7 +152,7 @@ __global__ void __launch_bounds__(tc::THREADS, 2)
     tc::consume<D>(sm, acc, p.scale, p.causal);
     tc::write_out<D>(acc, static_cast<bf16*>(p.out) + row0 * p.Hq * D,
                      p.lse + (b * p.Hq + h) * S +
-                         static_cast<size_t>(r) * p.Sl,
+                         static_cast<size_t>(r - p.r0) * p.Sl,
                      q0, p.Sl, p.Hq, h);
   }
 }
@@ -173,7 +180,7 @@ cudaError_t launch_tc(const RingParams& p, const long long* k_chunks,
       ring_fused_fwd_tc_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.Hq, p.n * p.B, (p.Sl + tc::BQ - 1) / tc::BQ);
+  const dim3 grid(p.Hq, p.nr * p.B, (p.Sl + tc::BQ - 1) / tc::BQ);
   ring_fused_fwd_tc_kernel<D><<<grid, tc::THREADS, smem, stream>>>(tp);
   return cudaGetLastError();
 }
@@ -186,7 +193,7 @@ cudaError_t launch(const RingParams& p, cudaStream_t stream) {
       ring_fused_fwd_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sl + BQ - 1) / BQ, p.Hq, p.n * p.B);
+  const dim3 grid((p.Sl + BQ - 1) / BQ, p.Hq, p.nr * p.B);
   ring_fused_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -204,6 +211,7 @@ cudaError_t launch_dtype(const RingParams& p, const long long* k_chunks,
 // Plain C entry point (loaded with ctypes). k_chunks / v_chunks: host
 // arrays of the n chunks' addresses (the table's first two rows, which the
 // bf16 tile's tensor maps are encoded from; the fp32 tile reads the table).
+// r0 / nr: the ranks launched (0 / n: all, q the global tensor).
 // Returns a cudaError_t: 0 when the launch was accepted.
 extern "C" int v2pe_ring_fused_fwd(const void* q, const int* seg_q,
                                    const int* pos_q, const long long* table,
@@ -212,10 +220,28 @@ extern "C" int v2pe_ring_fused_fwd(const void* q, const int* seg_q,
                                    float* lse, int B, int n, int Sl, int Hq,
                                    int Hkv, int D, long long kv_batch_stride,
                                    long long vec_batch_stride, int is_bf16,
-                                   int causal, float scale, void* stream) {
-  const RingParams p{q,  seg_q, pos_q, table,           out,
-                     lse, B,    n,     Sl,              Hq,
-                     Hkv, kv_batch_stride, vec_batch_stride, causal, scale};
+                                   int causal, float scale, int r0, int nr,
+                                   void* stream) {
+  if (r0 < 0 || nr < 1 || r0 + nr > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  RingParams p{};
+  p.q = q;
+  p.seg_q = seg_q;
+  p.pos_q = pos_q;
+  p.table = table;
+  p.out = out;
+  p.lse = lse;
+  p.B = B;
+  p.n = n;
+  p.Sl = Sl;
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.r0 = r0;
+  p.nr = nr;
+  p.kv_batch_stride = kv_batch_stride;
+  p.vec_batch_stride = vec_batch_stride;
+  p.causal = causal;
+  p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_dtype<16>(p, k_chunks, v_chunks, is_bf16, st);

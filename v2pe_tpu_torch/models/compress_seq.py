@@ -249,8 +249,20 @@ def _no_sharding(what: str) -> None:
     hands it the zigzag-permuted batch of the ring, so its chunks are other
     tokens than at ``seq`` = 1 (ROADMAP Queue 3, "Known faults inside the
     reference"): there is no step of JAX's to hold a split of the chunks
-    to."""
+    to.
+
+    Nor under a ``pipe`` axis: JAX's compress forward has its own layer
+    loop with no pipeline branch (``v2pe_tpu/models/compress_seq.py``), so
+    under ``pipe`` it would gather every stage's layers onto every rank
+    (ROADMAP Queue 3, "Known faults inside the reference"); a pipe rank of
+    the port holds its stage's layers only."""
     ctx = parallel_context.current()
+    if ctx is not None and ctx.pipe_shards > 1:
+        raise NotImplementedError(
+            f"{what} under a pipe axis (--mesh_pipe > 1): JAX's compress "
+            f"layer loop has no pipeline branch and would gather every "
+            f"stage's layers (ROADMAP Queue 3, 'Known faults inside the "
+            f"reference')")
     if ctx is not None and (ctx.seq_shards > 1 or ctx.size("seq") > 1):
         raise NotImplementedError(
             f"{what} with a sharded sequence (--mesh_seq > 1): JAX's "

@@ -32,7 +32,9 @@ as the JAX scan does with ``jax.checkpoint``: ``full`` per layer, ``block2``
 / ``block4`` per block of 2 / 4 layers (per layer when the depth is not a
 multiple, as the JAX code falls back), ``attn_saved`` only the SwiGLU block
 (the attention's residuals stay and its backward recomputes nothing),
-``none`` nothing.
+``none`` nothing. Under a ``pipe`` axis the stack runs GPipe-pipelined
+over the ranks' stages (``parallel/pipeline.py``), each layer checkpointed
+for every remat mode but ``none``, as JAX's pipeline does.
 
 Weight-only int8 / int4 serving: ``QuantizedInternLM2``
 (``ops/quantized_matmul.quantize_llm_params``) holds each of the five
@@ -64,6 +66,7 @@ from v2pe_tpu_torch.ops.quantized_matmul import (QUANT_WEIGHT_NAMES,
                                                  quantized_dot_stacked)
 from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      scale_positions)
+from v2pe_tpu_torch.parallel import context as pctx
 from v2pe_tpu_torch.parallel.mesh import (column_input, in_features,
                                           is_split, row_linear, row_output)
 
@@ -508,7 +511,21 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
     right-padding (0) of a paged prompt. paged_attend_cache: a chunk of
     more than 16 tokens also attends over the cached pages (chunked
     prefill). remat: the training remat mode of the no-cache path (see the
-    module docstring)."""
+    module docstring).
+
+    Under a context with a ``pipe`` axis above 1 the no-cache layer stack
+    runs GPipe-pipelined over it (``parallel/pipeline.py``), and a dense or
+    paged cache raises ``ValueError``, as in JAX: decode is not
+    pipelined."""
+    ctx = pctx.current()
+    piped = ctx is not None and ctx.pipe_shards > 1
+    if piped and (kv_cache is not None or paged_cache is not None):
+        # a rank holds its stage's layers only: a cache path would need
+        # every layer's weights on every rank per decoded token
+        raise ValueError(
+            "KV-cache decode is not supported under a 'pipe' mesh — "
+            "build the inference mesh without a pipe axis "
+            "(parallel/pipeline.py is a training-forward schedule)")
     if inputs_embeds is None:
         inputs_embeds = model.tok_embeddings(input_ids)
     x = inputs_embeds
@@ -543,9 +560,7 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
             slot_base = pa.default_slot_base(paged_cache.page_table,
                                              paged_cache.page_size)
         if paged_cache.shard is not None:
-            from v2pe_tpu_torch.parallel import context as pctx
-
-            group = pctx.current().group("seq")
+            group = ctx.group("seq")
         if S > 16 or (views is not None and S > 1):
             slots = paged_kv.token_slots(paged_cache, S, valid)
         elif S > 1 and valid is not None:
@@ -554,7 +569,13 @@ def llm_forward(model: InternLM2Model, cfg: LLMConfig, *,
             # count on the device says which tokens the decode kernel
             # stores, and nothing is read back
             store_n = valid.sum(1, dtype=torch.int32)
-    if kv_cache is None and paged_cache is None:
+    if piped:  # GPipe: a stage's layers, microbatches between ranks
+        from v2pe_tpu_torch.parallel.pipeline import pipeline_llm_layers
+
+        x = pipeline_llm_layers(model.layers, cfg, x, cos, sin,
+                                segment_ids=segment_ids, positions=positions,
+                                rope_pack=rope_pack, ctx=ctx, remat=remat)
+    elif kv_cache is None and paged_cache is None:
         x = _train_layers(model.layers, cfg, x, cos, sin, remat,
                           segment_ids=segment_ids, positions=positions,
                           rope_pack=rope_pack)

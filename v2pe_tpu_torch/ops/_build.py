@@ -136,7 +136,7 @@ def load() -> ctypes.CDLL:
         bind_qdot(lib)
         ll = ctypes.c_longlong
         lib.v2pe_ring_fused_fwd.argtypes = [
-            p, p, p,            # q, seg_q, pos_q (all ranks' rows)
+            p, p, p,            # q, seg_q, pos_q (the launched ranks' rows)
             p,                  # (4, n) chunk pointers: k, v, seg_k, pos_k
             p, p,               # host arrays of the n k and v chunk addresses
             p, p,               # out, lse
@@ -144,6 +144,7 @@ def load() -> ctypes.CDLL:
             ll, ll,             # a chunk's batch strides: k/v, seg/pos
             i, i,               # is_bf16, causal
             ctypes.c_float,     # scale
+            i, i,               # r0, nr: the ranks launched
             p,                  # cudaStream_t
         ]
         for fn in (lib.v2pe_ring_fused_fwd,

@@ -6,8 +6,8 @@ One process drives one card. The JAX package starts one
 ``jax.distributed`` runtime whose processes each hold many devices; here
 ``init_process_group`` joins one process a card (NCCL on ``cuda``, gloo on
 ``cpu``), and a ``DeviceMesh`` over all ranks carries the axes of a
-``MeshConfig`` with ``data`` outermost, as ``make_global_mesh`` lays them
-out in the JAX package.
+``MeshConfig`` with ``pipe`` outermost when it is above 1, then ``data``,
+as ``make_global_mesh`` lays them out in the JAX package.
 
 Launcher detection order (``detect_env``; the JAX package's order, with
 the PyTorch runtime's own launcher where JAX autodetects a TPU pod):
@@ -37,12 +37,16 @@ import torch.distributed as dist
 logger = logging.getLogger(__name__)
 
 AXES = ("data", "fsdp", "seq", "tensor")
+PIPE_AXES = ("pipe",) + AXES  # a mesh whose pipe axis is above 1
 
 # DeviceMeshes built so far, by (shape, device type): building one creates
 # process groups, a collective call on every rank
 _MESHES: dict = {}
 # the device type of this process's ranks ("type"), set when it joins
 _DEVICE: dict = {}
+# callables that drop what this rank maps of its peers' memory (CUDA IPC,
+# parallel/ring_fused.py), run before the group is left
+_RELEASE: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,11 +149,28 @@ def initialize_distributed(launcher: str = "auto",
 
 
 def shutdown() -> None:
-    """Leave the process group and forget the meshes built on it."""
+    """Leave the process group and forget the meshes built on it. A rank
+    that maps its peers' memory drops the mappings first and waits for
+    every rank to have done so: no process leaves while a peer still maps
+    its memory."""
+    mapped = bool(_RELEASE)
+    while _RELEASE:
+        _RELEASE.pop()()
     _MESHES.clear()
     _DEVICE.clear()
     if dist.is_initialized():
+        if mapped:
+            dist.barrier()
         dist.destroy_process_group()
+
+
+def host_staged(group, device) -> bool:
+    """Whether a point-to-point transfer of a tensor on ``device`` over
+    ``group`` goes through host memory: gloo sends and receives no CUDA
+    tensor (several ranks on one card run over gloo, NCCL refusing a second
+    rank on a device)."""
+    return torch.device(device).type == "cuda" \
+        and dist.get_backend(group) == "gloo"
 
 
 def world_size() -> int:
@@ -159,16 +180,19 @@ def world_size() -> int:
 
 def make_global_mesh(cfg):
     """The ``DeviceMesh`` of a ``MeshConfig`` over every rank: axes
-    (data, fsdp, seq, tensor), ``data`` outermost, rank r at the
-    coordinate of r in that row-major order. The mesh must cover the whole
-    world: a rank outside it would hold no shard."""
+    (data, fsdp, seq, tensor), ``data`` outermost, or (pipe, data, fsdp,
+    seq, tensor) when ``pipe`` is above 1, rank r at the coordinate of r in
+    that row-major order (JAX's ``MeshConfig.axis_names`` and device
+    order). The mesh must cover the whole world: a rank outside it would
+    hold no shard."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    shape = (cfg.data, cfg.fsdp, cfg.seq, cfg.tensor)
+    names = PIPE_AXES if cfg.pipe > 1 else AXES
+    shape = tuple(getattr(cfg, a) for a in names)
     n = int(np.prod(shape))
     if n != world_size():
         raise NotImplementedError(
-            f"the mesh {dict(zip(AXES, shape))} covers {n} cards, the "
+            f"the mesh {dict(zip(names, shape))} covers {n} cards, the "
             f"process group has {world_size()} ranks: one process drives "
             f"one card (ROADMAP Queue 1 item 6)")
     device_type = _DEVICE.get("type") or (
@@ -176,7 +200,7 @@ def make_global_mesh(cfg):
     key = (shape, device_type)
     if key not in _MESHES:
         _MESHES[key] = init_device_mesh(device_type, shape,
-                                        mesh_dim_names=AXES)
+                                        mesh_dim_names=names)
     return _MESHES[key]
 
 
@@ -222,7 +246,8 @@ def rows_of_global_batch(batch: dict, index: int, count: int,
 
 def make_global_batch(batch: dict, ctx, device) -> dict:
     """Place a rank's batch: ``batch`` holds the rows of its (data, fsdp)
-    coordinate (packed by this rank, or ``rows_of_global_batch``), with
+    coordinate (packed by this rank, or ``rows_of_global_batch``; every
+    ``pipe`` rank of that coordinate holds the same rows), with
     every sequence in the layout of the whole ``seq`` axis (zigzag-permuted
     by ``collate_rows(seq_shards=n)``); the rank keeps its contiguous
     ``seq`` shard of the tokens and all the tiles, on ``device``."""

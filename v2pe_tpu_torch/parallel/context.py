@@ -8,13 +8,16 @@ their group here, and the loss its reduction axes.
 The JAX context holds a ``jax.sharding.Mesh``. The port's holds:
 
 * ``mesh``: the ``torch.distributed`` ``DeviceMesh`` of a process group,
-  one process a card, axes (data, fsdp, seq, tensor)
-  (``parallel/bootstrap.py:make_global_mesh``); None in a process without
-  a group;
+  one process a card, axes (data, fsdp, seq, tensor), with ``pipe``
+  outermost when it is above 1 (``parallel/bootstrap.py:make_global_mesh``);
+  None in a process without a group;
 * ``seq_shards``: ring shards held by this one process, all on its card
   (a world of 1 only): the ring's shards in training, the paged pool's
   shards in serving;
-* ``ring_mode``: 'scan' or 'fused'.
+* ``ring_mode``: 'scan' or 'fused' (across processes too: the fused
+  forward reads the peers' chunks by CUDA IPC, ``parallel/ring_fused.py``);
+* ``pipe_microbatches``: the GPipe microbatch count, 0 for the choice of
+  ``parallel/pipeline.py:choose_microbatches``.
 
 Serving reads one number, :attr:`ShardingContext.pool_shards`: the shards
 of the paged pool's page axis, ``seq_shards`` on one card or the ``seq``
@@ -22,8 +25,10 @@ axis across processes (the other is 1), as JAX reads
 ``mesh.shape["seq"]``; and :attr:`ShardingContext.pool_shard`, the shard a
 process's pool holds (None on one card, which holds them all).
 
-``pipe`` above 1 raises ``NotImplementedError``, and so does a mesh that
-does not match the world, and the fused ring across processes.
+A mesh that does not match the world raises ``NotImplementedError``, and
+so does any axis but ``seq`` above 1 in a world of 1 (``pipe`` too: one
+process holds no two stages); ``seq`` and ``pipe`` both above 1 raise
+``ValueError``, as JAX's pipeline asserts.
 
 :func:`use_sharding` sets the process's context, which every thread reads
 (autograd's device threads too, where a checkpointed forward is recomputed
@@ -47,7 +52,9 @@ class ShardingContext:
     ring_mode: str = "scan"  # 'scan' (one flash call per hop and shard,
     # merged by lse) | 'fused' (one launch sweeps every hop,
     # parallel/ring_fused.py)
-    mesh: Optional[Any] = None  # DeviceMesh (data, fsdp, seq, tensor)
+    mesh: Optional[Any] = None  # DeviceMesh ([pipe,] data, fsdp, seq,
+    # tensor)
+    pipe_microbatches: int = 0  # 0 = auto (parallel/pipeline.py)
 
     def __post_init__(self):
         if self.seq_shards < 1:
@@ -61,17 +68,11 @@ class ShardingContext:
             raise ValueError("ring shards on one card (seq_shards) are for "
                              "a world of 1; across ranks the mesh's seq axis "
                              "holds them")
-        if self.ring_mode == "fused" and self.size("seq") > 1:
-            raise NotImplementedError(
-                "--ring_mode fused across processes: the fused ring's chunk "
-                "table points at local memory only (ROADMAP Queue 1 item "
-                "6.5; Queue 2, '#11 across cards'); use --ring_mode scan")
 
     @property
     def pipe_shards(self) -> int:
-        """Size of the pipeline axis: the port has none, which counts as
-        1."""
-        return 1
+        """Size of the pipeline axis; meshes without one count as 1."""
+        return self.size("pipe")
 
     @property
     def pool_shards(self) -> int:
@@ -84,14 +85,15 @@ class ShardingContext:
         return self.coord("seq") if self.size("seq") > 1 else None
 
     def size(self, axis: str) -> int:
-        """Ranks along a mesh axis (1 without a mesh)."""
-        if self.mesh is None:
+        """Ranks along a mesh axis (1 without a mesh, or without the axis:
+        a mesh has ``pipe`` only when it is above 1)."""
+        if self.mesh is None or axis not in self.mesh.mesh_dim_names:
             return 1
         return self.mesh.shape[self.mesh.mesh_dim_names.index(axis)]
 
     def coord(self, axis: str) -> int:
         """This rank's index along a mesh axis."""
-        return 0 if self.mesh is None else self.mesh.get_local_rank(axis)
+        return 0 if self.size(axis) == 1 else self.mesh.get_local_rank(axis)
 
     def group(self, axis: str):
         """The process group of this rank's line along a mesh axis."""
@@ -116,26 +118,26 @@ class ShardingContext:
         return t
 
     @classmethod
-    def from_mesh(cls, mesh_cfg, ring_mode: str = "scan"
-                  ) -> "ShardingContext":
+    def from_mesh(cls, mesh_cfg, ring_mode: str = "scan",
+                  pipe_microbatches: int = 0) -> "ShardingContext":
         """The context of a ``MeshConfig``. Under a process group its axes
         must multiply to the world size (one process a card) and the
         context carries the global ``DeviceMesh``; in a world of 1,
         ``seq`` above 1 keeps its shards on the one card. Any other mesh
         above 1 raises ``NotImplementedError``: it never runs as one
-        process."""
+        process. ``seq`` with ``pipe`` raises ``ValueError``."""
         from v2pe_tpu_torch.parallel import bootstrap
 
-        if mesh_cfg.pipe > 1:
-            raise NotImplementedError(
-                "the pipe axis (parallel/pipeline.py) is not ported "
-                "(ROADMAP Queue 1 item 8, the next after Queue 1 item 6)")
+        if mesh_cfg.pipe > 1 and mesh_cfg.seq > 1:
+            raise ValueError("pipeline parallelism does not compose with "
+                             "ring SP (seq must be 1)")
         world = bootstrap.world_size()
         if world > 1:
             return cls(ring_mode=ring_mode,
-                       mesh=bootstrap.make_global_mesh(mesh_cfg))
+                       mesh=bootstrap.make_global_mesh(mesh_cfg),
+                       pipe_microbatches=pipe_microbatches)
         other = {a: getattr(mesh_cfg, a)
-                 for a in ("data", "fsdp", "tensor")
+                 for a in ("data", "fsdp", "tensor", "pipe")
                  if getattr(mesh_cfg, a) > 1}
         if other:
             raise NotImplementedError(
@@ -148,7 +150,8 @@ class ShardingContext:
         mesh = None
         if dist.is_initialized():  # a world of 1 under a process group
             mesh = bootstrap.make_global_mesh(type(mesh_cfg)())
-        return cls(seq_shards=mesh_cfg.seq, ring_mode=ring_mode, mesh=mesh)
+        return cls(seq_shards=mesh_cfg.seq, ring_mode=ring_mode, mesh=mesh,
+                   pipe_microbatches=pipe_microbatches)
 
 
 _CURRENT: Optional[ShardingContext] = None

@@ -19,6 +19,15 @@ keeps what those layouts mean, over ``torch.distributed``:
   InternViT's ``qkv`` is ``[q | k | v]``, each split by head on its own.
 * ``data`` and ``seq`` replicate the parameters; their gradients are
   summed over those axes after the backward (:meth:`Placement.reduce_grads`).
+* ``pipe`` cuts the decoder into stages (JAX's rule: the stacked layers'
+  L dim over ``pipe``): a rank holds its stage's L / P contiguous layers
+  and no other (:class:`RemoteLayer` keeps the others' places, so every
+  parameter keeps its name in the whole model); everything outside
+  ``llm.layers`` is whole on every pipe rank, and its gradients are equal
+  there by construction (``parallel/pipeline.py``), so nothing is summed
+  over ``pipe``. ``tensor`` and ``fsdp`` place a stage's layers as they
+  place a model's. The whole state dicts of a pipe mesh hold every
+  stage's layers: each stage's are broadcast over ``pipe``.
 
 ``_fit_spec``'s rule stays: a unit whose width the ``tensor`` axis does not
 divide stays whole on every rank. The vocab (tok_embeddings and the output
@@ -237,6 +246,27 @@ def is_split(w, full_in: int) -> bool:
 
 REDUCE_BUCKET = 1 << 26  # gradient elements a data / seq all-reduce
 
+_LAYER = re.compile(r"llm\.layers\.(\d+)\.")
+
+
+def layer_index(name: str) -> Optional[int]:
+    """The decoder layer a parameter (or adapter) name belongs to."""
+    m = _LAYER.match(name)
+    return None if m is None else int(m.group(1))
+
+
+class RemoteLayer(nn.Module):
+    """The place of a decoder layer that another pipe stage holds: no
+    parameters on this rank."""
+
+    def __init__(self, index: int, stage: int):
+        super().__init__()
+        self.index, self.stage = index, stage
+
+    def forward(self, *args, **kwargs):
+        raise RuntimeError(f"decoder layer {self.index} is held by pipe "
+                           f"stage {self.stage}, not by this rank")
+
 
 def local(t: torch.Tensor) -> torch.Tensor:
     """A DTensor's local shard (a view of its storage); a tensor as it
@@ -265,21 +295,70 @@ class Placement:
 
     def __init__(self, ctx: pctx.ShardingContext,
                  rules: Dict[str, TensorRule], fsdp: bool = True,
-                 partial=()):
+                 partial=(), stage: Optional[range] = None):
         self.ctx = ctx
         self.rules = rules
         self.fsdp = fsdp
         self.partial = sorted(partial)  # one order on every rank
         self.moments = None
+        self.stage = stage  # the decoder layers of this pipe rank
 
     def shard_axes(self, name: str, p) -> tuple:
-        """The mesh axes above 1 over which parameter ``name`` is cut."""
+        """The mesh axes above 1 over which parameter ``name`` is cut
+        (``pipe`` for a decoder layer's: each stage holds its layers)."""
         from torch.distributed.tensor import DTensor
 
-        axes = [a for a, cut in (("fsdp", isinstance(p, DTensor)),
+        axes = [a for a, cut in (("pipe", self._staged(name)),
+                                 ("fsdp", isinstance(p, DTensor)),
                                  ("tensor", name in self.rules))
                 if cut and self.ctx.size(a) > 1]
         return tuple(axes)
+
+    # the pipe stages ---------------------------------------------------
+
+    def _staged(self, name: str) -> bool:
+        """Whether ``name`` is of a decoder layer, held by one stage."""
+        return self.stage is not None and layer_index(name) is not None
+
+    def _elsewhere(self, name: str) -> bool:
+        """Whether ``name`` is of a layer another pipe stage holds."""
+        return self._staged(name) and layer_index(name) not in self.stage
+
+    def _all_stages(self, own: dict) -> dict:
+        """``own`` (whole values by name, of this rank's entries) with
+        every other stage's layer entries added: each stage's broadcast
+        over ``pipe`` (a collective of every rank). The keys come in the
+        whole model's order."""
+        if self.stage is None:
+            return own
+        from v2pe_tpu_torch.parallel.bootstrap import host_staged
+
+        group, me = self.ctx.group("pipe"), self.ctx.coord("pipe")
+        per, s0 = len(self.stage), self.stage.start
+        staged = [(n, t) for n, t in own.items() if self._staged(n)]
+        layers = {}
+        for s in range(self.ctx.pipe_shards):
+            src = dist.get_global_rank(group, s)
+            for n, t in staged:
+                i = layer_index(n)
+                name = f"llm.layers.{s * per + i - s0}." + \
+                    n[len(f"llm.layers.{i}."):]
+                t = t.contiguous()
+                buf = t if s == me else torch.empty_like(t)
+                host = buf.cpu() if host_staged(group, buf.device) else buf
+                dist.broadcast(host, src, group=group)
+                if host is not buf:
+                    buf.copy_(host)
+                layers[name] = buf
+        out, done = {}, False
+        for n, t in own.items():
+            if not self._staged(n):
+                out[n] = t
+            elif not done:  # the layers where the first of them stood
+                out.update(sorted(layers.items(),
+                                  key=lambda kv: layer_index(kv[0])))
+                done = True
+        return out
 
     def shard_index(self, name: str, p) -> list:
         """For each dimension of parameter ``name``, the indices into the
@@ -341,16 +420,19 @@ class Placement:
 
     @torch.no_grad()
     def full_state_dict(self, model: nn.Module) -> dict:
-        """Every parameter whole, in the layout of the unsharded model (a
-        collective: every rank calls it)."""
+        """Every parameter whole, in the layout of the unsharded model,
+        every pipe stage's layers included (a collective: every rank calls
+        it, and every rank gets it)."""
         out = {n: self._full(n, local(p), p).detach()
                for n, p in model.named_parameters()}
-        return {**out, **{n: b.detach() for n, b in
-                          self._buffers(model).items()}}
+        return self._all_stages({**out, **{n: b.detach() for n, b in
+                                           self._buffers(model).items()}})
 
     @torch.no_grad()
     def load_full_state_dict(self, model: nn.Module, sd: dict) -> None:
-        """Copy a whole state dict into the model's shards."""
+        """Copy a whole state dict into the model's shards (on a pipe
+        mesh, the rank's stage's layers out of all)."""
+        sd = {n: v for n, v in sd.items() if not self._elsewhere(n)}
         buffers = self._buffers(model)
         for n, b in buffers.items():
             b.copy_(sd[n])
@@ -368,14 +450,18 @@ class Placement:
                                  f"{tuple(dst.shape)}")
             dst.copy_(src)
 
-    def _per_param(self, model, state, fn):
+    def _per_param(self, model, state, fn, then=lambda d: d):
+        """``state`` with ``fn(name, value, param)`` applied to each
+        per-parameter tensor, and ``then`` to each dict keyed by the
+        parameters' names."""
         params = dict(model.named_parameters())
 
         def walk(obj):
             if isinstance(obj, dict):
-                return {k: (fn(k, v, params[k]) if k in params
-                            and torch.is_tensor(v) else walk(v))
-                        for k, v in obj.items()}
+                out = {k: (fn(k, v, params[k]) if k in params
+                           and torch.is_tensor(v) else walk(v))
+                       for k, v in obj.items()}
+                return then(out) if any(k in params for k in obj) else out
             return obj
 
         return walk(state)
@@ -383,14 +469,15 @@ class Placement:
     @torch.no_grad()
     def gather_state(self, model: nn.Module, state: dict) -> dict:
         """An optimizer state with every per-parameter tensor (keyed by
-        the parameter's name, shaped like its shard) whole, and the int8
-        moments in the layout of one device."""
+        the parameter's name, shaped like its shard) whole, every pipe
+        stage's included, and the int8 moments in the layout of one
+        device."""
         if "moments" in state and self.moments is not None:
             state = dict(state, moments=self.moments.gather(
                 state["moments"]))
         return self._per_param(
             model, state, lambda n, v, p: self._full(n, v, p)
-            if v.shape == local(p).shape else v)
+            if v.shape == local(p).shape else v, self._all_stages)
 
     def _full_shape(self, name: str, p) -> tuple:
         shape = list(p.shape)
@@ -406,7 +493,9 @@ class Placement:
             full = dict(full, moments=self.moments.shard(full["moments"]))
         return self._per_param(
             model, full, lambda n, v, p: self._shard(n, v, p).clone()
-            if tuple(v.shape) == self._full_shape(n, p) else v)
+            if tuple(v.shape) == self._full_shape(n, p) else v,
+            lambda d: {k: v for k, v in d.items()
+                       if not self._elsewhere(k)})
 
     # gradients -----------------------------------------------------------
 
@@ -415,7 +504,9 @@ class Placement:
         those ranks hold the same parameters and saw other tokens. FSDP2
         has summed them over ``fsdp`` already; adapters, whole over
         ``fsdp``, are summed over it here, and the ``partial`` ones over
-        ``tensor`` too."""
+        ``tensor`` too. Nothing is summed over ``pipe``: a stage's layers
+        are its own, and the rest have the same gradients on every pipe
+        rank."""
         axes = ["data", "seq"] + ([] if self.fsdp else ["fsdp"])
         _sum_over(self.ctx, list(grads.values()), axes)
         _sum_over(self.ctx, [grads[n] for n in self.partial], ["tensor"])
@@ -423,18 +514,22 @@ class Placement:
     def sum_of_shards(self, per_param: Dict[str, torch.Tensor]
                       ) -> torch.Tensor:
         """The global sum of per-parameter partial sums (of squares, say)
-        taken over each rank's shards: summed over ``fsdp`` and
-        ``tensor``, a parameter whole on every tensor rank counted once."""
+        taken over each rank's shards: summed over ``fsdp``, ``tensor``
+        and ``pipe``, a parameter whole on every tensor rank counted once,
+        and one whole on every pipe rank (all but the decoder layers)
+        counted once."""
         keep_whole = self.ctx.coord("tensor") == 0
+        first_stage = self.ctx.coord("pipe") == 0
         terms = [s for n, s in per_param.items()
-                 if n in self.rules or keep_whole]
+                 if (n in self.rules or keep_whole)
+                 and (first_stage or self._staged(n))]
         dev = next(iter(per_param.values())).device if per_param else None
         # summed in the unplaced optimizer's order (``sum`` of the terms),
         # so that a world of 1 clips by the same norm to the bit
         total = sum(terms) if terms else torch.zeros((), device=dev)
         return self.ctx.all_reduce(total.float().clone(),
-                                   ("fsdp", "tensor") if self.fsdp
-                                   else ("tensor",))
+                                   ("fsdp", "tensor", "pipe") if self.fsdp
+                                   else ("tensor", "pipe"))
 
 
 def _sum_over(ctx, tensors, axes) -> None:
@@ -612,14 +707,15 @@ def _split_over_tensor(model: nn.Module, cfg: VLMConfig,
 
 
 def _fully_shard(model: nn.Module, ctx: pctx.ShardingContext) -> None:
-    """FSDP2 over ``fsdp``: every decoder layer, every ViT layer, then the
-    rest (the root unit: embeddings, head, projector, compress-seq's
-    parameters), reduce-scattering sums."""
+    """FSDP2 over ``fsdp``: every decoder layer (of the rank's stage),
+    every ViT layer, then the rest (the root unit: embeddings, head,
+    projector, compress-seq's parameters), reduce-scattering sums."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
 
     fsdp_mesh = ctx.mesh["fsdp"]
     for layer in list(model.llm.layers) + list(model.vision.layers):
-        fully_shard(layer, mesh=fsdp_mesh)
+        if not isinstance(layer, RemoteLayer):
+            fully_shard(layer, mesh=fsdp_mesh)
     fully_shard(model, mesh=fsdp_mesh)
     for m in model.modules():
         if isinstance(m, FSDPModule):
@@ -630,6 +726,32 @@ def _fully_shard(model: nn.Module, ctx: pctx.ShardingContext) -> None:
                 m.set_reduce_scatter_divide_factor(1.0)
             if hasattr(m, "set_force_sum_reduction_for_comms"):
                 m.set_force_sum_reduction_for_comms(True)
+
+
+def keep_stage(model: nn.Module, ctx: pctx.ShardingContext,
+               lora=None) -> Optional[range]:
+    """On a pipe mesh, drop the decoder layers of the other stages from
+    ``model`` in place (each a :class:`RemoteLayer`; the model's own list
+    of layers, so give a view its own, as ``models/lora.py:frozen`` does),
+    and their adapters from ``lora``; returns the stage's layers (None
+    without a pipe axis)."""
+    if ctx.pipe_shards == 1:
+        return None
+    from v2pe_tpu_torch.parallel.pipeline import stage_range
+
+    layers = model.llm.layers
+    stage = stage_range(ctx, len(layers))
+    per = len(stage)
+    for i in range(len(layers)):
+        if i not in stage:
+            layers[i] = RemoteLayer(i, i // per)
+    if lora is not None:
+        holder = dict(lora.named_modules()).get("llm.layers")
+        for i in range(len(layers)):
+            if holder is not None and i not in stage \
+                    and str(i) in holder._modules:
+                del holder._modules[str(i)]
+    return stage
 
 
 def shard_model(model: nn.Module, cfg: VLMConfig,
@@ -645,8 +767,11 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
     ``data``: no FSDP2. A compress-seq model's interaction and fuse
     attentions split over ``tensor`` as the layers' attention does, and
     sit in the root unit over ``fsdp`` (``models/compress_seq.py`` runs
-    each decoder layer's part through the layer's call). Without a mesh the
-    model is left as it is. Every rank must pass the same whole weights.
+    each decoder layer's part through the layer's call). On a pipe mesh a
+    rank keeps its stage's decoder layers only (:func:`keep_stage`); a
+    model that only serves is refused there, as decode is not pipelined.
+    Without a mesh the model is left as it is. Every rank must pass the
+    same whole weights.
     ``serving``: the placement of a model that only serves
     (``_serving_root``): its root unit stays gathered, so the serving entry
     points take it as it is; a model to be trained is placed without it
@@ -656,14 +781,19 @@ def shard_model(model: nn.Module, cfg: VLMConfig,
     if placement_of(model) is not None:
         raise ValueError("the model is placed already")
     quantized = not isinstance(model.llm.layers[0].wo, nn.Linear)
+    if ctx.pipe_shards > 1 and (serving or quantized):
+        raise ValueError("serving is not pipelined: build the inference "
+                         "mesh without a pipe axis (parallel/pipeline.py "
+                         "is a training-forward schedule)")
     if quantized:  # serving: sliced over tensor, whole over fsdp and data
         _shard_quantized_llm(model.llm, cfg, ctx)
+    stage = keep_stage(model, ctx)
     rules = _split_over_tensor(model, cfg, ctx)
     if not quantized:
         _fully_shard(model, ctx)
         if serving:
             _serving_root(model)
-    model.placement = Placement(ctx, rules)
+    model.placement = Placement(ctx, rules, stage=stage)
     return model
 
 
@@ -678,10 +808,13 @@ def place_lora(model: nn.Module, lora, cfg: VLMConfig,
     whole; its gradient a part on each rank, summed over ``tensor``), a
     row-parallel target's ``A`` its columns (``B`` likewise whole). Over
     ``fsdp`` and ``data`` the adapters stay whole and their gradients are
-    summed. Returns the view."""
+    summed. On a pipe mesh the view keeps the stage's decoder layers and
+    ``lora`` the adapters of those (:func:`keep_stage`). Returns the
+    view."""
     from v2pe_tpu_torch.models.lora import frozen, merge_targets
 
     view = frozen(model)
+    stage = keep_stage(view, ctx, lora)
     rules = _split_over_tensor(view, cfg, ctx)
     n, i = ctx.size("tensor"), ctx.coord("tensor")
     ad_rules, partial = {}, []
@@ -699,6 +832,7 @@ def place_lora(model: nn.Module, lora, cfg: VLMConfig,
             partial.append(f"{name}.{whole}")
     merge_targets(view, lora)
     _fully_shard(view, ctx)
-    view.placement = Placement(ctx, rules)
-    lora.placement = Placement(ctx, ad_rules, fsdp=False, partial=partial)
+    view.placement = Placement(ctx, rules, stage=stage)
+    lora.placement = Placement(ctx, ad_rules, fsdp=False, partial=partial,
+                               stage=stage)
     return view

@@ -330,25 +330,36 @@ def dist_ring_schedule(statics: RingStatics, group, seg_q, seg_k, pos_q,
                      st[3]).tolist()
 
 
-def _send_on(tensors, group, tag: int = 0):
-    """Start sending each tensor to the next rank of the ring and receiving
-    the previous rank's; returns (the receive buffers, the requests).
-    ``tag`` tells the chunks (0) from the backward's accumulators (1)."""
-    import torch.distributed as dist
+class _Hop:
+    """One hop of the ring: each tensor sent to the next rank, the previous
+    rank's received; :meth:`wait` returns those, on the device. ``tag``
+    tells the chunks (0) from the backward's accumulators (1). Over gloo a
+    CUDA tensor is staged through host memory (``bootstrap.host_staged``).
+    """
 
-    n, me = dist.get_world_size(group), dist.get_rank(group)
-    nxt = dist.get_global_rank(group, (me + 1) % n)
-    prv = dist.get_global_rank(group, (me - 1) % n)
-    recv = [torch.empty_like(t) for t in tensors]
-    ops = [dist.P2POp(dist.isend, t.contiguous(), nxt, group, tag)
-           for t in tensors]
-    ops += [dist.P2POp(dist.irecv, t, prv, group, tag) for t in recv]
-    return recv, dist.batch_isend_irecv(ops)
+    def __init__(self, tensors, group, tag: int = 0):
+        import torch.distributed as dist
 
+        from v2pe_tpu_torch.parallel.bootstrap import host_staged
 
-def _wait(reqs) -> None:
-    for req in reqs:
-        req.wait()
+        n, me = dist.get_world_size(group), dist.get_rank(group)
+        nxt = dist.get_global_rank(group, (me + 1) % n)
+        prv = dist.get_global_rank(group, (me - 1) % n)
+        self.device = tensors[0].device
+        self.staged = host_staged(group, self.device)
+        # the sent buffers stay referenced until the hop has completed
+        self.sent = [t.contiguous().cpu() if self.staged else t.contiguous()
+                     for t in tensors]
+        self.recv = [torch.empty_like(t) for t in self.sent]
+        ops = [dist.P2POp(dist.isend, t, nxt, group, tag) for t in self.sent]
+        ops += [dist.P2POp(dist.irecv, t, prv, group, tag) for t in self.recv]
+        self.reqs = dist.batch_isend_irecv(ops)
+
+    def wait(self) -> tuple:
+        for req in self.reqs:
+            req.wait()
+        return tuple(t.to(self.device) for t in self.recv) if self.staged \
+            else tuple(self.recv)
 
 
 def _dist_ring_fwd(group, statics: RingStatics, q, k, v, seg_q, seg_k,
@@ -368,7 +379,7 @@ def _dist_ring_fwd(group, statics: RingStatics, q, k, v, seg_q, seg_k,
     for s in range(n):
         c = (r - s) % n  # hop s brings the chunk of rank r - s
         if s < n - 1:
-            nxt, reqs = _send_on(chunk, group)
+            hop = _Hop(chunk, group)
         rect = _rectangle(schedule[r][c], 0, 0, S)
         if rect is not None:
             qr, kr = rect
@@ -380,8 +391,7 @@ def _dist_ring_fwd(group, statics: RingStatics, q, k, v, seg_q, seg_k,
             out[:, qr], lse[:, :, qr] = merge_partials(
                 out[:, qr], lse[:, :, qr], o_i, lse_i)
         if s < n - 1:
-            _wait(reqs)
-            chunk = tuple(nxt)
+            chunk = hop.wait()
     return out.to(q.dtype), lse
 
 
@@ -402,7 +412,7 @@ def _dist_ring_bwd(group, statics: RingStatics, res, do, schedule: list):
     for s in range(n):
         c = (r - s) % n
         if s < n - 1:
-            nxt, reqs = _send_on(chunk, group)
+            hop = _Hop(chunk, group)
         rect = _rectangle(schedule[r][c], 0, 0, S)
         if rect is not None:
             qr, kr = rect
@@ -415,11 +425,9 @@ def _dist_ring_bwd(group, statics: RingStatics, res, do, schedule: list):
             dq[:, qr] += dq_i
             dk[:, kr] += dk_i
             dv[:, kr] += dv_i
-        (dk, dv), acc_reqs = _send_on((dk, dv), group, tag=1)
-        _wait(acc_reqs)
+        dk, dv = _Hop((dk, dv), group, tag=1).wait()
         if s < n - 1:
-            _wait(reqs)
-            chunk = tuple(nxt)
+            chunk = hop.wait()
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

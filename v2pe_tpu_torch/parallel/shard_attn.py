@@ -3,8 +3,9 @@
 
 * the mesh's seq axis across processes, causal (the decoder): each rank
   holds its zigzag shard and the ring runs over the ``seq`` group
-  (``ring.dist_ring_flash_attention``, the scan ring; the context refuses
-  the fused ring there);
+  (``ring.dist_ring_flash_attention``, the scan ring, or
+  ``ring_fused.dist_fused_ring_flash_attention``, one launch a rank over
+  the peers' chunks, as the context says);
 * ring shards on one card, causal, the sequence divisible: ring attention
   over the ``n`` contiguous shards of the global (zigzag-permuted)
   sequence, scan or fused as the context says;
@@ -38,9 +39,14 @@ def sharded_flash_attention(ctx: ShardingContext, causal: bool, scale: float,
     if causal and across > 1:
         if rope_theta:
             q, k = _apply_rope(q, k, rope_q, rope_k, rope_theta)
-        return dist_ring_flash_attention(
-            ctx.group("seq"), RingStatics(causal=causal, scale=scale), q, k,
-            v, seg_q, seg_k, pos_q, pos_k)
+        if ctx.ring_mode == "fused":
+            from v2pe_tpu_torch.parallel.ring_fused import \
+                dist_fused_ring_flash_attention as dist_impl
+        else:
+            dist_impl = dist_ring_flash_attention
+        return dist_impl(ctx.group("seq"),
+                         RingStatics(causal=causal, scale=scale), q, k, v,
+                         seg_q, seg_k, pos_q, pos_k)
     if not (causal and n > 1 and q.shape[1] % n == 0):
         return _Flash.apply(q, k, v, seg_q, seg_k, pos_q, pos_k, rope_q,
                             rope_k, causal, scale, rope_theta)

@@ -5,17 +5,25 @@ The bootstrap runs first (``parallel/bootstrap.py``): under a launcher
 (``V2PE_NUM_PROCESSES`` / ``V2PE_PROCESS_ID`` / ``V2PE_COORDINATOR``,
 SLURM, OpenMPI or torchrun) each process joins the process group, NCCL on
 ``--platform cuda`` and gloo on ``--platform cpu``, and the
-``--mesh_data/fsdp/seq/tensor`` axes must multiply to the world size. Each
+``--mesh_pipe/data/fsdp/seq/tensor`` axes must multiply to the world size. Each
 rank packs the data of its (data, fsdp) coordinate. In one process without
 a launcher only ``--mesh_seq`` may exceed 1 (all its shards on the one
 device).
 
+``--mesh_pipe P`` cuts the decoder into P GPipe stages, one a rank
+(``parallel/pipeline.py``), with ``--pipe_microbatches`` microbatches
+(0: ``choose_microbatches``); ``--mesh_seq`` with it raises ``ValueError``,
+as in JAX. ``--ring_mode fused`` runs across processes too (the peers'
+chunks by CUDA IPC on one card). ``--dist_backend gloo`` on ``--platform
+cuda`` lets several ranks share one card (NCCL refuses a second rank on a
+device).
+
 Flags the port refuses raise ``NotImplementedError`` naming their
-ROADMAP item: ``--mesh_pipe`` and ``--pipe_microbatches`` (Queue 1 item
-8), ``--ring_mode fused`` with ``--mesh_seq`` across processes (item 6.5),
-``--compress_seq`` with ``--mesh_seq`` above 1 (item 6.4: JAX's trainer
-chunks the zigzag-permuted batch there) and ``--offload_optimizer``
-("Left out"). ``--use_llm_lora R`` / ``--use_backbone_lora R`` train LoRA
+ROADMAP item: ``--compress_seq`` with ``--mesh_seq`` above 1 (item 6.4:
+JAX's trainer chunks the zigzag-permuted batch there) or with
+``--mesh_pipe`` above 1 (Queue 3, "Known faults inside the reference")
+and ``--offload_optimizer`` ("Left out"). ``--use_llm_lora R`` /
+``--use_backbone_lora R`` train LoRA
 adapters over the frozen model (checkpoints hold the adapters;
 ``tools/export_hf.py --lora-base`` exports merged weights);
 ``--compress_seq --fuse_method add|cross-attn --chunk_num N`` trains the
@@ -33,6 +41,9 @@ Example (a toy dataset and tokenizer, see the README):
 Two processes on the CPU over gloo:
   torchrun --nproc_per_node 2 -m v2pe_tpu_torch.train.cli --platform cpu \
       --mesh_fsdp 2 ... (the same flags)
+Two pipe stages on one card:
+  torchrun --nproc_per_node 2 -m v2pe_tpu_torch.train.cli --platform cuda \
+      --dist_backend gloo --mesh_pipe 2 --pipe_microbatches 4 ...
 """
 
 from __future__ import annotations
@@ -94,6 +105,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "(dist_utils.py:32-104 analogue); 'auto' inspects "
                         "env vars, 'none' forces single-process")
     p.add_argument("--coordinator_port", type=int, default=8476)
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="the process group's backend (default: nccl on "
+                        "cuda, gloo on cpu); gloo on cuda lets several "
+                        "ranks share one card, their collectives staged "
+                        "through the host")
     p.add_argument("--mesh_data", type=int, default=1)
     p.add_argument("--mesh_fsdp", type=int, default=1)
     p.add_argument("--mesh_seq", type=int, default=1,
@@ -189,10 +205,10 @@ def _unported(args) -> list:
     """The flags given that the port refuses, each with its ROADMAP
     item."""
     checks = [
-        (args.mesh_pipe > 1,
-         "--mesh_pipe (parallel/pipeline.py, ROADMAP Queue 1 item 8)"),
-        (args.pipe_microbatches,
-         "--pipe_microbatches (ROADMAP Queue 1 item 8)"),
+        (args.compress_seq and args.mesh_pipe > 1,
+         "--compress_seq with --mesh_pipe above 1 (ROADMAP Queue 3, 'Known "
+         "faults inside the reference': JAX's compress layer loop has no "
+         "pipeline branch)"),
         (args.compress_seq and args.mesh_seq > 1,
          "--compress_seq with --mesh_seq above 1 (ROADMAP Queue 1 item "
          "6.4: JAX's trainer chunks the zigzag-permuted batch there)"),
@@ -232,12 +248,14 @@ def main(argv=None):
         raise RuntimeError("--platform cuda: no CUDA device is available; "
                            "pass --platform cpu to train on the CPU")
     # the bootstrap comes before any use of the device
-    initialize_distributed(args.launcher, args.coordinator_port, device)
+    initialize_distributed(args.launcher, args.coordinator_port, device,
+                           backend=args.dist_backend)
     if device == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     mesh_cfg = cfg_lib.MeshConfig(data=args.mesh_data, fsdp=args.mesh_fsdp,
                                   seq=args.mesh_seq,
-                                  tensor=args.mesh_tensor)
+                                  tensor=args.mesh_tensor,
+                                  pipe=args.mesh_pipe)
     ctx = ShardingContext.from_mesh(mesh_cfg, ring_mode=args.ring_mode)
     cfg = getattr(cfg_lib, args.model_preset)()
     cfg = dataclasses.replace(
@@ -315,6 +333,7 @@ def main(argv=None):
     # train() places the model on the mesh (parallel/mesh.py:shard_model)
     return train(cfg, model, packer, run, tc, mesh_cfg=mesh_cfg,
                  img_context_token_id=ctx_id, ring_mode=args.ring_mode,
+                 pipe_microbatches=args.pipe_microbatches,
                  resume=not args.no_resume,
                  pixel_dtype=np.float32, metrics_hook=hook,
                  remat=False if args.no_remat else args.remat_policy,

@@ -21,8 +21,13 @@ step then takes the CE's denominator as the GLOBAL weight sum (all-reduced
 over data, fsdp and seq; JAX's denominator is global under GSPMD), so the
 loss is a sum of the ranks' shares: FSDP2 reduce-scatters the gradients as
 sums over ``fsdp``, the step sums them over ``data`` and ``seq``, and the
-loss it returns is the global one. Pipeline microbatches and the offloaded
-optimizer raise ``NotImplementedError``.
+loss it returns is the global one. On a ``pipe`` axis each rank holds its
+stage's decoder layers and the layers run GPipe-pipelined in
+``pipe_microbatches`` microbatches (``parallel/pipeline.py``; 0 lets
+``choose_microbatches`` pick); the loss and the gradients of everything
+outside the decoder layers come out the same on every pipe rank, and the
+denominator is not summed over ``pipe``. The offloaded optimizer raises
+``NotImplementedError``.
 
 ``lora=True`` trains LoRA adapters (``models/lora.py``) over a frozen base
 model, as the JAX step does: the forward runs on the merged weights of
@@ -85,16 +90,13 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     drop_path_generator=None)``: the adapters (a ``LoRA``) and
     ``opt_state`` are updated in place, the base model is only read; on a
     mesh ``base`` is the placed view (``place_lora``)."""
-    for flag, what in ((pipe_microbatches, "pipeline microbatches (ROADMAP "
-                        "Queue 1 item 8)"),
-                       (offload_optimizer, "the offloaded optimizer (ROADMAP "
-                        "Queue 1, 'Left out of the port')")):
-        if flag:
-            raise NotImplementedError(f"{what} is not ported")
+    if offload_optimizer:
+        raise NotImplementedError("the offloaded optimizer (ROADMAP Queue 1, "
+                                  "'Left out of the port') is not ported")
     # unlike the JAX package off the TPU, 'fused' takes any remat mode: the
     # backward recomputes the fused forward like any other op
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
-        mesh, ring_mode=ring_mode)
+        mesh, ring_mode=ring_mode, pipe_microbatches=pipe_microbatches)
 
     def update(trained, forward_model, opt_state, batch, gen):
         params = dict(trained.named_parameters())

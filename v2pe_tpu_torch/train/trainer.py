@@ -116,9 +116,11 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     ``mesh_cfg.seq`` shards the sequence over ring attention (the batches
     are collated zigzag-permuted): on that one device in a process without
     a process group, where any other mesh axis above 1 raises
-    ``NotImplementedError``; across ranks under one. Under a process group
-    the model is placed on the mesh here unless it is already
-    (``parallel/mesh.py:shard_model``). The offloaded optimizer raises
+    ``NotImplementedError``; across ranks under one. ``mesh_cfg.pipe``
+    cuts the decoder into stages, one a rank, run in
+    ``pipe_microbatches`` GPipe microbatches (``parallel/pipeline.py``).
+    Under a process group the model is placed on the mesh here unless it
+    is already (``parallel/mesh.py:shard_model``). The offloaded optimizer raises
     ``NotImplementedError``.
 
     With ``use_backbone_lora`` / ``use_llm_lora`` > 0 (the ranks) the model
@@ -135,7 +137,7 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
         else None
     seq_shards = mesh_cfg.seq if mesh_cfg else 1
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(
-        mesh, ring_mode=ring_mode)
+        mesh, ring_mode=ring_mode, pipe_microbatches=pipe_microbatches)
     placed = ctx is not None and ctx.mesh is not None
     lead = not grouped or dist.get_rank() == 0  # logs and reports
     if offload_optimizer:
