@@ -10,6 +10,7 @@ once on one CUDA card.
     python3 chip_smoke.py --probe          # only a quick check and times of
                                            # the flash tiles (backward and
                                            # forward)
+    python3 chip_smoke.py --8b             # only the InternVL2.5-8B phases
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -165,8 +166,23 @@ rank over the peer's chunks mapped by CUDA IPC, bit for bit against the
 one-process launch at row 11's widths split in two, then a fused seq = 2
 train step against one process); ``--two-ranks`` runs these three alone.
 Phase 15 also runs ``tools.inference_test`` on the
-exported checkpoint. Then the card line, then the last line {"ok": true,
-"device": {...}}.
+exported checkpoint. Last, InternVL2.5-8B (``config.internvl2_5_8b``: 32 /
+8 heads, G = 4, 8.08 B random bf16 parameters from a seed) in a process of
+its own (``phase_8b``; ``--8b`` runs it alone): (a) kernels #1-#10 at the
+8B's forms against their plain versions (the dense prefill and the packed
+backward at 32 / 8 heads, the paged kernels over a 32-layer pool of 32k
+slots with 1 and 5 fresh tokens and a 2048-token chunk, the int8 and int4
+head and w1 products); (b) a small fp32 G = 4 model, card against CPU
+(forward, paged path, engine plain and speculative); (c) the 8-tile
+request with 64 new tokens through ``ChatModel.chat`` dense, paged,
+speculative (K = 4), w8kv8 and w4kv4, and a 4-row engine; (d) two
+bench-recipe train steps with int8 Adam resident and two offloaded
+(moments in pinned host memory), equal to the bit; (e) one offloaded
+``trainer.train`` step at the recipe's stage-2 row (34,000 tokens + 32
+tiles), an asynchronous checkpoint and a resume whose moments are pinned
+on the host again and whose step 2 equals the uninterrupted one. The kernel table gives each
+kernel's 8B main form under "8b". Then the card line, then the last line
+{"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers
 at module level: the pixels come from numpy and the text from a
@@ -532,15 +548,22 @@ def check_flash(name, args, kw, out, lse) -> tuple:
     return text, max(same)
 
 
-def phase_kernels(prompt_lens, packed: dict) -> list:
-    """Kernel against twin at every form; returns per-form records. The
-    main form is the 8-tile request's dense prefill."""
+def phase_kernels(prompt_lens, packed: dict, forms=None,
+                  main=None) -> list:
+    """Kernel against twin at every form (``forms``: those of
+    ``kernel_forms``); returns per-form records. The main form (``main``)
+    is the 8-tile request's dense prefill."""
     from v2pe_tpu_torch.ops import flash_fwd
 
     device = torch.device("cuda")
+    if forms is None:
+        forms = kernel_forms(device, prompt_lens, packed)
+        main = f"dense_prefill_{prompt_lens[0]}x{prompt_lens[0] + MAX_NEW}" \
+            f"_bf16"
     records = []
-    for name, args, kw in kernel_forms(device, prompt_lens, packed):
-        out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+    for name, args, kw in forms:
+        with nan_empty():  # an element the kernel leaves unwritten fails
+            out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
         torch.cuda.synchronize()
         text, err = check_flash(name, args, kw, out, lse)
         ms = time_ms(lambda: flash_fwd.flash_attention_fwd(*args, **kw))
@@ -550,7 +573,8 @@ def phase_kernels(prompt_lens, packed: dict) -> list:
         pairs = attended_pairs(seg_q, seg_k, pos_q, pos_k, kw["causal"])
         bound = attention_roof(q, k, v, pairs, 2, out, lse)
         lib = None
-        if name.startswith(("vit_tiles", "dense_prefill", "interaction")):
+        if any(t in name for t in ("vit_tiles", "dense_prefill",
+                                   "interaction")):
             lib = library_ms(lambda: sdpa(q, k, v, kw["causal"], kw["scale"]))
         log(f"kernel {name}: {text} kernel {ms:.3f} ms "
             f"({useful_tflops(q, pairs, ms):.1f} TFLOP/s useful), twin "
@@ -560,8 +584,7 @@ def phase_kernels(prompt_lens, packed: dict) -> list:
             f"{'none' if lib is None else f'{lib:.3f} ms'}")
         records.append(dict(form=name, max_abs_err=err,
                             ms=ms, plain_ms=plain_ms, **bound, library_ms=lib,
-                            main=name == f"dense_prefill_{prompt_lens[0]}x"
-                            f"{prompt_lens[0] + MAX_NEW}_bf16"))
+                            main=name == main))
     return records
 
 
@@ -1101,7 +1124,8 @@ def paged_store_check(fn, kw: dict) -> tuple:
     return msg, ok, max(pool_err, err, err_lse)
 
 
-def phase_paged_kernels(prompt_lens) -> dict:
+def phase_paged_kernels(prompt_lens, forms=None,
+                        is_main=_is_main_paged) -> dict:
     """Each paged kernel against its twin at every form; returns per-kernel
     lists of form records. Decode and prefill run twice into NaN-filled
     outputs with equal bits. No library call computes these functions over
@@ -1109,10 +1133,11 @@ def phase_paged_kernels(prompt_lens) -> dict:
     the same K/V gathered contiguous beforehand (``gathered_attention``).
     Main forms: the served rows' store and decode and the 2048-token chunk,
     bf16 pools; their int8 and int4 counterparts are the records' ``pool``
-    forms."""
+    forms (``forms``: those of ``paged_forms``; ``is_main(name, pool)``
+    picks the main ones)."""
     device = torch.device("cuda")
     records = {"paged_store": [], "paged_decode": [], "paged_prefill": []}
-    for kernel, name, fn, kw in paged_forms(device, prompt_lens):
+    for kernel, name, fn, kw in forms or paged_forms(device, prompt_lens):
         twin = _twin(kernel)
         lib_ms = None
         if kernel == "paged_store":
@@ -1143,9 +1168,9 @@ def phase_paged_kernels(prompt_lens) -> dict:
             raise AssertionError(f"{kernel} disagrees with twin at {name}")
         records[kernel].append(dict(
             form=name, max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
-            library_ms=lib_ms, main=_is_main_paged(name, "bf16"),
-            pool=next((t for t in ("int8", "int4")
-                       if _is_main_paged(name, t)), None)))
+            library_ms=lib_ms, main=is_main(name, "bf16"),
+            pool=next((t for t in ("int8", "int4") if is_main(name, t)),
+                      None)))
         del kw
     torch.cuda.empty_cache()
     return records
@@ -1554,23 +1579,32 @@ def _small_paged(model, cfg, dev: str, shards: int = 1):
         [x[0].cpu() for x in logits])
 
 
-def phase_small_reference() -> None:
-    """The whole packed forward at a small width in fp32: on the card
-    (through the flash kernel) against the CPU (through the twin); then
-    the same model's paged path, whose tokens must be identical and whose
-    logits must agree to 1e-4 (the paged kernels against their twins)."""
+def small_cfg(heads: int = 4, hidden: int = 256):
+    """The small fp32 references' model: 2 layers a tower, 2 kv heads of
+    64 (``heads`` query heads)."""
     from v2pe_tpu_torch import config
-    from v2pe_tpu_torch.models.internvl_chat import forward
-    from v2pe_tpu_torch.models.params import init_vlm_params
 
-    cfg = config.VLMConfig(
+    return config.VLMConfig(
         vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
                                    num_hidden_layers=2, num_attention_heads=2,
                                    image_size=112, patch_size=14),
-        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
+        llm=config.LLMConfig(vocab_size=1000, hidden_size=hidden,
                              intermediate_size=512, num_hidden_layers=2,
-                             num_attention_heads=4, num_key_value_heads=2),
+                             num_attention_heads=heads,
+                             num_key_value_heads=2),
         rope_pos_id_stride=2)
+
+
+def phase_small_reference(cfg=None, tag: str = "") -> None:
+    """The whole packed forward at a small width in fp32: on the card
+    (through the flash kernel) against the CPU (through the twin); then
+    the same model's paged path, whose tokens must be identical and whose
+    logits must agree to 1e-4 (the paged kernels against their twins).
+    ``cfg``: another small model (``tag`` names it in the lines)."""
+    from v2pe_tpu_torch.models.internvl_chat import forward
+    from v2pe_tpu_torch.models.params import init_vlm_params
+
+    cfg = cfg or small_cfg()
     model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
     S, nit = 300, cfg.num_image_token
     ids = np.random.default_rng(6).integers(3, 990, S)
@@ -1594,16 +1628,17 @@ def phase_small_reference() -> None:
                 token_positions=t(np.arange(S), torch.int32)
             ).logits[0, :280].cpu())
     err = (outs[0] - outs[1]).abs().max().item()
-    log(f"reference: small packed forward fp32, card vs CPU max|dlogit| "
-        f"{err:.3e} (tol 1e-4, |logit| <= {outs[0].abs().max().item():.3f})")
+    log(f"reference: small packed forward fp32{tag}, card vs CPU "
+        f"max|dlogit| {err:.3e} (tol 1e-4, |logit| <= "
+        f"{outs[0].abs().max().item():.3f})")
     if err > 1e-4:
         raise AssertionError("card and CPU forwards disagree")
     (tok_cpu, lg_cpu), (tok_gpu, lg_gpu) = (_small_paged(model, cfg, dev)
                                             for dev in ("cpu", "cuda"))
     err = (lg_cpu - lg_gpu).abs().max().item()
     same = torch.equal(tok_cpu, tok_gpu)
-    log(f"reference: small paged path fp32 (page 16, hd 64), card vs CPU "
-        f"tokens {tok_gpu.shape[1]} x 2 identical {same}, max|dlogit| "
+    log(f"reference: small paged path fp32{tag} (page 16, hd 64), card vs "
+        f"CPU tokens {tok_gpu.shape[1]} x 2 identical {same}, max|dlogit| "
         f"{err:.3e} over {lg_cpu.shape[0]} positions (tol 1e-4)")
     if not same or err > 1e-4:
         raise AssertionError("card and CPU paged paths disagree")
@@ -1615,17 +1650,9 @@ def phase_small_shard_reference() -> None:
     merged by logsumexp) against the same on the CPU (the twins): greedy
     tokens identical, logits to 1e-4; then held against the unsharded
     run."""
-    from v2pe_tpu_torch import config
     from v2pe_tpu_torch.models.params import init_vlm_params
 
-    cfg = config.VLMConfig(
-        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
-                                   num_hidden_layers=2, num_attention_heads=2,
-                                   image_size=112, patch_size=14),
-        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
-                             intermediate_size=512, num_hidden_layers=2,
-                             num_attention_heads=4, num_key_value_heads=2),
-        rope_pos_id_stride=2)
+    cfg = small_cfg()
     model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
     n = POOL_SHARDS
     (tok_cpu, lg_cpu), (tok_gpu, lg_gpu), (tok_one, lg_one) = (
@@ -2027,42 +2054,41 @@ def _small_engine(model, cfg, tok, dev: str, kv_dtype=None,
             reqs[0].first_logits.float().cpu(), alone)
 
 
+def small_engine_check(model, cfg, tok, k: int, tag: str = "") -> None:
+    """The small engine with ``speculative_k`` k on the card against the
+    CPU: the same tokens, equal to each request's isolated paged generate,
+    the same stats, a prefix hit, first-token logits within 1e-4."""
+    (t_cpu, s_cpu, l_cpu, alone), (t_gpu, s_gpu, l_gpu, _) = (
+        _small_engine(model, cfg, tok, dev, speculative_k=k)
+        for dev in ("cpu", "cuda"))
+    err = (l_cpu - l_gpu).abs().max().item()
+    ok = t_gpu == t_cpu == alone and s_gpu == s_cpu \
+        and s_gpu["prefix_hit_pages"] > 0 and err <= 1e-4
+    log(f"reference: small engine fp32{tag} (2 rows, 5 requests, pool of 15 "
+        f"pages of 16, speculative_k {k}): card tokens equal to the "
+        f"CPU's {t_gpu == t_cpu}, to isolated paged generate "
+        f"{t_gpu == alone}; stats {s_gpu} equal {s_gpu == s_cpu}; "
+        f"first-token max|dlogit| {err:.3e} (tol 1e-4)")
+    if not ok:
+        raise AssertionError(f"small engine: card {t_gpu} {s_gpu}, CPU "
+                             f"{t_cpu} {s_cpu}, alone {alone}")
+
+
 def phase_small_engine_reference() -> None:
     """The continuous-batching engine on a small fp32 model, on the card
     (through the paged kernels) against the CPU (through their plain
     versions): the same tokens, equal to each request's isolated paged
     generate; the same with speculative_k = 4; an int4 pool's first-token
     logits card against CPU. Then beam search, card against CPU."""
-    from v2pe_tpu_torch import config
     from v2pe_tpu_torch.infer.beam import beam_generate
     from v2pe_tpu_torch.infer.generate import GenerationConfig
     from v2pe_tpu_torch.models.params import init_vlm_params
 
-    cfg = config.VLMConfig(
-        vision=config.VisionConfig(hidden_size=128, intermediate_size=256,
-                                   num_hidden_layers=2, num_attention_heads=2,
-                                   image_size=112, patch_size=14),
-        llm=config.LLMConfig(vocab_size=1000, hidden_size=256,
-                             intermediate_size=512, num_hidden_layers=2,
-                             num_attention_heads=4, num_key_value_heads=2),
-        rope_pos_id_stride=2)
+    cfg = small_cfg()
     model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
     tok = CodePointTokenizer()
     for k in (0, 4):
-        (t_cpu, s_cpu, l_cpu, alone), (t_gpu, s_gpu, l_gpu, _) = (
-            _small_engine(model, cfg, tok, dev, speculative_k=k)
-            for dev in ("cpu", "cuda"))
-        err = (l_cpu - l_gpu).abs().max().item()
-        ok = t_gpu == t_cpu == alone and s_gpu == s_cpu \
-            and s_gpu["prefix_hit_pages"] > 0 and err <= 1e-4
-        log(f"reference: small engine fp32 (2 rows, 5 requests, pool of 15 "
-            f"pages of 16, speculative_k {k}): card tokens equal to the "
-            f"CPU's {t_gpu == t_cpu}, to isolated paged generate "
-            f"{t_gpu == alone}; stats {s_gpu} equal {s_gpu == s_cpu}; "
-            f"first-token max|dlogit| {err:.3e} (tol 1e-4)")
-        if not ok:
-            raise AssertionError(f"small engine: card {t_gpu} {s_gpu}, CPU "
-                                 f"{t_cpu} {s_cpu}, alone {alone}")
+        small_engine_check(model, cfg, tok, k)
     (t_cpu, _, l_cpu, _), (t_gpu, _, l_gpu, _) = (
         _small_engine(model, cfg, tok, dev, kv_dtype="int4")
         for dev in ("cpu", "cuda"))
@@ -2713,20 +2739,26 @@ class RecordingTokenizer(CodePointTokenizer):
         return text
 
 
-def divergence_gap(chat, cfg, question: str, a: list, b: list,
-                   stop: int) -> tuple:
-    """Where greedy token lists ``a`` (the dense route's) and ``b`` first
-    differ, the dense path's logits teacher-forced on their common prefix:
-    (position, max logit - logit of b's token, max |logit|). A list that
-    ends first ends with ``stop``."""
+def tie_gap(chat, cfg, ids, pos, pixels, a: list, b: list,
+            stop: int) -> tuple:
+    """Where greedy token lists ``a`` (the dense route's) and ``b`` of the
+    prompt ``ids`` first differ, the dense path's logits teacher-forced on
+    their common prefix: (position, max logit - logit of b's token, max
+    |logit|). A list that ends first ends with ``stop``."""
     p = next(i for i in range(max(len(a), len(b)) + 1)
              if i >= len(a) or i >= len(b) or a[i] != b[i])
     theirs = b[p] if p < len(b) else stop
-    ids, pos, _ = chat.encode_chat(question, [])
-    row = first_logits(chat, cfg, ids, pos, np.zeros((1, 3, 448, 448),
-                                                     np.float32),
-                       a[:p], "dense", steps=p)[p]
+    row = first_logits(chat, cfg, ids, pos, pixels, a[:p], "dense",
+                       steps=p)[p]
     return p, (row.max() - row[theirs]).item(), row.abs().max().item()
+
+
+def divergence_gap(chat, cfg, question: str, a: list, b: list,
+                   stop: int) -> tuple:
+    """``tie_gap`` of a text question."""
+    ids, pos, _ = chat.encode_chat(question, [])
+    return tie_gap(chat, cfg, ids, pos, np.zeros((1, 3, 448, 448),
+                                                 np.float32), a, b, stop)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3061,22 +3093,26 @@ def sdpa_backward_ms(q, k, v, do, causal: bool, scale: float):
         out, leaves, do, retain_graph=True), iters=3)
 
 
-def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
+def phase_bwd_kernels(packed: dict, device: str = "cuda",
+                      forms=None) -> dict:
     """dkv and dq against the twin at every backward form; out and lse come
     from the forward kernel. Returns per-kernel lists of form records: each
     kernel's device time, and the twin's time for the whole backward. dkv
     runs four products per attended pair (scores, dP, dV, dK), dq three;
     each reads q, k, v, do, lse and di and writes its gradients. The main
-    form is the ViT's, the one a library call expresses."""
+    form is the ViT's, the one a library call expresses (``forms``: those
+    of ``bwd_forms``; given, the main one is the first)."""
     from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
 
     records = {n: [] for n in BWD_KERNELS}
-    for name, args, kw in bwd_forms(torch.device(device), packed):
+    main = "vit_tiles" if forms is None else forms[0][0]
+    for name, args, kw in forms or bwd_forms(torch.device(device), packed):
         out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
         do = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)
                          ).to(out)
         full = (*args, out, lse, do)
-        got = flash_bwd.flash_attention_bwd(*full, **kw)
+        with nan_empty():  # an element the kernels leave unwritten fails
+            got = flash_bwd.flash_attention_bwd(*full, **kw)
         torch.cuda.synchronize()
         text, ok, err, rel = check_bwd(full, kw, got)
         ms = time_ms(lambda: flash_bwd.flash_attention_bwd(*full, **kw),
@@ -3095,7 +3131,7 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
         lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"]) \
             if name.startswith(("vit_tiles", "interaction")) \
             and device == "cuda" else None
-        if name.startswith("llm_packed") and device == "cuda":
+        if "llm_packed" in name and device == "cuda":
             # a yardstick only: the library cannot mask segments, so it
             # runs the whole row as one causal sequence (more pairs)
             one = sdpa_backward_ms(q, k, v, do, True, kw["scale"])
@@ -3120,7 +3156,7 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda") -> dict:
                                    ms=split[n],
                                    plain_ms=plain_ms, **bounds[n],
                                    library_ms=lib,
-                                   main=name.startswith("vit_tiles")))
+                                   main=name.startswith(main)))
         del got, full
     torch.cuda.empty_cache()
     return records
@@ -3525,15 +3561,16 @@ def phase_quant_sweep(device: str = "cuda") -> dict:
     return records
 
 
-def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
+def phase_quant_kernels(cfg, device: str = "cuda", forms=None,
+                        main=("head_M1_bf16", "w1_M1_bf16")) -> dict:
     """Each quantized-product kernel against its plain version at every
     form, on random codes and scales. A stacked form reads another layer at
     every timed launch, so no launch finds its weights in the L2 cache (as
     in a decode step, which streams every layer once); the head exceeds the
     cache by itself. Beside each: the bound, and the time of ``F.linear`` on
     an unquantized bf16 weight of the same shape, which is the product the
-    quantized one replaces, not the same function. Main forms: the head and
-    w1 at M = 1, bf16."""
+    quantized one replaces, not the same function. Main forms (``main``):
+    the head and w1 at M = 1, bf16 (``forms``: those of ``quant_forms``)."""
     import torch.nn.functional as F
 
     from v2pe_tpu_torch.ops import quantized_matmul as qm
@@ -3543,7 +3580,8 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
     g = torch.Generator(device=dev).manual_seed(17)
     records = {n: [] for n in QDOT_KERNELS}
     held = w = dense = None  # the weight in memory, and its bf16 counterpart
-    for kernel, name, bits, shape, M, xdt, odt in quant_forms(cfg):
+    forms = forms or quant_forms(cfg)
+    for kernel, name, bits, shape, M, xdt, odt in forms:
         *lead, D, N = shape
         if (bits, shape) != held:
             w = dense = None
@@ -3607,11 +3645,11 @@ def phase_quant_kernels(cfg, device: str = "cuda") -> dict:
         records[kernel].append(dict(
             form=f"int{bits}_{name}", max_abs_err=err, max_rel_err=rel,
             ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms, **bound,
-            library_ms=lib, main=name in ("head_M1_bf16", "w1_M1_bf16")))
+            library_ms=lib, main=name in main))
         del got, again, want, x
     del w, dense
     torch.cuda.empty_cache()
-    log(f"kernel quant forms: {len(quant_forms(cfg))} in "
+    log(f"kernel quant forms: {len(forms)} in "
         f"{time.perf_counter() - t0:.1f} s")
     return records
 
@@ -6548,25 +6586,649 @@ def e2e_samples(chat, cfg) -> dict:
     return res
 
 
-def kernel_record(name: str, recs: list, launches: int) -> dict:
+# ------------------------------------------------ InternVL2.5-8B (--8b)
+
+EIGHT_B_NEW = 64       # new tokens of each 8B chat
+EIGHT_B_SPEC = 4       # speculative_k of the forced speculation: T = 5
+LLM8_L, LLM8_HQ = 32, 32  # InternLM2.5-7B's decoder: 32 / 8 heads of 128
+LONG_TOKENS, LONG_TILES = 34000, 32  # the 8B recipe's stage-2 row
+EIGHT_B_TIMEOUT = 900  # seconds the 8B phases' process may take
+ENGINE_QUESTIONS = [REQUESTS[2][1], "What is the capital of France?",
+                    "Write a short poem about the sea."]
+
+
+def eight_b_flash_forms(device):
+    """The flash forward's and backward's forms at the 8B decoder's widths
+    (32 / 8 heads of 128, G = 4): the 8-tile request's dense prefill (2167
+    queries over 2199 slots), and the train step's packed 8192 tokens
+    (three segments and a padded tail, q rotated from V2PE ids at stride
+    1)."""
+    g = torch.Generator(device="cpu").manual_seed(40)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g).to(device=device,
+                                                   dtype=torch.bfloat16)
+
+    def ar(S):
+        return torch.arange(S, dtype=torch.int32, device=device)[None]
+
+    Sq, Sk = PREFILL_ROWS, PREFILL_ROWS + MAX_NEW
+    ones = torch.ones(1, Sq, dtype=torch.int32, device=device)
+    fwd = [(f"8b_dense_prefill_{Sq}x{Sk}_bf16", (
+        randn(1, Sq, LLM8_HQ, 128), randn(1, Sk, LLM_HKV, 128),
+        randn(1, Sk, LLM_HKV, 128), ones, (ar(Sk) < Sq).int(), ar(Sq),
+        ar(Sk)), dict(causal=True, scale=128 ** -0.5))]
+    S = TRAIN_TOKENS
+    lens = [3000, 3000, S - 6200, 200]
+    seg = torch.tensor(np.repeat([1, 2, 3, 0], lens), dtype=torch.int32,
+                       device=device)[None]
+    pos = torch.tensor(np.concatenate([np.arange(n) for n in lens]),
+                       dtype=torch.int32, device=device)[None]
+    bwd = [(f"8b_llm_packed_{S}_3seg_pad_qrope_bf16", (
+        randn(1, S, LLM8_HQ, 128), randn(1, S, LLM_HKV, 128),
+        randn(1, S, LLM_HKV, 128), seg, seg, pos, pos),
+        dict(causal=True, scale=128 ** -0.5, rope_q=pos.float(),
+             rope_theta=1e6))]
+    return fwd, bwd
+
+
+def eight_b_paged_forms(device):
+    """The paged kernels at the 8B decoder's forms over a 32-layer pool
+    (layer 31 read and written: a pool of 4.3 GB, whose last layer starts
+    past 2^31 bytes): one row of 32,767 tokens at page 128, its store, its
+    decode with one fresh token (4 query rows a kv head) and a 5-token
+    verify (20 rows a kv head: two row blocks), each storing in the launch
+    (a decode step's and a verify forward's form) and, in bf16, not; a
+    2048-token chunk over 32,768 cached slots at page 512; each in bf16,
+    int8 and int4."""
+    from v2pe_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device=device).manual_seed(41)
+    forms, n = [], 32767
+    for tag in ("bf16", "int8", "int4"):
+
+        def q(B, T, H=LLM8_HQ):
+            return torch.randn((B, T, H, LLM_HD), generator=g, device=device,
+                               dtype=torch.bfloat16)
+
+        table, NP = _rows([n], 128, 5, device)
+        base = dict(page_table=table, lengths=torch.tensor(
+            [n], dtype=torch.int32, device=device), layer=LLM8_L - 1,
+            **_pool(LLM8_L, NP, 128, tag, g, device))
+        forms.append(("paged_store", f"8b_store_32k_ps128_{tag}",
+                      pa.store_fresh_token,
+                      dict(k_new=q(1, 1, LLM_HKV), v_new=q(1, 1, LLM_HKV),
+                           **base)))
+        for T in (1, 5):
+            for store in ((False, True) if tag == "bf16" or T == 1
+                          else (True,)):
+                kw = dict(q=q(1, T), k_new=q(1, T, LLM_HKV),
+                          v_new=q(1, T, LLM_HKV), return_lse=True, **base)
+                if T == 1:
+                    kw["fresh_in_pages"] = True
+                    if not store:
+                        kw.update(k_new=None, v_new=None)
+                if store:
+                    kw["store"] = True
+                forms.append(("paged_decode", f"8b_decode"
+                              f"{'_store' if store else ''}_32k_T{T}_ps128_"
+                              f"{tag}", pa.paged_decode_attention, kw))
+        table, NP = _rows([32768], 512, 2048, device)
+        forms.append(("paged_prefill", f"8b_prefill_2048_over_32k_ps512_{tag}",
+                      pa.paged_prefill_attention,
+                      dict(q=q(1, 2048), page_table=table,
+                           lengths=torch.tensor([32768], dtype=torch.int32,
+                                                device=device),
+                           layer=LLM8_L - 1,
+                           **_pool(LLM8_L, NP, 512, tag, g, device))))
+    return forms
+
+
+def _is_main_8b_paged(name: str, tag: str) -> bool:
+    return name in (f"8b_store_32k_ps128_{tag}", f"8b_decode_32k_T1_ps128_{tag}",
+                    f"8b_prefill_2048_over_32k_ps512_{tag}")
+
+
+def eight_b_quant_forms(cfg):
+    """The quantized products at the 8B's forms: the head (4096 x 92553,
+    padded to 92672) at M = 1, the stacked w1 (32, 4096, 14336) at M = 1
+    and at the 8-tile prompt's 2167 rows; int8 then int4, x bf16."""
+    lc, bf = cfg.llm, torch.bfloat16
+    D, I, L = lc.hidden_size, lc.intermediate_size, lc.num_hidden_layers
+    forms = []
+    for bits, k2d, kst in ((8, "qdot", "qdot_stacked"),
+                           (4, "q4dot", "q4dot_stacked")):
+        forms += [(k2d, "8b_head_M1_bf16", bits, (D, lc.vocab_size), 1, bf,
+                   torch.float32),
+                  (kst, "8b_w1_M1_bf16", bits, (L, D, I), 1, bf, bf),
+                  (kst, f"8b_w1_M{PREFILL_ROWS}_bf16", bits, (L, D, I),
+                   PREFILL_ROWS, bf, bf)]
+    return forms
+
+
+def phase_8b_kernels(cfg) -> dict:
+    """(a) Rows 1-10 at the 8B's forms, each against its plain version as
+    phase 2 holds it (outputs poisoned with NaN where a kernel might leave
+    one unwritten), with its time, bound and library time; per-kernel
+    lists of records whose main forms stand for the 8B in the table."""
+    device = torch.device("cuda")
+    fwd, bwd = eight_b_flash_forms(device)
+    forms = {"flash_fwd": phase_kernels(None, None, fwd, fwd[0][0])}
+    forms.update(phase_bwd_kernels(None, forms=bwd))
+    del fwd, bwd
+    torch.cuda.empty_cache()
+    for recs in (phase_paged_kernels(None, eight_b_paged_forms(device),
+                                     _is_main_8b_paged),
+                 phase_quant_kernels(cfg, forms=eight_b_quant_forms(cfg),
+                                     main=("8b_head_M1_bf16",
+                                           "8b_w1_M1_bf16"))):
+        forms.update(recs)
+    return forms
+
+
+def phase_small_g4_reference() -> None:
+    """(b) A small fp32 model with G = 4 (8 / 2 heads of 64), card against
+    CPU: the packed forward and the paged path (a 6-token fold: 24 query
+    rows a kv head, two row blocks), then the engine plain and with
+    speculative_k = 4 (5-token verify forwards). The quantized products do
+    not see G: phase 2's small int8 reference and (a)'s 8B forms hold
+    them."""
+    from v2pe_tpu_torch.models.params import init_vlm_params
+
+    cfg = small_cfg(heads=8, hidden=512)
+    phase_small_reference(cfg, " G = 4")
+    model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
+    tok = CodePointTokenizer()
+    for k in (0, EIGHT_B_SPEC):
+        small_engine_check(model, cfg, tok, k, " G = 4")
+
+
+def init_8b(cfg):
+    """InternVL2.5-8B at full width and depth, random bf16 weights from
+    seed 0 on the card (the same bits at every call)."""
+    from v2pe_tpu_torch.models.params import init_vlm_params
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_vlm_params(cfg, torch.Generator("cuda").manual_seed(0),
+                            device="cuda", dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"8b: InternVL2.5-8B, {n / 1e9:.3f}B params bf16 "
+        f"({n * 2 / 2 ** 30:.2f} GiB), random init in "
+        f"{time.perf_counter() - t0:.2f}s")
+    return model
+
+
+def _chat_route(name, chat, cfg, pixels, question, gen, **kw) -> tuple:
+    """One 8B chat route: ``chat.chat`` once (the entry point, launches
+    counted), then TTFT and decode rate of the same request through
+    ``time_request``: (counts, greedy tokens)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    answer = chat.chat(pixels, question, gen)
+    counts = read_launches()
+    wall = time.perf_counter() - t0
+    ids, pos, _ = chat.encode_chat(question, [len(pixels)])
+    ttft, total, rate, tokens = time_request(chat, cfg, ids, pos, pixels,
+                                             gen, **kw)
+    ours = {k: v for k, v in counts.items() if v}
+    log(f"8b serve ({name}): prompt {len(ids)} tokens ({len(pixels)} tiles), "
+        f"chat {wall:.2f}s for {len(answer)} chars; TTFT {ttft * 1e3:.1f} "
+        f"ms, {len(tokens)} tokens in {total * 1e3:.1f} ms, decode "
+        f"{rate:.1f} tok/s; kernel launches of the chat call {ours} = "
+        f"{sum(ours.values()) / max(len(tokens), 1):.1f} a generated token "
+        f"({card_line()})")
+    if len(tokens) != gen.max_new_tokens or not answer:
+        raise AssertionError(f"8b serve ({name}): {len(tokens)} tokens")
+    return counts, tokens
+
+
+def phase_8b_serve(model, cfg, tok) -> list:
+    """(c) InternVL2.5-8B serves the 8-tile request with 64 new tokens
+    through ChatModel.chat: dense, paged (page 128, the riding store),
+    paged with speculative_k = 4 (every verify forward 5 tokens), int8
+    weights over an int8 pool and int4 over int4; then a 4-row engine (the
+    8-tile chat and three text chats). The bf16 routes' tokens against the
+    dense route's by the near-tie rule (where they first differ, the dense
+    path's logits teacher-forced on the common prefix put the other token
+    within LOGIT_TOL of the best); the quantized routes' share of equal
+    tokens and their first logits against bf16 are printed. Returns the
+    launch counts of each route."""
+    from v2pe_tpu_torch.infer.chat import ChatModel
+    from v2pe_tpu_torch.infer.generate import GenerationConfig
+    from v2pe_tpu_torch.serve.engine import InferenceEngine
+
+    tiles, question = REQUESTS[0]
+    pixels = _tiles(tiles, 0)
+    gen = GenerationConfig(max_new_tokens=EIGHT_B_NEW)
+    dense = ChatModel(model, cfg, tok)
+    paged = ChatModel(model, cfg, tok, cache_mode="paged")
+    ids, pos, _ = dense.encode_chat(question, [tiles])
+    stop = (dense.conv_template.stop_token_ids
+            or (cfg.llm.eos_token_id,))[0]
+    spec = dataclasses.replace(gen, speculative_k=EIGHT_B_SPEC,
+                               speculative_ngram=2)
+    paths, tokens = [], {}
+    for name, chat, g, kw in (
+            ("dense", dense, gen, {}),
+            ("paged", paged, gen, dict(cache_mode="paged")),
+            ("speculative", paged, spec, dict(cache_mode="paged"))):
+        counts, tokens[name] = _chat_route(name, chat, cfg, pixels, question,
+                                           g, **kw)
+        paths.append(counts)
+    require(paths[1], ("flash_fwd",), "8b serve (paged)")
+    require_riding_store(paths[1], "8b serve (paged)")
+    require_riding_store(paths[2], "8b serve (speculative)")
+    for name in ("paged", "speculative"):
+        a, b = tokens["dense"].tolist(), tokens[name].tolist()
+        if a == b:
+            log(f"8b serve ({name}): {len(b)} tokens equal to dense")
+            continue
+        p, gap, top = tie_gap(dense, cfg, ids, pos, pixels, a, b, stop)
+        log(f"8b serve ({name}): tokens first differ from dense at {p} of "
+            f"{len(a)}; the dense logit gap to its token {gap:.3f} of max "
+            f"|logit| {top:.3f} (limit {LOGIT_TOL} of it)")
+        if gap > LOGIT_TOL * top:
+            raise AssertionError(f"8b serve ({name}): a token beyond a near "
+                                 f"tie of the dense route's")
+    bf16 = first_logits(dense, cfg, ids, pos, pixels, tokens["dense"],
+                        "dense", steps=1)
+    for name, kind, kernels in (("w8kv8", "int8", ("qdot", "qdot_stacked")),
+                                ("w4kv4", "int4", ("q4dot",
+                                                   "q4dot_stacked"))):
+        quant = ChatModel(model, cfg, tok, cache_mode="paged", kv_dtype=kind,
+                          weights_dtype=kind)
+        counts, tokens[name] = _chat_route(
+            name, quant, cfg, pixels, question, gen, cache_mode="paged",
+            kv_dtype=kind)
+        require(counts, kernels + ("paged_decode",), f"8b {name}")
+        require_riding_store(counts, f"8b {name}")
+        paths.append(counts)
+        first = first_logits(quant, cfg, ids, pos, pixels, tokens["dense"],
+                             "paged", kind, steps=1)
+        same = int((tokens[name] == tokens["dense"]).sum())
+        log(f"8b serve ({name}): {same}/{EIGHT_B_NEW} tokens equal to bf16 "
+            f"dense; first logits max|dlogit|/max|logit| "
+            f"{_rel(first, bf16):.3e} against bf16 (the quantization, "
+            f"reported)")
+        del quant, first
+        torch.cuda.empty_cache()
+    eng = InferenceEngine(paged, max_rows=4, max_len=4096, page_size=128,
+                          chunk_size=2048, decode_block=16)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [eng.submit_chat(pixels, question, max_new_tokens=EIGHT_B_NEW)]
+    reqs += [eng.submit_chat(None, q, max_new_tokens=EIGHT_B_NEW)
+             for q in ENGINE_QUESTIONS]
+    eng.run_until_idle()
+    counts = read_launches()
+    wall = time.perf_counter() - t0
+    made = sum(len(r.tokens) for r in reqs)
+    log(f"8b engine (4 rows, page 128, chunks of 2048): 4 requests in "
+        f"{wall:.2f}s, {made} tokens = {made / wall:.1f} generated tok/s; "
+        f"stats {dict(eng.stats)}; launches {counts} ({card_line()})")
+    require(counts, ("flash_fwd", "paged_decode"), "8b engine")
+    require_riding_store(counts, "8b engine")
+    if [len(r.tokens) for r in reqs] != [EIGHT_B_NEW] * 4:
+        raise AssertionError("8b engine: a request ended short")
+    a, b = tokens["dense"].tolist(), list(reqs[0].tokens)
+    if a != b:
+        p, gap, top = tie_gap(dense, cfg, ids, pos, pixels, a, b, stop)
+        log(f"8b engine: the 8-tile request first differs from dense at "
+            f"{p}; dense logit gap {gap:.3f} of {top:.3f} (limit "
+            f"{LOGIT_TOL} of it)")
+        if gap > LOGIT_TOL * top:
+            raise AssertionError("8b engine: a token beyond a near tie")
+    else:
+        log("8b engine: the 8-tile request's tokens equal dense")
+    paths.append(counts)
+    return paths
+
+
+def collect() -> None:
+    """Free what the dropped objects held, on the card too."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def bits_digest(tensors) -> int:
+    """A 64-bit digest of the bits of ``tensors`` in order, on the card: a
+    sum of each element's bit pattern times a fixed odd pseudo-random
+    weight of its position within a chunk, chunk sums weighted by their
+    index (int64 arithmetic, which wraps). Equal bits give equal digests;
+    any other bits give another digest but for a chance near 2^-63."""
+    chunk, total, weights = 1 << 24, 0, None
+    for i, t in enumerate(tensors):
+        flat = t.detach().reshape(-1)
+        flat = flat.view({1: torch.int8, 2: torch.int16,
+                          4: torch.int32}[flat.element_size()])
+        for c0 in range(0, flat.numel(), chunk):
+            # to the card as it is, widened there
+            part = flat[c0:c0 + chunk].to("cuda").to(torch.int64)
+            if weights is None:
+                weights = torch.randint(
+                    -2 ** 62, 2 ** 62, (chunk,), dtype=torch.int64,
+                    device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(7)) | 1
+            s = int((part * weights[:part.numel()]).sum())
+            total = (total * 1000003 + s + c0 // chunk + 7 * i) % 2 ** 64
+    return total
+
+
+def state_digests(model, state) -> dict:
+    """Digests of a run's parameters and int8 moments."""
+    return {"params": bits_digest(p for _, p in model.named_parameters()),
+            "moments": bits_digest(t for mom in state["moments"].values()
+                                   for t in mom.values())}
+
+
+def host_gib() -> float:
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") / 2 ** 30
+
+
+def _where_moments(state) -> tuple:
+    """Where a run's int8 moments live, and their bytes."""
+    ts = [t for mom in state["moments"].values() for t in mom.values()]
+    host = all(t.device.type == "cpu" for t in ts)
+    pinned = host and all(t.is_pinned() for t in ts)
+    held = sum(t.numel() * t.element_size() for t in ts)
+    return ("pinned host" if pinned else "host" if host else "card"), held
+
+
+def phase_8b_train(cfg) -> list:
+    """(d) The 8B's train step at the bench recipe's shape (8192 tokens + 8
+    tiles, remat full, lr 1e-5, warmup 1): two steps with int8 Adam
+    resident on the card, then two offloaded (the moments in pinned host
+    memory), each from seed 0's weights on the same batch. Losses, grad
+    norms, parameters and moments equal to the bit (digests); each run's
+    peak, step ms, and the offloaded steps' copies. Returns the launch
+    counts of both runs."""
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import make_train_step
+
+    batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
+                                 tiles_per_row=TRAIN_TILES, stride=64)
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    runs, paths = {}, []
+    for offload in (False, True):
+        name = "offloaded" if offload else "resident"
+        model = init_8b(cfg)
+        model.train()
+        tc = dataclasses.replace(train_config(), offload_optimizer=offload)
+        t0 = time.perf_counter()
+        opt = build_optimizer(tc, model, cfg)
+        state = opt.init()
+        where, held = _where_moments(state)
+        log(f"8b train ({name}): int8 Adam state {held / 2 ** 30:.2f} GiB "
+            f"in {where} memory, made in {time.perf_counter() - t0:.2f}s "
+            f"(host memory {host_gib():.1f} GiB)")
+        step = make_train_step(cfg, opt, img_context_token_id=IMG_CONTEXT_ID,
+                               remat="full", offload_optimizer=offload)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        steps = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            loss, gnorm = step(model, state, batch)
+            loss, gnorm = loss.item(), gnorm.item()
+            ms = (time.perf_counter() - t0) * 1e3
+            copies = ""
+            if offload:
+                up, down = opt.stager.copy_ms()
+                copies = (f"; staged {opt.stager.moved / 2 ** 30:.2f} GiB "
+                          f"each way: uploads {up:.1f} ms, downloads "
+                          f"{down:.1f} ms of copy-stream time "
+                          f"({2 * opt.stager.moved / (up + down) / 1e6:.1f}"
+                          f" GB/s)")
+            steps.append((loss, gnorm, ms))
+            log(f"8b train ({name}) step {i + 1}: loss {loss!r} grad_norm "
+                f"{gnorm!r} {ms:.1f} ms{copies}")
+        counts = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = dict(steps=steps, digests=state_digests(model, state),
+                          peak=peak)
+        log(f"8b train ({name}): peak {peak:.2f} GiB allocated; digests "
+            f"{runs[name]['digests']}; launches {counts} ({card_line()})")
+        check_train_steps(cfg, [dict(loss=s[0], grad_norm=s[1], launches={
+            k: v // 2 for k, v in counts.items()}) for s in steps], 2,
+            f"8b train ({name})")
+        paths.append(counts)
+        del model, opt, state, step
+        collect()
+    a, b = runs["resident"], runs["offloaded"]
+    same = [x[:2] for x in a["steps"]] == [x[:2] for x in b["steps"]] \
+        and a["digests"] == b["digests"]
+    log(f"8b train: offloaded against resident: losses and grad norms "
+        f"equal {[x[:2] for x in a['steps']] == [x[:2] for x in b['steps']]}"
+        f", parameters and moments equal to the bit {same}; peak "
+        f"{b['peak']:.2f} against {a['peak']:.2f} GiB "
+        f"({a['peak'] - b['peak']:.2f} less); step 2 {b['steps'][1][2]:.1f} "
+        f"against {a['steps'][1][2]:.1f} ms")
+    if not same:
+        raise AssertionError("8b train: the offloaded run differs from the "
+                             "resident one")
+    return paths
+
+
+def long_packer(cfg, seed: int):
+    """A PackedSampleIterator whose rows are the 8B recipe's stage-2 row:
+    32 samples of 1062 tokens with one tile each, 33,984 tokens and 32
+    tiles in rows of 34,000."""
+    from v2pe_tpu_torch import packing
+
+    rng = np.random.default_rng(seed)
+    per = LONG_TOKENS // LONG_TILES
+    samples = [synthetic_sample(rng, per, 1, cfg.num_image_token, 448)
+               for _ in range(LONG_TILES)]
+    return packing.PackedSampleIterator({"synthetic": samples},
+                                        max_tokens=LONG_TOKENS,
+                                        max_tiles_per_row=LONG_TILES,
+                                        seed=seed, img_context_token_id=92546)
+
+
+def phase_8b_long(cfg) -> list:
+    """(e) One offloaded ``trainer.train`` step of the 8B at its recipe's
+    stage-2 row (34,000 tokens + 32 tiles, remat full), an asynchronous
+    checkpoint of it, then step 2 taken on that run's state (the
+    uninterrupted run); then ``trainer.train`` resumes from the checkpoint
+    (moments pinned on the host again, parameters and moments equal to
+    step 1's) and takes step 2 again: loss, grad norm, parameters and
+    moments equal to the uninterrupted step's. Step 2 takes the bench
+    recipe's 8192-token batch both times (a 34k step is about 20 s).
+    Returns the launch counts of the trainer's step and of the two steps
+    2."""
+    import tempfile
+
+    from v2pe_tpu_torch.train.optimizer import build_optimizer
+    from v2pe_tpu_torch.train.synth import (IMG_CONTEXT_ID,
+                                            make_synthetic_batch)
+    from v2pe_tpu_torch.train.train_step import make_train_step
+    from v2pe_tpu_torch.train.trainer import RunConfig, train
+
+    model = init_8b(cfg)
+    model.train()
+    tc = dataclasses.replace(train_config(), offload_optimizer=True)
+    batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
+                                 tiles_per_row=TRAIN_TILES, stride=64)
+    batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
+    steps, marks, paths = [], {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        run = RunConfig(output_dir=tmp, max_steps=1, save_steps=1,
+                        log_steps=1, max_packed_tokens=LONG_TOKENS,
+                        max_tiles=LONG_TILES)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, state, _ = train(cfg, model, long_packer(cfg, 0), run, tc,
+                            img_context_token_id=92546, remat="full",
+                            resume=False, offload_optimizer=True,
+                            metrics_hook=_step_hook(steps, marks))
+        counts = read_launches()
+        wall = time.perf_counter() - t0
+        save_s = time.perf_counter() - marks["t"]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        where, held = _where_moments(state)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(tmp) for f in fs)
+        m = steps[0]
+        log(f"8b long: trainer.train offloaded, {LONG_TOKENS} tokens + "
+            f"{LONG_TILES} tiles: step 1 loss {m['loss']!r} grad_norm "
+            f"{m['grad_norm']!r} {LONG_TOKENS / m['tokens_per_sec'] * 1e3:.1f}"
+            f" ms; peak {peak:.2f} GiB allocated; moments "
+            f"{held / 2 ** 30:.2f} GiB in {where} memory; async save + "
+            f"commit {save_s:.1f}s, {size / 2 ** 30:.2f} GiB; train() "
+            f"{wall:.1f}s; launches {m['launches']} ({card_line()})")
+        check_train_steps(cfg, steps, 1, "8b long")
+        paths.append(counts)
+        first = state_digests(model, state)
+        opt = build_optimizer(tc, model, cfg)
+        step = make_train_step(cfg, opt, img_context_token_id=IMG_CONTEXT_ID,
+                               remat="full", offload_optimizer=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, gnorm = (x.item() for x in step(model, state, batch))
+        ms = (time.perf_counter() - t0) * 1e3
+        paths.append(read_launches())
+        unbroken = dict(loss=loss, grad_norm=gnorm,
+                        **state_digests(model, state))
+        log(f"8b long: step 2 uninterrupted: loss {loss!r} grad_norm "
+            f"{gnorm!r} {ms:.1f} ms")
+        del state
+        collect()
+        t0 = time.perf_counter()
+        _, state, at = train(cfg, model, long_packer(cfg, 0), run, tc,
+                             img_context_token_id=92546, remat="full",
+                             resume=True, offload_optimizer=True)
+        restore_s = time.perf_counter() - t0
+    where, _ = _where_moments(state)
+    restored = state_digests(model, state)
+    reset_launches()
+    loss, gnorm = (x.item() for x in step(model, state, batch))
+    paths.append(read_launches())
+    resumed = dict(loss=loss, grad_norm=gnorm, **state_digests(model, state))
+    log(f"8b long: resumed at step {at} in {restore_s:.1f}s, moments in "
+        f"{where} memory, state equal to step 1's {restored == first}; step "
+        f"2 resumed: loss {loss!r} grad_norm {gnorm!r}, equal to the "
+        f"uninterrupted step (loss, grad norm, parameters, moments) "
+        f"{resumed == unbroken}")
+    if not (at == 1 and where == "pinned host" and restored == first
+            and resumed == unbroken):
+        raise AssertionError("8b long: the resumed run differs from the "
+                             "uninterrupted one")
+    return paths
+
+
+def eight_b_phases() -> dict:
+    """(a)-(e) in order: kernel forms, the small G = 4 reference, then
+    InternVL2.5-8B serving, its train step resident and offloaded, and its
+    long offloaded trainer step with a checkpoint and resume. Returns the
+    kernel records by kernel and the launch counts of every driven path."""
+    from v2pe_tpu_torch import config
+
+    seconds, t0 = {}, time.perf_counter()
+    cfg = config.internvl2_5_8b()
+    forms = phase_8b_kernels(cfg)
+    seconds["kernels"] = time.perf_counter() - t0
+    phase_small_g4_reference()
+    seconds["g4 reference"] = time.perf_counter() - t0 - sum(seconds.values())
+    model = init_8b(cfg)
+    paths = phase_8b_serve(model, cfg, CodePointTokenizer())
+    del model
+    collect()
+    seconds["serve"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths += phase_8b_train(cfg)
+    seconds["train"] = time.perf_counter() - t0 - sum(seconds.values())
+    paths += phase_8b_long(cfg)
+    seconds["long"] = time.perf_counter() - t0 - sum(seconds.values())
+    log(f"8b seconds: { {k: round(v, 1) for k, v in seconds.items()} }, "
+        f"{time.perf_counter() - t0:.1f} in all")
+    return dict(forms=forms, paths=paths)
+
+
+def _eight_b_child(result: str) -> None:
+    """The 8B phases in a process of their own, so that their peak is not
+    added to this one's; saves what ``eight_b_phases`` returns. A failure
+    ends the process at once."""
+    import traceback
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.save(eight_b_phases(), result)
+    except Exception:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def phase_8b() -> dict:
+    """The 8B phases in a spawned process on the card; fails when it
+    fails or outlives EIGHT_B_TIMEOUT. Returns its records, each 8B main
+    form marked ``main8b`` (and no longer ``main``; its pool forms
+    ``pool8b``), and the launch counts of its paths."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        result = os.path.join(tmp, "8b.pt")
+        proc = mp.get_context("spawn").Process(target=_eight_b_child,
+                                               args=(result,))
+        proc.start()
+        proc.join(timeout=EIGHT_B_TIMEOUT)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+        if proc.exitcode != 0 or not os.path.exists(result):
+            raise AssertionError(f"8b phases: exit code {proc.exitcode}")
+        out = torch.load(result)
+    for recs in out["forms"].values():
+        for r in recs:
+            r["main8b"], r["main"] = r["main"], False
+            r["pool8b"], r["pool"] = r.get("pool"), None
+    return out
+
+
+def kernel_record(name: str, recs: list, launches: int,
+                  launches_8b: int = 0) -> dict:
     """One kernel's entry of the JSON line: the launches of the driven
     paths; the largest error over all forms; time, plain time, bound and
-    library time at its main form (named under "form"). Every other form
-    has its own ``kernel ...`` line above."""
+    library time at its main form (named under "form"); the same at its
+    InternVL2.5-8B form under "8b" (with the 8B paths' launches), where it
+    has one. Every other form has its own ``kernel ...`` line above."""
     main = [f for f in recs if f["main"]]
     if len(main) != 1:
         raise AssertionError(f"{name}: {len(main)} main forms")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def form(f):
+        return {"form": f["form"], "max_abs_err": f["max_abs_err"],
+                **{k: f[k] for k in keys}}
+
     rec = dict(name=name, route="cuda", source=KERNEL_SOURCES[name],
                replaces=KERNEL_REPLACES[name], launches=launches,
                max_abs_err=max(f["max_abs_err"] for f in recs),
                form=main[0]["form"], **{k: main[0][k] for k in keys})
     # the paged kernels: the main form again over an int8 and an int4 pool
-    pools = {f["pool"]: {"form": f["form"], "max_abs_err": f["max_abs_err"],
-                         **{k: f[k] for k in keys}}
-             for f in recs if f.get("pool")}
+    pools = {f["pool"]: form(f) for f in recs if f.get("pool")}
     if pools:
         rec["pools"] = pools
+    eight = [f for f in recs if f.get("main8b")]
+    if eight:
+        rec["8b"] = dict(form(eight[0]), launches=launches_8b)
+        pools = {f["pool8b"]: form(f) for f in recs if f.get("pool8b")}
+        if pools:
+            rec["8b"]["pools"] = pools
     return rec
 
 
@@ -6596,6 +7258,9 @@ def main(argv=None) -> int:
                     help="only the phases of two processes on the card "
                     "(fsdp 2, the pipe stages, the fused ring's ranks); no "
                     "result line")
+    ap.add_argument("--8b", dest="eight_b", action="store_true",
+                    help="only the InternVL2.5-8B phases, in a process of "
+                    "their own; no result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6621,6 +7286,10 @@ def main(argv=None) -> int:
         phase_pipe_two_ranks()
         phase_fused_two_ranks()
         phase_two_ranks()
+        log(card_line())
+        return 0
+    if args.eight_b:
+        phase_8b()
         log(card_line())
         return 0
 
@@ -6736,11 +7405,20 @@ def main(argv=None) -> int:
     paths += phase_compress_train(model, cfg)
     paths.append(phase_compress_fuse_only(model, cfg))
     paths.append(phase_seq_cls(model, cfg))
-    launches = {k: sum(c[k] for c in paths) for k in forms}
     lap("compress and seq-cls")
+    # InternVL2.5-8B in a process of its own, this one's model dropped
+    del model, batch
+    collect()
+    eight = phase_8b()
+    paths += eight["paths"]
+    for name, more in eight["forms"].items():
+        forms[name].extend(more)
+    launches_8b = {k: sum(c[k] for c in eight["paths"]) for k in forms}
+    launches = {k: sum(c[k] for c in paths) for k in forms}
+    lap("InternVL2.5-8B")
     log(f"seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in "
         f"all")
-    records = [kernel_record(name, recs, launches[name])
+    records = [kernel_record(name, recs, launches[name], launches_8b[name])
                for name, recs in forms.items()]
     for rec in records:
         if rec["name"] == "paged_store":
@@ -6750,6 +7428,8 @@ def main(argv=None) -> int:
             rec.update(launches=rec["launches"] + riding,
                        standalone_launches=rec["launches"],
                        riding_launches=riding, rides_in="paged_decode")
+            rec["8b"]["launches"] += sum(c["paged_decode_store"]
+                                         for c in eight["paths"])
     log(json.dumps({"kernels": records}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -82,14 +82,13 @@ def test_compress_steps_on_fsdp2_tensor2_match_jax(runs, fuse):
     (["--compress_seq", "--mesh_pipe", "4", "--pipe_microbatches", "2"],
      "no pipeline branch"),
     (["--compress_seq", "--mesh_seq", "2"], "Queue 1 item 6.4"),
-    (["--offload_optimizer"], "'Left out of the port'"),
 ])
 def test_what_stays_refused_names_its_roadmap_item(flags, item):
     """The train CLI's refusals, before it reads anything: each names its
     ROADMAP entry. int8 Adam on fsdp / tensor, LoRA on a mesh,
     compress-seq on data / fsdp / tensor, the pipe axis and its
-    microbatches, and the fused ring across processes are no longer among
-    them."""
+    microbatches, the fused ring across processes and the offloaded
+    optimizer are no longer among them."""
     from v2pe_tpu_torch.train import cli
 
     argv = ["--tokenizer", "none", "--meta_path", "none", "--platform",
@@ -98,7 +97,8 @@ def test_what_stays_refused_names_its_roadmap_item(flags, item):
         cli.main(argv + flags)
     args = cli.build_argparser().parse_args(argv + [
         "--use_8bit_optimizer", "--mesh_fsdp", "2", "--mesh_tensor", "2",
-        "--use_llm_lora", "4", "--compress_seq", "--mesh_data", "2"])
+        "--use_llm_lora", "4", "--compress_seq", "--mesh_data", "2",
+        "--offload_optimizer"])
     assert cli._unported(args) == []
     args = cli.build_argparser().parse_args(argv + [
         "--mesh_pipe", "2", "--pipe_microbatches", "4", "--mesh_seq", "2",

@@ -438,7 +438,7 @@ def test_unported_options_raise():
 
     for kw in (dict(mesh=MeshConfig(fsdp=2)), dict(mesh=MeshConfig(data=2)),
                dict(mesh=MeshConfig(seq=2, tensor=2)),
-               dict(mesh=MeshConfig(pipe=2)), dict(offload_optimizer=True)):
+               dict(mesh=MeshConfig(pipe=2))):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(port_config(cfg), opt, **kw)
     # the pipe axis is ported (a mesh of processes): seq with pipe is
@@ -465,16 +465,19 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         tstep.make_train_step(port_config(cfg), opt, mesh=MeshConfig(seq=2),
                               ring_mode="rdma")
-    with pytest.raises(NotImplementedError):
-        topt.build_optimizer(topt.TrainConfig(use_8bit_optimizer=True,
-                                              offload_optimizer=True),
-                             model, port_config(cfg))
+    # the offloaded optimizer is ported (tests/test_torch_offload.py)
+    offload = topt.build_optimizer(topt.TrainConfig(use_8bit_optimizer=True,
+                                                    offload_optimizer=True),
+                                   model, port_config(cfg))
+    assert callable(tstep.make_train_step(port_config(cfg), offload,
+                                          offload_optimizer=True))
 
 
 # ------------------------------------------------- trainer, checkpoints
 
 
-def _toy_run(toy_dataset, tokenizer, out_dir, resume, max_steps=4):
+def _toy_run(toy_dataset, tokenizer, out_dir, resume, max_steps=4,
+             **train_kw):
     cfg = _cfg(llm_layers=2, vocab=len(tokenizer))
     ctx = tokenizer.convert_tokens_to_ids("<IMG_CONTEXT>")
     dsets = build_datasets(toy_dataset, tokenizer, image_size=56,
@@ -492,7 +495,8 @@ def _toy_run(toy_dataset, tokenizer, out_dir, resume, max_steps=4):
     logged = []
     model, state, step = train(
         port_config(cfg), model, packer, run, tc, img_context_token_id=ctx,
-        resume=resume, metrics_hook=lambda s, m: logged.append((s, m)))
+        resume=resume, metrics_hook=lambda s, m: logged.append((s, m)),
+        **train_kw)
     return model, state, logged
 
 
@@ -601,8 +605,7 @@ def test_cli_trains_and_resumes(toy_dataset, tmp_path, caplog):
     for bad in (["--mesh_fsdp", "2"], ["--mesh_data", "2"],
                 ["--mesh_tensor", "2"], ["--mesh_pipe", "2"],
                 ["--mesh_pipe", "2", "--compress_seq"],
-                ["--mesh_seq", "2", "--compress_seq"],
-                ["--offload_optimizer"]):
+                ["--mesh_seq", "2", "--compress_seq"]):
         with pytest.raises(NotImplementedError):
             cli.main(argv + bad)
     # seq with pipe: JAX's pipeline refuses the pair

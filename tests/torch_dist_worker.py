@@ -62,12 +62,14 @@ def _setup(spec, task):
             cfg.vision, drop_path_rate=task["drop_path_rate"]))
     ctx = _ctx(task["mesh"])
     model = from_jax_params(task.get("tree", spec["tree"]), cfg, mesh=ctx)
-    opt = build_optimizer(TrainConfig(**task["tc"]), model, cfg)
+    tc = TrainConfig(**task["tc"])
+    opt = build_optimizer(tc, model, cfg)
     step = make_train_step(cfg, opt, MeshConfig(**task["mesh"]),
                            img_context_token_id=spec["img_context_id"],
                            remat=task.get("remat", "full"),
                            ring_mode=task.get("ring_mode", "scan"),
-                           pipe_microbatches=task.get("microbatches", 0))
+                           pipe_microbatches=task.get("microbatches", 0),
+                           offload_optimizer=tc.offload_optimizer)
     return cfg, ctx, model, opt, step
 
 

@@ -13,9 +13,22 @@ from typing import Callable, List, Optional, Sequence
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from v2pe_tpu_torch.core import config as port_config_lib
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for the tests of a module that imports this
+    fixture (the suite runs files side by side), the count restored after
+    them: other files' tests keep the default, on which some of their
+    exact token comparisons depend."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def port_config(cfg):

@@ -33,7 +33,10 @@ from torch import nn
 
 def _cpu(obj):
     """A copy of a nest of dicts / lists / tensors with every tensor on the
-    CPU (the snapshot an asynchronous write works from)."""
+    CPU (the snapshot an asynchronous write works from). An offloaded
+    optimizer's host moments are copied as they stand: its step returns
+    only once its copies back to the host have landed
+    (``train/adam8bit.py:Stager.run``)."""
     if torch.is_tensor(obj):
         return obj.detach().to("cpu", copy=True)
     if isinstance(obj, dict):
@@ -45,9 +48,12 @@ def _cpu(obj):
 
 def _like(obj, template):
     """``obj`` with each tensor moved to the device and dtype of the tensor
-    at the same place in ``template`` (when there is one)."""
+    at the same place in ``template`` (when there is one), and pinned where
+    that tensor is (an offloaded optimizer's host moments)."""
     if torch.is_tensor(obj) and torch.is_tensor(template):
-        return obj.to(device=template.device, dtype=template.dtype)
+        out = obj.to(device=template.device, dtype=template.dtype)
+        return out.pin_memory() if template.is_pinned() and \
+            not out.is_pinned() else out
     if isinstance(obj, dict) and isinstance(template, dict):
         return {k: _like(v, template.get(k)) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)) and isinstance(template, (list, tuple)):

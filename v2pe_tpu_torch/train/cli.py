@@ -21,8 +21,9 @@ device).
 Flags the port refuses raise ``NotImplementedError`` naming their
 ROADMAP item: ``--compress_seq`` with ``--mesh_seq`` above 1 (item 6.4:
 JAX's trainer chunks the zigzag-permuted batch there) or with
-``--mesh_pipe`` above 1 (Queue 3, "Known faults inside the reference")
-and ``--offload_optimizer`` ("Left out"). ``--use_llm_lora R`` /
+``--mesh_pipe`` above 1 (Queue 3, "Known faults inside the reference").
+``--offload_optimizer`` keeps the int8 Adam moments in pinned host memory
+(it turns ``--use_8bit_optimizer`` on). ``--use_llm_lora R`` /
 ``--use_backbone_lora R`` train LoRA
 adapters over the frozen model (checkpoints hold the adapters;
 ``tools/export_hf.py --lora-base`` exports merged weights);
@@ -144,12 +145,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "'attn_saved' keeps attention residuals and remats "
                         "only the MLP — fastest when memory allows")
     p.add_argument("--offload_optimizer", action="store_true",
-                   help="keep optimizer state in pinned HOST memory and "
-                        "stage it through HBM only for the update "
-                        "(ZeRO-Offload equivalent) — separates the "
-                        "backward's and the update's memory peaks; the "
-                        "knob that fits the 32k-recipe step on one 16 GB "
-                        "chip (docs/perf_analysis.md training section)")
+                   help="keep the int8 Adam moments in pinned host "
+                        "memory and stage them through the card one "
+                        "segment at a time for the update (ZeRO-Offload; "
+                        "turns --use_8bit_optimizer on): the backward's "
+                        "peak holds no moments")
     # training-recipe knobs (internvl_chat_finetune.py:110-150)
     p.add_argument("--drop_path_rate", type=float, default=0.0,
                    help="ViT stochastic depth; published V2PE recipes "
@@ -212,8 +212,6 @@ def _unported(args) -> list:
         (args.compress_seq and args.mesh_seq > 1,
          "--compress_seq with --mesh_seq above 1 (ROADMAP Queue 1 item "
          "6.4: JAX's trainer chunks the zigzag-permuted batch there)"),
-        (args.offload_optimizer,
-         "--offload_optimizer (ROADMAP Queue 1, 'Left out of the port')"),
     ]
     return [what for flag, what in checks if flag]
 
@@ -339,7 +337,8 @@ def main(argv=None):
                  remat=False if args.no_remat else args.remat_policy,
                  async_save=not args.sync_save,
                  use_backbone_lora=args.use_backbone_lora,
-                 use_llm_lora=args.use_llm_lora)
+                 use_llm_lora=args.use_llm_lora,
+                 offload_optimizer=args.offload_optimizer)
 
 
 if __name__ == "__main__":

@@ -46,6 +46,12 @@ cut between ranks has its prepared gradient summed into a buffer of the
 cut blocks over the leaf's shard axes (each value sent by the one rank
 that holds it) and updated by every rank that holds a part of it, so all
 of them end with the codes and scales of one device.
+
+``offload_optimizer`` (with int8 Adam only, as JAX asserts) keeps the int8
+state in pinned host memory, each rank its own share, and stages it through
+the card one segment at a time once every gradient exists
+(``adam8bit.Stager``): the backward's peak holds no moments, the update's
+holds two segments of them. The cut blocks still meet on the card.
 """
 
 from __future__ import annotations
@@ -232,10 +238,10 @@ class Optimizer:
     gradients' global norm."""
 
     def __init__(self, tc: TrainConfig, model: nn.Module, cfg: VLMConfig):
-        if tc.offload_optimizer:
-            raise NotImplementedError(
-                "offload_optimizer (int8 moments in host memory) is not "
-                "ported (ROADMAP Queue 1, 'Left out of the port')")
+        if tc.offload_optimizer and not tc.use_8bit_optimizer:
+            raise ValueError("offload_optimizer requires use_8bit_optimizer "
+                             "(the fp32 moment state has no per-leaf "
+                             "staging path)")
         self.tc, self.cfg = tc, cfg
         self.params = dict(model.named_parameters())
         self.placement = placement_of(model)
@@ -258,6 +264,9 @@ class Optimizer:
         if tc.use_8bit_optimizer and self.placement is not None:
             self.shards = _Int8Shards(self)
             self.placement.moments = self.shards
+        self.device = self._local(next(iter(self.params))).device
+        self.stager = adam8bit.Stager(self.device) \
+            if tc.offload_optimizer else None
 
     def _segments(self, names):
         """Runs of a leaf's layers updated together: a run ends where the
@@ -296,10 +305,12 @@ class Optimizer:
         state = {"count": 0, "lr_count": 0}
         zeros = {n: torch.zeros_like(self._local(n)) for n in self.params}
         if self.tc.use_8bit_optimizer:
+            host = self.stager is not None
             state["moments"] = {
-                k: adam8bit.zeros(self._state_size(k),
-                                  self.params[names[0]].device)
-                for k, names in self.groups.items()}
+                k: adam8bit.zeros(
+                    self._state_size(k), "cpu" if host else self.device,
+                    pin=host and self.device.type == "cuda")
+                for k in self.groups}
         else:
             state["mu"] = zeros
             state["nu"] = {n: torch.zeros_like(z) for n, z in zeros.items()}
@@ -375,31 +386,50 @@ class Optimizer:
                 finish(n, u)
             return
         adam = dict(b1=tc.beta1, b2=tc.beta2, eps=tc.eps, bc1=bc1, bc2=bc2)
+        # the segments in update order: (parameters, state views, the
+        # leaf's plan where its shard is not whole blocks, the plan whose
+        # peers' cut blocks meet first where it is)
+        jobs = []
         for key, names in self.groups.items():
             mom = state["moments"][key]
             plan = self.shards.plans.get(key) if self.shards else None
-            segs = [names] if plan is not None and plan.src is not None \
-                else self._segments(names)
-            if plan is not None and plan.src is None and plan.cut:
-                plan.meet(mom["m_scale"])  # its peers' cut blocks
+            if plan is not None and plan.src is not None:
+                jobs.append((names, mom, plan, None))
+                continue
             offset = 0
-            for seg in segs:
-                tr = [self.leaves[n].transposed for n in seg]
-                flat = torch.cat([_jax_layout(prepared(n), t).reshape(-1)
-                                  for n, t in zip(seg, tr)])
-                if plan is not None and plan.src is not None:
-                    out = plan.update(flat, mom, adam)
-                else:
-                    out = adam8bit.update(flat, mom, offset, **adam) \
-                        if flat.numel() else flat
-                offset += flat.numel()
-                at = 0
-                for n, t in zip(seg, tr):
-                    p = self._local(n)
-                    shape = _jax_layout(p, t).shape
-                    u = out[at:at + p.numel()].reshape(shape)
-                    at += p.numel()
-                    finish(n, _jax_layout(u, t))
+            for i, seg in enumerate(self._segments(names)):
+                n = sum(self._local(x).numel() for x in seg)
+                meet = plan if i == 0 and plan is not None and plan.cut \
+                    else None
+                jobs.append((seg, adam8bit.segment(mom, offset, n), None,
+                             meet))
+                offset += n
+
+        def run(i, st):
+            seg, _, plan, meet = jobs[i]
+            if meet is not None:  # a collective; this rank sends nothing
+                meet.meet(torch.empty(0, device=self.device))
+            tr = [self.leaves[n].transposed for n in seg]
+            flat = torch.cat([_jax_layout(prepared(n), t).reshape(-1)
+                              for n, t in zip(seg, tr)])
+            if plan is not None:
+                out = plan.update(flat, st, adam)
+            else:
+                out = adam8bit.update(flat, st, 0, **adam) \
+                    if flat.numel() else flat
+            at = 0
+            for n, t in zip(seg, tr):
+                p = self._local(n)
+                shape = _jax_layout(p, t).shape
+                u = out[at:at + p.numel()].reshape(shape)
+                at += p.numel()
+                finish(n, _jax_layout(u, t))
+
+        if self.stager is not None:
+            self.stager.run([j[1] for j in jobs], run)
+        else:
+            for i, job in enumerate(jobs):
+                run(i, job[1])
 
 
 class _LeafPlan:
@@ -453,12 +483,16 @@ def _jax_index(placement, name: str, p, leaf: JaxLeaf) -> torch.Tensor:
 
 def _gather_rows(ctx, t: torch.Tensor, axes) -> torch.Tensor:
     """Every rank's rows of ``t`` over the mesh axes, concatenated (each
-    rank may hold another number of them); over gloo through the host."""
+    rank may hold another number of them), on ``t``'s device: over gloo
+    through the host, over NCCL through the card (an offloaded state's
+    rows live on the host)."""
     import torch.distributed as dist
 
     dev = t.device
     if axes and dist.get_backend(ctx.group(axes[0])) == "gloo":
         t = t.cpu()
+    elif axes and dev.type == "cpu":
+        t = t.to(torch.device("cuda", torch.cuda.current_device()))
     for a in axes:
         n, group = ctx.size(a), ctx.group(a)
         count = torch.tensor([t.shape[0]], dtype=torch.int64,
@@ -513,7 +547,7 @@ class _Int8Shards:
                 src[~whole] = n + at[:, None] * B + torch.arange(B)
                 src.view(-1)[row * B + g % B] = torch.arange(n)
                 src = src.reshape(-1)
-            dev = local(ps[0]).device  # the indices live beside the state
+            dev = local(ps[0]).device  # the indices live beside the update
             self.plans[key] = _LeafPlan(
                 self.ctx, axes, numel, blocks.to(dev),
                 None if src is None else src.to(dev), cut.numel(),

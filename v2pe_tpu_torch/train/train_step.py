@@ -26,8 +26,11 @@ stage's decoder layers and the layers run GPipe-pipelined in
 ``pipe_microbatches`` microbatches (``parallel/pipeline.py``; 0 lets
 ``choose_microbatches`` pick); the loss and the gradients of everything
 outside the decoder layers come out the same on every pipe rank, and the
-denominator is not summed over ``pipe``. The offloaded optimizer raises
-``NotImplementedError``.
+denominator is not summed over ``pipe``. ``offload_optimizer=True``
+declares an optimizer built with ``TrainConfig(use_8bit_optimizer=True,
+offload_optimizer=True)``: its int8 moments live in host memory and pass
+through the card one segment at a time once the backward is done
+(``train/adam8bit.py:Stager``), and the step returns once they are back.
 
 ``lora=True`` trains LoRA adapters (``models/lora.py``) over a frozen base
 model, as the JAX step does: the forward runs on the merged weights of
@@ -91,8 +94,12 @@ def make_train_step(cfg: VLMConfig, optimizer: Optimizer, mesh=None,
     ``opt_state`` are updated in place, the base model is only read; on a
     mesh ``base`` is the placed view (``place_lora``)."""
     if offload_optimizer:
-        raise NotImplementedError("the offloaded optimizer (ROADMAP Queue 1, "
-                                  "'Left out of the port') is not ported")
+        if lora:  # JAX asserts it
+            raise ValueError("LoRA's optimizer state is rank-sized; "
+                             "offloading it is pointless")
+        if optimizer.stager is None:
+            raise ValueError("offload_optimizer takes an optimizer built "
+                             "with TrainConfig(offload_optimizer=True)")
     # unlike the JAX package off the TPU, 'fused' takes any remat mode: the
     # backward recomputes the fused forward like any other op
     ctx = None if mesh is None else pctx.ShardingContext.from_mesh(

@@ -120,8 +120,9 @@ def train(cfg: VLMConfig, model: nn.Module, packer: PackedSampleIterator,
     cuts the decoder into stages, one a rank, run in
     ``pipe_microbatches`` GPipe microbatches (``parallel/pipeline.py``).
     Under a process group the model is placed on the mesh here unless it
-    is already (``parallel/mesh.py:shard_model``). The offloaded optimizer raises
-    ``NotImplementedError``.
+    is already (``parallel/mesh.py:shard_model``). ``offload_optimizer``
+    turns int8 Adam on and keeps its moments in pinned host memory
+    (``train/adam8bit.py:Stager``); a resume restores them there.
 
     With ``use_backbone_lora`` / ``use_llm_lora`` > 0 (the ranks) the model
     stays frozen and only rank-r adapters train (``models/lora.py``,
