@@ -11,6 +11,9 @@ once on one CUDA card.
                                            # the flash tiles (backward and
                                            # forward)
     python3 chip_smoke.py --8b             # only the InternVL2.5-8B phases
+    python3 chip_smoke.py --families       # only the InternVL2-4B (Phi-3,
+                                           # head dim 96) and InternVL2-1B
+                                           # (Qwen2, G = 7) phases
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -179,10 +182,23 @@ speculative (K = 4), w8kv8 and w4kv4, and a 4-row engine; (d) two
 bench-recipe train steps with int8 Adam resident and two offloaded
 (moments in pinned host memory), equal to the bit; (e) one offloaded
 ``trainer.train`` step at the recipe's stage-2 row (34,000 tokens + 32
-tiles), an asynchronous checkpoint and a resume whose moments are pinned
-on the host again and whose step 2 equals the uninterrupted one. The kernel table gives each
-kernel's 8B main form under "8b". Then the card line, then the last line
-{"ok": true, "device": {...}}.
+tiles) on the 8B's widths at 4 of its 32 decoder layers, an asynchronous
+checkpoint and a resume whose moments are pinned on the host again and
+whose step 2 equals the uninterrupted one. Then, in a process of their
+own (``phase_families``; ``--families`` runs it alone), InternVL2-4B
+(Phi-3-mini: 32 / 32 heads of 96) and InternVL2-1B (Qwen2-0.5B: 14 / 2
+heads of 64, G = 7, q/k/v bias), each built from its hub config.json
+through ``vlm_config_from_hf`` with random bf16 weights at full width and
+depth: #1-#10 at the model's forms as the 8B's (its paged pools of 2
+layers), for Phi-3 also the neighbour forms (a kv head of 1000x the
+other's scale beside it at head dim 96: a pad column that entered a sum
+shows) and #11 at its heads over 4 ranks and 32,768 tokens; a small fp32
+model of Phi-3's head dim, card against CPU; the 8B's
+serving routes and engine; Phi-3's decoder forward through the fused
+ring under ``MeshConfig(seq=4)`` against the unsharded one; two bench
+recipe train steps with int8 Adam. The kernel table gives each kernel's
+main form of each model under "8b", "phi3" and "qwen2". Then the card
+line, then the last line {"ok": true, "device": {...}}.
 
 Imports neither jax nor the JAX package, nor PIL/transformers/tokenizers
 at module level: the pixels come from numpy and the text from a
@@ -593,12 +609,12 @@ SWEEP_FORMS = 40  # seeded random forms of the flash forward
 
 def sweep_form(rng, device):
     """(name, args, kwargs) of one random form of the flash forward: head
-    dim 64 or 128, GQA ratio 1, 2 or 4, lengths no tile divides, segments
-    cut at random (so they straddle tiles) with padding runs and, at times,
-    an all-padding batch row, positions in order, shifted (a query block at
-    the end of its keys) or permuted, causal or not, sometimes q (and k)
-    rotated in the kernel, bf16 or fp32."""
-    D, G = int(rng.choice([64, 128])), int(rng.choice([1, 2, 4]))
+    dim 64, 96 or 128, GQA ratio 1, 2, 4 or 7, lengths no tile divides,
+    segments cut at random (so they straddle tiles) with padding runs and,
+    at times, an all-padding batch row, positions in order, shifted (a query
+    block at the end of its keys) or permuted, causal or not, sometimes q
+    (and k) rotated in the kernel, bf16 or fp32."""
+    D, G = int(rng.choice([64, 96, 128])), int(rng.choice([1, 2, 4, 7]))
     Hkv, B = int(rng.integers(1, 3)), int(rng.integers(1, 3))
     Sq = int(rng.integers(1, 400))
     Sk = Sq if rng.random() < 0.5 else int(rng.integers(1, 500))
@@ -688,17 +704,17 @@ SESSION_CONTEXT = 34165  # tokens in the pool where the session decodes
 ENGINE_CONTEXT = 8192     # tokens of an engine row's prompt
 
 
-def _pool(L, NP, ps, kind: str, g, device):
+def _pool(L, NP, ps, kind: str, g, device, Hkv=LLM_HKV, D=LLM_HD):
     """A random pool of one kind: bf16 values; int8 codes with scales; or
     int4 codes as packed bytes (two nibbles each, half the int8 pool's
     bytes) with scales 18 times larger (amax / 7 against amax / 127)."""
-    shape = (L, LLM_HKV, NP, ps, LLM_HD)
+    shape = (L, Hkv, NP, ps, D)
     if kind == "bf16":
         k, v = (torch.randn(shape, generator=g, device=device,
                             dtype=torch.bfloat16) for _ in range(2))
         return dict(k_pages=k, v_pages=v)
     if kind == "int4":
-        shape = shape[:4] + (LLM_HD // 2,)
+        shape = shape[:4] + (D // 2,)
     k, v = (torch.randint(-127, 128, shape, generator=g, device=device,
                           dtype=torch.int8) for _ in range(2))
     ks, vs = (torch.rand(shape[:3] + (1, ps), generator=g, device=device)
@@ -972,7 +988,8 @@ def paged_roof(kernel: str, kw: dict) -> dict:
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     pool = kw["k_pages"]
-    Hkv, ps, D = pool.shape[1], pool.shape[3], LLM_HD
+    Hkv, ps = pool.shape[1], pool.shape[3]
+    D = (kw["k_new"] if kernel == "paged_store" else kw["q"]).shape[-1]
     quant = kw.get("k_scales") is not None
     # a slot's k and v: its stored bytes (D/2 for int4) and its scales
     slot = 2 * Hkv * (pool.shape[4] * pool.element_size()
@@ -1210,7 +1227,7 @@ def _sweep_pool(L, Hkv, NP, ps, D, kind, dtype, rng, device):
 
 def paged_sweep_form(rng, kernel: str, device, srng=None):
     """(name, kwargs, splits) of one random form of the paged decode or
-    prefill: page size 8-512, head dim 64 or 128, 1-8 rows of ragged
+    prefill: page size 8-512, head dim 64, 96 or 128, 1-8 rows of ragged
     lengths with some at 0 and some at 64 n + {0, 1, 63}, 1-4 kv heads of
     1-4 query heads, bf16 or fp32 queries over a pool of their dtype or of
     int8 / int4 codes, at times a dead entry inside a row's range; decode
@@ -1225,7 +1242,7 @@ def paged_sweep_form(rng, kernel: str, device, srng=None):
     times (T <= page size) the tables have no room left, so the longest
     row stores into its last entry, over slots the launch reads."""
     ps = int(rng.choice([8, 16, 48, 64, 128, 512]))
-    D, B = int(rng.choice([64, 128])), int(rng.integers(1, 9))
+    D, B = int(rng.choice([64, 96, 128])), int(rng.integers(1, 9))
     Hkv, G = int(rng.choice([1, 2, 4])), int(rng.integers(1, 5))
     dtype = [torch.bfloat16, torch.float32][int(rng.integers(2))]
     kind = ["same", "int8", "int4"][int(rng.integers(3))]
@@ -1335,13 +1352,20 @@ def phase_paged_sweep(device: str = "cuda") -> dict:
 
 class CodePointTokenizer:
     """Stand-in for the InternLM2 tokenizer, which cannot be downloaded:
-    each character is its code point + 3 (0-2 are unk/bos/eos, code points
-    from 92000 map to unk), and the chat and image special tokens, matched
-    first, take InternLM2's ids. Every id stays below the 92553 vocab."""
+    each character is its code point + 3 (0-2 are unk/bos/eos, ids from
+    LIMIT map to unk), and the chat and image special tokens, matched
+    first, take InternLM2's ids (92542-92546, LIMIT 92000) where the vocab
+    holds them; a smaller vocab (Phi-3's 32,020) puts them at its last ids
+    but one (vocab - 6 .. vocab - 2: the engine phases stop at vocab - 1)
+    and LIMIT just below them. Every id stays below the vocab."""
 
-    SPECIAL = {"<|im_end|>": 92542, "<|im_start|>": 92543, "<img>": 92544,
-               "</img>": 92545, "<IMG_CONTEXT>": 92546}
-    LIMIT = 92000
+    NAMES = ("<|im_end|>", "<|im_start|>", "<img>", "</img>",
+             "<IMG_CONTEXT>")
+
+    def __init__(self, vocab_size: int = 92553):
+        first = min(92542, vocab_size - 1 - len(self.NAMES))
+        self.SPECIAL = {n: first + i for i, n in enumerate(self.NAMES)}
+        self.LIMIT = min(92000, first)
 
     def convert_tokens_to_ids(self, token: str) -> int:
         return self.SPECIAL[token]
@@ -1579,9 +1603,9 @@ def _small_paged(model, cfg, dev: str, shards: int = 1):
         [x[0].cpu() for x in logits])
 
 
-def small_cfg(heads: int = 4, hidden: int = 256):
-    """The small fp32 references' model: 2 layers a tower, 2 kv heads of
-    64 (``heads`` query heads)."""
+def small_cfg(heads: int = 4, hidden: int = 256, kv_heads: int = 2):
+    """The small fp32 references' model: 2 layers a tower, ``kv_heads`` kv
+    heads of hidden / heads (64 by default; ``heads`` query heads)."""
     from v2pe_tpu_torch import config
 
     return config.VLMConfig(
@@ -1591,7 +1615,7 @@ def small_cfg(heads: int = 4, hidden: int = 256):
         llm=config.LLMConfig(vocab_size=1000, hidden_size=hidden,
                              intermediate_size=512, num_hidden_layers=2,
                              num_attention_heads=heads,
-                             num_key_value_heads=2),
+                             num_key_value_heads=kv_heads),
         rope_pos_id_stride=2)
 
 
@@ -1637,7 +1661,8 @@ def phase_small_reference(cfg=None, tag: str = "") -> None:
                                             for dev in ("cpu", "cuda"))
     err = (lg_cpu - lg_gpu).abs().max().item()
     same = torch.equal(tok_cpu, tok_gpu)
-    log(f"reference: small paged path fp32{tag} (page 16, hd 64), card vs "
+    log(f"reference: small paged path fp32{tag} (page 16, hd "
+        f"{cfg.llm.head_dim}), card vs "
         f"CPU tokens {tok_gpu.shape[1]} x 2 identical {same}, max|dlogit| "
         f"{err:.3e} over {lg_cpu.shape[0]} positions (tol 1e-4)")
     if not same or err > 1e-4:
@@ -2730,6 +2755,7 @@ class RecordingTokenizer(CodePointTokenizer):
     surrogate code point, which UTF-8 cannot write, decodes as U+FFFD."""
 
     def __init__(self):
+        super().__init__()
         self.ids_of = {}
 
     def decode(self, ids, skip_special_tokens: bool = True) -> str:
@@ -3093,6 +3119,41 @@ def sdpa_backward_ms(q, k, v, do, causal: bool, scale: float):
         out, leaves, do, retain_graph=True), iters=3)
 
 
+def packed_sdpa_backward_ms(q, k, v, do, seg, pos, scale: float):
+    """The library's backward over a packed row (B = 1): one
+    ``scaled_dot_product_attention`` with the explicit block-diagonal causal
+    mask of its segments and positions, the kv heads repeated to the query
+    heads beforehand; a padding row attends only itself there (the kernels
+    give it nothing), so that no row of the call is empty. Its forward's
+    time is printed; the backward's (dq, dk and dv in one call) returned.
+    Mask, copies and the forward run outside the timing."""
+    import torch.nn.functional as F
+
+    G = q.shape[2] // k.shape[2]
+    sq, pq = seg[0], pos[0]
+    mask = (sq[:, None] == sq[None]) & (pq[:, None] >= pq[None])
+    mask = torch.where((sq == 0)[:, None], torch.eye(
+        sq.numel(), dtype=torch.bool, device=q.device), mask & (sq != 0)[
+            :, None])
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (
+        q, k.repeat_interleave(G, 2), v.repeat_interleave(G, 2))]
+    try:
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             scale=scale)
+    except RuntimeError as e:  # the record only: nothing on the path calls it
+        log(f"    library call refused: {e}")
+        return None
+    with torch.no_grad():
+        fwd = library_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, scale=scale), iters=3)
+    bwd = library_ms(lambda: torch.autograd.grad(
+        out, leaves, do.transpose(1, 2), retain_graph=True), iters=3)
+    log(f"    scaled_dot_product_attention with the explicit block-diagonal "
+        f"causal mask: forward {'none' if fwd is None else f'{fwd:.3f} ms'},"
+        f" backward {'none' if bwd is None else f'{bwd:.3f} ms'}")
+    return bwd
+
+
 def phase_bwd_kernels(packed: dict, device: str = "cuda",
                       forms=None) -> dict:
     """dkv and dq against the twin at every backward form; out and lse come
@@ -3128,16 +3189,13 @@ def phase_bwd_kernels(packed: dict, device: str = "cuda",
                                             got[1], got[2]),
             "flash_bwd_dq": attention_roof(q, k, v, pairs, 3, do, lse, di,
                                            got[0])}
-        lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"]) \
-            if name.startswith(("vit_tiles", "interaction")) \
-            and device == "cuda" else None
-        if "llm_packed" in name and device == "cuda":
-            # a yardstick only: the library cannot mask segments, so it
-            # runs the whole row as one causal sequence (more pairs)
-            one = sdpa_backward_ms(q, k, v, do, True, kw["scale"])
-            log(f"    the backward of scaled_dot_product_attention on the "
-                f"same shapes as one causal sequence: "
-                f"{'none' if one is None else f'{one:.3f} ms'}")
+        lib = None
+        if device == "cuda" and name.startswith(("vit_tiles",
+                                                 "interaction")):
+            lib = sdpa_backward_ms(q, k, v, do, kw["causal"], kw["scale"])
+        elif device == "cuda" and "llm_packed" in name:
+            lib = packed_sdpa_backward_ms(q, k, v, do, seg_q, pos_q,
+                                          kw["scale"])
         log(f"kernel bwd {name}: {text}; dkv "
             f"{split['flash_bwd_dkv']:.3f} ms + dq "
             f"{split['flash_bwd_dq']:.3f} ms on the device, wrapper "
@@ -3288,12 +3346,12 @@ BWD_SWEEP_FORMS = 24  # seeded random forms of the flash backward
 
 def bwd_sweep_form(rng, device):
     """(name, args, kwargs) of one random form of the flash backward: head
-    dim 64 or 128, GQA ratio 1, 2 or 4; positions in order, or zigzag as the
-    ring cuts them (a rank's two chunks of 2 W chunks, or one of them, for
-    queries and keys of two ranks: Sq and Sk may differ); 1-3 segments cut
-    at random with a ragged padded tail, at times a batch row of padding;
-    causal or not; bf16 or fp32."""
-    D, G = int(rng.choice([64, 128])), int(rng.choice([1, 2, 4]))
+    dim 64, 96 or 128, GQA ratio 1, 2, 4 or 7; positions in order, or zigzag
+    as the ring cuts them (a rank's two chunks of 2 W chunks, or one of them,
+    for queries and keys of two ranks: Sq and Sk may differ); 1-3 segments
+    cut at random with a ragged padded tail, at times a batch row of
+    padding; causal or not; bf16 or fp32."""
+    D, G = int(rng.choice([64, 96, 128])), int(rng.choice([1, 2, 4, 7]))
     Hkv, B = int(rng.integers(1, 3)), int(rng.integers(1, 3))
     causal, dtype = bool(rng.integers(2)), \
         [torch.bfloat16, torch.float32][int(rng.integers(2))]
@@ -4434,6 +4492,19 @@ TWO_RANK_TOKENS, TWO_RANK_STEPS = 2048, 2  # a row a rank, one tile each
 TWO_RANK_VOCAB = 9257
 
 
+def fit_vocab(batch: dict, cfg) -> int:
+    """make_synthetic_batch's image tokens (92544-92546) moved, in place,
+    onto the vocab's last three ids where the vocab is smaller than
+    InternLM2's; returns the image context id the batch then holds."""
+    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID
+
+    shift = max(0, IMG_CONTEXT_ID - (cfg.llm.vocab_size - 1))
+    for k in ("input_ids", "targets"):
+        batch[k] = np.where(batch[k] >= IMG_CONTEXT_ID - 2,
+                            batch[k] - shift, batch[k])
+    return IMG_CONTEXT_ID - shift
+
+
 def two_rank_cfg(cfg):
     """InternVL2-2B's hidden widths at 2 layers a tower and a vocab of
     TWO_RANK_VOCAB."""
@@ -4462,16 +4533,13 @@ def two_rank_recipes(cfg, device, ctx=None) -> dict:
     from v2pe_tpu_torch.parallel.mesh import (place_lora, placement_of,
                                               shard_model)
     from v2pe_tpu_torch.train.optimizer import build_optimizer
-    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.synth import make_synthetic_batch
     from v2pe_tpu_torch.train.train_step import make_train_step
 
     mesh = config.MeshConfig(fsdp=2) if ctx is not None else None
     b = make_synthetic_batch(cfg, 2, TWO_RANK_TOKENS, tiles_per_row=1,
                              stride=64)
-    # the image tokens (92544-92546) onto the vocab's last three ids
-    shift = IMG_CONTEXT_ID - (cfg.llm.vocab_size - 1)
-    for k in ("input_ids", "targets"):
-        b[k] = np.where(b[k] >= IMG_CONTEXT_ID - 2, b[k] - shift, b[k])
+    img_id = fit_vocab(b, cfg)
     if ctx is not None:
         b = bootstrap.rows_of_global_batch(b, ctx.dp_index, ctx.dp_size,
                                            cfg.num_image_token)
@@ -4497,7 +4565,7 @@ def two_rank_recipes(cfg, device, ctx=None) -> dict:
             shard_model(model, rc, ctx)
         opt = build_optimizer(train_config(), trained, rc)
         step = make_train_step(rc, opt, mesh, lora=recipe == "lora",
-                               img_context_token_id=IMG_CONTEXT_ID - shift,
+                               img_context_token_id=img_id,
                                remat="full")
         state = opt.init()
         forward.train()
@@ -4752,21 +4820,18 @@ def fused_recipe(cfg, device, ctx=None, steps: int = 2) -> dict:
     from v2pe_tpu_torch.models.params import init_vlm_params
     from v2pe_tpu_torch.parallel import bootstrap
     from v2pe_tpu_torch.train.optimizer import build_optimizer
-    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.synth import make_synthetic_batch
     from v2pe_tpu_torch.train.train_step import make_train_step
 
     b = make_synthetic_batch(cfg, 2, TWO_RANK_TOKENS, tiles_per_row=1,
                              stride=64, seq_shards=FUSED_RANKS)
-    # the image tokens (92544-92546) onto the vocab's last three ids
-    shift = IMG_CONTEXT_ID - (cfg.llm.vocab_size - 1)
-    for k in ("input_ids", "targets"):
-        b[k] = np.where(b[k] >= IMG_CONTEXT_ID - 2, b[k] - shift, b[k])
+    img_id = fit_vocab(b, cfg)
     batch = bootstrap.make_global_batch(b, ctx, device)
     model = init_vlm_params(cfg, torch.Generator(device).manual_seed(0),
                             device=device, dtype=torch.float32, mesh=ctx)
     opt = build_optimizer(train_config(), model, cfg)
     step = make_train_step(cfg, opt, config.MeshConfig(seq=FUSED_RANKS),
-                           IMG_CONTEXT_ID - shift, remat="full",
+                           img_id, remat="full",
                            ring_mode="fused")
     state = opt.init()
     model.train()
@@ -5043,6 +5108,7 @@ def profile_train(model, cfg) -> None:
 
 RING_SHARDS = 4
 RING_EVAL_TOKENS, RING_EVAL_TILES = 32768, 32
+RING_EXACT_LAYERS = 4  # decoder layers of the long eval's fp32 check
 
 
 def _zigzag(x: torch.Tensor, world: int, axis: int = 1) -> torch.Tensor:
@@ -5053,7 +5119,7 @@ def _zigzag(x: torch.Tensor, world: int, axis: int = 1) -> torch.Tensor:
                       for r in range(world)], dim=axis).contiguous()
 
 
-def ring_forms(device):
+def ring_forms(device, lc=None, tag: str = ""):
     """(name, ranks, unsharded args, kwargs) of every form the fused ring
     forward is held at. Main: 4 ranks, causal, 32,768 tokens, 16/8 heads of
     128, bf16, three packed segments and a padded tail (the long eval's
@@ -5062,7 +5128,8 @@ def ring_forms(device):
     bidirectional form, batch 2 with shards that no 64-row tile divides and
     a batch row whose first shard is all padding, and one rank. The args
     are in global order with arange positions; the ring gets them
-    zigzag-permuted."""
+    zigzag-permuted. With a decoder's ``lc``: its main form alone, at its
+    heads, named after ``tag``."""
     g = torch.Generator(device="cpu").manual_seed(6)
 
     def form(name, world, B, S, Hq, Hkv, D, dtype, pad, causal=True):
@@ -5081,6 +5148,10 @@ def ring_forms(device):
             causal=causal, scale=D ** -0.5)
 
     bf16, f32 = torch.bfloat16, torch.float32
+    if lc is not None:
+        return [form(f"{tag}_ring4_zigzag_{RING_EVAL_TOKENS}_3seg_pad_bf16",
+                     RING_SHARDS, 1, RING_EVAL_TOKENS, lc.num_attention_heads,
+                     lc.num_key_value_heads, lc.head_dim, bf16, 200)]
     return [
         form("ring4_zigzag_32768_3seg_pad_bf16", RING_SHARDS,
              1, RING_EVAL_TOKENS, LLM_HQ, LLM_HKV, LLM_HD, bf16, 200),
@@ -5205,7 +5276,7 @@ def check_ring(world, zz, kw, out, lse):
             max(checks[0][1]))
 
 
-def phase_ring_kernel() -> dict:
+def phase_ring_kernel(forms=None) -> dict:
     """The fused ring forward against its plain version at every form, and
     against the flash forward kernel on the unsharded sequence (an
     independent check of the layout: zigzag_unshard of the ring's output is
@@ -5215,13 +5286,16 @@ def phase_ring_kernel() -> dict:
     ring's output and its launches (at most ranks x ranks flash launches,
     less the skipped pairs) against the fused ring's one, and the
     synchronising reads of the card each makes. Returns form records per
-    kernel."""
+    kernel. ``forms`` (those of ``ring_forms``): given, the first is the
+    main one, and neither the rectangles nor the scan ring run."""
     from v2pe_tpu_torch.ops import flash_fwd
     from v2pe_tpu_torch.parallel import ring, ring_fused
 
     records, rect_records = [], []
-    for name, world, args, kw in ring_forms(torch.device("cuda")):
-        main = name.startswith(f"ring4_zigzag_{RING_EVAL_TOKENS}")
+    main_name = forms[0][0] if forms else \
+        f"ring4_zigzag_{RING_EVAL_TOKENS}_3seg_pad_bf16"
+    for name, world, args, kw in forms or ring_forms(torch.device("cuda")):
+        main = name == main_name
         zz = [_zigzag(a, world) for a in args]
         dtype = args[0].dtype
         out, lse = ring_fused.fused_ring_fwd(world, *zz, **kw)
@@ -5263,7 +5337,7 @@ def phase_ring_kernel() -> dict:
                             main=main))
         if name.startswith("ring4_zigzag"):
             rect_records += ring_rectangles(name, world, zz, kw)["flash_fwd"]
-        if not main:
+        if not main or forms:
             continue
         statics = ring.RingStatics(kw["causal"], kw["scale"])
         reset_launches()
@@ -5566,7 +5640,10 @@ def phase_ring_eval(model, cfg) -> dict:
     top logits are closer than the paths. The exact check is the same
     eval with the same weights in fp32, where the kernels differ by
     summation order only: logits within LOGIT_TOL_FP32 of the unsharded
-    run's, every answer token identical, the same launches."""
+    run's, every answer token identical, the same launches. That fp32 check
+    runs on the first RING_EXACT_LAYERS decoder layers at full width and
+    all 32,768 tokens (on all 24 it took about 60 s of the script's
+    time)."""
     import copy
 
     from v2pe_tpu_torch.evalkit import mm_niah_long as niah
@@ -5575,7 +5652,7 @@ def phase_ring_eval(model, cfg) -> dict:
     ids, span, pos, pixels, gather = needle_prompt(
         cfg, RING_EVAL_TOKENS, RING_EVAL_TILES)
     flags = np.ones(RING_EVAL_TILES, np.int32)
-    L, Lv = cfg.llm.num_hidden_layers, cfg.vision.num_hidden_layers
+    Lv = cfg.vision.num_hidden_layers
     n_ans = span[1] - span[0]
     answer = slice(span[0] - 1, span[1] - 1)
     model.eval()
@@ -5591,7 +5668,14 @@ def phase_ring_eval(model, cfg) -> dict:
     for dtype, tol in ((torch.bfloat16, LOGIT_TOL),
                        (torch.float32, LOGIT_TOL_FP32)):
         exact = dtype == torch.float32
-        m = copy.deepcopy(model).float() if exact else model
+        m, mcfg = model, cfg
+        if exact:
+            m = copy.deepcopy(model)
+            m.llm.layers = m.llm.layers[:RING_EXACT_LAYERS]
+            m = m.float()
+            mcfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+                cfg.llm, num_hidden_layers=RING_EXACT_LAYERS))
+        L = mcfg.llm.num_hidden_layers
         kind = "fp32" if exact else "bf16"
         for tag, shards, mode in (("unsharded", 1, "scan"),
                                   ("scan", RING_SHARDS, "scan"),
@@ -5606,11 +5690,11 @@ def phase_ring_eval(model, cfg) -> dict:
             t0 = time.perf_counter()
             with pctx.use_sharding(ctx):
                 pred = niah.teacher_forced_eval(
-                    m, cfg, inputs, pixels, flags, 92546, vit_gather_idx=idx)
+                    m, mcfg, inputs, pixels, flags, 92546, vit_gather_idx=idx)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             counts = read_launches()
-            logits = eval_logits(m, cfg, inputs, pixels, flags, idx, ctx)
+            logits = eval_logits(m, mcfg, inputs, pixels, flags, idx, ctx)
             inv = torch.as_tensor(inputs["inverse_perm"]).cuda()
             finite = bool(torch.isfinite(logits).all())
             again = logits[inv[answer]].argmax(-1).cpu().numpy()
@@ -6586,24 +6670,66 @@ def e2e_samples(chat, cfg) -> dict:
     return res
 
 
-# ------------------------------------------------ InternVL2.5-8B (--8b)
+# ----------------- InternVL2.5-8B (--8b), InternVL2-4B and -1B (--families)
 
-EIGHT_B_NEW = 64       # new tokens of each 8B chat
+EIGHT_B_NEW = 64       # new tokens of each 8B (and decoder family) chat
 EIGHT_B_SPEC = 4       # speculative_k of the forced speculation: T = 5
-LLM8_L, LLM8_HQ = 32, 32  # InternLM2.5-7B's decoder: 32 / 8 heads of 128
 LONG_TOKENS, LONG_TILES = 34000, 32  # the 8B recipe's stage-2 row
+LONG_LAYERS = 4        # decoder layers of the 8B model the long phase trains
 EIGHT_B_TIMEOUT = 900  # seconds the 8B phases' process may take
+FAMILY_TIMEOUT = 600   # seconds the decoder families' process may take
+FAMILY_POOL_LAYERS = 2  # layers of the families' paged forms' pools
 ENGINE_QUESTIONS = [REQUESTS[2][1], "What is the capital of France?",
                     "Write a short poem about the sea."]
+# The published InternVL2 checkpoints whose decoders are the phi3 and qwen2
+# branches of the composite-LLM dispatch, as their hub config.json gives
+# them (OpenGVLab/InternVL2-4B and OpenGVLab/InternVL2-1B, llm_config and
+# the top level; the vision tower is InternViT-300M-448px's defaults), read
+# through vlm_config_from_hf. Phi-3's rope_scaling "su" (LongRoPE) is not
+# converted, as in the JAX package.
+FAMILY_HUB = {
+    "phi3": ("InternVL2-4B", {
+        "template": "phi3-chat", "downsample_ratio": 0.5,
+        "llm_config": {
+            "architectures": ["Phi3ForCausalLM"], "vocab_size": 32020,
+            "hidden_size": 3072, "intermediate_size": 8192,
+            "num_hidden_layers": 32, "num_attention_heads": 32,
+            "num_key_value_heads": 32, "rope_theta": 10000.0,
+            "rms_norm_eps": 1e-5, "max_position_embeddings": 131072,
+            "tie_word_embeddings": False, "bos_token_id": 1,
+            "eos_token_id": 32000, "pad_token_id": 32000,
+            "rope_scaling": {"type": "su", "long_factor": [1.0] * 48,
+                             "short_factor": [1.0] * 48}}}),
+    "qwen2": ("InternVL2-1B", {
+        "template": "Hermes-2", "downsample_ratio": 0.5,
+        "llm_config": {
+            "architectures": ["Qwen2ForCausalLM"], "vocab_size": 151655,
+            "hidden_size": 896, "intermediate_size": 4864,
+            "num_hidden_layers": 24, "num_attention_heads": 14,
+            "num_key_value_heads": 2, "rope_theta": 1000000.0,
+            "rms_norm_eps": 1e-6, "max_position_embeddings": 32768,
+            "tie_word_embeddings": True, "bos_token_id": 151643,
+            "eos_token_id": 151645}}),
+}
 
 
-def eight_b_flash_forms(device):
-    """The flash forward's and backward's forms at the 8B decoder's widths
-    (32 / 8 heads of 128, G = 4): the 8-tile request's dense prefill (2167
-    queries over 2199 slots), and the train step's packed 8192 tokens
-    (three segments and a padded tail, q rotated from V2PE ids at stride
-    1)."""
+def family_config(tag: str):
+    """(name, VLMConfig) of a decoder family, as its checkpoint's
+    config.json reaches the port."""
+    from v2pe_tpu_torch import config
+
+    name, hub = FAMILY_HUB[tag]
+    return name, config.vlm_config_from_hf(hub)
+
+
+def family_flash_forms(device, lc, tag: str):
+    """The flash forward's and backward's forms at a decoder's widths
+    (``lc``: heads, kv heads, head dim, rotary base): the 8-tile request's
+    dense prefill (2167 queries over 2199 slots), and the train step's
+    packed 8192 tokens (three segments and a padded tail, q rotated from
+    V2PE ids at stride 1)."""
     g = torch.Generator(device="cpu").manual_seed(40)
+    Hq, Hkv, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
 
     def randn(*shape):
         return torch.randn(*shape, generator=g).to(device=device,
@@ -6614,138 +6740,238 @@ def eight_b_flash_forms(device):
 
     Sq, Sk = PREFILL_ROWS, PREFILL_ROWS + MAX_NEW
     ones = torch.ones(1, Sq, dtype=torch.int32, device=device)
-    fwd = [(f"8b_dense_prefill_{Sq}x{Sk}_bf16", (
-        randn(1, Sq, LLM8_HQ, 128), randn(1, Sk, LLM_HKV, 128),
-        randn(1, Sk, LLM_HKV, 128), ones, (ar(Sk) < Sq).int(), ar(Sq),
-        ar(Sk)), dict(causal=True, scale=128 ** -0.5))]
+    fwd = [(f"{tag}_dense_prefill_{Sq}x{Sk}_bf16", (
+        randn(1, Sq, Hq, D), randn(1, Sk, Hkv, D), randn(1, Sk, Hkv, D),
+        ones, (ar(Sk) < Sq).int(), ar(Sq), ar(Sk)),
+        dict(causal=True, scale=D ** -0.5))]
     S = TRAIN_TOKENS
     lens = [3000, 3000, S - 6200, 200]
     seg = torch.tensor(np.repeat([1, 2, 3, 0], lens), dtype=torch.int32,
                        device=device)[None]
     pos = torch.tensor(np.concatenate([np.arange(n) for n in lens]),
                        dtype=torch.int32, device=device)[None]
-    bwd = [(f"8b_llm_packed_{S}_3seg_pad_qrope_bf16", (
-        randn(1, S, LLM8_HQ, 128), randn(1, S, LLM_HKV, 128),
-        randn(1, S, LLM_HKV, 128), seg, seg, pos, pos),
-        dict(causal=True, scale=128 ** -0.5, rope_q=pos.float(),
-             rope_theta=1e6))]
+    bwd = [(f"{tag}_llm_packed_{S}_3seg_pad_qrope_bf16", (
+        randn(1, S, Hq, D), randn(1, S, Hkv, D), randn(1, S, Hkv, D), seg,
+        seg, pos, pos),
+        dict(causal=True, scale=D ** -0.5, rope_q=pos.float(),
+             rope_theta=lc.rope_theta))]
     return fwd, bwd
 
 
-def eight_b_paged_forms(device):
-    """The paged kernels at the 8B decoder's forms over a 32-layer pool
-    (layer 31 read and written: a pool of 4.3 GB, whose last layer starts
-    past 2^31 bytes): one row of 32,767 tokens at page 128, its store, its
-    decode with one fresh token (4 query rows a kv head) and a 5-token
-    verify (20 rows a kv head: two row blocks), each storing in the launch
-    (a decode step's and a verify forward's form) and, in bf16, not; a
-    2048-token chunk over 32,768 cached slots at page 512; each in bf16,
-    int8 and int4."""
+def family_paged_forms(device, lc, tag: str, layers: int):
+    """The paged kernels at a decoder's forms over a pool of ``layers``
+    layers (the last read and written): one row of 32,767 tokens at page
+    128, its store, its decode with one fresh token (G query rows a kv
+    head) and a 5-token verify (5 G rows: at G = 4 two row blocks, at G = 7
+    three), each storing in the launch (a decode step's and a verify
+    forward's form) and, in bf16, not; a 2048-token chunk over 32,768
+    cached slots at page 512; each in bf16, int8 and int4."""
     from v2pe_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device=device).manual_seed(41)
+    Hq, Hkv, D = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
     forms, n = [], 32767
-    for tag in ("bf16", "int8", "int4"):
+    for kind in ("bf16", "int8", "int4"):
 
-        def q(B, T, H=LLM8_HQ):
-            return torch.randn((B, T, H, LLM_HD), generator=g, device=device,
+        def q(B, T, H=Hq):
+            return torch.randn((B, T, H, D), generator=g, device=device,
                                dtype=torch.bfloat16)
 
         table, NP = _rows([n], 128, 5, device)
         base = dict(page_table=table, lengths=torch.tensor(
-            [n], dtype=torch.int32, device=device), layer=LLM8_L - 1,
-            **_pool(LLM8_L, NP, 128, tag, g, device))
-        forms.append(("paged_store", f"8b_store_32k_ps128_{tag}",
+            [n], dtype=torch.int32, device=device), layer=layers - 1,
+            **_pool(layers, NP, 128, kind, g, device, Hkv, D))
+        forms.append(("paged_store", f"{tag}_store_32k_ps128_{kind}",
                       pa.store_fresh_token,
-                      dict(k_new=q(1, 1, LLM_HKV), v_new=q(1, 1, LLM_HKV),
-                           **base)))
+                      dict(k_new=q(1, 1, Hkv), v_new=q(1, 1, Hkv), **base)))
         for T in (1, 5):
-            for store in ((False, True) if tag == "bf16" or T == 1
+            for store in ((False, True) if kind == "bf16" or T == 1
                           else (True,)):
-                kw = dict(q=q(1, T), k_new=q(1, T, LLM_HKV),
-                          v_new=q(1, T, LLM_HKV), return_lse=True, **base)
+                kw = dict(q=q(1, T), k_new=q(1, T, Hkv), v_new=q(1, T, Hkv),
+                          return_lse=True, **base)
                 if T == 1:
                     kw["fresh_in_pages"] = True
                     if not store:
                         kw.update(k_new=None, v_new=None)
                 if store:
                     kw["store"] = True
-                forms.append(("paged_decode", f"8b_decode"
+                forms.append(("paged_decode", f"{tag}_decode"
                               f"{'_store' if store else ''}_32k_T{T}_ps128_"
-                              f"{tag}", pa.paged_decode_attention, kw))
+                              f"{kind}", pa.paged_decode_attention, kw))
+        del base
         table, NP = _rows([32768], 512, 2048, device)
-        forms.append(("paged_prefill", f"8b_prefill_2048_over_32k_ps512_{tag}",
+        forms.append(("paged_prefill",
+                      f"{tag}_prefill_2048_over_32k_ps512_{kind}",
                       pa.paged_prefill_attention,
                       dict(q=q(1, 2048), page_table=table,
                            lengths=torch.tensor([32768], dtype=torch.int32,
                                                 device=device),
-                           layer=LLM8_L - 1,
-                           **_pool(LLM8_L, NP, 512, tag, g, device))))
+                           layer=layers - 1,
+                           **_pool(layers, NP, 512, kind, g, device, Hkv,
+                                   D))))
     return forms
 
 
-def _is_main_8b_paged(name: str, tag: str) -> bool:
-    return name in (f"8b_store_32k_ps128_{tag}", f"8b_decode_32k_T1_ps128_{tag}",
-                    f"8b_prefill_2048_over_32k_ps512_{tag}")
+def family_main_paged(tag: str):
+    """is_main(name, pool kind) of a family's paged forms."""
+    return lambda name, kind: name in (
+        f"{tag}_store_32k_ps128_{kind}", f"{tag}_decode_32k_T1_ps128_{kind}",
+        f"{tag}_prefill_2048_over_32k_ps512_{kind}")
 
 
-def eight_b_quant_forms(cfg):
-    """The quantized products at the 8B's forms: the head (4096 x 92553,
-    padded to 92672) at M = 1, the stacked w1 (32, 4096, 14336) at M = 1
-    and at the 8-tile prompt's 2167 rows; int8 then int4, x bf16."""
+def family_quant_forms(cfg, tag: str):
+    """The quantized products at a model's forms: the head (D x vocab,
+    padded to a multiple of 128) at M = 1, the stacked w1 (L, D, I) at M =
+    1 and at the 8-tile prompt's 2167 rows; int8 then int4, x bf16."""
     lc, bf = cfg.llm, torch.bfloat16
     D, I, L = lc.hidden_size, lc.intermediate_size, lc.num_hidden_layers
     forms = []
     for bits, k2d, kst in ((8, "qdot", "qdot_stacked"),
                            (4, "q4dot", "q4dot_stacked")):
-        forms += [(k2d, "8b_head_M1_bf16", bits, (D, lc.vocab_size), 1, bf,
-                   torch.float32),
-                  (kst, "8b_w1_M1_bf16", bits, (L, D, I), 1, bf, bf),
-                  (kst, f"8b_w1_M{PREFILL_ROWS}_bf16", bits, (L, D, I),
+        forms += [(k2d, f"{tag}_head_M1_bf16", bits, (D, lc.vocab_size), 1,
+                   bf, torch.float32),
+                  (kst, f"{tag}_w1_M1_bf16", bits, (L, D, I), 1, bf, bf),
+                  (kst, f"{tag}_w1_M{PREFILL_ROWS}_bf16", bits, (L, D, I),
                    PREFILL_ROWS, bf, bf)]
     return forms
 
 
-def phase_8b_kernels(cfg) -> dict:
-    """(a) Rows 1-10 at the 8B's forms, each against its plain version as
+def phase_family_kernels(cfg, tag: str, pool_layers: int) -> dict:
+    """(a) Rows 1-10 at a model's forms, each against its plain version as
     phase 2 holds it (outputs poisoned with NaN where a kernel might leave
     one unwritten), with its time, bound and library time; per-kernel
-    lists of records whose main forms stand for the 8B in the table."""
+    lists of records whose main forms stand for the model in the table."""
     device = torch.device("cuda")
-    fwd, bwd = eight_b_flash_forms(device)
+    fwd, bwd = family_flash_forms(device, cfg.llm, tag)
     forms = {"flash_fwd": phase_kernels(None, None, fwd, fwd[0][0])}
     forms.update(phase_bwd_kernels(None, forms=bwd))
     del fwd, bwd
     torch.cuda.empty_cache()
-    for recs in (phase_paged_kernels(None, eight_b_paged_forms(device),
-                                     _is_main_8b_paged),
-                 phase_quant_kernels(cfg, forms=eight_b_quant_forms(cfg),
-                                     main=("8b_head_M1_bf16",
-                                           "8b_w1_M1_bf16"))):
+    for recs in (phase_paged_kernels(
+            None, family_paged_forms(device, cfg.llm, tag, pool_layers),
+            family_main_paged(tag)),
+            phase_quant_kernels(cfg, forms=family_quant_forms(cfg, tag),
+                                main=(f"{tag}_head_M1_bf16",
+                                      f"{tag}_w1_M1_bf16"))):
         forms.update(recs)
     return forms
 
 
-def phase_small_g4_reference() -> None:
-    """(b) A small fp32 model with G = 4 (8 / 2 heads of 64), card against
-    CPU: the packed forward and the paged path (a 6-token fold: 24 query
-    rows a kv head, two row blocks), then the engine plain and with
-    speculative_k = 4 (5-token verify forwards). The quantized products do
-    not see G: phase 2's small int8 reference and (a)'s 8B forms hold
-    them."""
+def phase_small_group_reference(heads: int, hidden: int, kv_heads: int,
+                                tag: str) -> None:
+    """(b) A small fp32 model of another head dim or group (at G = 4: 8 / 2
+    heads of 64, the paged path's 6-token fold 24 query rows a kv head, two
+    row blocks; Phi-3's head dim: 2 / 2 heads of 96), card against CPU: the packed forward and
+    the paged path, then the engine plain and with speculative_k = 4
+    (5-token verify forwards). The quantized products do not see the
+    heads: phase 2's small int8 reference and (a)'s forms hold them."""
     from v2pe_tpu_torch.models.params import init_vlm_params
 
-    cfg = small_cfg(heads=8, hidden=512)
-    phase_small_reference(cfg, " G = 4")
+    cfg = small_cfg(heads=heads, hidden=hidden, kv_heads=kv_heads)
+    phase_small_reference(cfg, tag)
     model = init_vlm_params(cfg, torch.Generator().manual_seed(5))
     tok = CodePointTokenizer()
     for k in (0, EIGHT_B_SPEC):
-        small_engine_check(model, cfg, tok, k, " G = 4")
+        small_engine_check(model, cfg, tok, k, tag)
 
 
-def init_8b(cfg):
-    """InternVL2.5-8B at full width and depth, random bf16 weights from
-    seed 0 on the card (the same bits at every call)."""
+NEIGHBOUR_SCALE = 1000.0  # the scaled head of the neighbour forms
+
+
+def _per_head_rel(got, want, dim: int) -> float:
+    """The largest over the heads (axis ``dim``) of max|got - want| /
+    max|want| within the head."""
+    d = (got.float() - want.float()).abs().movedim(dim, 0).flatten(1)
+    top = want.float().abs().movedim(dim, 0).flatten(1).amax(1)
+    return (d.amax(1) / top.clamp_min(1e-30)).max().item()
+
+
+def phase_neighbour(device: str = "cuda") -> dict:
+    """Head dim 96 stores 128 columns a row of a K/V (and, in the
+    backward, Q/dO) tile, and the second 64-column box of head h reads
+    head h + 1's first 32 columns: no product may sum over them. Here head
+    1 of two carries NEIGHBOUR_SCALE times head 0's k and v (the forwards)
+    or v and do (the backward, whose scores stay well conditioned), so a
+    pad column that entered a sum would move head 0's results by about
+    that factor. #1 and #2-#3 (bf16 and fp32, causal, 700 tokens) and #11
+    (4 ranks, 2048 tokens, bf16), each against its plain version on fp32
+    copies, errors relative to each head's own range: out and the
+    gradients within 2^-7, lse within 1e-3 (lse relative to max(1, |lse|)).
+    Returns form records per kernel."""
+    from v2pe_tpu_torch.ops import flash_bwd, flash_fwd
+    from v2pe_tpu_torch.parallel import ring_fused
+
+    g = torch.Generator(device="cpu").manual_seed(43)
+    records = {"flash_fwd": [], **{n: [] for n in BWD_KERNELS},
+               "ring_fused_fwd": []}
+    up = lambda ts: [t.float() if t.is_floating_point() else t for t in ts]
+
+    def heads(S, dt, scaled=True):
+        x = torch.randn(1, S, 2, 96, generator=g)
+        if scaled:
+            x[:, :, 1] *= NEIGHBOUR_SCALE
+        return x.to(device, dt)
+
+    def lse_rel(got, want):
+        return ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        S = 700
+        sg = torch.ones(1, S, dtype=torch.int32, device=device)
+        pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+        q = heads(S, dt, scaled=False)
+        args = (q, heads(S, dt), heads(S, dt), sg, sg, pos, pos)
+        kw = dict(causal=True, scale=96 ** -0.5)
+        with nan_empty():
+            out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+        want = flash_fwd.flash_attention_fwd_torch(*up(args), **kw)
+        e_fwd = (_per_head_rel(out, want[0], 2), lse_rel(lse, want[1]))
+        args = (q, heads(S, dt, scaled=False), heads(S, dt), sg, sg, pos,
+                pos)
+        out, lse = flash_fwd.flash_attention_fwd(*args, **kw)
+        full = (*args, out, lse, heads(S, dt))
+        with nan_empty():
+            got = flash_bwd.flash_attention_bwd(*full, **kw)
+        want = flash_bwd.flash_attention_bwd_torch(*up(full), **kw)
+        e_bwd = [_per_head_rel(a, b, 2) for a, b in zip(got, want)]
+        name = f"neighbour_{S}_2x96_head1_x{NEIGHBOUR_SCALE:g}_{tag}"
+        log(f"kernel {name}: per head max|out-plain|/max|plain| "
+            f"{e_fwd[0]:.3e}, lse {e_fwd[1]:.3e}; backward dq {e_bwd[0]:.3e}"
+            f" dk {e_bwd[1]:.3e} dv {e_bwd[2]:.3e} (tol {2.0 ** -7:.3e}, lse"
+            f" 1e-3)")
+        if not (max(e_fwd[0], *e_bwd) <= 2.0 ** -7 and e_fwd[1] <= 1e-3):
+            raise AssertionError(f"a head-dim-96 pad column entered a sum "
+                                 f"at {name}")
+        records["flash_fwd"].append(dict(form=name, max_abs_err=e_fwd[0],
+                                         main=False))
+        for n in BWD_KERNELS:
+            records[n].append(dict(form=name, max_abs_err=max(e_bwd),
+                                   main=False))
+    S, world = 2048, RING_SHARDS
+    sg = torch.ones(1, S, dtype=torch.int32, device=device)
+    pos = torch.arange(S, dtype=torch.int32, device=device)[None]
+    zz = [_zigzag(a, world) for a in (
+        heads(S, torch.bfloat16, scaled=False), heads(S, torch.bfloat16),
+        heads(S, torch.bfloat16), sg, sg, pos, pos)]
+    kw = dict(causal=True, scale=96 ** -0.5)
+    with nan_empty():
+        out, lse = ring_fused.fused_ring_fwd(world, *zz, **kw)
+    want = ring_fused.fused_ring_fwd_torch(world, *up(zz), **kw)
+    e = (_per_head_rel(out, want[0], 2), lse_rel(lse, want[1]))
+    name = f"neighbour_ring{world}_{S}_2x96_head1_x{NEIGHBOUR_SCALE:g}_bf16"
+    log(f"kernel ring_fused_fwd {name}: per head max|out-plain|/max|plain| "
+        f"{e[0]:.3e}, lse {e[1]:.3e} (tol {2.0 ** -7:.3e}, 1e-3)")
+    if not (e[0] <= 2.0 ** -7 and e[1] <= 1e-3):
+        raise AssertionError(f"a head-dim-96 pad column entered a sum at "
+                             f"{name}")
+    records["ring_fused_fwd"].append(dict(form=name, max_abs_err=e[0],
+                                          main=False))
+    return records
+
+
+def init_family(cfg, name: str):
+    """A model at full width and depth, random bf16 weights from seed 0 on
+    the card (the same bits at every call)."""
     from v2pe_tpu_torch.models.params import init_vlm_params
 
     torch.cuda.synchronize()
@@ -6754,14 +6980,13 @@ def init_8b(cfg):
                             device="cuda", dtype=torch.bfloat16)
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
-    log(f"8b: InternVL2.5-8B, {n / 1e9:.3f}B params bf16 "
-        f"({n * 2 / 2 ** 30:.2f} GiB), random init in "
-        f"{time.perf_counter() - t0:.2f}s")
+    log(f"{name}: {n / 1e9:.3f}B params bf16 ({n * 2 / 2 ** 30:.2f} GiB), "
+        f"random init in {time.perf_counter() - t0:.2f}s")
     return model
 
 
-def _chat_route(name, chat, cfg, pixels, question, gen, **kw) -> tuple:
-    """One 8B chat route: ``chat.chat`` once (the entry point, launches
+def _chat_route(tag, name, chat, cfg, pixels, question, gen, **kw) -> tuple:
+    """One chat route: ``chat.chat`` once (the entry point, launches
     counted), then TTFT and decode rate of the same request through
     ``time_request``: (counts, greedy tokens)."""
     torch.cuda.synchronize()
@@ -6774,28 +6999,28 @@ def _chat_route(name, chat, cfg, pixels, question, gen, **kw) -> tuple:
     ttft, total, rate, tokens = time_request(chat, cfg, ids, pos, pixels,
                                              gen, **kw)
     ours = {k: v for k, v in counts.items() if v}
-    log(f"8b serve ({name}): prompt {len(ids)} tokens ({len(pixels)} tiles), "
-        f"chat {wall:.2f}s for {len(answer)} chars; TTFT {ttft * 1e3:.1f} "
-        f"ms, {len(tokens)} tokens in {total * 1e3:.1f} ms, decode "
-        f"{rate:.1f} tok/s; kernel launches of the chat call {ours} = "
-        f"{sum(ours.values()) / max(len(tokens), 1):.1f} a generated token "
-        f"({card_line()})")
+    log(f"{tag} serve ({name}): prompt {len(ids)} tokens ({len(pixels)} "
+        f"tiles), chat {wall:.2f}s for {len(answer)} chars; TTFT "
+        f"{ttft * 1e3:.1f} ms, {len(tokens)} tokens in {total * 1e3:.1f} ms,"
+        f" decode {rate:.1f} tok/s; kernel launches of the chat call {ours}"
+        f" = {sum(ours.values()) / max(len(tokens), 1):.1f} a generated "
+        f"token ({card_line()})")
     if len(tokens) != gen.max_new_tokens or not answer:
-        raise AssertionError(f"8b serve ({name}): {len(tokens)} tokens")
+        raise AssertionError(f"{tag} serve ({name}): {len(tokens)} tokens")
     return counts, tokens
 
 
-def phase_8b_serve(model, cfg, tok) -> list:
-    """(c) InternVL2.5-8B serves the 8-tile request with 64 new tokens
-    through ChatModel.chat: dense, paged (page 128, the riding store),
-    paged with speculative_k = 4 (every verify forward 5 tokens), int8
-    weights over an int8 pool and int4 over int4; then a 4-row engine (the
-    8-tile chat and three text chats). The bf16 routes' tokens against the
-    dense route's by the near-tie rule (where they first differ, the dense
-    path's logits teacher-forced on the common prefix put the other token
-    within LOGIT_TOL of the best); the quantized routes' share of equal
-    tokens and their first logits against bf16 are printed. Returns the
-    launch counts of each route."""
+def phase_family_serve(model, cfg, tok, tag: str) -> list:
+    """(c) The model serves the 8-tile request with 64 new tokens through
+    ChatModel.chat: dense, paged (page 128, the riding store), paged with
+    speculative_k = 4 (every verify forward 5 tokens), int8 weights over an
+    int8 pool and int4 over int4; then a 4-row engine (the 8-tile chat and
+    three text chats). The bf16 routes' tokens against the dense route's by
+    the near-tie rule (where they first differ, the dense path's logits
+    teacher-forced on the common prefix put the other token within
+    LOGIT_TOL of the best); the quantized routes' share of equal tokens and
+    their first logits against bf16 are printed. Returns the launch counts
+    of each route."""
     from v2pe_tpu_torch.infer.chat import ChatModel
     from v2pe_tpu_torch.infer.generate import GenerationConfig
     from v2pe_tpu_torch.serve.engine import InferenceEngine
@@ -6815,24 +7040,24 @@ def phase_8b_serve(model, cfg, tok) -> list:
             ("dense", dense, gen, {}),
             ("paged", paged, gen, dict(cache_mode="paged")),
             ("speculative", paged, spec, dict(cache_mode="paged"))):
-        counts, tokens[name] = _chat_route(name, chat, cfg, pixels, question,
-                                           g, **kw)
+        counts, tokens[name] = _chat_route(tag, name, chat, cfg, pixels,
+                                           question, g, **kw)
         paths.append(counts)
-    require(paths[1], ("flash_fwd",), "8b serve (paged)")
-    require_riding_store(paths[1], "8b serve (paged)")
-    require_riding_store(paths[2], "8b serve (speculative)")
+    require(paths[1], ("flash_fwd",), f"{tag} serve (paged)")
+    require_riding_store(paths[1], f"{tag} serve (paged)")
+    require_riding_store(paths[2], f"{tag} serve (speculative)")
     for name in ("paged", "speculative"):
         a, b = tokens["dense"].tolist(), tokens[name].tolist()
         if a == b:
-            log(f"8b serve ({name}): {len(b)} tokens equal to dense")
+            log(f"{tag} serve ({name}): {len(b)} tokens equal to dense")
             continue
         p, gap, top = tie_gap(dense, cfg, ids, pos, pixels, a, b, stop)
-        log(f"8b serve ({name}): tokens first differ from dense at {p} of "
-            f"{len(a)}; the dense logit gap to its token {gap:.3f} of max "
+        log(f"{tag} serve ({name}): tokens first differ from dense at {p} "
+            f"of {len(a)}; the dense logit gap to its token {gap:.3f} of max "
             f"|logit| {top:.3f} (limit {LOGIT_TOL} of it)")
         if gap > LOGIT_TOL * top:
-            raise AssertionError(f"8b serve ({name}): a token beyond a near "
-                                 f"tie of the dense route's")
+            raise AssertionError(f"{tag} serve ({name}): a token beyond a "
+                                 f"near tie of the dense route's")
     bf16 = first_logits(dense, cfg, ids, pos, pixels, tokens["dense"],
                         "dense", steps=1)
     for name, kind, kernels in (("w8kv8", "int8", ("qdot", "qdot_stacked")),
@@ -6841,16 +7066,16 @@ def phase_8b_serve(model, cfg, tok) -> list:
         quant = ChatModel(model, cfg, tok, cache_mode="paged", kv_dtype=kind,
                           weights_dtype=kind)
         counts, tokens[name] = _chat_route(
-            name, quant, cfg, pixels, question, gen, cache_mode="paged",
+            tag, name, quant, cfg, pixels, question, gen, cache_mode="paged",
             kv_dtype=kind)
-        require(counts, kernels + ("paged_decode",), f"8b {name}")
-        require_riding_store(counts, f"8b {name}")
+        require(counts, kernels + ("paged_decode",), f"{tag} {name}")
+        require_riding_store(counts, f"{tag} {name}")
         paths.append(counts)
         first = first_logits(quant, cfg, ids, pos, pixels, tokens["dense"],
                              "paged", kind, steps=1)
         same = int((tokens[name] == tokens["dense"]).sum())
-        log(f"8b serve ({name}): {same}/{EIGHT_B_NEW} tokens equal to bf16 "
-            f"dense; first logits max|dlogit|/max|logit| "
+        log(f"{tag} serve ({name}): {same}/{EIGHT_B_NEW} tokens equal to "
+            f"bf16 dense; first logits max|dlogit|/max|logit| "
             f"{_rel(first, bf16):.3e} against bf16 (the quantization, "
             f"reported)")
         del quant, first
@@ -6867,23 +7092,24 @@ def phase_8b_serve(model, cfg, tok) -> list:
     counts = read_launches()
     wall = time.perf_counter() - t0
     made = sum(len(r.tokens) for r in reqs)
-    log(f"8b engine (4 rows, page 128, chunks of 2048): 4 requests in "
+    log(f"{tag} engine (4 rows, page 128, chunks of 2048): 4 requests in "
         f"{wall:.2f}s, {made} tokens = {made / wall:.1f} generated tok/s; "
         f"stats {dict(eng.stats)}; launches {counts} ({card_line()})")
-    require(counts, ("flash_fwd", "paged_decode"), "8b engine")
-    require_riding_store(counts, "8b engine")
+    require(counts, ("flash_fwd", "paged_decode", "paged_prefill"),
+            f"{tag} engine")
+    require_riding_store(counts, f"{tag} engine")
     if [len(r.tokens) for r in reqs] != [EIGHT_B_NEW] * 4:
-        raise AssertionError("8b engine: a request ended short")
+        raise AssertionError(f"{tag} engine: a request ended short")
     a, b = tokens["dense"].tolist(), list(reqs[0].tokens)
     if a != b:
         p, gap, top = tie_gap(dense, cfg, ids, pos, pixels, a, b, stop)
-        log(f"8b engine: the 8-tile request first differs from dense at "
+        log(f"{tag} engine: the 8-tile request first differs from dense at "
             f"{p}; dense logit gap {gap:.3f} of {top:.3f} (limit "
             f"{LOGIT_TOL} of it)")
         if gap > LOGIT_TOL * top:
-            raise AssertionError("8b engine: a token beyond a near tie")
+            raise AssertionError(f"{tag} engine: a token beyond a near tie")
     else:
-        log("8b engine: the 8-tile request's tokens equal dense")
+        log(f"{tag} engine: the 8-tile request's tokens equal dense")
     paths.append(counts)
     return paths
 
@@ -6940,35 +7166,38 @@ def _where_moments(state) -> tuple:
     return ("pinned host" if pinned else "host" if host else "card"), held
 
 
-def phase_8b_train(cfg) -> list:
-    """(d) The 8B's train step at the bench recipe's shape (8192 tokens + 8
-    tiles, remat full, lr 1e-5, warmup 1): two steps with int8 Adam
-    resident on the card, then two offloaded (the moments in pinned host
-    memory), each from seed 0's weights on the same batch. Losses, grad
-    norms, parameters and moments equal to the bit (digests); each run's
-    peak, step ms, and the offloaded steps' copies. Returns the launch
-    counts of both runs."""
+def phase_family_train(cfg, tag: str, model_name: str,
+                       offloads=(False, True)) -> list:
+    """(d) A model's train step at the bench recipe's shape (8192 tokens +
+    8 tiles, remat full, lr 1e-5, warmup 1): two steps with int8 Adam
+    resident on the card and, with True in ``offloads``, two offloaded (the
+    moments in pinned host memory), each from seed 0's weights on the same
+    batch (its image tokens moved into a smaller vocab: fit_vocab). Both
+    runs: losses, grad norms, parameters and moments equal to the bit
+    (digests). Each run's peak, step ms, and the offloaded steps' copies.
+    Returns the launch counts of the runs."""
     from v2pe_tpu_torch.train.optimizer import build_optimizer
-    from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
+    from v2pe_tpu_torch.train.synth import make_synthetic_batch
     from v2pe_tpu_torch.train.train_step import make_train_step
 
     batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
                                  tiles_per_row=TRAIN_TILES, stride=64)
+    img_id = fit_vocab(batch, cfg)
     batch = {k: torch.as_tensor(v).to("cuda") for k, v in batch.items()}
     runs, paths = {}, []
-    for offload in (False, True):
+    for offload in offloads:
         name = "offloaded" if offload else "resident"
-        model = init_8b(cfg)
+        model = init_family(cfg, model_name)
         model.train()
         tc = dataclasses.replace(train_config(), offload_optimizer=offload)
         t0 = time.perf_counter()
         opt = build_optimizer(tc, model, cfg)
         state = opt.init()
         where, held = _where_moments(state)
-        log(f"8b train ({name}): int8 Adam state {held / 2 ** 30:.2f} GiB "
-            f"in {where} memory, made in {time.perf_counter() - t0:.2f}s "
-            f"(host memory {host_gib():.1f} GiB)")
-        step = make_train_step(cfg, opt, img_context_token_id=IMG_CONTEXT_ID,
+        log(f"{tag} train ({name}): int8 Adam state {held / 2 ** 30:.2f} "
+            f"GiB in {where} memory, made in {time.perf_counter() - t0:.2f}s"
+            f" (host memory {host_gib():.1f} GiB)")
+        step = make_train_step(cfg, opt, img_context_token_id=img_id,
                                remat="full", offload_optimizer=offload)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -6989,32 +7218,34 @@ def phase_8b_train(cfg) -> list:
                           f"({2 * opt.stager.moved / (up + down) / 1e6:.1f}"
                           f" GB/s)")
             steps.append((loss, gnorm, ms))
-            log(f"8b train ({name}) step {i + 1}: loss {loss!r} grad_norm "
-                f"{gnorm!r} {ms:.1f} ms{copies}")
+            log(f"{tag} train ({name}) step {i + 1}: loss {loss!r} "
+                f"grad_norm {gnorm!r} {ms:.1f} ms{copies}")
         counts = read_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         runs[name] = dict(steps=steps, digests=state_digests(model, state),
                           peak=peak)
-        log(f"8b train ({name}): peak {peak:.2f} GiB allocated; digests "
+        log(f"{tag} train ({name}): peak {peak:.2f} GiB allocated; digests "
             f"{runs[name]['digests']}; launches {counts} ({card_line()})")
         check_train_steps(cfg, [dict(loss=s[0], grad_norm=s[1], launches={
             k: v // 2 for k, v in counts.items()}) for s in steps], 2,
-            f"8b train ({name})")
+            f"{tag} train ({name})")
         paths.append(counts)
         del model, opt, state, step
         collect()
+    if len(runs) < 2:
+        return paths
     a, b = runs["resident"], runs["offloaded"]
     same = [x[:2] for x in a["steps"]] == [x[:2] for x in b["steps"]] \
         and a["digests"] == b["digests"]
-    log(f"8b train: offloaded against resident: losses and grad norms "
+    log(f"{tag} train: offloaded against resident: losses and grad norms "
         f"equal {[x[:2] for x in a['steps']] == [x[:2] for x in b['steps']]}"
         f", parameters and moments equal to the bit {same}; peak "
         f"{b['peak']:.2f} against {a['peak']:.2f} GiB "
         f"({a['peak'] - b['peak']:.2f} less); step 2 {b['steps'][1][2]:.1f} "
         f"against {a['steps'][1][2]:.1f} ms")
     if not same:
-        raise AssertionError("8b train: the offloaded run differs from the "
-                             "resident one")
+        raise AssertionError(f"{tag} train: the offloaded run differs from "
+                             f"the resident one")
     return paths
 
 
@@ -7042,7 +7273,10 @@ def phase_8b_long(cfg) -> list:
     (moments pinned on the host again, parameters and moments equal to
     step 1's) and takes step 2 again: loss, grad norm, parameters and
     moments equal to the uninterrupted step's. Step 2 takes the bench
-    recipe's 8192-token batch both times (a 34k step is about 20 s).
+    recipe's 8192-token batch both times. The model keeps the 8B's widths
+    on LONG_LAYERS of its 32 decoder layers, so that its checkpoint's save
+    and load (30.3 GiB and about 95 s for the whole model) fit the script's
+    time.
     Returns the launch counts of the trainer's step and of the two steps
     2."""
     import tempfile
@@ -7053,7 +7287,10 @@ def phase_8b_long(cfg) -> list:
     from v2pe_tpu_torch.train.train_step import make_train_step
     from v2pe_tpu_torch.train.trainer import RunConfig, train
 
-    model = init_8b(cfg)
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=LONG_LAYERS))
+    model = init_family(cfg, f"InternVL2.5-8B on {LONG_LAYERS} of its 32 "
+                             f"decoder layers")
     model.train()
     tc = dataclasses.replace(train_config(), offload_optimizer=True)
     batch = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
@@ -7132,80 +7369,199 @@ def eight_b_phases() -> dict:
     """(a)-(e) in order: kernel forms, the small G = 4 reference, then
     InternVL2.5-8B serving, its train step resident and offloaded, and its
     long offloaded trainer step with a checkpoint and resume. Returns the
-    kernel records by kernel and the launch counts of every driven path."""
+    kernel records by kernel (marked as the 8B's: mark_forms) and the
+    launch counts of every driven path."""
     from v2pe_tpu_torch import config
 
     seconds, t0 = {}, time.perf_counter()
-    cfg = config.internvl2_5_8b()
-    forms = phase_8b_kernels(cfg)
+    name, cfg = "InternVL2.5-8B", config.internvl2_5_8b()
+    forms = mark_forms(phase_family_kernels(cfg, "8b",
+                                            cfg.llm.num_hidden_layers), "8b")
     seconds["kernels"] = time.perf_counter() - t0
-    phase_small_g4_reference()
+    phase_small_group_reference(8, 512, 2, " G = 4")
     seconds["g4 reference"] = time.perf_counter() - t0 - sum(seconds.values())
-    model = init_8b(cfg)
-    paths = phase_8b_serve(model, cfg, CodePointTokenizer())
+    model = init_family(cfg, name)
+    paths = phase_family_serve(model, cfg, CodePointTokenizer(), "8b")
     del model
     collect()
     seconds["serve"] = time.perf_counter() - t0 - sum(seconds.values())
-    paths += phase_8b_train(cfg)
+    paths += phase_family_train(cfg, "8b", name)
     seconds["train"] = time.perf_counter() - t0 - sum(seconds.values())
     paths += phase_8b_long(cfg)
     seconds["long"] = time.perf_counter() - t0 - sum(seconds.values())
     log(f"8b seconds: { {k: round(v, 1) for k, v in seconds.items()} }, "
         f"{time.perf_counter() - t0:.1f} in all")
+    return dict(forms=forms, paths={"8b": paths})
+
+
+def phase_family_ring(model, cfg, tag: str) -> dict:
+    """One forward of the model's loss over the bench recipe's 8192 tokens
+    + 8 tiles under ``MeshConfig(seq=4)`` with the fused ring (the batch
+    zigzag-permuted; #11 once a decoder layer), held against the unsharded
+    forward on the same batch in global order: the loss within
+    RING_TRAIN_TOL. Returns the ring forward's launches."""
+    from v2pe_tpu_torch import config
+    from v2pe_tpu_torch.parallel import context as pctx
+    from v2pe_tpu_torch.train.synth import make_synthetic_batch
+    from v2pe_tpu_torch.train.train_step import loss_fn
+
+    losses, counts = [], None
+    for shards in (RING_SHARDS, 1):
+        b = make_synthetic_batch(cfg, 1, TRAIN_TOKENS,
+                                 tiles_per_row=TRAIN_TILES, stride=64,
+                                 seq_shards=shards)
+        img_id = fit_vocab(b, cfg)
+        batch = {k: torch.as_tensor(v).to("cuda") for k, v in b.items()}
+        ctx = pctx.ShardingContext.from_mesh(config.MeshConfig(seq=shards),
+                                             ring_mode="fused") \
+            if shards > 1 else None
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad(), pctx.use_sharding(ctx):
+            losses.append(loss_fn(model, cfg, batch, img_id,
+                                  remat=False).item())
+        ms = (time.perf_counter() - t0) * 1e3
+        if shards > 1:
+            counts = read_launches()
+        how = "seq=4 fused" if shards > 1 else "unsharded"
+        log(f"{tag} ring forward ({how}): loss {losses[-1]:.5f}, {ms:.1f} "
+            f"ms; launches "
+            f"{ {k: v for k, v in read_launches().items() if v} }")
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    want = cfg.llm.num_hidden_layers
+    log(f"{tag} ring forward: seq=4 fused against unsharded loss rel "
+        f"{rel:.2e} (tol {RING_TRAIN_TOL['loss']}); #11 launched "
+        f"{counts['ring_fused_fwd']} times (one a decoder layer: {want})")
+    if not (np.isfinite(losses).all() and rel <= RING_TRAIN_TOL["loss"]
+            and counts["ring_fused_fwd"] == want):
+        raise AssertionError(f"{tag} ring forward disagrees with the "
+                             f"unsharded one, or #11 ran not once a layer")
+    return counts
+
+
+FAMILY_SMALL = {"phi3": (2, 192, 2)}  # small_cfg's (heads, hidden, kv
+# heads) of the small reference at Phi-3's head dim (G = 7 is the 8B's G = 4
+# reference's path with more row blocks, which Qwen2's serving routes, equal
+# to dense, and its kernel forms already hold)
+
+
+def family_phases() -> dict:
+    """For InternVL2-4B (phi3: 32 / 32 heads of 96) and InternVL2-1B
+    (qwen2: 14 / 2 heads of 64, G = 7), each at full width and depth: (a)
+    kernels #1-#10 at the model's forms (the paged forms over a pool of
+    FAMILY_POOL_LAYERS layers) and, for Phi-3, the head-dim-96 neighbour
+    forms and #11 at its heads; (b) for Phi-3, a small fp32 model of its
+    head dim, card against CPU (FAMILY_SMALL); (c) serving as the 8B serves (the
+    code-point tokenizer at the model's vocab); Phi-3's fused-ring forward
+    of its decoder; (d) two bench-recipe train steps with int8 Adam on the
+    card. Returns the kernel records by kernel (each marked as its
+    family's) and the launch counts of the driven paths by family."""
+    forms, paths, seconds = {}, {}, {}
+    for tag in FAMILY_HUB:
+        t0 = time.perf_counter()
+        name, cfg = family_config(tag)
+        lc = cfg.llm
+        log(f"{tag}: {name} from its config.json: {lc.arch}, D "
+            f"{lc.hidden_size}, {lc.num_hidden_layers} layers, "
+            f"{lc.num_attention_heads} / {lc.num_key_value_heads} heads of "
+            f"{lc.head_dim}, qkv bias {lc.qkv_bias}, vocab {lc.vocab_size}, "
+            f"theta {lc.rope_theta:g}, rope mode {lc.rope_mode}, template "
+            f"{cfg.template}")
+        recs = phase_family_kernels(cfg, tag, FAMILY_POOL_LAYERS)
+        if lc.head_dim == 96:
+            for more in (phase_neighbour(), phase_ring_kernel(
+                    ring_forms(torch.device("cuda"), lc, tag))):
+                for k, v in more.items():
+                    recs.setdefault(k, []).extend(v)
+        for k, v in mark_forms(recs, tag).items():
+            forms.setdefault(k, []).extend(v)
+        if tag in FAMILY_SMALL:
+            phase_small_group_reference(*FAMILY_SMALL[tag], f" {tag}")
+        model = init_family(cfg, name)
+        p = phase_family_serve(model, cfg,
+                               CodePointTokenizer(lc.vocab_size), tag)
+        if lc.head_dim == 96:
+            p.append(phase_family_ring(model, cfg, tag))
+        del model
+        collect()
+        p += phase_family_train(cfg, tag, name, offloads=(False,))
+        paths[tag] = p
+        seconds[tag] = round(time.perf_counter() - t0, 1)
+    log(f"families seconds: {seconds}, {sum(seconds.values()):.1f} in all")
     return dict(forms=forms, paths=paths)
 
 
-def _eight_b_child(result: str) -> None:
-    """The 8B phases in a process of their own, so that their peak is not
-    added to this one's; saves what ``eight_b_phases`` returns. A failure
-    ends the process at once."""
+def mark_forms(forms: dict, tag: str) -> dict:
+    """A model's kernel records, its main forms marked ``main_<tag>`` (and
+    no longer ``main``; its pool forms ``pool_<tag>``)."""
+    for recs in forms.values():
+        for r in recs:
+            r[f"main_{tag}"], r["main"] = r["main"], False
+            r[f"pool_{tag}"], r["pool"] = r.get("pool"), None
+    return forms
+
+
+def _spawned_child(target, result: str) -> None:
+    """``target`` in a process of its own, so that its peak is not added to
+    this one's; saves what it returns. A failure ends the process at
+    once."""
     import traceback
 
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        torch.save(eight_b_phases(), result)
+        torch.save(target(), result)
     except Exception:
         traceback.print_exc()
         sys.stderr.flush()
         os._exit(1)
 
 
-def phase_8b() -> dict:
-    """The 8B phases in a spawned process on the card; fails when it
-    fails or outlives EIGHT_B_TIMEOUT. Returns its records, each 8B main
-    form marked ``main8b`` (and no longer ``main``; its pool forms
-    ``pool8b``), and the launch counts of its paths."""
+def run_spawned(target, timeout: float, what: str) -> dict:
+    """``target``'s phases in a spawned process on the card; fails when it
+    fails or outlives ``timeout`` seconds. Returns what it returned."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
-        result = os.path.join(tmp, "8b.pt")
-        proc = mp.get_context("spawn").Process(target=_eight_b_child,
-                                               args=(result,))
+        result = os.path.join(tmp, "result.pt")
+        proc = mp.get_context("spawn").Process(target=_spawned_child,
+                                               args=(target, result))
         proc.start()
-        proc.join(timeout=EIGHT_B_TIMEOUT)
+        proc.join(timeout=timeout)
         if proc.is_alive():
             proc.kill()
             proc.join()
         if proc.exitcode != 0 or not os.path.exists(result):
-            raise AssertionError(f"8b phases: exit code {proc.exitcode}")
-        out = torch.load(result)
-    for recs in out["forms"].values():
-        for r in recs:
-            r["main8b"], r["main"] = r["main"], False
-            r["pool8b"], r["pool"] = r.get("pool"), None
-    return out
+            raise AssertionError(f"{what} phases: exit code {proc.exitcode}")
+        return torch.load(result)
+
+
+def phase_8b() -> dict:
+    """The 8B phases (eight_b_phases) in a spawned process, within
+    EIGHT_B_TIMEOUT."""
+    return run_spawned(eight_b_phases, EIGHT_B_TIMEOUT, "8b")
+
+
+def phase_families() -> dict:
+    """InternVL2-4B's and InternVL2-1B's phases (family_phases) in a
+    spawned process, within FAMILY_TIMEOUT."""
+    return run_spawned(family_phases, FAMILY_TIMEOUT, "families")
+
+
+MODEL_TAGS = ("8b", "phi3", "qwen2")  # the models of the kernels' JSON line
 
 
 def kernel_record(name: str, recs: list, launches: int,
-                  launches_8b: int = 0) -> dict:
+                  model_launches: dict) -> dict:
     """One kernel's entry of the JSON line: the launches of the driven
     paths; the largest error over all forms; time, plain time, bound and
-    library time at its main form (named under "form"); the same at its
-    InternVL2.5-8B form under "8b" (with the 8B paths' launches), where it
-    has one. Every other form has its own ``kernel ...`` line above."""
+    library time at its main form (named under "form"); the same at the
+    main form of each model of MODEL_TAGS (InternVL2.5-8B "8b",
+    InternVL2-4B "phi3", InternVL2-1B "qwen2") under its tag, with the
+    launches of that model's paths (``model_launches``), where it has one.
+    Every other form has its own ``kernel ...`` line above."""
     main = [f for f in recs if f["main"]]
     if len(main) != 1:
         raise AssertionError(f"{name}: {len(main)} main forms")
@@ -7223,14 +7579,16 @@ def kernel_record(name: str, recs: list, launches: int,
     pools = {f["pool"]: form(f) for f in recs if f.get("pool")}
     if pools:
         rec["pools"] = pools
-    eight = [f for f in recs if f.get("main8b")]
-    if eight:
-        rec["8b"] = dict(form(eight[0]), launches=launches_8b)
-        pools = {f["pool8b"]: form(f) for f in recs if f.get("pool8b")}
-        if pools:
-            rec["8b"]["pools"] = pools
+    for tag in MODEL_TAGS:
+        mains = [f for f in recs if f.get(f"main_{tag}")]
+        if mains:
+            rec[tag] = dict(form(mains[0]), launches=model_launches.get(
+                tag, 0))
+            pools = {f[f"pool_{tag}"]: form(f) for f in recs
+                     if f.get(f"pool_{tag}")}
+            if pools:
+                rec[tag]["pools"] = pools
     return rec
-
 
 
 def main(argv=None) -> int:
@@ -7261,6 +7619,10 @@ def main(argv=None) -> int:
     ap.add_argument("--8b", dest="eight_b", action="store_true",
                     help="only the InternVL2.5-8B phases, in a process of "
                     "their own; no result line")
+    ap.add_argument("--families", action="store_true",
+                    help="only the InternVL2-4B (Phi-3) and InternVL2-1B "
+                    "(Qwen2) phases, in a process of their own; no result "
+                    "line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7288,8 +7650,8 @@ def main(argv=None) -> int:
         phase_two_ranks()
         log(card_line())
         return 0
-    if args.eight_b:
-        phase_8b()
+    if args.eight_b or args.families:
+        (phase_8b if args.eight_b else phase_families)()
         log(card_line())
         return 0
 
@@ -7406,30 +7768,37 @@ def main(argv=None) -> int:
     paths.append(phase_compress_fuse_only(model, cfg))
     paths.append(phase_seq_cls(model, cfg))
     lap("compress and seq-cls")
-    # InternVL2.5-8B in a process of its own, this one's model dropped
+    # InternVL2.5-8B, then InternVL2-4B and -1B, each in a process of its
+    # own, this one's model dropped
     del model, batch
     collect()
-    eight = phase_8b()
-    paths += eight["paths"]
-    for name, more in eight["forms"].items():
-        forms[name].extend(more)
-    launches_8b = {k: sum(c[k] for c in eight["paths"]) for k in forms}
-    launches = {k: sum(c[k] for c in paths) for k in forms}
-    lap("InternVL2.5-8B")
+    by_model = {}
+    for phase, what in ((phase_8b, "InternVL2.5-8B"),
+                        (phase_families, "InternVL2-4B and -1B")):
+        out = phase()
+        by_model.update(out["paths"])
+        for name, more in out["forms"].items():
+            forms[name].extend(more)
+        lap(what)
+    for more in by_model.values():
+        paths += more
+    # a store riding in paged_decode's launches (paged_decode_store) counts
+    # as the store's launch on the main path; its own launches stay apart
+    count = lambda ps, k: sum(c[k] + (c["paged_decode_store"]
+                                      if k == "paged_store" else 0)
+                              for c in ps)
+    model_launches = {k: {t: count(ps, k) for t, ps in by_model.items()}
+                      for k in forms}
     log(f"seconds: {json.dumps(seconds)}, {sum(seconds.values()):.1f} in "
         f"all")
-    records = [kernel_record(name, recs, launches[name], launches_8b[name])
+    records = [kernel_record(name, recs, count(paths, name),
+                             model_launches[name])
                for name, recs in forms.items()]
     for rec in records:
         if rec["name"] == "paged_store":
-            # on the main path the store runs inside paged_decode's
-            # launches (paged_decode_store); its own launches stay apart
             riding = sum(c["paged_decode_store"] for c in paths)
-            rec.update(launches=rec["launches"] + riding,
-                       standalone_launches=rec["launches"],
+            rec.update(standalone_launches=rec["launches"] - riding,
                        riding_launches=riding, rides_in="paged_decode")
-            rec["8b"]["launches"] += sum(c["paged_decode_store"]
-                                         for c in eight["paths"])
     log(json.dumps({"kernels": records}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -169,15 +169,20 @@ def test_attention_reference_matches_jax(case):
 
 # ------------------------------------------------------------ flash forms
 
-FORMS = ["packed_causal", "bidirectional_kpad", "cross_positions",
-         "fused_qrope", "fused_qkrope", "dead_row"]
+BASE_FORMS = ["packed_causal", "bidirectional_kpad", "cross_positions",
+              "fused_qrope", "fused_qkrope", "dead_row"]
+# each form at head dim 32 and again at Phi-3's 96 (the fused rotary then
+# pairs d with d + 48)
+FORMS = BASE_FORMS + [f"{f}_hd96" for f in BASE_FORMS]
 
 
 def _flash_case(form):
     """(q, k, v, seg_q, seg_k, pos_q, pos_k, rope_ids, causal, explicit
-    positions, rope mode) for one form of the kernel."""
+    positions, rope mode) for one form of the kernel (head dim 32, or 96
+    for a form named ``*_hd96``)."""
     rng = np.random.default_rng(4)
-    B, Hq, Hkv, D = 2, 4, 2, 32
+    form, hd96, _ = form.partition("_hd96")
+    B, Hq, Hkv, D = 2, 4, 2, 96 if hd96 else 32
     Sq = Sk = 150
     if form == "cross_positions":
         Sq, Sk = 64, 192
@@ -232,7 +237,7 @@ def test_flash_twin_matches_jax(form, impl):
                    run(torch, tattn), q, k, v, seg_q, seg_k, pos_q, pos_k,
                    ids)
     p.assert_close(atol=2e-5, rtol=2e-5)
-    if form == "dead_row":
+    if form.startswith("dead_row"):
         assert np.all(p.torch[0][:, 60:70] == 0)
 
 
@@ -255,6 +260,38 @@ def test_flash_twin_lse_matches_pallas(form):
     dead = (seg_q == 0) | (seg_q == 9)
     assert np.all(lse.transpose(0, 2, 1)[dead] == np.float32(
         flash_fwd.NEG_INF))
+
+
+def _rotation_flip_bound(q, k, ids, rope, scale) -> float:
+    """The largest change of any score between the operands the two
+    packages give the bf16 tensor cores: each rotates q (and, with "qk", k)
+    in fp32 by its own angle formula (the Pallas kernel's ``_rope_block``,
+    the port's ``_apply_rope``) and rounds it once to bf16; where the two
+    fp32 values straddle a rounding boundary the operands differ by a bf16
+    step. lse, a log-sum-exp of the scores, moves by at most this much."""
+    from v2pe_tpu.ops.flash_pallas import _rope_block
+
+    B, S, Hq, D = q.shape
+    G = Hq // k.shape[2]
+    bf = lambda x: np.asarray(jnp.asarray(x).astype(jnp.bfloat16)
+                              .astype(jnp.float32), np.float64)
+    x16 = [bf(x) for x in (q, k)]  # the bf16 inputs, as both take them
+
+    def jax_rot(x):
+        return np.stack([np.stack([np.asarray(_rope_block(
+            jnp.asarray(x[b, :, h], jnp.float32), jnp.asarray(ids[b])[:, None],
+            THETA)) for h in range(x.shape[2])], 1) for b in range(B)])
+
+    rk = rope == "qk"
+    pq, pk = flash_fwd._apply_rope(
+        torch.from_numpy(x16[0]).float(), torch.from_numpy(x16[1]).float(),
+        torch.from_numpy(ids), torch.from_numpy(ids) if rk else None, THETA)
+    port = [bf(pq.numpy()), bf(pk.numpy())]
+    jaxs = [bf(jax_rot(x16[0])), bf(jax_rot(x16[1])) if rk else x16[1]]
+    scores = [np.einsum("bqhgd,bkhd->bhgqk",
+                        x[0].reshape(B, S, Hq // G, G, D), x[1])
+              for x in (port, jaxs)]
+    return float(scale * np.abs(scores[0] - scores[1]).max())
 
 
 @pytest.mark.parametrize("form", FORMS)
@@ -289,9 +326,16 @@ def test_flash_twin_bf16_matches_pallas_bf16all(form):
     # order. With rotary, the packages compute the angles by different fp32
     # formulas, which moves a few rotated elements to the neighbouring bf16
     # value; each such flip moves a score by one bf16 step of
-    # scale * q_i * k_i (~1e-3 at most for these unit-normal inputs)
-    np.testing.assert_allclose(gl, wl, atol=1e-3 if rope else 2e-5, rtol=0)
-    if form == "dead_row":
+    # scale * q_i * k_i (~1e-3 at most for these unit-normal inputs at head
+    # dim 32). At head dim 96 a score sums three times the rotated elements,
+    # and the limit is the largest score change the flips of this input
+    # make (_rotation_flip_bound: lse moves by at most that much)
+    tol = 2e-5
+    if rope:
+        tol = 1e-3 if q.shape[-1] == 32 else \
+            _rotation_flip_bound(q, k, ids, rope, scale) + 2e-5
+    np.testing.assert_allclose(gl, wl, atol=tol, rtol=0)
+    if form.startswith("dead_row"):
         assert np.all(go[:, 60:70] == 0)
 
 
@@ -330,8 +374,11 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     vec = torch.zeros(B, S, dtype=torch.int32)
     ok = (q, q, q, vec, vec, vec, vec, None, None)
     flash_fwd._check(*ok)  # accepted
+    for hd in (96, 128):  # Phi-3's head dim and InternLM2's
+        flash_fwd._check(*(torch.zeros(B, S, H, hd),) * 3, *ok[3:])
     bad = {
         "head dim": (torch.zeros(B, S, H, 32),) * 3 + ok[3:],
+        "head dim 80": (torch.zeros(B, S, H, 80),) * 3 + ok[3:],
         "dtype": (q.half(), q.half(), q.half()) + ok[3:],
         "mixed dtypes": (q, q.bfloat16(), q) + ok[3:],
         "non-contiguous": (q.transpose(1, 2).contiguous().transpose(1, 2),

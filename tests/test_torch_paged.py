@@ -420,6 +420,25 @@ def test_pool_refuses_what_is_not_ported():
                                   kv_dtype="int4").k_pages.shape[-1] == HD // 2
 
 
+def test_pool_check_takes_the_kernels_head_dims():
+    """The paged wrappers' pool check takes head dims 64, 96 (Phi-3's) and
+    128 over a pool in the queries' dtype, int8 codes and packed int4
+    bytes, and refuses 32 and 80, as the kernels do."""
+    for hd in (64, 96, 128, 32, 80):
+        for bits in (0, 8, 4):
+            dt = torch.bfloat16 if bits == 0 else torch.int8
+            pages = torch.zeros(1, HKV, 3, 4, hd // 2 if bits == 4 else hd,
+                                dtype=dt)
+            scales = None if bits == 0 else torch.zeros(1, HKV, 3, 1, 4)
+            args = (pages, pages, scales, scales, torch.bfloat16,
+                    pages.device, hd)
+            if hd in (64, 96, 128):
+                assert tpa._check_pool(*args) == bits
+            else:
+                with pytest.raises(ValueError, match="head dim"):
+                    tpa._check_pool(*args)
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     """A tensor on neither the CPU nor a CUDA device is refused, not run."""
     q = torch.zeros(1, 1, HQ, 64, device="meta")

@@ -385,8 +385,11 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
     pos = _t(_zig_positions(1, 64, 4))
     ok = (q, k, v, seg, seg, pos, pos)
     tfused._check(4, *ok)
+    wide = [torch.zeros(*t.shape[:-1], 96) for t in (q, k, v)]
+    tfused._check(4, *wide, seg, seg, pos, pos)  # Phi-3's head dim
     bad = [
         (4, q[..., :8], k[..., :8], v[..., :8], seg, seg, pos, pos),  # D 8
+        (4, *(t[..., :80] for t in wide), seg, seg, pos, pos),        # D 80
         (4, q.double(), k.double(), v.double(), seg, seg, pos, pos),
         (4, q, k, v, seg.long(), seg, pos, pos),
         (4, q.transpose(1, 2), k, v, seg, seg, pos, pos),

@@ -55,7 +55,10 @@
 // 128 (dK and dV are 128 fp32 a thread beside the two score fragments), so
 // one block an SM with up to 255; dkv 156 at D 64 and dq 154 / 122 run two
 // or three blocks an SM, where one's elementwise step overlaps the others'
-// products. Nothing spills.
+// products. Nothing spills. Head dim 96 runs the D 128 bodies' shapes: its
+// tiles store 128 columns (flash_tile.cuh: no product sums over the pad)
+// and dQ, dK, dV accumulate at n128 (the pad's columns never stored), so
+// dkv takes 224 registers (one block an SM) and dq 158 (two; CUDA 12.8).
 //
 // What bounds it: the tensor cores' bf16 rate in principle (dkv runs four
 // 64 x 64 x D products per live tile pair, dq three, far above the card's
@@ -477,17 +480,23 @@ __device__ __forceinline__ void scores(float (&d)[32], uint32_t a,
   }
 }
 
-// d += A B, 64 x D: A a 64 x 64 fragment in bf16 registers (to_a), B the
+// The fp32 accumulator of a 64 x D product whose N is the head: DP / 2 a
+// thread (at D 96 its columns 96-127 are the pad's, never stored).
+template <int D>
+using Rows = float[tc::Smem<D>::DP / 2];
+
+// d += A B, 64 x DP: A a 64 x 64 fragment in bf16 registers (to_a), B the
 // 64-row tile at b whose rows are the product's depth (MN-major through the
 // descriptor's transpose bit: no transposed copy). 16 rows = two 8-row
 // groups of 1024 bytes.
 template <int D>
-__device__ __forceinline__ void accumulate(float (&d)[D / 2],
+__device__ __forceinline__ void accumulate(Rows<D>& d,
                                            const uint32_t (&a)[4][4],
                                            uint32_t b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
-    tc::wgmma_pv<D>(d, a[kk], tc::desc(b + kk * 2048, 8192, 1024));
+    tc::wgmma_pv<tc::Smem<D>::DP>(d, a[kk],
+                                  tc::desc(b + kk * 2048, 8192, 1024));
 }
 
 // A 64 x 64 fp32 fragment rounded to bf16 as wgmma's A operand: columns
@@ -552,7 +561,7 @@ __device__ __forceinline__ void probs_ds(
 // bf16: rows row0 + r0 and row0 + r0 + 8 (those below S) of head h of one
 // batch row's (S,H,D).
 template <int D>
-__device__ __forceinline__ void write_rows(const float (&acc)[D / 2],
+__device__ __forceinline__ void write_rows(const Rows<D>& acc,
                                            float mul, bf16* out, int row0,
                                            int S, int H, int h) {
   const int t = threadIdx.x, lane = t & 31;
@@ -610,9 +619,9 @@ __global__ void __launch_bounds__(tc::THREADS, 2)
     lse_r[hr] = s < p.Sq ? p.lse[vec + s] : 0.f;
     di_r[hr] = s < p.Sq ? p.di[vec + s] : 0.f;
   }
-  float acc[D / 2];
+  Rows<D> acc;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < tc::Smem<D>::DP / 2; ++i) acc[i] = 0.f;
   const uint32_t q_addr = tc::smem_u32(sm.q());
   const uint32_t do_addr = tc::smem_u32(sm.fixed(1));
   tc::Pipe pp;
@@ -682,9 +691,9 @@ __global__ void __launch_bounds__(tc::THREADS, D == 64 ? 2 : 1)
   const int seg_r[2] = {sm.seg_q()[r0], sm.seg_q()[r0 + 8]};
   const int pos_r[2] = {sm.pos_q()[r0], sm.pos_q()[r0 + 8]};
   const float none[2] = {0.f, 0.f};
-  float dk[D / 2], dv[D / 2];
+  Rows<D> dk, dv;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < tc::Smem<D>::DP / 2; ++i) dk[i] = dv[i] = 0.f;
   const uint32_t k_addr = tc::smem_u32(sm.q());
   const uint32_t v_addr = tc::smem_u32(sm.fixed(1));
   tc::Pipe pp;
@@ -764,6 +773,10 @@ int run(bool dkv, const Params& p, int D, int is_bf16, void* stream) {
     err = is_bf16 ? launch_tc<64>(dkv, p, st)
                   : (dkv ? launch_dkv<float, 64>(p, st)
                          : launch_dq<float, 64>(p, st));
+  } else if (D == 96) {
+    err = is_bf16 ? launch_tc<96>(dkv, p, st)
+                  : (dkv ? launch_dkv<float, 96>(p, st)
+                         : launch_dq<float, 96>(p, st));
   } else if (D == 128) {
     err = is_bf16 ? launch_tc<128>(dkv, p, st)
                   : (dkv ? launch_dkv<float, 128>(p, st)

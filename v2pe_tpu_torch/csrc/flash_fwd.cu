@@ -164,6 +164,8 @@ extern "C" int v2pe_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (D == 64) {
     err = is_bf16 ? launch_tc<64>(p, st) : launch<64>(p, st);
+  } else if (D == 96) {
+    err = is_bf16 ? launch_tc<96>(p, st) : launch<96>(p, st);
   } else if (D == 128) {
     err = is_bf16 ? launch_tc<128>(p, st) : launch<128>(p, st);
   } else {

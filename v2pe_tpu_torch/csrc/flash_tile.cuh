@@ -23,13 +23,20 @@
 //   softmax overlaps the other's products. Query tiles are launched heaviest
 //   first (the slowest grid axis counts down), since the main forms have
 //   only 2-4 waves on 132 SMs. The query tile is staged once, rotated and
-//   rounded, in the 128-byte-swizzled layout wgmma reads; heads narrower
-//   than 64 are stored as 64 columns (the rest zero) so that one swizzle
-//   serves every D.
+//   rounded, in the 128-byte-swizzled layout wgmma reads. A head is stored
+//   as whole 64-column blocks (DP columns: 64 for D <= 64, 128 for D 96 and
+//   128) so that one swizzle serves every D. No product sums over a pad
+//   column: QK^T (and the backward's dO V^T) runs D / 16 k-steps, and in the
+//   products whose N is the head (PV, and the backward's dQ, dK, dV) a pad
+//   column of the B tile feeds only an accumulator column past D, which is
+//   never stored. So the pads may hold anything (at D 96 a K/V box reads
+//   the next head's first 32 columns, zeros past the last head); D 96 runs
+//   PV at n128, a quarter of its product on pad columns, and its consumers
+//   hold D 128's 64 accumulators a thread (167 registers, CUDA 12.8).
 //
 //   K/V tiles of 64 keys reach a ring of STAGES = 2 shared-memory slots by
-//   TMA: one thread issues a 64-row x 64-column box per 64 columns of k
-//   and of v, through tensor maps encoded on the host (k and v viewed as
+//   TMA: one thread issues a 64-row x 64-column box per 64 stored columns
+//   of k and of v, through tensor maps encoded on the host (k and v viewed as
 //   (Hkv*D, S, B); boxes past S arrive as zeros, so a ragged tail never
 //   holds stale data) in the 128-byte swizzle that the wgmma descriptors
 //   name; a full/empty mbarrier pair guards each slot, the full one
@@ -50,7 +57,7 @@
 //   shared memory; the scale, and on BOUNDARY tiles the mask from the ids in
 //   the slot, applied on the accumulator fragment; the online softmax in
 //   registers (each row's max and sum over the four lanes that share it);
-//   then O = O corr + P V by wgmma m64nDk16 with P converted from the score
+//   then O = O corr + P V by wgmma m64n(DP)k16 with P converted from the score
 //   fragment to bf16 in registers as the A operand and V read from shared
 //   memory through the descriptor's transpose bit (no transposed copy).
 //
@@ -412,7 +419,9 @@ __device__ __forceinline__ void rotate(float& x1, float& x2, float angle) {
 // tile's ids, and the full/empty barrier pair of each stage.
 template <int D, int F = 1, int X = 0>
 struct Smem {
-  static constexpr int DP = D < 64 ? 64 : D;  // stored columns (zero pad)
+  static_assert(D % 16 == 0 && D <= 128, "head dims of 16-128 by 16");
+  static constexpr int DP = D <= 64 ? 64 : 128;  // stored columns: whole
+                                                 // 64-column blocks
   static constexpr int TILE = 64 * DP * 2;    // bytes of one tile
   static constexpr int SLOT = 2 * BK + X;     // 32-bit words of one stage
   static constexpr int INTS = STAGES * SLOT + 2 * BQ + STAGES;
@@ -573,11 +582,11 @@ struct Pipe {
 // skip the dead ones from the min/max of their ids before touching k or v,
 // and hand each live tile to the consumers through the ring: ids and the
 // tile's kind (FULL: every pair is live, no mask; else BOUNDARY) by
-// st.shared, K and V by TMA, one 64 x 64 box per 64 columns, in the 128-byte
-// swizzle (rows past Sk arrive as zeros). The producer never waits for its
-// own loads: it runs up to STAGES tiles ahead. With rope_k (k: batch row b's
-// (Sk,Hkv,D)), K is instead loaded by the warp, rotated in fp32 and rounded
-// once to bf16 on its way to shared memory.
+// st.shared, K and V by TMA, one 64 x 64 box per 64 stored columns, in the
+// 128-byte swizzle (rows past Sk arrive as zeros). The producer never waits
+// for its own loads: it runs up to STAGES tiles ahead. With rope_k (k: batch
+// row b's (Sk,Hkv,D)), K is instead loaded by the warp, rotated in fp32 and
+// rounded once to bf16 on its way to shared memory.
 //
 // WALK_Q (the backward's dk/dv): the staged tile holds keys and the walk
 // runs over query tiles instead: kmap/vmap are q and do viewed as

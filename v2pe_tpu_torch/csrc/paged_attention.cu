@@ -56,8 +56,9 @@
 //   floats by an exponent trick,
 //   not by the quarter-rate int-to-float conversion. Eight warps: a warp
 //   holds two query rows (q in registers, times the scale) and takes eight
-//   keys at a time, eight lanes a key with 8 or 16 dims each (shuffle
-//   reductions over those eight lanes), its own online softmax (one rescale
+//   keys at a time, eight lanes a key with 8 or 16 dims each (at D 96 lanes
+//   0-3 16, lanes 4-7 8; shuffle reductions over those eight lanes), its
+//   own online softmax (one rescale
 //   per eight keys) and accumulator; at the end
 //   the lanes, then the warps that share rows, are merged in a fixed order.
 //   A split writes its unnormalised accumulator, m and l to an fp32
@@ -79,7 +80,8 @@
 //   masked) and hands 64-slot K/V tiles through a ring of PF_STAGES full/empty
 //   mbarrier pairs, in the 128-byte swizzle that the wgmma descriptors name:
 //   bf16 pools with ps % 64 == 0 by TMA boxes of the pool viewed as (D, NP*ps,
-//   L*Hkv) (a box never crosses a page); other page sizes by cp.async rows
+//   L*Hkv) (a box never crosses a page; at D 96 the second box reads zeros
+//   past D); other page sizes by cp.async rows
 //   gathered through the page table; int8 / int4 pools as codes and scales
 //   (TMA boxes of the bytes as stored where ps % 64 == 0, else cp.async), then
 //   converted a tile behind by the producer group into bf16 tiles (codes are
@@ -90,7 +92,9 @@
 //   m64n64k16, the scale (and the k scale) on the fp32 scores, the online
 //   softmax on the fragment, e times the v scale after l took its sum, P
 //   rounded to bf16 in registers as the A operand of O += P V with V through
-//   the transpose bit. Rounding as flash_fwd's bf16 tile (Pallas bf16all):
+//   the transpose bit. The tiles have flash_tile.cuh's DP stored columns,
+//   and no product sums over a pad column (see there). Rounding as
+//   flash_fwd's bf16 tile (Pallas bf16all):
 //   bf16 operands, P rounded for PV, m, l and O in fp32. Bound by the tensor
 //   cores: 4 D operations a (query, slot) pair.
 // - prefill, fp32 queries: the exact CUDA-core tile of flash_tile.cuh's
@@ -237,21 +241,33 @@ __device__ __forceinline__ long long fresh_slot(const int* table, int pos,
 }
 
 // One fresh vector (a token's k or v of one kv head: D values in src) into
-// pool row `slot` by one warp; lane l holds dims l + 32 i. Quantized pools
-// (scales != nullptr): the warp's amax, the scale amax / QMAX by an IEEE
-// division (1 where amax is 0), x / scale rounded half to even (rintf) and
-// clipped to +-QMAX, as quantize_kv and jnp do. An int4 byte d holds dim d
-// and dim d + D/2, both of lane d % 32, so the pack needs no exchange.
+// pool row `slot` by one warp. Quantized pools (scales != nullptr): the
+// warp's amax, the scale amax / QMAX by an IEEE division (1 where amax is 0),
+// x / scale rounded half to even (rintf) and clipped to +-QMAX, as
+// quantize_kv and jnp do. A lane holds dims l + 32 i (N = D / 32 of them);
+// for an int4 pool it holds instead the two dims of its bytes l + 32 i (byte
+// d: dim d low, dim d + D/2 high; NB bytes, the last only where l + 32 i <
+// D/2, as at D 96: 48 bytes), so the pack needs no exchange.
 template <typename T, typename KV, int D>
 __device__ __forceinline__ void store_vec(const T* src, void* pages,
                                           float* scales, size_t slot,
                                           int lane) {
-  constexpr int N = D / 32;
+  constexpr bool INT4 = std::is_same<KV, int4x2>::value;
   constexpr int W = PoolRow<KV, D>::W;
   constexpr float QMAX = PoolRow<KV, D>::QMAX;
+  constexpr int NB = (W + 31) / 32;          // int4: bytes a lane
+  constexpr int N = INT4 ? 2 * NB : D / 32;  // values a lane
   float x[N];
 #pragma unroll
-  for (int i = 0; i < N; ++i) x[i] = to_float(src[lane + 32 * i]);
+  for (int i = 0; i < N; ++i) {
+    if constexpr (INT4) {  // x[i] and x[i + NB]: the low and high dims of
+                           // byte lane + 32 i
+      const int byte = lane + 32 * (i % NB);
+      x[i] = byte < W ? to_float(src[byte + (i < NB ? 0 : W)]) : 0.f;
+    } else {
+      x[i] = to_float(src[lane + 32 * i]);
+    }
+  }
   if (scales != nullptr) {
     float amax = 0.f;
 #pragma unroll
@@ -265,12 +281,14 @@ __device__ __forceinline__ void store_vec(const T* src, void* pages,
       x[i] = fminf(fmaxf(rintf(x[i] / s), -QMAX), QMAX);
     if (lane == 0) scales[slot] = s;
   }
-  if constexpr (std::is_same<KV, int4x2>::value) {
+  if constexpr (INT4) {
     int8_t* dst = static_cast<int8_t*>(pages) + slot * W;
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i)
-      dst[lane + 32 * i] = static_cast<int8_t>(
-          (static_cast<int>(x[i]) & 0xF) | (static_cast<int>(x[i + N / 2]) << 4));
+    for (int i = 0; i < NB; ++i)
+      if (lane + 32 * i < W)
+        dst[lane + 32 * i] =
+            static_cast<int8_t>((static_cast<int>(x[i]) & 0xF) |
+                                (static_cast<int>(x[i + NB]) << 4));
   } else {
     KV* dst = static_cast<KV*>(pages) + slot * W;
 #pragma unroll
@@ -351,7 +369,11 @@ struct Dec {
   static constexpr int STAGE = 2 * DEC_CK * RB + 3 * DEC_CK * 4;
   static constexpr int STAGES =
       RB >= 512 ? (DEC_STAGES < 2 ? DEC_STAGES : 2) : DEC_STAGES;
-  static constexpr int E = D / 8;  // dims a lane holds
+  // a lane of a key's eight holds chunks dl + 8 i of 8 dims, i < NCH (at D
+  // 96 the 12 chunks give lanes 0-3 two and lanes 4-7 one, the second
+  // masked); E dims in registers
+  static constexpr int NCH = (D / 8 + 7) / 8;
+  static constexpr int E = 8 * NCH;
   // after the walk: the warps' states, then the block's (each row: m, l,
   // then D accumulators)
   static constexpr int STATE = 2 * DEC_ROWS * (D + 2) * 4;
@@ -359,15 +381,20 @@ struct Dec {
       STAGES * STAGE > STATE ? STAGES * STAGE : STATE;
 };
 
-// The D/8 dims of lane dl of a warp's key (chunks of 8 dims: dl + 8 i) from
-// one slot row as stored, widened to fp32 (exact).
+// The dims of lane dl of a warp's key (chunks of 8 dims: dl + 8 i) from one
+// slot row as stored, widened to fp32 (exact); zeros for a chunk past D.
 template <typename KV, int D>
-__device__ __forceinline__ void lane_dims(float (&x)[D / 8],
+__device__ __forceinline__ void lane_dims(float (&x)[Dec<KV, D>::E],
                                           const uint8_t* row, int dl) {
 #pragma unroll
-  for (int i = 0; i < D / 64; ++i) {
+  for (int i = 0; i < Dec<KV, D>::NCH; ++i) {
     const int c = dl + 8 * i;  // dims [8c, 8c + 8)
     float* o = x + 8 * i;
+    if (c >= D / 8) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[j] = 0.f;
+      continue;
+    }
     if constexpr (std::is_same<KV, __nv_bfloat16>::value) {
       const uint4 raw = *reinterpret_cast<const uint4*>(row + 16 * c);
       const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
@@ -492,11 +519,12 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
     const T* qr = static_cast<const T*>(p.q) +
                   ((static_cast<size_t>(b) * p.T + t) * p.Hq + hk * G + g) * D;
 #pragma unroll
-    for (int i = 0; i < D / 64; ++i)
+    for (int i = 0; i < C::NCH; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        qf[rr][8 * i + j] =
-            live[rr] ? to_float(qr[8 * (dl + 8 * i) + j]) * p.scale : 0.f;
+        qf[rr][8 * i + j] = live[rr] && dl + 8 * i < D / 8
+                                ? to_float(qr[8 * (dl + 8 * i) + j]) * p.scale
+                                : 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[rr][e] = 0.f;
     m[rr] = NEG_INF;
@@ -662,7 +690,8 @@ __global__ void __launch_bounds__(DEC_THREADS, 2)
     for (int i = 0; i < E; ++i) {
       float a = acc[rr][i] + __shfl_xor_sync(0xffffffffu, acc[rr][i], 8);
       a += __shfl_xor_sync(0xffffffffu, a, 16);
-      if (kq == 0) o[2 + 8 * (dl + 8 * (i / 8)) + i % 8] = a;
+      if (kq == 0 && dl + 8 * (i / 8) < D / 8)
+        o[2 + 8 * (dl + 8 * (i / 8)) + i % 8] = a;
     }
     if (lane == 0) {
       o[0] = m[rr];
@@ -1009,7 +1038,8 @@ struct PrefillTcParams {
 template <typename KV, int D, int HPB>
 struct Pf {
   static constexpr bool QUANT = !std::is_same<KV, __nv_bfloat16>::value;
-  static constexpr int TILE = 64 * D * 2;
+  static constexpr int DP = tc::Smem<D>::DP;  // stored columns (as #1's)
+  static constexpr int TILE = 64 * DP * 2;
   static constexpr int RB = PoolRow<KV, D>::W * sizeof(KV);  // bytes a slot
   static constexpr int RAW = QUANT ? 2 * 64 * RB + 2 * 64 * 4 : 0;
   static constexpr int PT = 32 * PF_PRODUCER_WARPS;  // producer threads
@@ -1195,9 +1225,9 @@ __global__ void __launch_bounds__(Pf<KV, D, HPB>::THREADS, 1)
             wait_stage(n);
             sm.words(st)[0] = nv;
             uint64_t* bar = sm.full() + st;
-            tc::mbar_arrive_tx(bar, 2 * (D / 64) * tc::BOX_BYTES);
+            tc::mbar_arrive_tx(bar, 2 * (Sm::DP / 64) * tc::BOX_BYTES);
 #pragma unroll
-            for (int x = 0; x < D / 64; ++x) {
+            for (int x = 0; x < Sm::DP / 64; ++x) {  // past D: zeros
               tc::tma_load(tc::smem_u32(sm.k(st)) + x * tc::BOX_BYTES,
                            &tp.kmap, bar, 64 * x, row, batch);
               tc::tma_load(tc::smem_u32(sm.v(st)) + x * tc::BOX_BYTES,
@@ -1321,7 +1351,7 @@ __global__ void __launch_bounds__(Pf<KV, D, HPB>::THREADS, 1)
   const int r0 = 16 * (t >> 5) + (lane >> 2), cq = 2 * (lane & 3);
   tc::Acc<D> acc;
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc.o[i] = 0.f;
+  for (int i = 0; i < Sm::DP / 2; ++i) acc.o[i] = 0.f;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     acc.m[hr] = NEG_INF;
@@ -1392,7 +1422,7 @@ __global__ void __launch_bounds__(Pf<KV, D, HPB>::THREADS, 1)
       acc.m[hr] = m_new;
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc.o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < Sm::DP / 2; ++i) acc.o[i] *= corr[(i >> 1) & 1];
 
     // P in bf16 as wgmma's A fragment (keys 16 kk .. 16 kk + 15 of rows r0
     // and r0 + 8 are the scores' registers 8 kk .. 8 kk + 7)
@@ -1407,7 +1437,8 @@ __global__ void __launch_bounds__(Pf<KV, D, HPB>::THREADS, 1)
     tc::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      tc::wgmma_pv<D>(acc.o, pa[kk], tc::desc(v_addr + kk * 2048, 8192, 1024));
+      tc::wgmma_pv<Sm::DP>(acc.o, pa[kk],
+                           tc::desc(v_addr + kk * 2048, 8192, 1024));
     tc::wgmma_commit();
     tc::wgmma_wait0();
     tc::mbar_arrive(sm.empty() + st);
@@ -1543,22 +1574,27 @@ cudaError_t launch_prefill(const PrefillParams& p, int B, cudaStream_t st) {
 
 // Dispatch over (input dtype, pool type, head dim) to a launcher. kv_bits:
 // 0 for a pool in the queries' dtype, 8 for int8 codes, 4 for packed int4.
+template <template <typename, typename, int> class L, typename T,
+          typename KV, typename P>
+cudaError_t dispatch_dim(const P& p, int B, int D, cudaStream_t st) {
+  return D == 64   ? L<T, KV, 64>::run(p, B, st)
+         : D == 96 ? L<T, KV, 96>::run(p, B, st)
+                   : L<T, KV, 128>::run(p, B, st);
+}
+
 template <template <typename, typename, int> class L, typename T, typename P>
 cudaError_t dispatch_pool(const P& p, int B, int D, int kv_bits,
                           cudaStream_t st) {
-  if (kv_bits == 8)
-    return D == 64 ? L<T, int8_t, 64>::run(p, B, st)
-                   : L<T, int8_t, 128>::run(p, B, st);
-  if (kv_bits == 4)
-    return D == 64 ? L<T, int4x2, 64>::run(p, B, st)
-                   : L<T, int4x2, 128>::run(p, B, st);
-  return D == 64 ? L<T, T, 64>::run(p, B, st) : L<T, T, 128>::run(p, B, st);
+  if (kv_bits == 8) return dispatch_dim<L, T, int8_t>(p, B, D, st);
+  if (kv_bits == 4) return dispatch_dim<L, T, int4x2>(p, B, D, st);
+  return dispatch_dim<L, T, T>(p, B, D, st);
 }
 
 template <template <typename, typename, int> class L, typename P>
 cudaError_t dispatch(const P& p, int B, int D, int is_bf16, int kv_bits,
                      cudaStream_t st) {
-  if ((D != 64 && D != 128) || (kv_bits != 0 && kv_bits != 8 && kv_bits != 4))
+  if ((D != 64 && D != 96 && D != 128) ||
+      (kv_bits != 0 && kv_bits != 8 && kv_bits != 4))
     return cudaErrorInvalidValue;
   return is_bf16 ? dispatch_pool<L, __nv_bfloat16>(p, B, D, kv_bits, st)
                  : dispatch_pool<L, float>(p, B, D, kv_bits, st);

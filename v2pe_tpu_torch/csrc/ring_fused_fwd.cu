@@ -247,6 +247,7 @@ extern "C" int v2pe_ring_fused_fwd(const void* q, const int* seg_q,
     case 16: return launch_dtype<16>(p, k_chunks, v_chunks, is_bf16, st);
     case 32: return launch_dtype<32>(p, k_chunks, v_chunks, is_bf16, st);
     case 64: return launch_dtype<64>(p, k_chunks, v_chunks, is_bf16, st);
+    case 96: return launch_dtype<96>(p, k_chunks, v_chunks, is_bf16, st);
     case 128: return launch_dtype<128>(p, k_chunks, v_chunks, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

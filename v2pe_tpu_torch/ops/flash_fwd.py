@@ -40,7 +40,7 @@ from v2pe_tpu_torch.ops.rope import (apply_rotary, compute_rope_cos_sin,
                                      rope_inv_freq)
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 TWIN_BLOCK_Q = 512  # query rows per step of the twin
 

@@ -57,7 +57,7 @@ from typing import NamedTuple, Optional
 import torch
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 96, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_FRESH = 16          # fresh tokens a decode call takes
 TWIN_BLOCK_Q = 512      # chunk rows per step of the prefill twin

@@ -57,7 +57,7 @@ from v2pe_tpu_torch.ops.flash_fwd import (DTYPES, _ptr,
 from v2pe_tpu_torch.parallel import ring as _ring
 from v2pe_tpu_torch.parallel.ring import RingStatics
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)
 MAX_BF16_RANKS = 8  # csrc/ring_fused_fwd.cu MAX_TC_RANKS
 
 # Kernel launches since the last reset: the smoke run zeroes it, drives a
