@@ -137,7 +137,7 @@ card against the CPU. Phase 16, after the long eval: InternVL2-2B's LoRA
 adapters (ranks 16 / 8) train 3 steps through trainer.train (launches as
 phase 9; the base bit for bit unchanged; an adapters-only asynchronous
 checkpoint); one more LoRA step inside utils.profile_trace (the trace
-names the flash kernels), StepTimer, nan_guard and assert_finite on an
+names the flash kernels), nan_guard and assert_finite on an
 injected inf; ChatModel(lora=fresh adapters) answers the three requests
 as the base model did, ChatModel(lora=the trained adapters) and
 export_torch_state_dict(lora=) equal the merged model train returned, bit
@@ -2075,7 +2075,8 @@ def _small_engine(model, cfg, tok, dev: str, kv_dtype=None,
             torch.zeros(1, 3, 112, 112), torch.zeros(1, dtype=torch.int32),
             999, cache_mode="paged", page_size=16, kv_dtype=kv_dtype)
         alone.append(out[0, :int(lens[0])].tolist())
-    return ([r.tokens for r in reqs], dict(eng.stats),
+    counts = {k: v for k, v in eng.stats.items() if not k.endswith("_ns")}
+    return ([r.tokens for r in reqs], counts,
             reqs[0].first_logits.float().cpu(), alone)
 
 
@@ -6054,8 +6055,8 @@ def phase_lora_train(model, cfg, device: str = "cuda") -> tuple:
 
 def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
     """``utils/``: two LoRA steps of a copy of the trained adapters
-    (make_train_step on the bench recipe's batch) timed by StepTimer, the
-    second inside profile_trace, whose Chrome trace must name the flash
+    (make_train_step on the bench recipe's batch) timed on the host clock,
+    the second inside profile_trace, whose Chrome trace must name the flash
     forward and both backward kernels; nan_guard silent on the loss and
     logging an injected inf once; assert_finite passing the adapters and
     raising on the inf."""
@@ -6067,8 +6068,7 @@ def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
     from v2pe_tpu_torch.train.synth import IMG_CONTEXT_ID, make_synthetic_batch
     from v2pe_tpu_torch.train.train_step import make_train_step
     from v2pe_tpu_torch.utils import diagnostics
-    from v2pe_tpu_torch.utils.profiling import (StepTimer, profile_trace,
-                                                step_marker)
+    from v2pe_tpu_torch.utils.profiling import profile_trace, step_marker
 
     ad = copy.deepcopy(lora)
     opt = build_optimizer(train_config(), ad, cfg)
@@ -6077,19 +6077,19 @@ def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
                            remat="full", lora=True)
     batch = {k: torch.as_tensor(v).to(device) for k, v in make_synthetic_batch(
         cfg, 1, TRAIN_TOKENS, tiles_per_row=TRAIN_TILES, stride=64).items()}
-    timer = StepTimer()
-    timer.tick()
+    t0 = time.perf_counter()
     model.train()
     loss, _ = step(ad, state, batch, model)
     torch.cuda.synchronize()
-    first = timer.tick(TRAIN_TOKENS)
+    first = time.perf_counter() - t0
     for attempt in range(3):  # the profiler, at times, hands back the
         # runtime calls alone: such a trace is taken again, at most twice
         with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
             with profile_trace(tmp):
                 with step_marker("lora_step"):
                     loss, _ = step(ad, state, batch, model)
-            second = timer.tick(TRAIN_TOKENS)
+            second = time.perf_counter() - t0
             (trace,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
             trace_mb = os.path.getsize(trace) / 2 ** 20
             with open(trace) as f:
@@ -6124,12 +6124,10 @@ def phase_lora_utils(model, cfg, lora, device: str = "cuda") -> None:
         raised = None
     except FloatingPointError as e:
         raised = str(e)
-    log(f"utils: StepTimer {first['step_time_last'] * 1e3:.1f} ms then "
-        f"{second['step_time_last'] * 1e3:.1f} ms profiled "
-        f"({second['tokens_per_sec']:.0f} tok/s over the window); "
-        f"profile_trace wrote {trace_mb:.1f} MiB naming {found}; nan_guard "
-        f"quiet on a finite loss {quiet}, on the inf {records}; "
-        f"assert_finite: {raised}")
+    log(f"utils: a step {first * 1e3:.1f} ms then {second * 1e3:.1f} ms "
+        f"profiled ({TRAIN_TOKENS / second:.0f} tok/s); profile_trace wrote "
+        f"{trace_mb:.1f} MiB naming {found}; nan_guard quiet on a finite "
+        f"loss {quiet}, on the inf {records}; assert_finite: {raised}")
     if not (all(found.values()) and quiet and len(records) == 1
             and "injected" in records[0] and raised
             and "tree:bad/[0]" in raised and first and second):

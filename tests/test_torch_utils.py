@@ -12,7 +12,6 @@ import torch
 
 from v2pe_tpu.ops.rope import rope_2d_cos_sin as jax_rope_2d
 from v2pe_tpu.utils import diagnostics as jdiag
-from v2pe_tpu.utils import profiling as jprof
 from v2pe_tpu_torch.ops.rope import rope_2d_cos_sin
 from v2pe_tpu_torch.utils import diagnostics, profiling
 
@@ -61,19 +60,6 @@ def test_assert_finite_names_the_path():
         jdiag.assert_finite({"a": [np.ones(2), {"b": np.array(
             [1.0, np.inf])}]}, "grads")
     diagnostics.assert_finite({"x": torch.zeros(2), "k": (torch.ones(1),)})
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    clock = iter([0.0, 0.5, 1.25, 1.5, 3.0, 3.5] * 2)
-    import time
-
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    got, want = profiling.StepTimer(window=3), jprof.StepTimer(window=3)
-    tokens = [0, 100, 300, 50, 10, 20]
-    a = [got.tick(n) for n in tokens]
-    b = [want.tick(n) for n in tokens]
-    assert a == b and a[0] is None
-    assert a[-1]["step_time_last"] == 0.5
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):

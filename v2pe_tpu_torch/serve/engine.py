@@ -41,6 +41,28 @@ table slot s on shard s % n. Across processes every rank runs this same
 scheduler on the same requests: its decisions depend only on the requests
 and on the tokens, which every rank samples alike (greedy, or a generator
 seeded alike), so the ranks agree without exchanging them.
+
+Spans and counters: the scheduler times itself through ``spans``
+(``utils/profiling.SpanRecorder``), each span adding its nanoseconds to the
+counter ``<name>_ns`` in ``stats`` (:data:`SPANS`). ``step`` is all of a
+scheduler step; in it ``plan`` (every admission plan, failed ones too;
+within it ``digest``, the pixel blake2b and the page-key chain), ``admit``
+(within it ``pixel_upload``, ``vit``: the ViT and the scatter, host time,
+``prefill``: the chunks, ``first_token``: its read, which waits for the
+prefill) and ``decode_block`` (within it ``decode_launch``: issuing the
+block, ``harvest``: its one read, which waits for it, ``drain``: handing
+out tokens and retiring rows, the tokenizer's decode included). Counters
+beside them: ``admissions``, ``queue_wait_ns`` (submit to the start of the
+plan that admitted the request), ``prefill_chunks``, ``prefill_tokens``
+(valid) and ``prefill_pad_tokens``, ``prefix_hit_pages`` and
+``prefix_hit_tokens``, ``decode_blocks``, ``decode_steps`` (forwards) and
+``retired``. A request keeps ``submit_ns``, ``admit_ns``,
+``first_token_ns`` and ``cached_tokens`` (its prompt tokens the prefix
+cache served). Every time is ``time.time_ns()``, the clock of a
+``torch.profiler`` trace. ``spans.record()`` attaches a bounded log of the
+spans, each ``(name, start_ns, end_ns, parent, request_id)`` (an
+admission's and a plan's carry the request's id), and ``spans.drain()``
+takes what it holds; the log is off by default.
 """
 
 from __future__ import annotations
@@ -51,6 +73,7 @@ import itertools
 import logging
 import queue
 import threading
+import time
 from collections import deque
 from typing import List, Optional, Sequence
 
@@ -63,8 +86,13 @@ from v2pe_tpu_torch.infer.speculative import scatter_kept, verify_step
 from v2pe_tpu_torch.models import internlm2, internvl_chat
 from v2pe_tpu_torch.parallel import context as pctx
 from v2pe_tpu_torch.parallel.mesh import serving_mode
+from v2pe_tpu_torch.utils.profiling import SpanRecorder
 
 logger = logging.getLogger(__name__)
+
+# the scheduler's spans, each also a ``<name>_ns`` counter in ``stats``
+SPANS = ("step", "plan", "digest", "admit", "pixel_upload", "vit", "prefill",
+         "first_token", "decode_block", "decode_launch", "harvest", "drain")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +265,12 @@ class EngineRequest:
     # (V,) fp32 logits the first token was sampled from, on the engine's
     # device (the port keeps them, as ChatSession keeps last_logits)
     first_logits: Optional["torch.Tensor"] = None
+    # time.time_ns() at the submit, at the start of the plan that admitted
+    # the request and once its first token was read
+    submit_ns: int = 0
+    admit_ns: int = 0
+    first_token_ns: int = 0
+    cached_tokens: int = 0           # prompt tokens the prefix cache served
 
     def result(self, timeout: Optional[float] = None) -> str:
         self.finished.wait(timeout)
@@ -470,7 +504,14 @@ class InferenceEngine:
                                               self.cfg.llm))
         self.allocator = PageAllocator(NP, n_shards=n_shards)
         self.prefix_cache = PrefixCache() if prefix_caching else None
-        self.stats = {"prefill_chunks": 0, "prefix_hit_pages": 0}
+        # every key there from the start: a reader copying the dict from
+        # another thread never sees it grow
+        self.stats = dict.fromkeys(
+            ("prefill_chunks", "prefix_hit_pages", "admissions",
+             "queue_wait_ns", "prefill_tokens", "prefill_pad_tokens",
+             "prefix_hit_tokens", "decode_blocks", "decode_steps", "retired")
+            + tuple(f"{name}_ns" for name in SPANS), 0)
+        self.spans = SpanRecorder(self.stats)
         # per-row state: on the device (what the blocks run on, updated in
         # place) and its host mirrors (what the scheduler reads, refreshed
         # by each block's one harvest)
@@ -518,7 +559,8 @@ class InferenceEngine:
         req = EngineRequest(ids=ids, pos=np.asarray(pos, np.float32),
                             max_new_tokens=max_new_tokens,
                             pixel_values=pixel_values,
-                            request_id=next(self._ids))
+                            request_id=next(self._ids),
+                            submit_ns=time.time_ns())
         with self._wake:
             if self._failed is not None:
                 raise RuntimeError("engine scheduler has failed") \
@@ -566,38 +608,39 @@ class InferenceEngine:
 
     @serving_mode
     def _step(self) -> bool:
-        progressed = False
-        while True:
-            with self._lock:
-                if not self._queue:
-                    break
-                row = self._free_row()
-                if row is None:
-                    break
-                plan = self._plan_admission(self._queue[0])
-                if plan is None:
-                    break
-                req = self._queue.popleft()
-            self._admit(req, row, plan)
-            progressed = True
-        if self._active.any():
-            if self._spec and self._spec_suspended_for > 0:
-                self._spec_suspended_for -= 1
-                # suspended plain blocks run at a LARGER k than the spec
-                # block's iteration count: a speculative engine picks a
-                # small decode_block (each iteration can emit up to K+1
-                # tokens), and plain decode at that k would pay the
-                # per-block host work many times a token
-                self._run_decode_block(k=min(64, self.decode_block * 8))
-                if self._spec_suspended_for == 0:
-                    # forget the stale estimate before the re-probe block
-                    self._spec_accept_ema = None
-            elif self._spec:
-                self._run_spec_block()
-            else:
-                self._run_decode_block()
-            progressed = True
-        return progressed
+        with self.spans.span("step"):
+            progressed = False
+            while True:
+                with self._lock:
+                    if not self._queue:
+                        break
+                    row = self._free_row()
+                    if row is None:
+                        break
+                    plan = self._plan_admission(self._queue[0])
+                    if plan is None:
+                        break
+                    req = self._queue.popleft()
+                self._admit(req, row, plan)
+                progressed = True
+            if self._active.any():
+                if self._spec and self._spec_suspended_for > 0:
+                    self._spec_suspended_for -= 1
+                    # suspended plain blocks run at a LARGER k than the spec
+                    # block's iteration count: a speculative engine picks a
+                    # small decode_block (each iteration can emit up to K+1
+                    # tokens), and plain decode at that k would pay the
+                    # per-block host work many times a token
+                    self._run_decode_block(k=min(64, self.decode_block * 8))
+                    if self._spec_suspended_for == 0:
+                        # forget the stale estimate before the re-probe block
+                        self._spec_accept_ema = None
+                elif self._spec:
+                    self._run_spec_block()
+                else:
+                    self._run_decode_block()
+                progressed = True
+            return progressed
 
     def run_until_idle(self) -> None:
         """Drive the scheduler until every submitted request completed."""
@@ -664,112 +707,132 @@ class InferenceEngine:
         Returns (pages, keys, n_matched_pages) or None when the pool can't
         cover the request right now; on success cached-prefix pages are
         already acquired and sit at the front of ``pages``."""
-        ps = self.page_size
-        need = -(-(len(req.ids) + req.max_new_tokens + self._spec_slack)
-                 // ps)
-        pc = self.prefix_cache
-        keys: List[bytes] = []
-        shared: List[int] = []
-        if pc is not None:
-            seed = hashlib.blake2b(
-                np.ascontiguousarray(req.pixel_values).tobytes(),
-                digest_size=16).digest() \
-                if req.pixel_values is not None else b""
-            keys = pc.chain_keys(req.ids, req.pos, ps, seed)
-            # always leave >=1 prompt token to prefill: the new request
-            # needs the last position's logits to sample its first token
-            matched = min(pc.match(keys), (len(req.ids) - 1) // ps)
-            shared = [pc.acquire(k) for k in keys[:matched]]
-        n_new, first = need - len(shared), len(shared)
-        fresh = self.allocator.alloc(n_new, first_slot=first)
-        if fresh is None and pc is not None:
-            # evict parked pages to cover the exact deficit
-            for d, k in self.allocator.shortage(n_new, first).items():
-                self.allocator.release(pc.evict(
-                    k, pred=lambda p, d=d: self.allocator.shard_of(p) == d))
+        with self.spans.span("plan", req.request_id) as t0:
+            ps = self.page_size
+            need = -(-(len(req.ids) + req.max_new_tokens + self._spec_slack)
+                     // ps)
+            pc = self.prefix_cache
+            keys: List[bytes] = []
+            shared: List[int] = []
+            if pc is not None:
+                with self.spans.span("digest", req.request_id):
+                    seed = hashlib.blake2b(
+                        np.ascontiguousarray(req.pixel_values).tobytes(),
+                        digest_size=16).digest() \
+                        if req.pixel_values is not None else b""
+                    keys = pc.chain_keys(req.ids, req.pos, ps, seed)
+                # always leave >=1 prompt token to prefill: the new request
+                # needs the last position's logits to sample its first token
+                matched = min(pc.match(keys), (len(req.ids) - 1) // ps)
+                shared = [pc.acquire(k) for k in keys[:matched]]
+            n_new, first = need - len(shared), len(shared)
             fresh = self.allocator.alloc(n_new, first_slot=first)
-        if fresh is None:
-            for page in shared:           # roll the acquisition back
-                pc.release(page)
-            return None
-        self.stats["prefix_hit_pages"] += len(shared)
-        return shared + fresh, keys, len(shared)
+            if fresh is None and pc is not None:
+                # evict parked pages to cover the exact deficit
+                for d, k in self.allocator.shortage(n_new, first).items():
+                    self.allocator.release(pc.evict(
+                        k,
+                        pred=lambda p, d=d: self.allocator.shard_of(p) == d))
+                fresh = self.allocator.alloc(n_new, first_slot=first)
+            if fresh is None:
+                for page in shared:           # roll the acquisition back
+                    pc.release(page)
+                return None
+            self.stats["prefix_hit_pages"] += len(shared)
+            req.admit_ns = t0
+            return shared + fresh, keys, len(shared)
 
     def _admit(self, req: EngineRequest, row: int, plan) -> None:
-        pages, keys, matched = plan
-        model, llm = self.m.model, self.m.model.llm
-        dev = self.device
-        MP, CH, ps = self.max_pages_per_row, self.chunk_size, self.page_size
-        table_row = np.full(MP, -1, np.int32)
-        table_row[:len(pages)] = pages
-        consumed = matched * ps           # tokens served by shared pages
-        _set_row(self.cache, row, table_row, consumed)
-        cached = [(pages[i], keys[i]) for i in range(matched)]
+        rid = req.request_id
+        with self.spans.span("admit", rid):
+            pages, keys, matched = plan
+            model, llm = self.m.model, self.m.model.llm
+            dev = self.device
+            MP, CH, ps = self.max_pages_per_row, self.chunk_size, \
+                self.page_size
+            table_row = np.full(MP, -1, np.int32)
+            table_row[:len(pages)] = pages
+            consumed = matched * ps       # tokens served by shared pages
+            _set_row(self.cache, row, table_row, consumed)
+            cached = [(pages[i], keys[i]) for i in range(matched)]
 
-        S = len(req.ids)
-        Sf = S - consumed                 # suffix left to prefill
-        Sp = -(-Sf // CH) * CH
-        ids_p = np.pad(req.ids[consumed:], (0, Sp - Sf))[None]
-        pos_p = torch.as_tensor(np.pad(req.pos[consumed:], (0, Sp - Sf))[
-            None].astype(np.float32), device=dev)
-        seg_p = torch.as_tensor(np.pad(np.ones(Sf, np.int32),
-                                       (0, Sp - Sf))[None], device=dev)
-        ids_t = torch.as_tensor(ids_p, device=dev)
-        embeds = llm.tok_embeddings(ids_t)
-        n_img = int((ids_p[0] == self.m.img_context_token_id).sum())
-        if req.pixel_values is not None and n_img:
-            vit = internvl_chat.extract_feature(
-                model, self.cfg, torch.as_tensor(req.pixel_values).to(
-                    device=dev, dtype=embeds.dtype))
-            # a cached prefix may cover the leading image tokens: scatter
-            # fills the suffix's <IMG_CONTEXT> slots with the TRAILING
-            # feature rows (the leading ones' kv already sits in the
-            # shared pages)
-            tail = vit.reshape(-1, vit.shape[-1])[-n_img:][:, None, :]
-            embeds = internvl_chat.scatter_image_embeds(
-                embeds, ids_t, tail,
-                torch.ones((n_img,), dtype=torch.int32, device=dev),
-                self.m.img_context_token_id)
+            S = len(req.ids)
+            Sf = S - consumed             # suffix left to prefill
+            Sp = -(-Sf // CH) * CH
+            st = self.stats
+            st["admissions"] += 1
+            st["queue_wait_ns"] += req.admit_ns - req.submit_ns
+            st["prefix_hit_tokens"] += consumed
+            st["prefill_tokens"] += Sf
+            st["prefill_pad_tokens"] += Sp - Sf
+            req.cached_tokens = consumed
+            ids_p = np.pad(req.ids[consumed:], (0, Sp - Sf))[None]
+            pos_p = torch.as_tensor(np.pad(req.pos[consumed:], (0, Sp - Sf))[
+                None].astype(np.float32), device=dev)
+            seg_p = torch.as_tensor(np.pad(np.ones(Sf, np.int32),
+                                           (0, Sp - Sf))[None], device=dev)
+            ids_t = torch.as_tensor(ids_p, device=dev)
+            embeds = llm.tok_embeddings(ids_t)
+            n_img = int((ids_p[0] == self.m.img_context_token_id).sum())
+            if req.pixel_values is not None and n_img:
+                with self.spans.span("pixel_upload", rid):
+                    pixels = torch.as_tensor(req.pixel_values).to(
+                        device=dev, dtype=embeds.dtype)
+                with self.spans.span("vit", rid):
+                    vit = internvl_chat.extract_feature(model, self.cfg,
+                                                        pixels)
+                    # a cached prefix may cover the leading image tokens:
+                    # scatter fills the suffix's <IMG_CONTEXT> slots with
+                    # the TRAILING feature rows (the leading ones' kv
+                    # already sits in the shared pages)
+                    tail = vit.reshape(-1, vit.shape[-1])[-n_img:][:, None, :]
+                    embeds = internvl_chat.scatter_image_embeds(
+                        embeds, ids_t, tail,
+                        torch.ones((n_img,), dtype=torch.int32, device=dev),
+                        self.m.img_context_token_id)
 
-        last_logits = None
-        n_chunks = Sp // CH
-        for c in range(n_chunks):
-            sl = slice(c * CH, (c + 1) * CH)
-            last_logits = _prefill_row_chunk(
-                llm, self.cfg.llm, self.cache, row, embeds[:, sl],
-                pos_p[:, sl], seg_p[:, sl], min(CH, Sf - c * CH),
-                want_logits=c == n_chunks - 1)
-            self.stats["prefill_chunks"] += 1
+            last_logits = None
+            n_chunks = Sp // CH
+            with self.spans.span("prefill", rid):
+                for c in range(n_chunks):
+                    sl = slice(c * CH, (c + 1) * CH)
+                    last_logits = _prefill_row_chunk(
+                        llm, self.cfg.llm, self.cache, row, embeds[:, sl],
+                        pos_p[:, sl], seg_p[:, sl], min(CH, Sf - c * CH),
+                        want_logits=c == n_chunks - 1)
+                    st["prefill_chunks"] += 1
 
-        # publish this prompt's freshly written full pages for reuse
-        if self.prefix_cache is not None:
-            for i in range(matched, S // ps):
-                if self.prefix_cache.register(keys[i], pages[i]):
-                    cached.append((pages[i], keys[i]))
+            # publish this prompt's freshly written full pages for reuse
+            if self.prefix_cache is not None:
+                for i in range(matched, S // ps):
+                    if self.prefix_cache.register(keys[i], pages[i]):
+                        cached.append((pages[i], keys[i]))
 
-        tok0 = _first_token(last_logits, self.gc, self._generator)
-        req.first_logits = last_logits
-        self._row_req[row] = req
-        self._row_pages[row] = pages
-        self._row_cached[row] = cached
-        self._emit(row, tok0)           # may retire on eos / max_new == 1
-        if self._row_req[row] is None:
-            return
-        self._tok[row] = tok0
-        self._pos[row] = float(req.pos[-1]) + 1.0
-        self._active[row] = True
-        self._rem[row] = req.max_new_tokens - 1
-        if self._spec:
-            vals = np.zeros(self._ctx_dev.shape[1], np.int32)
-            vals[:S] = req.ids
-            vals[S] = tok0
-            _set_ctx_row(self._ctx_dev, row, vals)
-            self._nctx[row] = S + 1
-        # the row's state onto the device, where the blocks keep it
-        for name, host in (("tok", self._tok), ("pos", self._pos),
-                           ("active", self._active), ("rem", self._rem),
-                           ("nctx", self._nctx)):
-            self._dev[name][row].fill_(host[row].item())
+            with self.spans.span("first_token", rid):
+                tok0 = _first_token(last_logits, self.gc, self._generator)
+            req.first_token_ns = time.time_ns()
+            req.first_logits = last_logits
+            self._row_req[row] = req
+            self._row_pages[row] = pages
+            self._row_cached[row] = cached
+            self._emit(row, tok0)         # may retire on eos / max_new == 1
+            if self._row_req[row] is None:
+                return
+            self._tok[row] = tok0
+            self._pos[row] = float(req.pos[-1]) + 1.0
+            self._active[row] = True
+            self._rem[row] = req.max_new_tokens - 1
+            if self._spec:
+                vals = np.zeros(self._ctx_dev.shape[1], np.int32)
+                vals[:S] = req.ids
+                vals[S] = tok0
+                _set_ctx_row(self._ctx_dev, row, vals)
+                self._nctx[row] = S + 1
+            # the row's state onto the device, where the blocks keep it
+            for name, host in (("tok", self._tok), ("pos", self._pos),
+                               ("active", self._active), ("rem", self._rem),
+                               ("nctx", self._nctx)):
+                self._dev[name][row].fill_(host[row].item())
 
     def _emit(self, row: int, token: int) -> None:
         req = self._row_req[row]
@@ -783,6 +846,7 @@ class InferenceEngine:
         """Completion: dead-mark the row on device, reclaim pages, finish
         the request."""
         _clear_rows(self.cache, [row])
+        self.stats["retired"] += 1
         in_cache = {p for p, _ in self._row_cached[row]}
         for page, _ in self._row_cached[row]:
             self.prefix_cache.release(page)   # parks at refcount 0
@@ -803,10 +867,12 @@ class InferenceEngine:
         rows' state in one tensor. Refreshes the host mirrors and returns
         emitted (B, n) as numpy."""
         d = self._dev
-        host = torch.cat(
-            [emitted, d["tok"][:, None], d["pos"].view(torch.int32)[:, None],
-             d["active"].to(torch.int32)[:, None], d["rem"][:, None],
-             d["nctx"][:, None]], dim=1).cpu().numpy()
+        with self.spans.span("harvest"):
+            host = torch.cat(
+                [emitted, d["tok"][:, None],
+                 d["pos"].view(torch.int32)[:, None],
+                 d["active"].to(torch.int32)[:, None], d["rem"][:, None],
+                 d["nctx"][:, None]], dim=1).cpu().numpy()
         n = emitted.shape[1]
         self._tok = host[:, n].copy()
         self._pos = host[:, n + 1].copy().view(np.float32)
@@ -817,14 +883,20 @@ class InferenceEngine:
 
     def _run_decode_block(self, k: Optional[int] = None) -> None:
         d = self._dev
-        emitted = _decode_block(
-            self.m.model.llm, self.cfg.llm, self.gc, self.cache, d["tok"],
-            d["pos"], d["active"], d["rem"], self._eos, self._generator,
-            k or self.decode_block)
-        if self._spec:
-            # suspended-speculation mode: keep the draft history current
-            _append_ctx(self._ctx_dev, d["nctx"], emitted)
-        self._drain_emitted(self._harvest(emitted))
+        k = k or self.decode_block
+        with self.spans.span("decode_block"):
+            with self.spans.span("decode_launch"):
+                emitted = _decode_block(
+                    self.m.model.llm, self.cfg.llm, self.gc, self.cache,
+                    d["tok"], d["pos"], d["active"], d["rem"], self._eos,
+                    self._generator, k)
+                if self._spec:
+                    # suspended-speculation mode: keep the draft history
+                    # current
+                    _append_ctx(self._ctx_dev, d["nctx"], emitted)
+            self.stats["decode_blocks"] += 1
+            self.stats["decode_steps"] += k
+            self._drain_emitted(self._harvest(emitted))
 
     def _run_spec_block(self) -> None:
         """Speculative counterpart of :meth:`_run_decode_block`: each of
@@ -832,43 +904,50 @@ class InferenceEngine:
         forward, so a block emits between decode_block and
         decode_block*(K+1) tokens per active row."""
         d = self._dev
-        n_act = int(self._active.sum())
-        emitted = self._harvest(_spec_block(
-            self.m.model.llm, self.cfg.llm, self.gc, self.cache,
-            self._ctx_dev, d["nctx"], d["tok"], d["pos"], d["active"],
-            d["rem"], self._eos, self.decode_block))
-        accepted = int((emitted >= 0).sum())
-        self.stats["spec_forwards"] = self.stats.get("spec_forwards", 0) \
-            + int(self.decode_block)
-        self.stats["spec_accepted"] = self.stats.get("spec_accepted", 0) \
-            + accepted
-        # adaptive suspend (see __init__): acceptance per verify forward
-        # per row that was active when the block started. A row that
-        # finishes inside the block stays in the denominator for the
-        # block's remaining forwards, as in the JAX engine, which biases
-        # the estimate low (towards suspending) near the end of requests.
-        if n_act:
-            accept = float(accepted) / (self.decode_block * n_act)
-            ema = self._spec_accept_ema
-            self._spec_accept_ema = accept if ema is None \
-                else 0.5 * ema + 0.5 * accept
-            if self._spec_accept_ema < self.spec_min_accept:
-                self._spec_suspended_for = self.spec_reprobe_blocks
-                self.stats["spec_suspends"] = \
-                    self.stats.get("spec_suspends", 0) + 1
-        self._drain_emitted(emitted)
+        with self.spans.span("decode_block"):
+            n_act = int(self._active.sum())
+            with self.spans.span("decode_launch"):
+                out = _spec_block(
+                    self.m.model.llm, self.cfg.llm, self.gc, self.cache,
+                    self._ctx_dev, d["nctx"], d["tok"], d["pos"],
+                    d["active"], d["rem"], self._eos, self.decode_block)
+            emitted = self._harvest(out)
+            accepted = int((emitted >= 0).sum())
+            self.stats["decode_blocks"] += 1
+            self.stats["decode_steps"] += self.decode_block
+            self.stats["spec_forwards"] = \
+                self.stats.get("spec_forwards", 0) + int(self.decode_block)
+            self.stats["spec_accepted"] = \
+                self.stats.get("spec_accepted", 0) + accepted
+            # adaptive suspend (see __init__): acceptance per verify forward
+            # per row that was active when the block started. A row that
+            # finishes inside the block stays in the denominator for the
+            # block's remaining forwards, as in the JAX engine, which biases
+            # the estimate low (towards suspending) near the end of
+            # requests.
+            if n_act:
+                accept = float(accepted) / (self.decode_block * n_act)
+                ema = self._spec_accept_ema
+                self._spec_accept_ema = accept if ema is None \
+                    else 0.5 * ema + 0.5 * accept
+                if self._spec_accept_ema < self.spec_min_accept:
+                    self._spec_suspended_for = self.spec_reprobe_blocks
+                    self.stats["spec_suspends"] = \
+                        self.stats.get("spec_suspends", 0) + 1
+            self._drain_emitted(emitted)
 
     def _drain_emitted(self, emitted: np.ndarray) -> None:
-        for row in range(self.max_rows):
-            if self._row_req[row] is None:
-                continue
-            for t in emitted[row]:
-                if t < 0 or self._row_req[row] is None:
+        with self.spans.span("drain"):
+            for row in range(self.max_rows):
+                if self._row_req[row] is None:
                     continue
-                self._emit(row, int(t))
-            # budget exhausted without a stop token mid-block
-            if self._row_req[row] is not None and not self._active[row]:
-                self._retire(row)
+                for t in emitted[row]:
+                    if t < 0 or self._row_req[row] is None:
+                        continue
+                    self._emit(row, int(t))
+                # budget exhausted without a stop token mid-block
+                if self._row_req[row] is not None and not self._active[row]:
+                    self._retire(row)
 
 
 class EngineChat:
