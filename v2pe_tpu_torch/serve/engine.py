@@ -46,23 +46,31 @@ Spans and counters: the scheduler times itself through ``spans``
 (``utils/profiling.SpanRecorder``), each span adding its nanoseconds to the
 counter ``<name>_ns`` in ``stats`` (:data:`SPANS`). ``step`` is all of a
 scheduler step; in it ``plan`` (every admission plan, failed ones too;
-within it ``digest``, the pixel blake2b and the page-key chain), ``admit``
-(within it ``pixel_upload``, ``vit``: the ViT and the scatter, host time,
-``prefill``: the chunks, ``first_token``: its read, which waits for the
-prefill) and ``decode_block`` (within it ``decode_launch``: issuing the
-block, ``harvest``: its one read, which waits for it, ``drain``: handing
-out tokens and retiring rows, the tokenizer's decode included). Counters
-beside them: ``admissions``, ``queue_wait_ns`` (submit to the start of the
-plan that admitted the request), ``prefill_chunks``, ``prefill_tokens``
-(valid) and ``prefill_pad_tokens``, ``prefix_hit_pages`` and
-``prefix_hit_tokens``, ``decode_blocks``, ``decode_steps`` (forwards) and
-``retired``. A request keeps ``submit_ns``, ``admit_ns``,
-``first_token_ns`` and ``cached_tokens`` (its prompt tokens the prefix
-cache served). Every time is ``time.time_ns()``, the clock of a
-``torch.profiler`` trace. ``spans.record()`` attaches a bounded log of the
-spans, each ``(name, start_ns, end_ns, parent, request_id)`` (an
-admission's and a plan's carry the request's id), and ``spans.drain()``
-takes what it holds; the log is off by default.
+within it ``digest``: keying a request that came without keys, the pixel
+blake2b and the page-key chain), ``admit`` (within it ``pixel_upload``,
+``vit``: the ViT and the scatter, host time, ``prefill``: the chunks,
+``first_token``: its read, which waits for the prefill) and
+``decode_block`` (within it ``decode_launch``: issuing the block,
+``harvest``: its one read, which waits for it, ``drain``: handing out
+tokens and retiring rows, the tokenizer's decode included). Counters beside
+them: ``admissions``, ``queue_wait_ns`` (submit to the start of the plan
+that admitted the request, the keying at submit included),
+``keyed_at_submit`` (admissions whose keys ``submit`` made) and
+``submit_digest_ns`` (those requests' ``key_ns``), ``prefill_chunks``,
+``prefill_tokens`` (valid) and ``prefill_pad_tokens``,
+``prefix_hit_pages`` and ``prefix_hit_tokens``, ``decode_blocks``,
+``decode_steps`` (forwards) and ``retired``. A request keeps
+``submit_ns``, ``admit_ns``, ``first_token_ns``, ``cached_tokens`` (its
+prompt tokens the prefix cache served) and ``key_ns``. With the prefix
+cache on, ``submit`` keys the prompt's pages on the caller's thread,
+outside the scheduler's lock, so ``digest`` stays 0 on that path; the
+caller times its own keying (``key_ns``) and the scheduler adds it up at
+admission, ``stats`` keeping the scheduler as its one writer. Every time
+is ``time.time_ns()``, the clock of a ``torch.profiler`` trace.
+``spans.record()`` attaches a bounded log of the spans, each ``(name,
+start_ns, end_ns, parent, request_id)`` (an admission's and a plan's carry
+the request's id), and ``spans.drain()`` takes what it holds; the log is
+off by default.
 """
 
 from __future__ import annotations
@@ -168,6 +176,16 @@ class PrefixCache:
     de-registering their keys) only when the free list runs dry. KV pages
     are append-only (prefill/decode write strictly past ``lengths``), so
     a shared page is immutable by construction - no copy-on-write needed.
+
+    The engine keys a request once, in ``InferenceEngine.submit`` on the
+    caller's thread (:meth:`request_keys`), and keeps the chain on
+    ``EngineRequest.keys`` and the time it took on ``EngineRequest.key_ns``;
+    the scheduler only matches and reserves, and counts such admissions in
+    ``stats["keyed_at_submit"]`` and their keying time in
+    ``stats["submit_digest_ns"]``. A request that reaches the plan without
+    keys is keyed there, in the ``digest`` span. So the pixels are keyed as
+    they are at submit: a caller must not change the array after submitting
+    it (the upload at admission reads it later still).
     """
 
     def __init__(self):
@@ -180,6 +198,18 @@ class PrefixCache:
     @property
     def evictable(self) -> int:
         return len(self._lru)
+
+    @staticmethod
+    def request_keys(ids: np.ndarray, pos: np.ndarray,
+                     pixel_values: Optional[np.ndarray],
+                     page_size: int) -> List[bytes]:
+        """A prompt's key chain, seeded with the blake2b of its pixels'
+        bytes in C order (``b""`` without pixels). hashlib reads a
+        C-contiguous array's buffer in place (no copy) and releases the
+        GIL while it hashes."""
+        seed = b"" if pixel_values is None else hashlib.blake2b(
+            np.ascontiguousarray(pixel_values), digest_size=16).digest()
+        return PrefixCache.chain_keys(ids, pos, page_size, seed)
 
     @staticmethod
     def chain_keys(ids: np.ndarray, pos: np.ndarray, page_size: int,
@@ -271,6 +301,10 @@ class EngineRequest:
     admit_ns: int = 0
     first_token_ns: int = 0
     cached_tokens: int = 0           # prompt tokens the prefix cache served
+    # the prompt's page-key chain, made at submit when the engine caches
+    # prefixes (None: keyed by the plan instead), and the ns it took
+    keys: Optional[List[bytes]] = None
+    key_ns: int = 0
 
     def result(self, timeout: Optional[float] = None) -> str:
         self.finished.wait(timeout)
@@ -508,8 +542,9 @@ class InferenceEngine:
         # another thread never sees it grow
         self.stats = dict.fromkeys(
             ("prefill_chunks", "prefix_hit_pages", "admissions",
-             "queue_wait_ns", "prefill_tokens", "prefill_pad_tokens",
-             "prefix_hit_tokens", "decode_blocks", "decode_steps", "retired")
+             "queue_wait_ns", "keyed_at_submit", "submit_digest_ns",
+             "prefill_tokens", "prefill_pad_tokens", "prefix_hit_tokens",
+             "decode_blocks", "decode_steps", "retired")
             + tuple(f"{name}_ns" for name in SPANS), 0)
         self.spans = SpanRecorder(self.stats)
         # per-row state: on the device (what the blocks run on, updated in
@@ -545,7 +580,9 @@ class InferenceEngine:
     def submit(self, ids: np.ndarray, pos: np.ndarray,
                pixel_values: Optional[np.ndarray] = None,
                max_new_tokens: int = 256) -> EngineRequest:
-        """Queue raw (ids, positions) for generation."""
+        """Queue raw (ids, positions) for generation. With the prefix cache
+        on, the prompt's page keys are made here, on the calling thread and
+        outside the scheduler's lock (``PrefixCache``)."""
         ids = np.asarray(ids, np.int64).reshape(-1)
         need = -(-(len(ids) + max_new_tokens + self._spec_slack)
                  // self.page_size)
@@ -561,6 +598,11 @@ class InferenceEngine:
                             pixel_values=pixel_values,
                             request_id=next(self._ids),
                             submit_ns=time.time_ns())
+        if self.prefix_cache is not None:
+            t0 = time.time_ns()
+            req.keys = PrefixCache.request_keys(req.ids, req.pos,
+                                                pixel_values, self.page_size)
+            req.key_ns = time.time_ns() - t0
         with self._wake:
             if self._failed is not None:
                 raise RuntimeError("engine scheduler has failed") \
@@ -703,8 +745,10 @@ class InferenceEngine:
 
     # -------------------------------------------------------------- internals
     def _plan_admission(self, req: EngineRequest):
-        """Match the prompt against the prefix cache and reserve pages.
-        Returns (pages, keys, n_matched_pages) or None when the pool can't
+        """Match the prompt's keys (made at submit) against the prefix
+        cache and reserve pages; a request that comes without keys is keyed
+        here, in the ``digest`` span. Returns (pages, keys,
+        n_matched_pages) or None when the pool can't
         cover the request right now; on success cached-prefix pages are
         already acquired and sit at the front of ``pages``."""
         with self.spans.span("plan", req.request_id) as t0:
@@ -712,15 +756,13 @@ class InferenceEngine:
             need = -(-(len(req.ids) + req.max_new_tokens + self._spec_slack)
                      // ps)
             pc = self.prefix_cache
-            keys: List[bytes] = []
+            keys = req.keys
             shared: List[int] = []
             if pc is not None:
-                with self.spans.span("digest", req.request_id):
-                    seed = hashlib.blake2b(
-                        np.ascontiguousarray(req.pixel_values).tobytes(),
-                        digest_size=16).digest() \
-                        if req.pixel_values is not None else b""
-                    keys = pc.chain_keys(req.ids, req.pos, ps, seed)
+                if keys is None:          # not keyed at submit
+                    with self.spans.span("digest", req.request_id):
+                        keys = pc.request_keys(req.ids, req.pos,
+                                               req.pixel_values, ps)
                 # always leave >=1 prompt token to prefill: the new request
                 # needs the last position's logits to sample its first token
                 matched = min(pc.match(keys), (len(req.ids) - 1) // ps)
@@ -762,6 +804,9 @@ class InferenceEngine:
             st = self.stats
             st["admissions"] += 1
             st["queue_wait_ns"] += req.admit_ns - req.submit_ns
+            if req.keys is not None:
+                st["keyed_at_submit"] += 1
+                st["submit_digest_ns"] += req.key_ns
             st["prefix_hit_tokens"] += consumed
             st["prefill_tokens"] += Sf
             st["prefill_pad_tokens"] += Sp - Sf
