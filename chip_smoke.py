@@ -14,6 +14,10 @@ once on one CUDA card.
     python3 chip_smoke.py --families       # only the InternVL2-4B (Phi-3,
                                            # head dim 96) and InternVL2-1B
                                            # (Qwen2, G = 7) phases
+    python3 chip_smoke.py --mla            # only kernel #12 (latent
+                                           # attention) and the experts'
+                                           # grouped products at
+                                           # Kimi-VL-A3B's widths
 
 Phases, each of which fails the run (nonzero exit, no result line):
   1. device: the card's name and power limit, torch/CUDA versions, and the
@@ -7589,6 +7593,162 @@ def kernel_record(name: str, recs: list, launches: int,
     return rec
 
 
+# ------------------------------------------------- latent attention (#12)
+
+# #12 against its twin on the same bf16 inputs: the kernel rounds the
+# softmax weights to bf16 before their product with the latents (2^-9
+# relative each) and its output to bf16, the twin neither
+MLA_TOL = 1e-2
+
+
+def _mla_rows(lengths, ps: int, MP: int, extra: int, device, g):
+    """A latent pool of 2 layers holding rows of ``lengths`` slots (+
+    ``extra`` allocated), pages shuffled, and the rows' tables."""
+    from v2pe_tpu_torch.ops import mla_attention as mla
+
+    need = [-(-(n + extra) // ps) for n in lengths]
+    NP = 1 + sum(need)
+    pool = torch.randn((2, 1, NP, ps, mla.DK), generator=g, device=device
+                       ).to(torch.bfloat16)
+    perm = (torch.randperm(NP - 1, generator=g, device=device) + 1).int()
+    table = torch.full((len(lengths), MP), -1, dtype=torch.int32,
+                       device=device)
+    at = 0
+    for b, n in enumerate(need):
+        table[b, :n] = perm[at:at + n]
+        at += n
+    return pool, table, torch.tensor(lengths, dtype=torch.int32,
+                                     device=device)
+
+
+def _mla_check(tag: str, fn, twin, outputs) -> dict:
+    """Run a form twice (equal bits) and against its twin; time the
+    kernel, the twin and the bound."""
+    with nan_empty():
+        a, b = fn(), fn()
+    torch.cuda.synchronize()
+    want = twin()
+    err = (a.float() - want.float()).abs().max().item()
+    rel = err / want.float().abs().max().item()
+    same = bool(torch.equal(a, b))
+    ok = same and bool(torch.isfinite(a).all()) and rel <= MLA_TOL
+    ms = time_ms(fn, iters=10)
+    twin_ms = time_ms(twin, iters=2)
+    bound = roof(*outputs)
+    log(f"kernel mla_{tag}: {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms by "
+        f"{bound['bound_by']}, {100 * bound['bound_ms'] / ms:.1f}% of it); "
+        f"plain {twin_ms:.3f} ms; max|out-twin| {err:.3e} = {rel:.3e} of "
+        f"max|twin| (tol {MLA_TOL}); repeat bitwise equal {same}")
+    if not ok:
+        raise AssertionError(f"mla_{tag}: kernel against its twin failed")
+    return dict(ms=ms, twin_ms=twin_ms, rel=rel, **bound)
+
+
+def phase_mla(device: str = "cuda") -> dict:
+    """#12's two main forms at Kimi-VL-A3B's widths (16 heads, slots of
+    576, outputs of 512) against the twin: decode of 16 rows of ~22k
+    latents (12-37k, page 128, a row's table as wide as the cell's 40,960
+    tokens), a 2048-token chunk over 32k cached slots, and small forms
+    (chunk ends, an empty row, a dead entry); then the experts' grouped
+    products at N = 16 and 2048 tokens against a loop over experts, and
+    the profiler's names of their kernels."""
+    from v2pe_tpu_torch.ops import mla_attention as mla
+    from v2pe_tpu_torch.ops import moe
+
+    g = torch.Generator(device).manual_seed(12)
+    H, scale, out = 16, 192 ** -0.5, {}
+    lengths = [int(x) for x in torch.randint(12000, 37000, (16,),
+                                             generator=g, device=device)]
+    pool, table, lens = _mla_rows(lengths, 128, 320, 1, device, g)
+    q = torch.randn((16, H, mla.DK), generator=g, device=device).to(
+        torch.bfloat16)
+    fresh = torch.randn((16, mla.DK), generator=g, device=device).to(
+        torch.bfloat16)
+    work = pool.clone()
+    slots = sum(n + 1 for n in lengths)
+    nb = (slots + 16 * 2) * mla.DK * 2 + 16 * H * (mla.DK + mla.DV) * 2
+    fl = 2.0 * H * (mla.DK + mla.DV) * slots
+    out["decode_16x22k"] = _mla_check(
+        "decode_16x22k",
+        lambda: mla.mla_decode(q, fresh, work, table, lens, 1, scale, 512),
+        lambda: mla.mla_decode_torch(q, fresh, pool.clone(), table, lens, 1,
+                                     scale, 512), (nb, fl))
+    if not torch.equal(work[0], pool[0]):
+        raise AssertionError("mla_decode wrote another layer")
+    T, n0 = 2048, 32768
+    pool, table, lens = _mla_rows([n0], 128, 272, T, device, g)
+    qc = torch.randn((1, T, H, mla.DK), generator=g, device=device).to(
+        torch.bfloat16)
+    nb = T * H * (mla.DK + mla.DV) * 2 + (n0 + T) * mla.DK * 2
+    fl = 2.0 * H * (mla.DK + mla.DV) * (T * n0 + T * (T + 1) / 2)
+    out["chunk_2048_over_32k"] = _mla_check(
+        "chunk_2048_over_32k",
+        lambda: mla.mla_chunk(qc, pool, table, lens, 1, scale, 512),
+        lambda: mla.mla_chunk_torch(qc, pool, table, lens, 1, scale, 512),
+        (nb, fl))
+    for tag, lengths, T, ps in (("chunk_small", [0, 500, 37], 37, 16),
+                                ("decode_small", [0, 5, 300], 1, 16)):
+        pool, table, lens = _mla_rows(lengths, ps, 64, T, device, g)
+        table[2, 1] = -1    # a dead entry inside the last row
+        if T == 1:
+            qs = torch.randn((3, H, mla.DK), generator=g, device=device).to(
+                torch.bfloat16)
+            fr = torch.randn((3, mla.DK), generator=g, device=device).to(
+                torch.bfloat16)
+            fn = lambda: mla.mla_decode(qs, fr, pool.clone(), table, lens,  # noqa: E731
+                                        0, scale, 512)
+            tw = lambda: mla.mla_decode_torch(qs, fr, pool.clone(), table,  # noqa: E731
+                                              lens, 0, scale, 512)
+        else:
+            qs = torch.randn((3, T, H, mla.DK), generator=g,
+                             device=device).to(torch.bfloat16)
+            fn = lambda: mla.mla_chunk(qs, pool, table, lens, 0, scale, 512)  # noqa: E731
+            tw = lambda: mla.mla_chunk_torch(qs, pool, table, lens, 0,  # noqa: E731
+                                             scale, 512)
+        out[tag] = _mla_check(tag, fn, tw, (1.0, 1.0))
+    # the experts' grouped products
+    D, E, Im, k = 2048, 64, 1408, 6
+    w1 = (0.02 * torch.randn((E, Im, D), generator=g, device=device)).to(
+        torch.bfloat16)
+    w3 = (0.02 * torch.randn((E, Im, D), generator=g, device=device)).to(
+        torch.bfloat16)
+    w2 = (0.02 * torch.randn((E, D, Im), generator=g, device=device)).to(
+        torch.bfloat16)
+    gate = (0.02 * torch.randn((E, D), generator=g, device=device)).to(
+        torch.bfloat16)
+    for N in (16, 2048):
+        x = torch.randn((N, D), generator=g, device=device).to(torch.bfloat16)
+        idx, w = moe.route(x, gate, torch.zeros(E, device=device), top_k=k,
+                           scaling=2.446)
+        got = moe.experts(x, idx, w, w1, w3, w2)
+        want = torch.zeros((N, D), device=device)
+        for e in range(E):
+            tok, slot = torch.where(idx == e)
+            y = moe.swiglu(x[tok].float(), w1[e].float(), w3[e].float(),
+                           w2[e].float())
+            want.index_add_(0, tok, y * w[tok, slot][:, None])
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        hit = int((torch.bincount(idx.reshape(-1), minlength=E) > 0).sum())
+        ms = time_ms(lambda: moe.experts(x, idx, w, w1, w3, w2), iters=10)
+        bound = roof((hit * 3 * D * Im + N * k * 2 * D) * 2,
+                     6.0 * D * Im * N * k)
+        log(f"experts N={N}: {ms:.4f} ms (bound {bound['bound_ms']:.4f} ms "
+            f"by {bound['bound_by']}, {hit} experts hit); max|out-loop| "
+            f"{rel:.3e} of max|loop| (tol 2e-2)")
+        if rel > 2e-2:
+            raise AssertionError(f"experts N={N} against the loop failed")
+        out[f"experts_{N}"] = dict(ms=ms, rel=rel, **bound)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            moe.experts(x, idx, w, w1, w3, w2)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_time_total > 0})
+        log(f"experts N={N} kernels: {names}")
+    log("mla: " + json.dumps(out))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -7617,6 +7777,10 @@ def main(argv=None) -> int:
     ap.add_argument("--8b", dest="eight_b", action="store_true",
                     help="only the InternVL2.5-8B phases, in a process of "
                     "their own; no result line")
+    ap.add_argument("--mla", action="store_true",
+                    help="only kernel #12 (latent attention) and the "
+                    "experts' grouped products at Kimi-VL-A3B's widths; no "
+                    "result line")
     ap.add_argument("--families", action="store_true",
                     help="only the InternVL2-4B (Phi-3) and InternVL2-1B "
                     "(Qwen2) phases, in a process of their own; no result "
@@ -7646,6 +7810,10 @@ def main(argv=None) -> int:
         phase_pipe_two_ranks()
         phase_fused_two_ranks()
         phase_two_ranks()
+        log(card_line())
+        return 0
+    if args.mla:
+        phase_mla()
         log(card_line())
         return 0
     if args.eight_b or args.families:

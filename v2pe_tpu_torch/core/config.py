@@ -66,6 +66,9 @@ class LLMConfig:
     Reference: ``internvl/model/internlm2/configuration_internlm2.py:77-152``.
     Defaults are the InternLM2-1.8B (chat) instance used by InternVL2-2B.
 
+    ``arch='deepseek_v3'`` is :class:`MLAConfig`, this class with the
+    latent attention's and the experts' fields.
+
     ``arch='qwen2'`` mirrors the reference's composite-LLM dispatch
     (``modeling_internvl_chat.py:108-117``): Qwen2 shares this decoder's
     entire compute path — its separate q/k/v projections are repacked into
@@ -76,7 +79,7 @@ class LLMConfig:
     segment-id flash kernel, which is arch-agnostic).
     """
 
-    arch: str = "internlm2"  # internlm2 | qwen2 | llama | phi3
+    arch: str = "internlm2"  # internlm2 | qwen2 | llama | phi3 | deepseek_v3
     vocab_size: int = 92553
     hidden_size: int = 2048
     intermediate_size: int = 8192
@@ -96,7 +99,6 @@ class LLMConfig:
     pad_token_id: int = 2
     bos_token_id: int = 1
     eos_token_id: int = 2
-
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
@@ -104,6 +106,59 @@ class LLMConfig:
     @property
     def num_key_value_groups(self) -> int:
         return self.num_attention_heads // self.num_key_value_heads
+
+
+@dataclass(frozen=True)
+class MLAConfig(LLMConfig):
+    """The DeepSeek-V3 block (``arch='deepseek_v3'``, ``models/deepseek_v3.py``;
+    defaults: Kimi-VL-A3B-Instruct's language model). Latent attention (MLA,
+    no q low-rank) of ``num_attention_heads`` heads, each of
+    ``qk_nope_head_dim`` + ``qk_rope_head_dim`` query/key dims and
+    ``v_head_dim`` value dims, over a ``kv_lora_rank`` latent and one rotary
+    key shared by the heads; the first ``first_k_dense_replace`` layers a
+    dense SwiGLU of ``intermediate_size``, the rest ``n_routed_experts``
+    experts of width ``moe_intermediate_size``, ``num_experts_per_tok`` a
+    token (sigmoid scores; the correction bias only selects), plus
+    ``n_shared_experts`` shared experts fused into one SwiGLU.
+    ``num_key_value_heads`` is the heads' count, as in the HF config."""
+
+    arch: str = "deepseek_v3"
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    max_position_embeddings: int = 131072
+    rope_theta: float = 800000.0
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_interleave: bool = True
+    first_k_dense_replace: int = 1
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """A latent pool's slot: the ``kv_lora_rank`` latent, then the
+        rotary key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+def llm_config(d: dict) -> LLMConfig:
+    """The decoder config of a dict: :class:`MLAConfig` for
+    ``arch='deepseek_v3'``, else :class:`LLMConfig`."""
+    return (MLAConfig if d.get("arch") == "deepseek_v3" else LLMConfig)(**d)
 
 
 @dataclass(frozen=True)
@@ -195,7 +250,7 @@ class VLMConfig:
     def from_dict(d: dict) -> "VLMConfig":
         d = dict(d)
         vision = VisionConfig(**d.pop("vision", {}))
-        llm = LLMConfig(**d.pop("llm", {}))
+        llm = llm_config(d.pop("llm", {}))
         return VLMConfig(vision=vision, llm=llm, **d)
 
 
@@ -208,6 +263,7 @@ _HF_ARCH = {
     "Qwen2ForCausalLM": "qwen2",
     "LlamaForCausalLM": "llama",
     "Phi3ForCausalLM": "phi3",
+    "DeepseekV3ForCausalLM": "deepseek_v3",
 }
 
 
@@ -243,11 +299,26 @@ def vlm_config_from_hf(d: dict) -> VLMConfig:
     if arch is None:
         raise ValueError(f"unsupported llm architecture {archs[0]!r}; "
                          f"known: {sorted(_HF_ARCH)}")
-    lkw = pick(LLMConfig, hl)
+    lkw = pick(MLAConfig if arch == "deepseek_v3" else LLMConfig, hl)
     lkw["arch"] = arch
     # HF configs omit num_key_value_heads for MHA checkpoints
     lkw.setdefault("num_key_value_heads", hl.get("num_attention_heads",
                                                  LLMConfig.num_attention_heads))
+    if arch == "deepseek_v3":
+        if hl.get("q_lora_rank") is not None:
+            raise ValueError("deepseek_v3 with a q low-rank projection "
+                             "(q_lora_rank) is not supported")
+        if hl.get("rope_scaling") is not None:
+            raise ValueError("deepseek_v3 with rope_scaling (yarn) is not "
+                             "supported")
+        if hl.get("topk_method", "noaux_tc") != "noaux_tc" or \
+                hl.get("scoring_func", "sigmoid") != "sigmoid":
+            raise ValueError("deepseek_v3: only sigmoid scores with "
+                             "noaux_tc selection are supported")
+        if hl.get("n_group", 1) != 1 or hl.get("topk_group", 1) != 1:
+            raise ValueError("deepseek_v3 with grouped expert selection "
+                             "(n_group or topk_group above 1) is not "
+                             "supported")
     if arch == "qwen2":
         # Qwen2 biases q/k/v but not o_proj; HF's Qwen2Config carries no
         # flag for it (pre-2.5 models are always biased)
@@ -259,7 +330,7 @@ def vlm_config_from_hf(d: dict) -> VLMConfig:
     if isinstance(rs, dict) and rs.get("type") in ("linear", "dynamic"):
         lkw["rope_mode"] = rs["type"]
         lkw["rope_scaling_factor"] = float(rs.get("factor", 1.0))
-    llm = LLMConfig(**lkw)
+    llm = llm_config(lkw)
 
     top = pick(VLMConfig, d)
     top.pop("vision", None)

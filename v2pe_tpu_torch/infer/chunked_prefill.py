@@ -9,7 +9,7 @@ recomputation of the history's layers.
 
 Usage::
 
-    cache = PagedKVCache.zeros(...)
+    cache = PagedKVCache.zeros(...)   # .latents(...) for DeepSeek-V3
     logits, cache = chunked_prefill(llm, cfg, cache, ids_chunk1, pos1)
     logits, cache = chunked_prefill(llm, cfg, cache, ids_chunk2, pos2)
     # ... then decode with llm_forward(paged_cache=cache)
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from v2pe_tpu_torch.infer import paged_kv as pk
-from v2pe_tpu_torch.models import internlm2
+from v2pe_tpu_torch.models import decoder
 from v2pe_tpu_torch.parallel.mesh import serving_mode
 
 
@@ -47,7 +47,7 @@ def chunked_prefill(llm, cfg, cache: pk.PagedKVCache,
         valid = torch.full((B,), S, dtype=torch.int32,
                            device=cache.lengths.device)
     cache = pk.allocate_rows(cache, valid)
-    out, cache = internlm2.llm_forward(
+    out, cache = decoder.llm_forward(
         llm, cfg, input_ids=input_ids, inputs_embeds=inputs_embeds,
         rope_pos_ids=rope_pos_ids, segment_ids=segment_ids,
         paged_cache=cache, paged_attend_cache=True,

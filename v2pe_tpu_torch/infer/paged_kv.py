@@ -7,6 +7,13 @@ of shape (..., page_size, hd/2): ``ops/paged_attention.pack_int4``) carries
 fp32 scales per (layer, head, token) in (L, Hkv, n_pages, 1, page_size).
 Page 0 is the reserved null page: the allocator never hands it out.
 
+A latent pool (:meth:`PagedKVCache.latents`, the DeepSeek-V3 decoder's
+latent attention) is one tensor, (L, 1, n_pages, page_size, kv_lora_rank +
+qk_rope_head_dim), in ``k_pages``: each slot a token's latents and its
+rotated rotary key, which every head reads; ``v_pages`` is None (the values
+are the latents). The page tables, the allocation and the lengths are the
+same; ``ops/mla_attention.py`` writes and reads it.
+
 Sequence sharding (``n_shards > 1``, JAX's pool over the ``seq`` axis):
 shard d owns the global pages [d NP/n, (d+1) NP/n), its local page 0 is its
 null page, and :func:`allocate_rows` places a row's page at table slot s
@@ -132,6 +139,21 @@ class PagedKVCache:
                                     device=device) * (n_pages // n_shards)
                        + 1).to(torch.int32),
             k_scales=scales(), v_scales=scales(), kv_bits=bits, shard=shard)
+
+    @staticmethod
+    def latents(cfg, batch: int, n_pages: int, page_size: int,
+                max_pages_per_row: int, dtype=torch.bfloat16,
+                device=None) -> "PagedKVCache":
+        """An empty latent pool for the MLA decoder of ``cfg`` (an
+        ``MLAConfig``): one shard, unquantized."""
+        shape = (cfg.num_hidden_layers, 1, n_pages, page_size, cfg.latent_dim)
+        return PagedKVCache(
+            k_pages=torch.zeros(shape, dtype=dtype, device=device),
+            v_pages=None,
+            page_table=torch.full((batch, max_pages_per_row), -1,
+                                  dtype=torch.int32, device=device),
+            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+            next_page=torch.ones((1,), dtype=torch.int32, device=device))
 
 
 def allocate_rows(cache: PagedKVCache, new_lengths: torch.Tensor

@@ -1,7 +1,8 @@
 """InternVLChat composite model (port of
 ``v2pe_tpu/models/internvl_chat.py``): ViT features, pixel shuffle and the
 ``mlp1`` projector, scattered into the ``<IMG_CONTEXT>`` slots of the text
-embeddings, then the InternLM2 decoder to fp32 logits; with ``targets``,
+embeddings, then the decoder (``models/decoder.py``: InternLM2 and its GQA
+kin, or DeepSeek-V3) to fp32 logits; with ``targets``,
 the weighted cross-entropy of training, computed in sequence chunks so that
 at most one (chunk, V) fp32 logits block is live."""
 
@@ -15,7 +16,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from v2pe_tpu_torch.core.config import VLMConfig
-from v2pe_tpu_torch.models import internlm2
+from v2pe_tpu_torch.models import decoder
 from v2pe_tpu_torch.models.intern_vit import InternVisionModel, vision_forward
 from v2pe_tpu_torch.ops.norms import layer_norm
 from v2pe_tpu_torch.parallel import context as parallel_context
@@ -37,7 +38,7 @@ class InternVLChatModel(nn.Module):
     def __init__(self, cfg: VLMConfig):
         super().__init__()
         self.vision = InternVisionModel(cfg.vision)
-        self.llm = internlm2.InternLM2Model(cfg.llm)
+        self.llm = decoder.build(cfg.llm)
         vit_hidden = cfg.vision.hidden_size * int(1 / cfg.downsample_ratio) ** 2
         self.mlp1 = Projector(vit_hidden, cfg.llm.hidden_size)
 
@@ -188,7 +189,7 @@ def forward(model: InternVLChatModel, cfg: VLMConfig, *,
             cfg.chunk_num, segment_ids=segment_ids,
             fuse_method=cfg.fuse_method, return_hidden=True)
     else:
-        out, _ = internlm2.llm_forward(
+        out, _ = decoder.llm_forward(
             model.llm, cfg.llm, inputs_embeds=embeds,
             rope_pos_ids=rope_pos_ids, segment_ids=segment_ids,
             positions=token_positions, remat=remat,

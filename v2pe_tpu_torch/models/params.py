@@ -8,7 +8,8 @@ and ``nn.Linear`` weights as (out, in), which is HF's own layout: an HF
 state dict maps onto the port's names directly (:func:`hf_names`), and
 only the composite-LLM decoders' separate q/k/v (qwen2, llama) or fused
 ``qkv_proj`` / ``gate_up_proj`` (phi3) are repacked into the interleaved
-fused ``wqkv`` and the w1 / w3 pair.
+fused ``wqkv`` and the w1 / w3 pair, and DeepSeek-V3's experts
+(``mlp.experts.{e}.*_proj``) are stacked into the (E, ...) expert weights.
 
 A JAX tree whose ``llm`` went through the JAX package's
 ``quantize_llm_params`` (leaves with ``.q`` / ``.scale`` or ``.p`` /
@@ -26,7 +27,8 @@ import torch
 from torch import nn
 
 from v2pe_tpu_torch.core.config import VLMConfig
-from v2pe_tpu_torch.models.internlm2 import InternLM2Model, QuantizedInternLM2
+from v2pe_tpu_torch.models import decoder
+from v2pe_tpu_torch.models.internlm2 import QuantizedInternLM2
 from v2pe_tpu_torch.models.internvl_chat import InternVLChatModel
 from v2pe_tpu_torch.ops.quantized_matmul import QUANT_WEIGHT_NAMES
 
@@ -240,6 +242,23 @@ _LLAMA_LAYER = {  # qwen2 / llama / phi3 (HF llama-style module names)
 _MLP1 = {"mlp1.ln_weight": "mlp1.0.weight", "mlp1.ln_bias": "mlp1.0.bias",
          "mlp1.fc1.weight": "mlp1.1.weight", "mlp1.fc1.bias": "mlp1.1.bias",
          "mlp1.fc2.weight": "mlp1.3.weight", "mlp1.fc2.bias": "mlp1.3.bias"}
+_DEEPSEEK_LAYER = {  # deepseek_v3: attention, norms, router (1:1 names)
+    "attention_norm": "input_layernorm.weight",
+    "ffn_norm": "post_attention_layernorm.weight",
+    "wq.weight": "self_attn.q_proj.weight",
+    "wkv_a.weight": "self_attn.kv_a_proj_with_mqa.weight",
+    "kv_norm": "self_attn.kv_a_layernorm.weight",
+    "wkv_b.weight": "self_attn.kv_b_proj.weight",
+    "wo.weight": "self_attn.o_proj.weight",
+    "w1.weight": "mlp.gate_proj.weight", "w3.weight": "mlp.up_proj.weight",
+    "w2.weight": "mlp.down_proj.weight",
+    "gate": "mlp.gate.weight", "gate_bias": "mlp.gate.e_score_correction_bias",
+    "shared_w1.weight": "mlp.shared_experts.gate_proj.weight",
+    "shared_w3.weight": "mlp.shared_experts.up_proj.weight",
+    "shared_w2.weight": "mlp.shared_experts.down_proj.weight"}
+# the stacked routed experts: port name -> each expert's HF projection
+_DEEPSEEK_EXPERTS = {"experts_w1": "gate_proj", "experts_w3": "up_proj",
+                     "experts_w2": "down_proj"}
 _LLM = "language_model."
 
 
@@ -250,6 +269,9 @@ def _check_arch(lc) -> None:
     elif lc.arch in ("llama", "phi3"):
         ok = not lc.qkv_bias and not lc.bias
         why = f"{lc.arch} has no biases (qkv_bias=False, bias=False)"
+    elif lc.arch == "deepseek_v3":
+        ok, why = not lc.bias and not lc.qkv_bias, \
+            "deepseek_v3 has no attention biases"
     else:
         ok, why = lc.arch == "internlm2", f"unknown llm arch {lc.arch!r}"
     if not ok:
@@ -267,7 +289,8 @@ def _llm_names(lc) -> Dict[str, str]:
     names without ``language_model.``."""
     _check_arch(lc)
     internlm2 = lc.arch == "internlm2"
-    layer = _INTERNLM2_LAYER if internlm2 else dict(_LLAMA_LAYER)
+    layer = _INTERNLM2_LAYER if internlm2 else dict(
+        _DEEPSEEK_LAYER if decoder.is_mla(lc) else _LLAMA_LAYER)
     if lc.arch == "phi3":
         del layer["w1.weight"], layer["w3.weight"]
     out = {f"layers.{i}.{port}": f"model.layers.{i}.{hf}"
@@ -277,7 +300,7 @@ def _llm_names(lc) -> Dict[str, str]:
         if internlm2 else "model.embed_tokens.weight"
     out["output.weight"] = "output.weight" if internlm2 else "lm_head.weight"
     with torch.device("meta"):
-        return _names(InternLM2Model(lc), out)
+        return _names(decoder.build(lc), out)
 
 
 def hf_names(cfg: VLMConfig) -> Dict[str, str]:
@@ -338,6 +361,17 @@ def convert_qwen2_llm(sd: dict, lc, prefix: str = "") -> dict:
     return _convert_llm(sd, lc, prefix)
 
 
+def convert_deepseek_v3_llm(sd: dict, lc, prefix: str = "") -> dict:
+    """An HF DeepseekV3ForCausalLM state dict -> the port's DeepSeek-V3
+    decoder state dict (``models/deepseek_v3.py`` names): each MoE layer's
+    ``mlp.experts.{e}.gate_proj`` / ``up_proj`` / ``down_proj`` stacked into
+    ``experts_w1`` / ``experts_w3`` / ``experts_w2``, the router's
+    ``e_score_correction_bias`` as ``gate_bias``, everything else renamed."""
+    if not decoder.is_mla(lc):
+        raise ValueError(f"convert_deepseek_v3_llm: arch {lc.arch!r}")
+    return _convert_llm(sd, lc, prefix)
+
+
 def convert_phi3_llm(sd: dict, lc, prefix: str = "") -> dict:
     """An HF Phi3ForCausalLM state dict -> the port's decoder state dict:
     ``qkv_proj`` ([q; k; v] concatenated) split and repacked into the
@@ -359,6 +393,14 @@ def _convert_llm(sd: dict, lc, prefix: str) -> dict:
     if "output.weight" not in out:
         out["output.weight"] = out["tok_embeddings.weight"].clone()
     if lc.arch == "internlm2":
+        return out
+    if decoder.is_mla(lc):
+        for i in range(lc.first_k_dense_replace, lc.num_hidden_layers):
+            base = f"{prefix}model.layers.{i}.mlp.experts."
+            for port, hf in _DEEPSEEK_EXPERTS.items():
+                out[f"layers.{i}.{port}"] = torch.stack(
+                    [_as_tensor(sd[f"{base}{e}.{hf}.weight"])
+                     for e in range(lc.n_routed_experts)])
         return out
     Hq, Hkv, hd = lc.num_attention_heads, lc.num_key_value_heads, lc.head_dim
     I = lc.intermediate_size

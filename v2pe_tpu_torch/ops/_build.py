@@ -134,6 +134,7 @@ def load() -> ctypes.CDLL:
         lib.v2pe_flash_bwd_dq.argtypes = bwd_in + [p] + bwd_dims      # dq
         bind_paged(lib)
         bind_qdot(lib)
+        bind_mla(lib)
         ll = ctypes.c_longlong
         lib.v2pe_ring_fused_fwd.argtypes = [
             p, p, p,            # q, seg_q, pos_q (the launched ranks' rows)
@@ -174,6 +175,21 @@ def bind_qdot(lib: ctypes.CDLL) -> None:
     for fn in (lib.v2pe_qdot, lib.v2pe_qdot_stacked, lib.v2pe_q4dot,
                lib.v2pe_q4dot_stacked):
         fn.restype = ctypes.c_int
+
+
+def bind_mla(lib: ctypes.CDLL) -> None:
+    """Argument types of the latent attention's entry point (#12)."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.v2pe_mla_attention.argtypes = [
+        p, p, p,            # q, fresh (NULL: the chunk form), pool
+        p, p,               # page_table, lengths
+        p, p, p,            # out, workspace, split counters (may be NULL)
+        i, i, i, i, i, i,   # B, T, H, NP, ps, MP
+        i, i, i,            # layer, splits, span
+        ctypes.c_float,     # scale
+        p,                  # cudaStream_t
+    ]
+    lib.v2pe_mla_attention.restype = ctypes.c_int
 
 
 def bind_paged(lib: ctypes.CDLL) -> None:

@@ -42,6 +42,19 @@ scheduler on the same requests: its decisions depend only on the requests
 and on the tokens, which every rank samples alike (greedy, or a generator
 seeded alike), so the ranks agree without exchanging them.
 
+The decoder is the one the config names (``models/decoder.py``). A
+DeepSeek-V3 decoder (latent attention, ``decoder.is_mla``) serves from a
+latent pool (``PagedKVCache.latents``: one bf16 tensor of latents, the
+same page tables, allocator and prefix cache) through kernel #12; a
+quantized pool, speculation and a ``ShardingContext`` are refused for it.
+Its MoE layers add the span ``moe`` (in ``prefill`` and
+``decode_launch``) and the counters of :data:`MOE_STATS`, which accumulate
+on the device and come back in each harvest's one read. With
+``record_routes`` a request keeps, for each token it was served, the
+experts each MoE layer chose at the position that produced it
+(``EngineRequest.routes``): the admission reads the first token's with the
+first token, and a decode block's ride in its harvest.
+
 Spans and counters: the scheduler times itself through ``spans``
 (``utils/profiling.SpanRecorder``), each span adding its nanoseconds to the
 counter ``<name>_ns`` in ``stats`` (:data:`SPANS`). ``step`` is all of a
@@ -75,6 +88,7 @@ off by default.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import itertools
@@ -91,7 +105,7 @@ import torch
 from v2pe_tpu_torch.infer import paged_kv as pk
 from v2pe_tpu_torch.infer.generate import GenerationConfig, _sample
 from v2pe_tpu_torch.infer.speculative import scatter_kept, verify_step
-from v2pe_tpu_torch.models import internlm2, internvl_chat
+from v2pe_tpu_torch.models import decoder, internlm2, internvl_chat
 from v2pe_tpu_torch.parallel import context as pctx
 from v2pe_tpu_torch.parallel.mesh import serving_mode
 from v2pe_tpu_torch.utils.profiling import SpanRecorder
@@ -101,6 +115,10 @@ logger = logging.getLogger(__name__)
 # the scheduler's spans, each also a ``<name>_ns`` counter in ``stats``
 SPANS = ("step", "plan", "digest", "admit", "pixel_upload", "vit", "prefill",
          "first_token", "decode_block", "decode_launch", "harvest", "drain")
+# an MLA decoder's expert counters in ``stats`` (with its span ``moe``):
+# (token, expert) pairs, experts with a token, the busiest expert's tokens,
+# each summed over MoE layers and forwards
+MOE_STATS = ("moe_assignments", "moe_experts_hit", "moe_max_load")
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +323,9 @@ class EngineRequest:
     # prefixes (None: keyed by the plan instead), and the ns it took
     keys: Optional[List[bytes]] = None
     key_ns: int = 0
+    # with the engine's record_routes (latent-attention decoder): for each
+    # served token, the (MoE layers, k) experts chosen where it was sampled
+    routes: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     def result(self, timeout: Optional[float] = None) -> str:
         self.finished.wait(timeout)
@@ -332,7 +353,7 @@ def _prefill_row_chunk(llm, lcfg, cache: pk.PagedKVCache, row: int, embeds,
     view = dataclasses.replace(cache,
                                page_table=cache.page_table[row:row + 1],
                                lengths=cache.lengths[row:row + 1])
-    hidden, _ = internlm2.llm_forward(
+    hidden, _ = decoder.llm_forward(
         llm, lcfg, inputs_embeds=embeds, rope_pos_ids=pos, segment_ids=seg,
         paged_cache=view, paged_attend_cache=True, return_hidden=True)
     view.lengths.add_(n_valid)
@@ -361,7 +382,7 @@ def _decode_block(llm, lcfg, gc, cache: pk.PagedKVCache, tok, pos, active,
     emitted = torch.full((B, k), -1, dtype=torch.int32, device=tok.device)
     for i in range(k):
         emb = llm.tok_embeddings(tok)[:, None, :]
-        logits, _ = internlm2.llm_forward(
+        logits, _ = decoder.llm_forward(
             llm, lcfg, inputs_embeds=emb, rope_pos_ids=pos[:, None],
             paged_cache=cache)
         step = active.to(torch.int32)
@@ -472,6 +493,9 @@ class InferenceEngine:
         tokens per byte) or 'int4' (twice again; packed bytes).
       generator: the ``torch.Generator`` sampling draws from (on the
         engine's device; seeded with 0 by default).
+      record_routes: with a DeepSeek-V3 decoder, keep each served token's
+        expert choices on its request (``EngineRequest.routes``), for an
+        output check; an attribute, read at each admission and block.
     """
 
     def __init__(self, chat_model, *, max_rows: int = 8,
@@ -482,8 +506,10 @@ class InferenceEngine:
                  kv_dtype=None, prefix_caching: bool = True,
                  spec_min_accept: float = 1.5,
                  spec_reprobe_blocks: int = 16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 record_routes: bool = False):
         self.m = chat_model
+        self.record_routes = record_routes
         self.cfg = chat_model.cfg
         self.max_rows = max_rows
         self.max_len = max_len
@@ -531,11 +557,27 @@ class InferenceEngine:
         self._ctx_dev = torch.zeros(
             (max_rows, max_len + self._spec_slack + 8), dtype=torch.int32,
             device=dev) if self._spec else None
-        self.cache = pk.PagedKVCache.zeros(
-            self.cfg.llm, max_rows, NP, page_size, MP, dtype=emb.dtype,
-            kv_dtype=kv_dtype, device=dev, n_shards=n_shards, shard=shard,
-            kv_heads=internlm2.local_kv_heads(chat_model.model.llm,
-                                              self.cfg.llm))
+        llm = chat_model.model.llm
+        self._mla = decoder.is_mla(self.cfg.llm)
+        if self._mla:
+            refused = [why for why, on in (
+                (f"kv_dtype={kv_dtype!r} (a quantized pool)",
+                 kv_dtype is not None),
+                ("speculative_k > 0", self._spec),
+                ("a sharded pool or model (ShardingContext)",
+                 self.ctx is not None or n_shards > 1)) if on]
+            if refused:
+                raise ValueError(
+                    f"the latent-attention (MLA) decoder serves from a bf16 "
+                    f"latent pool on one card; refused: {'; '.join(refused)}")
+            self.cache = pk.PagedKVCache.latents(
+                self.cfg.llm, max_rows, NP, page_size, MP, dtype=emb.dtype,
+                device=dev)
+        else:
+            self.cache = pk.PagedKVCache.zeros(
+                self.cfg.llm, max_rows, NP, page_size, MP, dtype=emb.dtype,
+                kv_dtype=kv_dtype, device=dev, n_shards=n_shards, shard=shard,
+                kv_heads=internlm2.local_kv_heads(llm, self.cfg.llm))
         self.allocator = PageAllocator(NP, n_shards=n_shards)
         self.prefix_cache = PrefixCache() if prefix_caching else None
         # every key there from the start: a reader copying the dict from
@@ -547,6 +589,14 @@ class InferenceEngine:
              "decode_blocks", "decode_steps", "retired")
             + tuple(f"{name}_ns" for name in SPANS), 0)
         self.spans = SpanRecorder(self.stats)
+        if self._mla:
+            # the MoE layers' span and counters (models/deepseek_v3.py): the
+            # counters accumulate on the device and come back with each
+            # harvest
+            self.stats.update(dict.fromkeys(MOE_STATS + ("moe_ns",), 0))
+            llm.spans = self.spans
+            llm.moe_counts = torch.zeros(len(MOE_STATS), dtype=torch.int64,
+                                         device=dev)
         # per-row state: on the device (what the blocks run on, updated in
         # place) and its host mirrors (what the scheduler reads, refreshed
         # by each block's one harvest)
@@ -838,13 +888,16 @@ class InferenceEngine:
 
             last_logits = None
             n_chunks = Sp // CH
+            log = self._route_log()
             with self.spans.span("prefill", rid):
                 for c in range(n_chunks):
                     sl = slice(c * CH, (c + 1) * CH)
-                    last_logits = _prefill_row_chunk(
-                        llm, self.cfg.llm, self.cache, row, embeds[:, sl],
-                        pos_p[:, sl], seg_p[:, sl], min(CH, Sf - c * CH),
-                        want_logits=c == n_chunks - 1)
+                    last = c == n_chunks - 1   # the first token's chunk
+                    with self._routes_into(log if last else None):
+                        last_logits = _prefill_row_chunk(
+                            llm, self.cfg.llm, self.cache, row,
+                            embeds[:, sl], pos_p[:, sl], seg_p[:, sl],
+                            min(CH, Sf - c * CH), want_logits=last)
                     st["prefill_chunks"] += 1
 
             # publish this prompt's freshly written full pages for reuse
@@ -855,6 +908,10 @@ class InferenceEngine:
 
             with self.spans.span("first_token", rid):
                 tok0 = _first_token(last_logits, self.gc, self._generator)
+                if log is not None:   # the read above waited for the chunk
+                    at = Sf - (n_chunks - 1) * CH - 1
+                    req.routes.append(torch.stack(
+                        [idx[at] for idx in log]).cpu().numpy())
             req.first_token_ns = time.time_ns()
             req.first_logits = last_logits
             self._row_req[row] = req
@@ -907,30 +964,70 @@ class InferenceEngine:
         req.token_queue.put(None)
         req.finished.set()
 
-    def _harvest(self, emitted: torch.Tensor) -> np.ndarray:
+    def _route_log(self) -> Optional[list]:
+        """A list for the MoE layers' choices when routes are recorded."""
+        return [] if self._mla and self.record_routes else None
+
+    @contextlib.contextmanager
+    def _routes_into(self, log: Optional[list]):
+        """The decoder's MoE layers append their choices to ``log`` (none
+        when it is None) inside the block."""
+        if log is None:
+            yield
+            return
+        llm = self.m.model.llm
+        llm.route_log = log
+        try:
+            yield
+        finally:
+            llm.route_log = None
+
+    def _harvest(self, emitted: torch.Tensor,
+                 routes: Optional[list] = None):
         """The block's one read of the device: the emitted tokens and the
-        rows' state in one tensor. Refreshes the host mirrors and returns
-        emitted (B, n) as numpy."""
+        rows' state in one tensor (with the MoE counters and ``routes``, the
+        block's logged expert choices, when there are any). Refreshes the
+        host mirrors and returns emitted (B, n) as numpy, and the choices as
+        (n, MoE layers, B, k), or None."""
         d = self._dev
+        chosen = None
         with self.spans.span("harvest"):
-            host = torch.cat(
+            state = torch.cat(
                 [emitted, d["tok"][:, None],
                  d["pos"].view(torch.int32)[:, None],
                  d["active"].to(torch.int32)[:, None], d["rem"][:, None],
-                 d["nctx"][:, None]], dim=1).cpu().numpy()
+                 d["nctx"][:, None]], dim=1)
+            if not self._mla:
+                host = state.cpu().numpy()
+            else:  # the expert counters (and choices) ride in the same read
+                counts = self.m.model.llm.moe_counts
+                parts = [state.reshape(-1), counts.view(torch.int32)]
+                if routes:
+                    parts.append(torch.stack(routes).view(torch.int32
+                                                          ).reshape(-1))
+                flat = torch.cat(parts).cpu().numpy()
+                host = flat[:state.numel()].reshape(state.shape)
+                rest = np.frombuffer(flat[state.numel():].tobytes(), np.int64)
+                self.stats.update(zip(MOE_STATS,
+                                      rest[:len(MOE_STATS)].tolist()))
+                if routes:
+                    n, k = emitted.shape[1], routes[0].shape[-1]
+                    chosen = rest[len(MOE_STATS):].reshape(
+                        n, len(routes) // n, -1, k)
         n = emitted.shape[1]
         self._tok = host[:, n].copy()
         self._pos = host[:, n + 1].copy().view(np.float32)
         self._active = host[:, n + 2] != 0
         self._rem = host[:, n + 3].copy()
         self._nctx = host[:, n + 4].copy()
-        return host[:, :n]
+        return host[:, :n], chosen
 
     def _run_decode_block(self, k: Optional[int] = None) -> None:
         d = self._dev
         k = k or self.decode_block
+        log = self._route_log()
         with self.spans.span("decode_block"):
-            with self.spans.span("decode_launch"):
+            with self.spans.span("decode_launch"), self._routes_into(log):
                 emitted = _decode_block(
                     self.m.model.llm, self.cfg.llm, self.gc, self.cache,
                     d["tok"], d["pos"], d["active"], d["rem"], self._eos,
@@ -941,7 +1038,7 @@ class InferenceEngine:
                     _append_ctx(self._ctx_dev, d["nctx"], emitted)
             self.stats["decode_blocks"] += 1
             self.stats["decode_steps"] += k
-            self._drain_emitted(self._harvest(emitted))
+            self._drain_emitted(*self._harvest(emitted, log))
 
     def _run_spec_block(self) -> None:
         """Speculative counterpart of :meth:`_run_decode_block`: each of
@@ -956,7 +1053,7 @@ class InferenceEngine:
                     self.m.model.llm, self.cfg.llm, self.gc, self.cache,
                     self._ctx_dev, d["nctx"], d["tok"], d["pos"],
                     d["active"], d["rem"], self._eos, self.decode_block)
-            emitted = self._harvest(out)
+            emitted, _ = self._harvest(out)
             accepted = int((emitted >= 0).sum())
             self.stats["decode_blocks"] += 1
             self.stats["decode_steps"] += self.decode_block
@@ -981,14 +1078,17 @@ class InferenceEngine:
                         self.stats.get("spec_suspends", 0) + 1
             self._drain_emitted(emitted)
 
-    def _drain_emitted(self, emitted: np.ndarray) -> None:
+    def _drain_emitted(self, emitted: np.ndarray,
+                       routes: Optional[np.ndarray] = None) -> None:
         with self.spans.span("drain"):
             for row in range(self.max_rows):
                 if self._row_req[row] is None:
                     continue
-                for t in emitted[row]:
+                for i, t in enumerate(emitted[row]):
                     if t < 0 or self._row_req[row] is None:
                         continue
+                    if routes is not None:
+                        self._row_req[row].routes.append(routes[i, :, row])
                     self._emit(row, int(t))
                 # budget exhausted without a stop token mid-block
                 if self._row_req[row] is not None and not self._active[row]:
